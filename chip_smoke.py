@@ -11,10 +11,16 @@ own lines:
 2. build: every kernel of ``sparknet_tpu_torch/ops/csrc`` compiled from
    source (one ``nvcc`` per file, all started together), with timings
    and the compiler's register/shared-memory report;
-3. kernels: each kernel held against its plain PyTorch version on the
-   card (tolerances below), then timed with CUDA events at the shapes
-   the serving path gives it, beside its memory/compute bound, the
-   plain version and the one-call PyTorch equivalent;
+3. kernels: each of the three LRN kernels (inference forward, training
+   forward with its f32 residual d, backward) held against its plain
+   PyTorch version on the card (tolerances below), odd and even window
+   sizes, f32 and bf16, AlexNet's shapes at batches 1, 8 and 32; then,
+   at the shapes the train path gives it (the TEST batch of 50 for the
+   inference kernel, AlexNet's batch of 256 for the training kernels)
+   and at serving bucket 32, held again against the plain version on
+   the same inputs and timed with CUDA events, beside its
+   memory/compute bound, the plain version and a one-call PyTorch
+   yardstick;
 4. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
    served on the card through InferenceEngine -> MicroBatcher -> HTTP
    InferenceServer; /healthz, /classify (1, 3, 8 rows), /metrics, then
@@ -26,20 +32,48 @@ own lines:
    (CUDA events), then ``torch.profiler`` over bucket-32 forwards: device
    time by kernel, the LRN kernel's share, and the device's idle share;
 6. load: 200 requests from 4 closed-loop clients through the batcher
-   (the ``tools/serve --bench`` path): requests/s and latency.
+   (the ``tools/serve --bench`` path): requests/s and latency;
+7. grads: one training step of full-width ``bvlc_alexnet`` (the
+   train_val net with ``dropout_ratio: 0``, random weights from seed 0)
+   at batch 8 on the card against the same step on the CPU: the loss
+   and every gradient tensor, held with cuDNN off on a batch where both
+   take the same max-pool and ReLU branches everywhere (tolerances
+   below). The card runs the two training kernels inside autograd;
+8. train: ``ImageNetApp`` through ``main([...])``: ``--arch alexnet
+   --synthetic`` at the prototxt's batch of 256, 227 crop, 1000 classes,
+   f32, 20 iterations (test_iter 2 at test_interval 20, display 5), then
+   the final solverstate reloaded. Each training kernel must launch
+   exactly twice per iteration, the inference kernel twice per test
+   batch;
+9. train-profile: ``Solver.step`` on one device-resident batch of 256:
+   ms per step by CUDA events, images/s, peak device memory, then
+   ``torch.profiler`` over 3 steps: device time by kernel, the LRN
+   kernels' share and the device's idle share.
 
-Then one JSON line of per-kernel numbers ("ms", "plain_ms",
-"library_ms" and "bound_ms" are per bucket-32 forward: norm1 + norm2)
-and, last, the result line
+Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
+"plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
+forward (norm1 + norm2), for ``lrn_fwd_train`` and ``lrn_bwd`` per
+batch-256 training step (norm1 + norm2); "launches" counts the main
+paths' runs (serving and train). Last comes the result line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the result line, as does a machine without a CUDA card or a
 directory without the port.
 
-Tolerances. LRN kernel vs plain, f32: rtol 1e-5, atol 1e-6 (the two
+Tolerances. LRN kernels vs plain, f32: rtol 1e-5, atol 1e-6 (the two
 sum the window in the same order; rsqrt/exp/log and fused multiply-adds
-may differ in the last bits). bf16 output: within one bf16 ulp of the
-plain result computed in f32 from the same bf16 inputs (the kernel
-rounds an f32 result once). Serving top-5: the card's and the CPU's
+may differ in the last bits); d, always f32, likewise. bf16 outputs:
+within one bf16 ulp of the plain result computed in f32 from the same
+bf16 inputs (the kernel rounds an f32 result once). The backward kernel
+and its plain version take the same d; its dx = g d^-beta - (window
+term) can cancel to far below either term, where the f32 rounding of
+the terms exceeds the tiny result's bf16 ulp, so bf16 dx is held to one
+ulp plus the f32 tolerance. Training step on the card vs the CPU: loss
+within 1e-5 relative, each gradient within 1e-4 relative L2 error (f32
+reduced in another order), with cuDNN switched off so that convolutions
+run as f32 GEMMs in a fixed order, on a batch where the CPU and the card
+take the same argmax in every max-pool window and the same sign at every
+ReLU (``phase_grads``); cuDNN's weight gradients sum with atomics, in
+an order that changes from run to run. Serving top-5: the card's and the CPU's
 indices must be equal, except that two classes whose CPU probabilities
 differ by less than 1e-5 relative may trade places (f32 convolutions
 sum in another order on the card; TF32 is switched off for both convs
@@ -54,6 +88,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -63,9 +98,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# LRN shapes of bvlc_alexnet on the serving path, per row of the batch
+# LRN shapes of bvlc_alexnet, per row of the batch
 ALEXNET_LRN = (("norm1", 55 * 55, 96), ("norm2", 27 * 27, 256))
 LRN_GEOM = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
+TRAIN_BATCH, TEST_BATCH = 256, 50  # the train_val prototxt's data layers
+TRAIN_ITERS = 20
 
 
 def log(msg: str = "") -> None:
@@ -153,8 +190,9 @@ def lrn_cases():
     """(label, m, c, size, alpha, beta, k, dtype name)."""
     cases = []
     for dt in ("float32", "bfloat16"):
-        for name, hw, c in ALEXNET_LRN:
-            cases.append((f"{name} B=32", 32 * hw, c, 5, 1e-4, 0.75, 1.0, dt))
+        for b in (1, 8, 32):  # serving buckets; 8 is the grads phase's batch
+            for name, hw, c in ALEXNET_LRN:
+                cases.append((f"{name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt))
         cases += [
             ("ragged M=1000", 1000, 96, 5, 0.5, 0.75, 2.0, dt),
             ("even size 4", 4096, 96, 4, 0.5, 0.75, 1.0, dt),
@@ -166,75 +204,212 @@ def lrn_cases():
     return cases
 
 
+def _check(got, ref, dtype, cancels=False):
+    """(ok, max_abs_err, tolerance) of a kernel output against its plain
+    version (module docstring); ``cancels``: the output is a difference
+    of two terms, so bf16 gets the f32 tolerance on top of its ulp."""
+    import torch
+
+    f32_tol = 1e-6 + 1e-5 * ref.abs()
+    if dtype == torch.float32:
+        err = (got - ref).abs()
+        return bool(torch.all(err <= f32_tol)), float(err.max()), "rtol 1e-5 atol 1e-6"
+    err = (got.float() - ref).abs()
+    if cancels:
+        return bool(torch.all(err <= _bf16_ulp(ref) + f32_tol)), float(err.max()), \
+            "1 bf16 ulp + rtol 1e-5 atol 1e-6"
+    return bool(torch.all(err <= _bf16_ulp(ref))), float(err.max()), "1 bf16 ulp"
+
+
 def phase_kernels():
+    """All three LRN kernels against their plain versions, then timed."""
+    import torch
+
+    from sparknet_tpu_torch.ops.lrn import (
+        lrn_bwd_reference, lrn_fwd_train_reference, lrn_reference, lrn_rows,
+        lrn_rows_bwd, lrn_rows_train)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = ("lrn_fwd", "lrn_fwd_train", "lrn_bwd")
+    worst = {(n, dt): 0.0 for n in names for dt in ("float32", "bfloat16")}
+    failures = []
+    for label, m, c, size, alpha, beta, k, dt in lrn_cases():
+        dtype = getattr(torch, dt)
+        x = (2.0 * torch.randn(m, c, generator=gen, device=dev)).to(dtype)
+        g = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+        y = lrn_rows(x, size, alpha, beta, k)
+        yt, d = lrn_rows_train(x, size, alpha, beta, k)
+        dx = lrn_rows_bwd(g, x, d, size, alpha, beta)
+        torch.cuda.synchronize()
+        ref_y, ref_d = lrn_fwd_train_reference(x.float(), size, alpha, beta, k)
+        ref_dx = lrn_bwd_reference(g.float(), x.float(), d, size, alpha, beta)
+        checks = (
+            ("lrn_fwd", "y", y, lrn_reference(x.float(), size, alpha, beta, k), dtype,
+             False),
+            ("lrn_fwd_train", "y", yt, ref_y, dtype, False),
+            ("lrn_fwd_train", "d", d, ref_d, torch.float32, False),
+            ("lrn_bwd", "dx", dx, ref_dx, dtype, True),
+        )
+        line = []
+        for name, what, got, ref, cdt, cancels in checks:
+            ok, e, tol = _check(got, ref, cdt, cancels)
+            worst[(name, dt)] = max(worst[(name, dt)], e)
+            line.append(f"{what} {e:.2e}{'' if ok else ' MISMATCH'}")
+            if not ok:
+                failures.append(f"{name} {what} {label} {dt} ({tol})")
+        log(f"  lrn {label:<22} {dt:<8} ({m}, {c}) size={size} beta={beta}: "
+            f"max_abs_err fwd {line[0]}, train {line[1]}, {line[2]}, bwd {line[3]}")
+    if failures:
+        raise AssertionError(f"LRN kernels disagree with their plain versions: {failures}")
+    for n in names:
+        log(f"  worst |kernel - plain| {n}: f32 {worst[(n, 'float32')]:.3e}, bf16 "
+            f"{worst[(n, 'bfloat16')]:.3e} (each within its tolerance)")
+
+    timing = {"lrn_fwd": _time_inference(gen, 32)}
+    test_batch = _time_inference(gen, TEST_BATCH)  # the train path's eval forwards
+    timing["lrn_fwd"]["err"] = max(timing["lrn_fwd"]["err"], test_batch["err"])
+    timing["lrn_fwd_train"], timing["lrn_bwd"] = _time_training(gen)
+    for n in names:
+        timing[n]["max_abs_err"] = max(worst[(n, "float32")], timing[n]["err"])
+    return timing
+
+
+def _totals(rows):
+    """Sum per-shape timings; the bound kind of the summed bound; the
+    worst |kernel - plain| over the shapes."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    out = {k: sum(r[k] for r in rows) for k in keys}
+    out["err"] = max(r["err"] for r in rows)
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
+    return out
+
+
+def _report(label, m, c, r, nbytes, ops):
+    log(f"  time {label} ({m}, {c}) f32: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}"
+        f": {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), "
+        f"{nbytes / (r['ms'] * 1e-3) / 1e9:.0f} GB/s = "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+
+
+def _held(label, pairs):
+    """Worst |kernel - plain| over (what, kernel, plain) f32 outputs at a
+    timed shape; raises if one is outside the f32 tolerance."""
+    import torch
+
+    worst = 0.0
+    for what, got, ref in pairs:
+        ok, e, tol = _check(got, ref, torch.float32)
+        log(f"  check {label} {what}: max_abs_err {e:.2e} [{tol}]"
+            f"{'' if ok else ' MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{label} {what} disagrees with its plain version ({tol})")
+        worst = max(worst, e)
+    return worst
+
+
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def _time_inference(gen, n):
+    """The inference kernel at AlexNet's LRN shapes for a batch of n, f32,
+    held against its plain version on the same x, then timed; library:
+    F.local_response_norm on the channels_last view."""
     import torch
     import torch.nn.functional as F
 
     from sparknet_tpu_torch.ops.lrn import lrn_reference, lrn_rows
 
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    failures = []
-    for label, m, c, size, alpha, beta, k, dt in lrn_cases():
-        dtype = getattr(torch, dt)
-        x = (2.0 * torch.randn(m, c, generator=gen, device=dev)).to(dtype)
-        y = lrn_rows(x, size, alpha, beta, k)
-        torch.cuda.synchronize()
-        if dtype == torch.float32:
-            ref = lrn_reference(x, size, alpha, beta, k)
-            err = (y - ref).abs()
-            ok = bool(torch.all(err <= 1e-6 + 1e-5 * ref.abs()))
-            tol = "rtol 1e-5 atol 1e-6"
-        else:
-            ref = lrn_reference(x.float(), size, alpha, beta, k)
-            err = (y.float() - ref).abs()
-            ok = bool(torch.all(err <= _bf16_ulp(ref)))
-            tol = "1 bf16 ulp"
-        e = float(err.max())
-        worst[dt] = max(worst[dt], e)
-        log(f"  lrn {label:<22} {dt:<8} ({m}, {c}) size={size} beta={beta}: "
-            f"max_abs_err {e:.3e} [{tol}] {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            failures.append(f"{label} {dt}")
-    if failures:
-        raise AssertionError(f"LRN kernel disagrees with lrn_reference: {failures}")
-
-    # time at the serving path's shapes (bucket 32), f32
-    timing = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "bytes_ms": 0.0, "ops_ms": 0.0}
+    g = LRN_GEOM
+    rows = []
     for name, hw, c in ALEXNET_LRN:
-        n = 32
         m = n * hw
-        x = torch.relu(torch.randn(m, c, generator=gen, device=dev))
-        g = LRN_GEOM
         h = int(round(hw ** 0.5))
+        x = torch.relu(torch.randn(m, c, generator=gen, device="cuda"))
         x_nchw = x.view(n, h, h, c).permute(0, 3, 1, 2)  # channels_last view
-        ms = _time_ms(lambda: lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"]))
-        plain = _time_ms(lambda: lrn_reference(x, g["size"], g["alpha"], g["beta"], g["k"]))
-        lib = _time_ms(lambda: F.local_response_norm(
-            x_nchw, g["size"], g["alpha"], g["beta"], g["k"]))
+        err = _held(f"lrn_fwd {name} B={n}", [(
+            "y", lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"]),
+            lrn_reference(x, g["size"], g["alpha"], g["beta"], g["k"]))])
+        r = dict(
+            err=err,
+            ms=_time_ms(lambda: lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"])),
+            plain_ms=_time_ms(lambda: lrn_reference(x, g["size"], g["alpha"], g["beta"],
+                                                    g["k"])),
+            library_ms=_time_ms(lambda: F.local_response_norm(
+                x_nchw, g["size"], g["alpha"], g["beta"], g["k"])),
+        )
         nbytes = 2 * m * c * x.element_size()  # read x once, write y once
         ops = m * c * (2 * g["size"] + 6)  # window multiply-adds, d, power, scale
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        log(f"  time {name} B=32 ({m}, {c}) f32: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, F.local_response_norm {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
-            f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), "
-            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s = "
-            f"{100 * bound / ms:.1f}% of bound")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bound), ("bytes_ms", bytes_ms),
-                       ("ops_ms", ops_ms)):
-            timing[key] += v
-    # the serving path runs f32; bf16 errors are bounded per element above
-    timing["max_abs_err"] = worst["float32"]
-    log(f"  worst |kernel - plain|: f32 {worst['float32']:.3e}, "
-        f"bf16 {worst['bfloat16']:.3e} (each within its tolerance)")
-    timing["bound_by"] = "bytes" if timing["bytes_ms"] >= timing["ops_ms"] else "operations"
-    return timing
+        r.update(_bound(nbytes, ops))
+        _report(f"lrn_fwd {name} B={n}", m, c, r, nbytes, ops)
+        rows.append(r)
+    return _totals(rows)
+
+
+def _time_training(gen):
+    """The training forward and the backward kernel at AlexNet's batch
+    of 256, f32, each held against its plain version on the same inputs
+    (the backward's plain version takes the kernel's d), then timed.
+    Library yardsticks: F.local_response_norm's forward, and
+    torch.autograd.grad of it for the same g, timed alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops.lrn import (
+        lrn_bwd_reference, lrn_fwd_train_reference, lrn_rows_bwd, lrn_rows_train)
+
+    p = LRN_GEOM
+    fwd_rows, bwd_rows = [], []
+    for name, hw, c in ALEXNET_LRN:
+        n = TRAIN_BATCH
+        m = n * hw
+        h = int(round(hw ** 0.5))
+        x = torch.relu(torch.randn(m, c, generator=gen, device="cuda"))
+        g = torch.randn(m, c, generator=gen, device="cuda")
+        y, d = lrn_rows_train(x, p["size"], p["alpha"], p["beta"], p["k"])
+        ref_y, ref_d = lrn_fwd_train_reference(x, p["size"], p["alpha"], p["beta"], p["k"])
+        fwd_err = _held(f"lrn_fwd_train {name} B={n}", [("y", y, ref_y), ("d", d, ref_d)])
+        del y, ref_y, ref_d
+        bwd_err = _held(f"lrn_bwd {name} B={n}", [(
+            "dx", lrn_rows_bwd(g, x, d, p["size"], p["alpha"], p["beta"]),
+            lrn_bwd_reference(g, x, d, p["size"], p["alpha"], p["beta"]))])
+        x_nchw = x.view(n, h, h, c).permute(0, 3, 1, 2).requires_grad_(True)
+        g_nchw = g.view(n, h, h, c).permute(0, 3, 1, 2)
+        y_lib = F.local_response_norm(x_nchw, p["size"], p["alpha"], p["beta"], p["k"])
+        fwd = dict(
+            err=fwd_err,
+            ms=_time_ms(lambda: lrn_rows_train(x, p["size"], p["alpha"], p["beta"],
+                                               p["k"])),
+            plain_ms=_time_ms(lambda: lrn_fwd_train_reference(
+                x, p["size"], p["alpha"], p["beta"], p["k"])),
+            library_ms=_time_ms(lambda: F.local_response_norm(
+                x_nchw.detach(), p["size"], p["alpha"], p["beta"], p["k"])),
+        )
+        nbytes = 3 * m * c * 4  # read x, write y and d
+        ops = m * c * (2 * p["size"] + 6)
+        fwd.update(_bound(nbytes, ops))
+        _report(f"lrn_fwd_train {name} B={n}", m, c, fwd, nbytes, ops)
+        bwd = dict(
+            err=bwd_err,
+            ms=_time_ms(lambda: lrn_rows_bwd(g, x, d, p["size"], p["alpha"], p["beta"])),
+            plain_ms=_time_ms(lambda: lrn_bwd_reference(g, x, d, p["size"], p["alpha"],
+                                                        p["beta"])),
+            library_ms=_time_ms(lambda: torch.autograd.grad(
+                y_lib, x_nchw, g_nchw, retain_graph=True)),
+        )
+        nbytes = 4 * m * c * 4  # read g, x, d, write dx
+        ops = m * c * (p["size"] + 10)  # window adds, power, u, dx
+        bwd.update(_bound(nbytes, ops))
+        _report(f"lrn_bwd {name} B={n}", m, c, bwd, nbytes, ops)
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        del y_lib
+    return _totals(fwd_rows), _totals(bwd_rows)
 
 
 # ------------------------------------------------------------- serving
@@ -449,6 +624,230 @@ def phase_load(serving):
     return rec
 
 
+# ------------------------------------------------------------- training
+def _alexnet_train_val(dropout: bool = True) -> str:
+    """The port's train_val prototxt text, with ``dropout_ratio: 0``
+    when ``dropout`` is off."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    text = open(ALEXNET_TRAIN_VAL).read()
+    return text if dropout else text.replace("dropout_ratio: 0.5", "dropout_ratio: 0")
+
+
+def phase_grads():
+    """One training step at batch 8: the card's loss and gradients against
+    the CPU's, same weights and batch, no Dropout.
+
+    Max pooling and ReLU are piecewise: where two inputs of a pooling
+    window are within f32 rounding of each other, or a pre-activation is
+    within rounding of 0, the CPU and the card may take different
+    branches and send a gradient to other pixels, which moves the weight
+    gradients below by ~1e-3 and says nothing about the port. So the
+    batch is drawn from seeds 0, 1, ... until the CPU and the card (cuDNN
+    off) take the same argmax in every pooling window and the same sign
+    at every ReLU; that batch's gradients are held to the tolerance. cuDNN
+    stays off: its weight-gradient algorithms accumulate with atomics in
+    a run-dependent order."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.nets.torchnet import TorchNet
+    from sparknet_tpu_torch.ops.lrn import lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    net_param = caffe_pb.load_net(_alexnet_train_val(dropout=False), is_path=False)
+    n = 8
+    shapes = {"data": (n, 227, 227, 3), "label": (n,)}
+    pools = ("norm1", "norm2", "conv5")  # the bottoms of pool1, pool2, pool5
+    relus = ("conv1", "conv2", "conv3", "conv4", "conv5", "fc6", "fc7")  # in place
+
+    def step(dev, batch):
+        """(loss, grads, pool bottoms) of one step on ``dev``, on the CPU."""
+        net = TorchNet(net_param, "TRAIN", shapes, device=dev)
+        params, state = net.init(torch.Generator().manual_seed(0))
+        leaves = {l: {k: t.detach().requires_grad_(True) for k, t in e.items()}
+                  for l, e in params.items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        blobs, _ = net.apply(leaves, state, {k: v.to(dev) for k, v in batch.items()},
+                             train=True, generator=gen)
+        loss, _ = net.loss_and_metrics(blobs)
+        flat = [(l, k, t) for l, e in leaves.items() for k, t in e.items()]
+        grads = torch.autograd.grad(loss, [t for _, _, t in flat])
+        return (float(loss.detach()),
+                {(l, k): g.cpu() for (l, k, _), g in zip(flat, grads)},
+                {b: blobs[b].detach().cpu() for b in set(pools) | set(relus)})
+
+    def flips(got, want):
+        """Windows and units where the two runs took another branch."""
+        out = {}
+        for blob in pools:
+            idx = [F.max_pool2d(r[2][blob].permute(0, 3, 1, 2), 3, 2,
+                                return_indices=True)[1] for r in (got, want)]
+            out[f"pool@{blob}"] = int((idx[0] != idx[1]).sum())
+        for blob in relus:
+            out[f"relu@{blob}"] = int(((got[2][blob] > 0) != (want[2][blob] > 0)).sum())
+        return {k: v for k, v in out.items() if v}
+
+    def compare(tag, got, want):
+        rel_loss = abs(got[0] - want[0]) / abs(want[0])
+        errs = {key: float(torch.linalg.vector_norm(got[1][key] - w) /
+                           torch.linalg.vector_norm(w).clamp(min=1e-30))
+                for key, w in want[1].items()}
+        log(f"  {tag}: loss {got[0]:.7f} vs {want[0]:.7f} (relative error "
+            f"{rel_loss:.2e}); gradient relative L2 errors: " + ", ".join(
+                f"{l}.{k} {e:.1e}" for (l, k), e in errs.items()))
+        return rel_loss, errs
+
+    before = (lrn_rows_train.launches, lrn_rows_bwd.launches)
+    card_steps = 0
+    for seed in range(30):
+        rng = np.random.default_rng(seed)
+        batch = {"data": torch.from_numpy(rng.normal(0, 50, shapes["data"]).astype(np.float32)),
+                 "label": torch.from_numpy(rng.integers(0, 1000, n).astype(np.int32))}
+        cpu = step("cpu", batch)
+        with torch.backends.cudnn.flags(enabled=False):
+            card_gemm = step("cuda", batch)
+        card_steps += 1
+        differ = flips(card_gemm, cpu)
+        log(f"  batch seed {seed}: max-pool windows and ReLU units on another branch, "
+            f"card (cuDNN off) vs CPU: {differ or 'none'}")
+        if not differ:
+            break
+    else:
+        raise AssertionError("no batch of seeds 0-29 takes the CPU's branches on the card")
+    launched = (lrn_rows_train.launches - before[0], lrn_rows_bwd.launches - before[1])
+    log(f"  training kernels launched by {card_steps} card steps: forward {launched[0]}, "
+        f"backward {launched[1]} (want 2 per step each)")
+    if launched != (2 * card_steps, 2 * card_steps):
+        raise AssertionError(f"training kernel launches {launched}")
+    rel_loss, errs = compare(f"seed {seed}, card with cuDNN off (held)", card_gemm, cpu)
+    worst = max(errs.values())
+    bad = [f"{key}: {e:.2e}" for key, e in errs.items() if e > 1e-4]
+    log(f"  held: loss relative error {rel_loss:.2e} [<= 1e-5]; worst gradient relative "
+        f"L2 error {worst:.2e} over {len(errs)} tensors [<= 1e-4]")
+    if rel_loss > 1e-5 or bad:
+        raise AssertionError(f"card vs CPU step: loss rel {rel_loss:.2e}, gradients {bad}")
+    return worst
+
+
+def _solver_file(tmp: str) -> str:
+    """A solver for the train phase: the zoo's base_lr 0.01 and schedule,
+    a short run, snapshots under ``tmp``."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    path = os.path.join(tmp, "alexnet_smoke_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(
+            f'net: "{ALEXNET_TRAIN_VAL}"\n'
+            "test_iter: 2\ntest_interval: 20\nbase_lr: 0.01\n"
+            'lr_policy: "step"\ngamma: 0.1\nstepsize: 100000\ndisplay: 5\n'
+            f"max_iter: {TRAIN_ITERS}\nmomentum: 0.9\nweight_decay: 0.0005\n"
+            f'snapshot: {TRAIN_ITERS}\nsnapshot_prefix: "{os.path.join(tmp, "alexnet")}"\n'
+        )
+    return path
+
+
+def phase_train(tmp):
+    """ImageNetApp on the card, counted kernel by kernel."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.solver import snapshot
+
+    argv = ["--arch", "alexnet", "--synthetic", "--synthetic-n", "512", "--solver",
+            _solver_file(tmp), "--device", "cuda"]
+    log(f"  imagenet_app.main({argv})")
+    buf = io.StringIO()
+    lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+    with contextlib.redirect_stdout(buf):
+        last_test = imagenet_app.main(argv)
+    counts = (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+)", out)]
+    if len(losses) != TRAIN_ITERS // 5 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"display losses {losses}")
+    tests = 2  # before the loop and at iteration 20
+    want = (2 * 2 * tests, 2 * TRAIN_ITERS, 2 * TRAIN_ITERS)
+    log(f"  LRN launches on the train path: inference {counts[0]} (want {want[0]}: 2 "
+        f"per test batch), training forward {counts[1]}, backward {counts[2]} (want "
+        f"{want[1]} each: 2 per iteration)")
+    if counts != want:
+        raise AssertionError(f"LRN launches {counts}, want {want}")
+    st = snapshot.load_state(os.path.join(tmp, f"alexnet_iter_{TRAIN_ITERS}.solverstate.npz"))
+    if st["it"] != TRAIN_ITERS:
+        raise AssertionError(f"solverstate iter {st['it']}")
+    log(f"  solverstate reloaded at iter {st['it']}; last test {last_test}")
+    return {"launches": counts, "losses": losses}
+
+
+def phase_train_profile(tmp):
+    """Solver.step on one device-resident batch of 256."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.apps import imagenet_app
+
+    args = imagenet_app.make_args(synthetic=True, synthetic_n=512,
+                                  solver=_solver_file(tmp), device="cuda")
+    solver, train_feed, _ = imagenet_app.build(args)
+    batch = solver._put_batch(next(train_feed))
+    feed = itertools.repeat(batch)
+    solver.step(feed, 3)  # warm: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    solver.step(feed, reps)
+    b.record()
+    b.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ms = a.elapsed_time(b) / reps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  batch {TRAIN_BATCH}, f32, resident batch: {ms:.3f} ms per step (CUDA events, "
+        f"{reps} steps; host clock {wall_ms:.3f} ms), {TRAIN_BATCH / ms * 1e3:.1f} images/s, "
+        f"peak device memory {peak:.2f} GiB")
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.step(feed, steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    total = sum(dev_us(e) for e in kernels) / steps
+    if not total:
+        log("  device time by kernel: not measured (the profiler saw no device events)")
+        return {"ms": ms}
+    lrn = {tag: sum(dev_us(e) for e in kernels if tag in e.key) / steps
+           for tag in ("lrn_fwd_rows_kernel", "lrn_bwd_rows_kernel")}
+    lrn_all = sum(lrn.values())
+    log(f"  profiled: device busy {total / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms "
+        f"wall (idle share {100 * (1 - total / wall):.1f}%); LRN kernels "
+        f"{lrn_all / 1e3:.4f} ms = {100 * lrn_all / total:.2f}% of device time "
+        f"(forward {lrn['lrn_fwd_rows_kernel'] / 1e3:.4f} ms, backward "
+        f"{lrn['lrn_bwd_rows_kernel'] / 1e3:.4f} ms)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
+        log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:3d}x  {e.key[:90]}")
+    return {"ms": ms}
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
@@ -473,28 +872,42 @@ def main(argv=None) -> int:
     card = phases.run("card", phase_card)
     built = phases.run("build", phase_build)
     timing = phases.run("kernels", phase_kernels) if built else None
-    serving = None
+    serving = train = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
             phases.run("profile", phase_profile, serving)
             phases.run("load", phase_load, serving)
+        phases.run("grads", phase_grads)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            train = phases.run("train", phase_train, tmp)
+            phases.run("train-profile", phase_train_profile, tmp)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
+    launches = {
+        "lrn_fwd": serving["launches"] + train["launches"][0],
+        "lrn_fwd_train": train["launches"][1],
+        "lrn_bwd": train["launches"][2],
+    }
+    replaces = {
+        "lrn_fwd": "sparknet_tpu/ops/lrn.py:85",
+        "lrn_fwd_train": "sparknet_tpu/ops/lrn.py:77",
+        "lrn_bwd": "sparknet_tpu/ops/lrn.py:93",
+    }
     log(json.dumps({"kernels": [{
-        "name": "lrn_fwd",
+        "name": name,
         "route": "cuda",
         "source": "sparknet_tpu_torch/ops/csrc/lrn.cu",
-        "replaces": "sparknet_tpu/ops/lrn.py:85",
-        "launches": serving["launches"],
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]}))
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": timing[name]["max_abs_err"],
+        "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name in ("lrn_fwd", "lrn_fwd_train", "lrn_bwd")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card[0], "count": torch.cuda.device_count(),
     }}))

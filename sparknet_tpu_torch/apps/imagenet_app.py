@@ -1,0 +1,237 @@
+"""ImageNetApp: ImageNet end-to-end training on the card.
+
+Counterpart of ``sparknet_tpu/apps/imagenet_app.py``
+(``python -m sparknet_tpu_torch.apps.imagenet_app``): reads the solver
+and train_val prototxts, loads ImageNet (npz shards, or the synthetic
+stand-in with ``--synthetic``), applies the net's ``transform_param``
+(crop, mirror, channel means) in a serial host feed, and trains on one
+device with test-interval evaluation and snapshots.
+
+The command line is the JAX app's, plus ``--device`` (default ``cuda``;
+without a card it raises unless given ``--device cpu``). ``--arch
+alexnet`` is the one architecture whose prototxts the port ships. Each
+flag this port does not take yet raises ``NotImplementedError`` naming
+it when set to anything but its default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+from ..data.imagenet import BGR_MEAN, imagenet_dataset
+from ..data.preprocess import Transformer
+from ..models import PROTOTXT_DIR
+from ..nets import weights as W
+from ..proto import caffe_pb
+from ..solver.trainer import Solver, resolve_model_path
+from .cifar_app import (
+    _batch_size,
+    _data_layer,
+    make_transformer,
+    source_data_shape,
+    train_loop,
+)
+
+ZOO = PROTOTXT_DIR
+
+ARCH_SOLVERS = {
+    "alexnet": "bvlc_alexnet_solver.prototxt",
+    "googlenet": "bvlc_googlenet_quick_solver.prototxt",
+    "resnet50": "resnet50_solver.prototxt",
+    "vgg16": "vgg16_solver.prototxt",
+}
+
+# what each other architecture's train_val net needs beyond the port
+_ARCH_MISSING = {
+    "googlenet": "its prototxts and the layer type Concat",
+    "resnet50": "its prototxts and the layer types BatchNorm, Scale, Eltwise",
+    "vgg16": "its prototxts (its layer types are all ported)",
+}
+
+# flag -> the default the port takes; any other value raises
+_UNPORTED = {
+    "layout": None,
+    "parallel": "none",
+    "grad_compress": None,
+    "tau": "10",
+    "device_augment": False,
+    "native_loader": "auto",
+    "data_workers": -1,
+    "data_format": None,
+    "data_cache": None,
+    "remat": False,
+    "auto_resume": False,
+    "weights": None,
+    "profile_dir": None,
+    "trace": None,
+    "prefetch": 0,
+    "snapshot_format": "npz",
+    "chaos": None,
+    "supervise": False,
+}
+
+
+def make_feed(
+    ds, transformer: Transformer, batch_size: int, seed: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """The serial host feed: batches of ``{"data": f32 NHWC, "label":
+    int32}`` as numpy, the solver moves them to the device. The stream
+    is the JAX package's serial ``make_feed``'s, bit for bit (the worker
+    feed, ``workers > 0`` there, is not ported)."""
+
+    def transform(batch, rng):
+        return {
+            "data": np.asarray(transformer(batch["data"], rng), np.float32),
+            "label": np.asarray(batch["label"], np.int32),
+        }
+
+    return ds.batches(batch_size, shuffle=True, seed=seed, transform=transform)
+
+
+def make_args(**overrides) -> argparse.Namespace:
+    """Programmatic equivalent of the CLI (tests, notebooks)."""
+    args = parser().parse_args([])
+    for k, v in overrides.items():
+        if not hasattr(args, k):
+            raise TypeError(f"unknown ImageNetApp arg {k!r}")
+        setattr(args, k, v)
+    return args
+
+
+def _check_ported(args) -> None:
+    for name, default in _UNPORTED.items():
+        if getattr(args, name) != default:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag}={getattr(args, name)!r}: not ported to sparknet_tpu_torch "
+                f"yet (the port takes only {default!r})"
+            )
+    if args.solver is None and args.arch != "alexnet":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the port ships only bvlc_alexnet's prototxts; "
+            f"{args.arch} also needs {_ARCH_MISSING[args.arch]}"
+        )
+
+
+def build(args):
+    """(solver, train_feed, test_feed) for parsed ``args``."""
+    _check_ported(args)
+    solver_path = args.solver or os.path.join(ZOO, ARCH_SOLVERS[args.arch])
+    sp = caffe_pb.load_solver(solver_path)
+    solver_dir = os.path.dirname(os.path.abspath(solver_path))
+    if args.max_iter:
+        sp.max_iter = args.max_iter
+
+    net_path = sp.net or sp.train_net
+    if net_path:
+        net_path = resolve_model_path(net_path, solver_dir)
+    net_param = caffe_pb.load_net(net_path) if net_path else sp.net_param
+
+    train_layer = _data_layer(net_param, "TRAIN")
+    test_layer = _data_layer(net_param, "TEST")
+    train_bs = args.batch_size or _batch_size(train_layer, 32)
+    test_bs = args.batch_size or _batch_size(test_layer, train_bs)
+
+    data_dir = None if args.synthetic else args.data_dir
+    classes = args.synthetic_classes
+    train_ds = imagenet_dataset(data_dir, train=True, synthetic_n=args.synthetic_n,
+                                synthetic_classes=classes)
+    test_ds = imagenet_dataset(data_dir, train=False, synthetic_n=args.synthetic_n,
+                               synthetic_classes=classes)
+
+    # a missing mean .binaryproto -> the Caffe zoo's BGR channel means
+    train_tf = make_transformer(train_layer, True, solver_dir, lambda: BGR_MEAN)
+    test_tf = make_transformer(test_layer, False, solver_dir, lambda: BGR_MEAN)
+    # the loaders resize to 256 -> a crop wins H/W, else 224
+    ch, cw, cc = source_data_shape(train_ds, train_tf.crop_size, False, (224, 224))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, False, (ch, cw))
+    shapes = {"data": (train_bs, ch, cw, cc), "label": (train_bs,)}
+    test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
+
+    solver = Solver(
+        sp, shapes, test_input_shapes=test_shapes, net_param=net_param,
+        solver_dir=solver_dir, seed=args.seed,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        device=args.device,
+    )
+    train_feed = make_feed(train_ds, train_tf, train_bs, seed=args.seed)
+    test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
+    solver.env_meta["loader"] = "python"
+    return solver, train_feed, test_feed
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="ImageNet training (ImageNetApp), PyTorch/CUDA port. Flags "
+                    "marked 'not ported' raise when set to a non-default value.")
+    ap.add_argument("--arch", choices=sorted(ARCH_SOLVERS), default="alexnet",
+                    help="zoo architecture; the port ships alexnet's prototxts only")
+    ap.add_argument("--solver", default=None,
+                    help="explicit solver prototxt (overrides --arch)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--data-dir", default=os.environ.get("IMAGENET_DIR"),
+                    help="npz shards (*train*.npz / *val*.npz); the JPEG "
+                         "folder and tar layouts are not ported")
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--synthetic-n", type=int, default=2048)
+    ap.add_argument("--synthetic-classes", type=int, default=1000)
+    ap.add_argument("--max-iter", type=int, default=0)
+    ap.add_argument("--batch-size", type=int, default=0)
+    ap.add_argument("--layout", default=None, metavar="AXES", help="not ported")
+    ap.add_argument("--parallel", choices=("none", "sync", "local"), default="none",
+                    help="only none is ported (one device)")
+    ap.add_argument("--grad-compress", choices=("none", "bf16", "int8"), default=None,
+                    help="not ported")
+    ap.add_argument("--tau", default="10", help="local-SGD period; not ported")
+    ap.add_argument("--device-augment", action="store_true", help="not ported")
+    ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="auto (default) means the serial Python feed here; the "
+                         "C++ loader is not ported, so on/off raise")
+    ap.add_argument("--data-workers", type=int, default=-1,
+                    help="-1 (default) means the serial feed here; worker "
+                         "processes are not ported")
+    ap.add_argument("--data-format", choices=("auto", "packed"), default=None,
+                    help="not ported")
+    ap.add_argument("--data-cache", nargs="?", const="default", default=None,
+                    metavar="NS", help="not ported")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--remat", action="store_true", help="not ported")
+    ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
+                    help="resume from a .solverstate.npz snapshot (either package's)")
+    ap.add_argument("--auto-resume", action="store_true", help="not ported")
+    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
+    ap.add_argument("--profile-dir", default=None, help="not ported")
+    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--prefetch", type=int, default=0,
+                    help="batches staged ahead on the device; the port stages "
+                         "none (0), other values are not ported")
+    ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
+                    help="solverstate format; orbax is not ported")
+    ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
+    ap.add_argument("--supervise", action="store_true", help="not ported")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    solver, train_feed, test_feed = build(args)
+    if args.restore:
+        solver.restore(args.restore, train_feed)
+        print(f"Restoring previous solver status from {args.restore} "
+              f"(iter {solver.iter})")
+    print(f"ImageNetApp: net={solver.net_param.name} "
+          f"params={W.num_params(solver.params)} max_iter={solver.sp.max_iter} "
+          f"device={solver.device}")
+    return train_loop(solver, train_feed, test_feed)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,10 @@
 """Caffe layer semantics in PyTorch — the port's layer library.
 
-Counterpart of ``sparknet_tpu/nets/layers.py`` for the layers a deploy
-net of this slice uses: Input, Convolution, Pooling, ReLU, LRN,
-InnerProduct, Dropout and Softmax, plus Caffe's weight fillers. Any
-other type raises ``NotImplementedError`` naming the layer
-(:func:`impl_for`).
+Counterpart of ``sparknet_tpu/nets/layers.py`` for the layers the
+AlexNet deploy and train_val nets use: Input/Data, Convolution, Pooling,
+ReLU, LRN, InnerProduct, Dropout, Softmax, SoftmaxWithLoss and
+Accuracy, plus Caffe's weight fillers. Any other type raises
+``NotImplementedError`` naming the layer (:func:`impl_for`).
 
 The contract is the JAX package's, so blobs compare one to one:
 
@@ -56,10 +56,23 @@ DATA_LAYER_TYPES = {
 }
 
 
+LOSS_LAYER_TYPES = {
+    "SoftmaxWithLoss",
+    "SigmoidCrossEntropyLoss",
+    "EuclideanLoss",
+    "HingeLoss",
+    "ContrastiveLoss",
+    "MultinomialLogisticLoss",
+    "InfogainLoss",
+}
+
+
 @dataclass
 class ApplyCtx:
     train: bool
     compute_dtype: torch.dtype = torch.float32
+    # draws of the training-phase Dropout masks; on the net's device
+    generator: Optional[torch.Generator] = None
 
 
 # ---------------------------------------------------------------------------
@@ -331,9 +344,10 @@ class ReLU:
 
 class LRN:
     """Local response normalization. ACROSS_CHANNELS runs the hand
-    kernel (``ops/lrn.py``) on every device that has one, for any C;
-    WITHIN_CHANNEL averages over the size x size spatial window with
-    k fixed at 1."""
+    kernels (``ops/lrn.py``) for any C: the inference kernel, or the
+    training forward and backward kernels when autograd wants the
+    gradient; WITHIN_CHANNEL averages over the size x size spatial
+    window with k fixed at 1."""
 
     @staticmethod
     def _geom(lp):
@@ -378,13 +392,20 @@ class Dropout:
 
     @staticmethod
     def apply(lp, params, inputs, ctx):
+        x = inputs[0]
         p = lp.dropout_param
         ratio = float(p.get("dropout_ratio", 0.5)) if p else 0.5
-        if ctx.train and ratio > 0.0:
-            raise NotImplementedError(
-                f"layer {lp.name!r}: training-phase Dropout is not ported yet"
+        if not ctx.train or ratio <= 0.0:
+            return [x]
+        if ctx.generator is None:
+            raise ValueError(
+                f"layer {lp.name!r}: training-phase Dropout draws its mask "
+                f"from a torch.Generator; pass apply(..., generator=...)"
             )
-        return [inputs[0]]
+        keep = 1.0 - ratio
+        mask = torch.rand(x.shape, generator=ctx.generator, device=x.device) < keep
+        return [torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))]
 
 
 class Softmax:
@@ -404,6 +425,72 @@ class Softmax:
         return [torch.softmax(x.to(torch.float32), dim=ax).to(x.dtype)]
 
 
+class SoftmaxWithLoss:
+    """Mean negative log-likelihood of f32 ``log_softmax`` over Caffe's
+    axis 1 (the last NHWC axis); labels equal to ``ignore_label`` are
+    left out of the mean."""
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [()]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        logits, labels = inputs[0].to(torch.float32), inputs[1]
+        if logits.dim() > 2:
+            ax = caffe_axis(1, logits.dim())
+            c = logits.shape[ax]
+            logits = logits.movedim(ax, -1).reshape(-1, c)
+            labels = labels.reshape(-1)
+        labels = labels.to(torch.int64)
+        logp = torch.log_softmax(logits, dim=-1)
+        p = lp.sub("loss_param")
+        ignore = p.get("ignore_label") if p else None
+        if ignore is None:
+            nll = -logp.gather(-1, labels[:, None])[:, 0]
+            return [nll.mean()]
+        valid = labels != int(ignore)
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        nll = -logp.gather(-1, safe[:, None])[:, 0]
+        total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
+        return [total / valid.sum().clamp(min=1)]
+
+
+class Accuracy:
+    """Share of rows whose label is among the ``top_k`` logits; labels
+    equal to ``ignore_label`` are left out."""
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [()] * max(1, len(lp.top))
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        logits, labels = inputs[0], inputs[1].to(torch.int64)
+        p = lp.sub("accuracy_param")
+        top_k = int(p.get("top_k", 1)) if p else 1
+        ignore = p.get("ignore_label") if p else None
+        if top_k == 1:
+            correct = logits.argmax(-1) == labels
+        else:
+            idx = torch.topk(logits, top_k, dim=-1).indices
+            correct = (idx == labels[:, None]).any(-1)
+        if ignore is None:
+            acc = correct.to(torch.float32).mean()
+        else:
+            valid = labels != int(ignore)
+            acc = (correct & valid).to(torch.float32).sum() / valid.sum().clamp(min=1)
+        return [acc] * max(1, len(lp.top))
+
+
 LAYER_IMPLS = {
     "Convolution": Convolution,
     "Pooling": Pooling,
@@ -412,6 +499,8 @@ LAYER_IMPLS = {
     "LRN": LRN,
     "Dropout": Dropout,
     "Softmax": Softmax,
+    "SoftmaxWithLoss": SoftmaxWithLoss,
+    "Accuracy": Accuracy,
 }
 
 

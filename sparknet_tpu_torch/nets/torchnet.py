@@ -5,8 +5,14 @@ the layer DAG once at construction (static shape inference on NHWC
 shapes) and exposes
 
 - ``init(generator) -> (params, state)``: filler-initialised weights,
-- ``apply(params, state, batch, train=False) -> (blobs, state)``,
+- ``apply(params, state, batch, train=..., generator=...) -> (blobs, state)``,
+- ``loss_and_metrics(blobs)``: weighted loss-layer sum + metric tops,
+- ``dummy_batch()``: zeros shaped like the declared inputs,
 - ``param_specs()``: per-parameter (lr_mult, decay_mult).
+
+``apply`` records autograd as any PyTorch code does: a caller that
+trains passes params that require grad; a caller that only infers wraps
+the call in ``torch.inference_mode()`` (the serving engine does).
 
 Blobs are NHWC, as in the JAX net, and the params tree has the same
 shape (layer name -> ``{"weight", "bias"}``), so one npz weight file
@@ -22,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..proto.caffe_pb import NetParameter
-from .layers import DATA_LAYER_TYPES, ApplyCtx, Shape, impl_for
+from .layers import DATA_LAYER_TYPES, LOSS_LAYER_TYPES, ApplyCtx, Shape, impl_for
 from .weights import WeightCollection
 
 
@@ -93,7 +99,6 @@ class TorchNet:
                 params[lp.name] = {k: v.to(self.device) for k, v in p.items()}
         return params, {}
 
-    @torch.inference_mode()
     def apply(
         self,
         params: WeightCollection,
@@ -102,12 +107,15 @@ class TorchNet:
         *,
         train: Optional[bool] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Forward over ``batch`` (blob name -> NHWC tensor on the net's
         device); returns every blob and the (unchanged) state.
-        ``compute_dtype`` overrides the net's for this call."""
+        ``compute_dtype`` overrides the net's for this call; ``generator``
+        (on the net's device) draws the training-phase Dropout masks."""
         train = (self.phase == "TRAIN") if train is None else train
-        ctx = ApplyCtx(train=train, compute_dtype=compute_dtype or self.compute_dtype)
+        ctx = ApplyCtx(train=train, compute_dtype=compute_dtype or self.compute_dtype,
+                       generator=generator)
         blobs: Dict[str, torch.Tensor] = dict(batch)
         for lp in self.layers:
             if lp.type in DATA_LAYER_TYPES:
@@ -117,6 +125,34 @@ class TorchNet:
             for top, out in zip(lp.top, outputs):
                 blobs[top] = out
         return blobs, dict(state)
+
+    def loss_and_metrics(
+        self, blobs: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Weighted sum of loss tops (Caffe: loss layers default to weight
+        1, everything else 0) plus the metric tops (loss and Accuracy)."""
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        metrics: Dict[str, torch.Tensor] = {}
+        for lp in self.layers:
+            is_loss = lp.type in LOSS_LAYER_TYPES
+            for ti, top in enumerate(lp.top):
+                w = lp.loss_weight[ti] if ti < len(lp.loss_weight) else (
+                    1.0 if is_loss else 0.0)
+                if w:
+                    total = total + w * blobs[top].to(torch.float32).sum()
+                if is_loss or lp.type == "Accuracy":
+                    metrics[top] = blobs[top]
+        return total, metrics
+
+    def dummy_batch(self, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+        """Zeros on the net's device matching its declared inputs; the
+        ``label`` blob is int32."""
+        return {
+            name: torch.zeros(self.blob_shapes[name],
+                              dtype=torch.int32 if name == "label" else dtype,
+                              device=self.device)
+            for name in self.input_names
+        }
 
     def param_specs(self) -> Dict[str, Dict[str, Tuple[float, float]]]:
         """Per-param (lr_mult, decay_mult) from the prototxt ``param {}``

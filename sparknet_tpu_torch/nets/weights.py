@@ -1,5 +1,6 @@
 """Weight collections: the npz format shared with the JAX package, and
-the conversion from the JAX package's parameter tree.
+the conversion from and to the JAX package's parameter tree and its
+optimizer-slot trees.
 
 A weight collection is ``{layer_name: {param_name: tensor}}``, the tree
 shape of the JAX package's ``WeightCollection``. The port keeps
@@ -28,33 +29,21 @@ def _conv_layers(net) -> set:
     return {lp.name for lp in net.layers if lp.type == "Convolution"}
 
 
-def from_jax_params(params, state, net) -> Tuple[WeightCollection, Dict[str, Any]]:
-    """The JAX package's ``(params, state)`` trees, as numpy arrays
-    (what ``jax.device_get`` gives), as the port's f32 CPU tensors:
-    conv HWIO ``(kh, kw, cin/g, cout)`` becomes OIHW via
-    ``permute(3, 2, 0, 1)``; every other array keeps its shape."""
-    convs = _conv_layers(net)
+def _from_jax_tree(tree, convs: set) -> WeightCollection:
     out: WeightCollection = {}
-    for layer, entry in params.items():
+    for layer, entry in tree.items():
         out[layer] = {}
         for name, arr in entry.items():
             t = torch.from_numpy(np.array(arr, np.float32))
             if layer in convs and name == "weight":
                 t = t.permute(3, 2, 0, 1).contiguous()
             out[layer][name] = t
-    st = {
-        layer: {n: torch.from_numpy(np.array(a, np.float32)) for n, a in e.items()}
-        for layer, e in (state or {}).items()
-    }
-    return out, st
+    return out
 
 
-def to_jax_params(params: WeightCollection, net) -> Dict[str, Dict[str, np.ndarray]]:
-    """Inverse of :func:`from_jax_params` for params: numpy arrays in
-    the JAX package's layout."""
-    convs = _conv_layers(net)
+def _to_jax_tree(tree: WeightCollection, convs: set) -> Dict[str, Dict[str, np.ndarray]]:
     out: Dict[str, Dict[str, np.ndarray]] = {}
-    for layer, entry in params.items():
+    for layer, entry in tree.items():
         out[layer] = {}
         for name, t in entry.items():
             t = t.detach().to("cpu", torch.float32)
@@ -62,6 +51,40 @@ def to_jax_params(params: WeightCollection, net) -> Dict[str, Dict[str, np.ndarr
                 t = t.permute(2, 3, 1, 0)
             out[layer][name] = np.ascontiguousarray(t.numpy())
     return out
+
+
+def from_jax_params(params, state, net) -> Tuple[WeightCollection, Dict[str, Any]]:
+    """The JAX package's ``(params, state)`` trees, as numpy arrays
+    (what ``jax.device_get`` gives), as the port's f32 CPU tensors:
+    conv HWIO ``(kh, kw, cin/g, cout)`` becomes OIHW via
+    ``permute(3, 2, 0, 1)``; every other array keeps its shape."""
+    st = {
+        layer: {n: torch.from_numpy(np.array(a, np.float32)) for n, a in e.items()}
+        for layer, e in (state or {}).items()
+    }
+    return _from_jax_tree(params, _conv_layers(net)), st
+
+
+def to_jax_params(params: WeightCollection, net) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of :func:`from_jax_params` for params: numpy arrays in
+    the JAX package's layout."""
+    return _to_jax_tree(params, _conv_layers(net))
+
+
+def from_jax_slots(opt_state, net) -> Dict[str, WeightCollection]:
+    """The JAX package's optimizer state (slot name -> a tree shaped like
+    params, e.g. ``{"momentum": ...}``) as the port's f32 CPU tensors;
+    every slot converts as :func:`from_jax_params` converts the weights."""
+    convs = _conv_layers(net)
+    return {slot: _from_jax_tree(tree, convs) for slot, tree in opt_state.items()}
+
+
+def to_jax_slots(opt_state: Dict[str, WeightCollection], net
+                 ) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+    """Inverse of :func:`from_jax_slots`: numpy arrays in the JAX
+    package's layout."""
+    convs = _conv_layers(net)
+    return {slot: _to_jax_tree(tree, convs) for slot, tree in opt_state.items()}
 
 
 def num_params(w: WeightCollection) -> int:

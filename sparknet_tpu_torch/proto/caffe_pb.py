@@ -1,10 +1,11 @@
 """Typed views over parsed Caffe prototxt messages (the port's copy).
 
-The same IR the JAX package hands its net compiler, restricted to what
-a net needs: ``NetParameter`` with its layers, deploy-style ``input`` /
+The same IR the JAX package hands its net compiler and solver:
+``NetParameter`` with its layers, deploy-style ``input`` /
 ``input_shape`` declarations and ``layers_for_phase``, ``LayerParameter``
-with phase include/exclude rules, and the ``Filler`` / ``ParamSpec``
-sub-messages. Only the fields the model zoo actually uses are surfaced;
+with phase include/exclude rules, the ``Filler`` / ``ParamSpec``
+sub-messages, and ``SolverParameter`` with every field and default of
+the JAX package's. Only the fields the model zoo actually uses are surfaced;
 everything else stays reachable through ``.raw`` (the untyped parse
 tree).
 """
@@ -21,7 +22,9 @@ __all__ = [
     "ParamSpec",
     "LayerParameter",
     "NetParameter",
+    "SolverParameter",
     "load_net",
+    "load_solver",
 ]
 
 # Caffe V1 layer-type enum -> V2 string type (upgrade path, as Caffe's
@@ -140,6 +143,10 @@ class LayerParameter:
     def dropout_param(self) -> Optional[Message]:
         return self.sub("dropout_param")
 
+    @property
+    def transform_param(self) -> Optional[Message]:
+        return self.sub("transform_param")
+
     @classmethod
     def from_message(cls, m: Message) -> "LayerParameter":
         typ = str(m.get("type", ""))
@@ -210,3 +217,85 @@ class NetParameter:
 def load_net(path_or_text: str, *, is_path: bool = True) -> NetParameter:
     m = parse_file(path_or_text) if is_path else parse(path_or_text)
     return NetParameter.from_message(m)
+
+
+@dataclass
+class SolverParameter:
+    net: Optional[str] = None
+    train_net: Optional[str] = None
+    test_net: List[str] = field(default_factory=list)
+    net_param: Optional[NetParameter] = None
+    test_iter: List[int] = field(default_factory=list)
+    test_interval: int = 0
+    base_lr: float = 0.01
+    lr_policy: str = "fixed"
+    gamma: float = 0.1
+    power: float = 0.75
+    stepsize: int = 100000
+    stepvalue: List[int] = field(default_factory=list)
+    max_iter: int = 0
+    momentum: float = 0.0
+    momentum2: float = 0.999  # Adam
+    rms_decay: float = 0.99
+    delta: float = 1e-8
+    weight_decay: float = 0.0
+    regularization_type: str = "L2"
+    clip_gradients: float = -1.0
+    iter_size: int = 1
+    display: int = 0
+    snapshot: int = 0
+    snapshot_prefix: str = ""
+    solver_mode: str = "GPU"
+    solver_type: str = "SGD"  # prototxt `type`, else the older `solver_type`
+    random_seed: int = -1
+    # Caffe: run the TEST nets once before training starts
+    test_initialization: bool = True
+    # Caffe: display the loss averaged over the last N iterations
+    average_loss: int = 1
+    warmup_iter: int = 0  # extension: linear LR warmup (not in Caffe)
+    raw: Optional[Message] = None
+
+    @classmethod
+    def from_message(cls, m: Message) -> "SolverParameter":
+        return cls(
+            net=m.get("net"),
+            train_net=m.get("train_net"),
+            test_net=[str(t) for t in m.get_all("test_net")],
+            net_param=(
+                NetParameter.from_message(m.get("net_param"))
+                if isinstance(m.get("net_param"), Message)
+                else None
+            ),
+            test_iter=[int(t) for t in m.get_all("test_iter")],
+            test_interval=int(m.get("test_interval", 0)),
+            base_lr=float(m.get("base_lr", 0.01)),
+            lr_policy=str(m.get("lr_policy", "fixed")),
+            gamma=float(m.get("gamma", 0.1)),
+            power=float(m.get("power", 0.75)),
+            stepsize=int(m.get("stepsize", 100000)),
+            stepvalue=[int(s) for s in m.get_all("stepvalue")],
+            max_iter=int(m.get("max_iter", 0)),
+            momentum=float(m.get("momentum", 0.0)),
+            momentum2=float(m.get("momentum2", 0.999)),
+            rms_decay=float(m.get("rms_decay", 0.99)),
+            delta=float(m.get("delta", 1e-8)),
+            weight_decay=float(m.get("weight_decay", 0.0)),
+            regularization_type=str(m.get("regularization_type", "L2")),
+            clip_gradients=float(m.get("clip_gradients", -1.0)),
+            iter_size=int(m.get("iter_size", 1)),
+            display=int(m.get("display", 0)),
+            snapshot=int(m.get("snapshot", 0)),
+            snapshot_prefix=str(m.get("snapshot_prefix", "")),
+            solver_mode=str(m.get("solver_mode", "GPU")),
+            solver_type=str(m.get("type", m.get("solver_type", "SGD"))),
+            random_seed=int(m.get("random_seed", -1)),
+            test_initialization=bool(m.get("test_initialization", True)),
+            average_loss=int(m.get("average_loss", 1)),
+            warmup_iter=int(m.get("warmup_iter", 0)),
+            raw=m,
+        )
+
+
+def load_solver(path_or_text: str, *, is_path: bool = True) -> SolverParameter:
+    m = parse_file(path_or_text) if is_path else parse(path_or_text)
+    return SolverParameter.from_message(m)

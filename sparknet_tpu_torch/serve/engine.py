@@ -188,11 +188,12 @@ class InferenceEngine:
         return self
 
     def _forward(self, params, state, batch) -> np.ndarray:
-        blobs, _ = self.net.apply(
-            params, state, batch, train=False, compute_dtype=self.compute_dtype
-        )
-        # the copy to the host is the device fence
-        return blobs[self.output].to(torch.float32).cpu().numpy()
+        with torch.inference_mode():  # serving records no autograd
+            blobs, _ = self.net.apply(
+                params, state, batch, train=False, compute_dtype=self.compute_dtype
+            )
+            # the copy to the host is the device fence
+            return blobs[self.output].to(torch.float32).cpu().numpy()
 
     # ------------------------------------------------------------------
     def _as_batch(self, rows: Rows) -> Dict[str, np.ndarray]:

@@ -66,6 +66,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert out["errors"] == 0
     assert "sparknet_tpu_torch.serve.server" in out["modules"]
     assert "sparknet_tpu_torch.ops.lrn" in out["modules"]
+    for name in ("apps.imagenet_app", "apps.cifar_app", "solver.trainer",
+                 "solver.caffe_solver", "solver.snapshot", "data.rdd",
+                 "data.preprocess", "data.imagenet"):
+        assert f"sparknet_tpu_torch.{name}" in out["modules"], name
     leaked = [m for m in out["loaded"] if _of_jax(m)]
     assert not leaked, leaked
 
@@ -124,6 +128,14 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         InferenceEngine.from_files(ALEXNET)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--model", ALEXNET, "--bench", "1", "--port", "0"])
+    from sparknet_tpu_torch.proto.caffe_pb import load_solver
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    train_val = os.path.join(PORT_DIR, "models", "prototxt",
+                             "bvlc_alexnet_train_val.prototxt")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Solver(load_solver(f'net: "{train_val}"', is_path=False),
+               {"data": (1, 227, 227, 3), "label": (1,)})
     # asked for, the CPU works
     assert TorchNet(net, "TEST", device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
@@ -141,4 +153,16 @@ def test_package_sources_ship_with_the_package():
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()
     assert "sparknet_tpu_torch/_build/" in ignored
     names = {m.name for m in pkgutil.iter_modules(sparknet_tpu_torch.__path__)}
-    assert {"ops", "nets", "proto", "serve", "tools", "telemetry"} <= names
+    assert {"ops", "nets", "proto", "serve", "tools", "telemetry", "solver", "data",
+            "apps"} <= names
+    for name in ("bvlc_alexnet_train_val.prototxt", "bvlc_alexnet_solver.prototxt"):
+        assert os.path.isfile(os.path.join(PORT_DIR, "models", "prototxt", name))
+
+
+@pytest.mark.parametrize("name", ["bvlc_alexnet_train_val.prototxt",
+                                  "bvlc_alexnet_solver.prototxt"])
+def test_training_prototxts_are_copies_of_the_jax_packages(name):
+    mine = os.path.join(PORT_DIR, "models", "prototxt", name)
+    theirs = os.path.join(REPO, "sparknet_tpu", "models", "prototxt", name)
+    with open(mine, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()

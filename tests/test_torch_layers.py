@@ -125,9 +125,15 @@ def test_unported_layer_type_raises_naming_the_layer():
 
 
 def test_train_phase_dropout_is_not_ported():
+    """Training-phase Dropout is ported now, and it draws its mask only
+    from a generator the caller passes: without one it refuses."""
     _, tlp = _pair('type: "Dropout" dropout_param { dropout_ratio: 0.5 }')
-    with pytest.raises(NotImplementedError, match="Dropout"):
+    with pytest.raises(ValueError, match="torch.Generator"):
         TL.Dropout.apply(tlp, {}, [torch.ones(2, 3)], TL.ApplyCtx(train=True))
+    gen = torch.Generator().manual_seed(0)
+    (y,) = TL.Dropout.apply(tlp, {}, [torch.ones(64, 3)],
+                            TL.ApplyCtx(train=True, generator=gen))
+    assert set(torch.unique(y).tolist()) == {0.0, 2.0}
 
 
 @pytest.mark.parametrize("filler,check", [
