@@ -21,40 +21,73 @@ own lines:
    the same inputs and timed with CUDA events, beside its
    memory/compute bound, the plain version and a one-call PyTorch
    yardstick;
-4. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
+4. flash-kernels: each of the three flash-attention kernels (forward:
+   o and lse; dq; dk/dv) held against its plain PyTorch version on the
+   card over 14 cases, f32 and bf16 (the last at the BertApp run's
+   shapes, 32 x 12 heads x 128 x 64): causal or not, offsets, a kv mask
+   with a fully padded row (whose o, dq, dk and dv must be exactly 0),
+   ragged (100, 77) lengths, head dims 16, 32, 64 and 256, dropout 0.1
+   and 0.5. Then dropout's statistics: the keep rate (v = 1, the mean
+   output within 0.05 of 1) and the forward/backward mask identity (v =
+   I with S = D: dv equals the forward's dropped probabilities
+   transposed times dO). Then each kernel at BERT-base's shapes (H 12,
+   D 64, f32, attention dropout 0.1; B 32 x S 128, and B 8 x S 512),
+   held against its plain version and timed with CUDA events beside its
+   bound, the plain version and one call of
+   ``F.scaled_dot_product_attention`` (its autograd backward asked for
+   dq alone, or for dk and dv, as the yardsticks of the two backward
+   kernels);
+5. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
    served on the card through InferenceEngine -> MicroBatcher -> HTTP
    InferenceServer; /healthz, /classify (1, 3, 8 rows), /metrics, then
    32- and 40-row calls through the batcher (40 rows exercise chunking).
    Every answer's top-5 is held against the same weights run by the port
    on the CPU, and the LRN kernel must have launched twice per bucket
    call;
-5. profile: a bucket-32 forward split into upload, forward and download
+6. profile: a bucket-32 forward split into upload, forward and download
    (CUDA events), then ``torch.profiler`` over bucket-32 forwards: device
    time by kernel, the LRN kernel's share, and the device's idle share;
-6. load: 200 requests from 4 closed-loop clients through the batcher
+7. load: 200 requests from 4 closed-loop clients through the batcher
    (the ``tools/serve --bench`` path): requests/s and latency;
-7. grads: one training step of full-width ``bvlc_alexnet`` (the
+8. grads: one training step of full-width ``bvlc_alexnet`` (the
    train_val net with ``dropout_ratio: 0``, random weights from seed 0)
    at batch 8 on the card against the same step on the CPU: the loss
    and every gradient tensor, held with cuDNN off on a batch where both
    take the same max-pool and ReLU branches everywhere (tolerances
    below). The card runs the two training kernels inside autograd;
-8. train: ``ImageNetApp`` through ``main([...])``: ``--arch alexnet
+9. train: ``ImageNetApp`` through ``main([...])``: ``--arch alexnet
    --synthetic`` at the prototxt's batch of 256, 227 crop, 1000 classes,
    f32, 20 iterations (test_iter 2 at test_interval 20, display 5), then
    the final solverstate reloaded. Each training kernel must launch
    exactly twice per iteration, the inference kernel twice per test
    batch;
-9. train-profile: ``Solver.step`` on one device-resident batch of 256:
+10. train-profile: ``Solver.step`` on one device-resident batch of 256:
    ms per step by CUDA events, images/s, peak device memory, then
    ``torch.profiler`` over 3 steps: device time by kernel, the LRN
-   kernels' share and the device's idle share.
+   kernels' share and the device's idle share;
+11. bert-grads: one training step of full-width BERT-base (random
+   weights from seed 0, no hidden dropout, attention dropout 0.1 with
+   the same seeds on both devices) at batch 2 x 128 on the card against
+   the same step on the CPU: the loss and every gradient tensor; the
+   card step must launch each flash kernel 12 times;
+12. bert-train: ``BertApp`` through ``main([...])``: ``--config base``
+   at batch 32 x 128 on the synthetic corpus, 20 iterations in f32
+   (display 5, snapshot 20), then 10 with ``--bf16``; each flash kernel
+   must launch exactly 12 times per iteration. The final solverstate is
+   reloaded and ``Solver.test`` runs 2 batches: 12 forward launches
+   each, no backward;
+13. bert-profile: ``Solver.step`` of BERT-base on one device-resident
+   batch of 32 x 128: ms per step by CUDA events, tokens/s, peak device
+   memory, then ``torch.profiler`` over 3 steps: device time by kernel,
+   the flash kernels' share and the device's idle share.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
 forward (norm1 + norm2), for ``lrn_fwd_train`` and ``lrn_bwd`` per
-batch-256 training step (norm1 + norm2); "launches" counts the main
-paths' runs (serving and train). Last comes the result line
+batch-256 training step (norm1 + norm2); for the flash kernels per
+launch at B 32 x S 128 (one layer of the bert-train run); "launches"
+counts the main paths' runs (serving and train for LRN, bert-train for
+flash). Last comes the result line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the result line, as does a machine without a CUDA card or a
 directory without the port.
@@ -78,6 +111,22 @@ indices must be equal, except that two classes whose CPU probabilities
 differ by less than 1e-5 relative may trade places (f32 convolutions
 sum in another order on the card; TF32 is switched off for both convs
 and matmuls, so those differences stay near f32 rounding).
+
+Flash kernels vs plain (the backward pair fed the plain forward's lse
+and delta): f32 o and lse rtol = atol = 2e-5, f32 dq, dk, dv rtol = atol
+= 1e-4, the JAX flash tests' own (sums of D products per logit and of
+S terms per output, in another order); bf16 outputs one bf16 ulp of the
+plain result beyond those; with dropout both draw the same hash mask,
+so the same tolerances hold. BERT step on the card vs the CPU: loss
+within 1e-5 relative, each gradient within 1e-4 relative L2 error (f32
+reduced in another order over 12 layers; the tied word embedding's
+gradient sums its rows on the card through ``index_put_`` with
+accumulate, which PyTorch documents as nondeterministic on CUDA unless
+deterministic algorithms are switched on). The key biases'
+gradients are 0 in exact arithmetic (the softmax cancels a constant
+shift of a query's logits), so their rounding noise has no relative
+error to hold: each is held below 1e-4 of its layer's v_b gradient on
+both devices instead.
 """
 
 from __future__ import annotations
@@ -103,6 +152,32 @@ ALEXNET_LRN = (("norm1", 55 * 55, 96), ("norm2", 27 * 27, 256))
 LRN_GEOM = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 TRAIN_BATCH, TEST_BATCH = 256, 50  # the train_val prototxt's data layers
 TRAIN_ITERS = 20
+
+# BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
+BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_ITERS, BERT_BF16_ITERS = 20, 10
+FLASH_TIMED = ((BERT_BATCH, BERT_SEQ), (8, 512))  # (batch, seq) timed
+FLASH_DROPOUT = 0.1  # BERT's attention dropout
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# (label, b, h, sq, sk, d, causal, q_offset, kv_offset, padded, rate)
+FLASH_CASES = (
+    ("plain", 2, 3, 128, 128, 64, False, 0, 0, False, 0.0),
+    ("causal", 2, 3, 128, 128, 64, True, 0, 0, False, 0.0),
+    ("offsets", 1, 2, 64, 192, 32, True, 128, 0, False, 0.0),
+    ("kv offset", 1, 2, 96, 64, 32, True, 0, 40, False, 0.0),
+    ("padded row", 3, 2, 96, 96, 16, False, 0, 0, True, 0.0),
+    ("ragged", 1, 2, 100, 77, 16, False, 0, 0, False, 0.0),
+    ("ragged causal", 1, 2, 100, 77, 64, True, 0, 0, True, 0.0),
+    ("d256", 1, 2, 70, 90, 256, True, 0, 0, False, 0.0),
+    ("d256 padded", 2, 2, 128, 128, 256, False, 0, 0, True, 0.0),
+    ("dropout 0.1", 2, 3, 128, 128, 64, False, 0, 0, True, 0.1),
+    ("dropout 0.5", 1, 2, 100, 77, 64, True, 0, 0, False, 0.5),
+    ("dropout 0.1 d16", 2, 2, 64, 80, 16, False, 0, 0, True, 0.1),
+    ("dropout 0.5 d256", 1, 2, 64, 80, 256, False, 0, 0, False, 0.5),
+    ("BERT-base layer", BERT_BATCH, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM, False, 0,
+     0, True, FLASH_DROPOUT),
+)
 
 
 def log(msg: str = "") -> None:
@@ -294,18 +369,24 @@ def _report(label, m, c, r, nbytes, ops):
         f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
 
 
-def _held(label, pairs):
+def _held(label, pairs, tol=None):
     """Worst |kernel - plain| over (what, kernel, plain) f32 outputs at a
-    timed shape; raises if one is outside the f32 tolerance."""
+    timed shape; raises if one is outside the f32 tolerance (LRN's, or
+    rtol = atol = ``tol``)."""
     import torch
 
     worst = 0.0
     for what, got, ref in pairs:
-        ok, e, tol = _check(got, ref, torch.float32)
-        log(f"  check {label} {what}: max_abs_err {e:.2e} [{tol}]"
+        if tol is None:
+            ok, e, tol_text = _check(got, ref, torch.float32)
+        else:
+            ok, e = _flash_within(got, ref, torch.float32, tol)
+            tol_text = f"rtol {tol:g} atol {tol:g}"
+        log(f"  check {label} {what}: max_abs_err {e:.2e} [{tol_text}]"
             f"{'' if ok else ' MISMATCH'}")
         if not ok:
-            raise AssertionError(f"{label} {what} disagrees with its plain version ({tol})")
+            raise AssertionError(f"{label} {what} disagrees with its plain version "
+                                 f"({tol_text})")
         worst = max(worst, e)
     return worst
 
@@ -848,6 +929,413 @@ def phase_train_profile(tmp):
     return {"ms": ms}
 
 
+# ------------------------------------------------------- flash kernels
+def _flash_inputs(case, dtype, gen):
+    """Random q, k, v, dO of ``case`` on the card, its int8 kv mask (a
+    quarter of row 0's keys and all of the last row's masked when
+    ``padded``) and its offsets tensor."""
+    import torch
+
+    from sparknet_tpu_torch.ops import attention as TA
+
+    _, b, h, sq, sk, d, causal, q_off, kv_off, padded, rate = case
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
+                                 (b, h, sq, d)))
+    mask = torch.ones((b, sk), dtype=torch.int8, device="cuda")
+    if padded:
+        mask[0, sk - sk // 4:] = 0
+        mask[-1] = 0  # a fully padded row
+    seed = int(torch.randint(-2**31, 2**31, (1,), generator=gen, device="cuda"))
+    return (q, k, v, do, mask, TA.make_offsets(q_off, kv_off, seed, "cuda"), causal,
+            1.0 / d ** 0.5, rate)
+
+
+def _flash_within(got, ref, dtype, tol):
+    """(ok, max_abs_err): |kernel - plain| <= tol + tol |plain|, plus one
+    bf16 ulp of the plain result for bf16 outputs (module docstring)."""
+    import torch
+
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    bound = tol + tol * ref.abs()
+    if dtype == torch.bfloat16:
+        bound = bound + _bf16_ulp(ref)
+    return bool(torch.all(err <= bound)), float(err.max())
+
+
+def _flash_all(inputs):
+    """Each kernel and its plain version on the same inputs; the backward
+    pair takes the plain forward's lse and delta. Returns {kernel name:
+    [(output name, kernel out, plain out, tolerance)]}."""
+    from sparknet_tpu_torch.ops import attention as TA
+
+    q, k, v, do, mask, off, causal, scale, rate = inputs
+    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+    ref_o, ref_lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    delta = TA.flash_delta(do, ref_o)
+    bwd = (q, k, v, mask, off, do, ref_lse, delta, causal, scale, rate)
+    dq = TA.flash_bwd_dq(*bwd)
+    dk, dv = TA.flash_bwd_dkv(*bwd)
+    ref_dk, ref_dv = TA.flash_bwd_dkv_reference(*bwd)
+    return {
+        "flash_fwd": [("o", o, ref_o, 2e-5), ("lse", lse, ref_lse, 2e-5)],
+        "flash_bwd_dq": [("dq", dq, TA.flash_bwd_dq_reference(*bwd), 1e-4)],
+        "flash_bwd_dkv": [("dk", dk, ref_dk, 1e-4), ("dv", dv, ref_dv, 1e-4)],
+    }
+
+
+def phase_flash_kernels():
+    """The three flash kernels against their plain versions over the
+    cases, their dropout statistics, then timed at BERT-base's shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {(n, dt): 0.0 for n in FLASH_NAMES for dt in ("float32", "bfloat16")}
+    failures = []
+    for case in FLASH_CASES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            outs = _flash_all(_flash_inputs(case, dtype, gen))
+            torch.cuda.synchronize()
+            line = []
+            for name, checks in outs.items():
+                for what, got, ref, tol in checks:
+                    ok, err = _flash_within(got, ref, torch.float32 if what == "lse"
+                                            else dtype, tol)
+                    worst[(name, dt)] = max(worst[(name, dt)], err)
+                    line.append(f"{what} {err:.1e}{'' if ok else ' MISMATCH'}")
+                    if not ok:
+                        failures.append(f"{name} {what} {case[0]} {dt}")
+                    if case[9] and what != "lse" and float(got[-1].abs().max()) != 0.0:
+                        failures.append(f"{name} {what} {case[0]} {dt}: padded row not 0")
+            log(f"  flash {case[0]:<17} {dt:<8} b{case[1]} h{case[2]} ({case[3]}, "
+                f"{case[4]}) d{case[5]} causal={case[6]} off=({case[7]}, {case[8]}) "
+                f"rate={case[10]}: max_abs_err " + ", ".join(line))
+    if failures:
+        raise AssertionError(f"flash kernels disagree with their plain versions: {failures}")
+    for n in FLASH_NAMES:
+        log(f"  worst |kernel - plain| {n}: f32 {worst[(n, 'float32')]:.3e}, bf16 "
+            f"{worst[(n, 'bfloat16')]:.3e} (each within its tolerance; padded rows "
+            f"exactly 0)")
+    _flash_dropout_statistics(gen)
+    timing = _time_flash(gen)
+    for n in FLASH_NAMES:
+        timing[n]["max_abs_err"] = max(worst[(n, "float32")], timing[n]["err"])
+    return timing
+
+
+def _flash_dropout_statistics(gen):
+    """Keep rate (v = 1: the mean output is the kept, rescaled mass, 1 in
+    expectation) and the forward/backward mask identity (v = I, S = D:
+    the forward's output is the dropped probability matrix, so dv must
+    be it transposed times dO)."""
+    import torch
+
+    from sparknet_tpu_torch.ops import attention as TA
+
+    q, k = (torch.randn((2, 4, 512, 64), generator=gen, device="cuda") for _ in range(2))
+    mask = torch.ones((2, 512), dtype=torch.int8, device="cuda")
+    for rate in (0.1, 0.5):
+        off = TA.make_offsets(0, 0, 1000 + int(rate * 10), "cuda")
+        o, _ = TA.flash_fwd(q, k, torch.ones_like(q), mask, off, False, 0.125, rate)
+        mass = float(o.mean())
+        kept = float(TA.dropout_keep(off[2], 2, 4, 512, 512, rate).float().mean())
+        log(f"  dropout rate {rate}: mean output with v = 1 is {mass:.4f} [within 0.05 "
+            f"of 1]; kept share {kept:.4f} of {2 * 4 * 512 * 512} [1 - rate]")
+        if abs(mass - 1.0) >= 0.05 or abs(kept - (1 - rate)) >= 0.005:
+            raise AssertionError(f"dropout keep rate at {rate}: mass {mass}, kept {kept}")
+    s, rate = 128, 0.3
+    q, k, g = (torch.randn((1, 2, s, s), generator=gen, device="cuda") for _ in range(3))
+    eye = torch.eye(s, device="cuda").expand(1, 2, s, s).contiguous()
+    mask = torch.ones((1, s), dtype=torch.int8, device="cuda")
+    off = TA.make_offsets(0, 0, 77, "cuda")
+    p_dropped, lse = TA.flash_fwd(q, k, eye, mask, off, False, s ** -0.5, rate)
+    p_all, _ = TA.flash_fwd(q, k, eye, mask, off, False, s ** -0.5, 0.0)
+    _, dv = TA.flash_bwd_dkv(q, k, eye, mask, off, g, lse, TA.flash_delta(g, p_dropped),
+                             False, s ** -0.5, rate)
+    err_mask = float((dv - p_dropped.transpose(-1, -2) @ g).abs().mean())
+    err_all = float((dv - p_all.transpose(-1, -2) @ g).abs().mean())
+    log(f"  dropout mask identity (v = I, S = D = {s}, rate {rate}): mean |dv - "
+        f"p_dropped^T dO| {err_mask:.2e} [< 1e-5], against the keep-all p {err_all:.2e} "
+        f"[> 100x]")
+    if not (err_mask < 1e-5 and err_all > 100 * err_mask):
+        raise AssertionError(f"forward and backward dropout masks differ: {err_mask}, {err_all}")
+
+
+def _flash_bounds(b, s):
+    """{kernel: (bytes, operations)} of one launch at BERT-base's heads,
+    f32, no causal mask: each input read once, each output written once;
+    2 operations per multiply-add of the products (exp and the rest
+    uncounted)."""
+    h, d = BERT_HEADS, BERT_HEAD_DIM
+    elems = b * h * s * d  # one (B, H, S, D) f32 tensor
+    rows = b * h * s       # one (B, H, S) f32 tensor
+    pairs = b * h * s * s * d
+    mask, offsets = b * s, 12
+    return {
+        "flash_fwd": (4 * (3 * elems + elems + rows) + mask + offsets, 4 * pairs),
+        "flash_bwd_dq": (4 * (4 * elems + 2 * rows + elems) + mask + offsets, 6 * pairs),
+        "flash_bwd_dkv": (4 * (4 * elems + 2 * rows + 2 * elems) + mask + offsets,
+                          8 * pairs),
+    }
+
+
+def _time_flash(gen):
+    """Each kernel at BERT-base's heads, f32, attention dropout 0.1, held
+    against its plain version on the same inputs, then timed with CUDA
+    events beside its bound, the plain version and one call of
+    F.scaled_dot_product_attention (forward; for dq its autograd backward
+    asked for dq alone, for dk/dv asked for dk and dv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import attention as TA
+
+    out = {}
+    for b, s in FLASH_TIMED:
+        case = (f"BERT-base B={b} S={s}", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0,
+                False, FLASH_DROPOUT)
+        inputs = _flash_inputs(case, torch.float32, gen)
+        q, k, v, do, mask, off, causal, scale, rate = inputs
+        errs = {}
+        for name, checks in _flash_all(inputs).items():
+            errs[name] = _held(f"{name} B={b} S={s}", [(w, g, r) for w, g, r, _ in checks
+                                                      if w != "lse"], tol=checks[0][3])
+        o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+        delta = TA.flash_delta(do, o)
+        bwd = (q, k, v, mask, off, do, lse, delta, causal, scale, rate)
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_q = F.scaled_dot_product_attention(qg, k, v, dropout_p=rate)
+        lib_kv = F.scaled_dot_product_attention(q, kg, vg, dropout_p=rate)
+        calls = {
+            "flash_fwd": (lambda: TA.flash_fwd(q, k, v, mask, off, causal, scale, rate),
+                          lambda: TA.flash_fwd_reference(q, k, v, mask, off, causal, scale,
+                                                         rate),
+                          lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate)),
+            "flash_bwd_dq": (lambda: TA.flash_bwd_dq(*bwd),
+                             lambda: TA.flash_bwd_dq_reference(*bwd),
+                             lambda: torch.autograd.grad(lib_q, qg, do, retain_graph=True)),
+            "flash_bwd_dkv": (lambda: TA.flash_bwd_dkv(*bwd),
+                              lambda: TA.flash_bwd_dkv_reference(*bwd),
+                              lambda: torch.autograd.grad(lib_kv, (kg, vg), do,
+                                                          retain_graph=True)),
+        }
+        bounds = _flash_bounds(b, s)
+        for name, (kernel, plain, library) in calls.items():
+            nbytes, ops = bounds[name]
+            r = dict(err=errs[name], ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=10),
+                     library_ms=_time_ms(library))
+            r.update(_bound(nbytes, ops))
+            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            log(f"  time {name} B={b} H={BERT_HEADS} S={s} D={BERT_HEAD_DIM} f32 rate "
+                f"{rate}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+                f"{ops / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s = "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+            if (b, s) == (BERT_BATCH, BERT_SEQ):
+                out[name] = r  # the shape of the main path's launches
+        del lib_q, lib_kv
+    return out
+
+
+def phase_bert_grads():
+    """One BERT-base training step at full width, batch 2, seq 128, on
+    the card and on the CPU: same weights (seed 0), same batch, the same
+    attention-dropout seeds (drawn from one CPU generator for both), no
+    hidden dropout (the devices' generators differ)."""
+    import dataclasses
+
+    import torch
+
+    from sparknet_tpu_torch.data.text import mlm_dataset, mlm_feed
+    from sparknet_tpu_torch.models.bert import BertConfig, BertMLM
+    from sparknet_tpu_torch.ops import attention as TA
+
+    b, s = 2, BERT_SEQ
+    cfg = dataclasses.replace(BertConfig.bert_base(), hidden_dropout=0.0)
+    max_preds = int(s * 0.15) + 1
+    shapes = {"input_ids": (b, s), "mlm_positions": (b, max_preds)}
+    ds, vocab = mlm_dataset(vocab_size=cfg.vocab_size, n_tokens=4096, seq_len=s, seed=0)
+    batch = next(mlm_feed(ds, b, vocab, max_preds, seed=0))
+    batch["attention_mask"][1, 100:] = 0  # padded keys in one row
+
+    def step(dev):
+        model = BertMLM(cfg, shapes, device=dev)
+        params, _ = model.init(torch.Generator().manual_seed(0))
+        leaves = {l: {n: t.requires_grad_(True) for n, t in e.items()}
+                  for l, e in params.items()}
+        blobs, _ = model.apply(leaves, {}, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()},
+                               train=True, generator=torch.Generator().manual_seed(1))
+        flat = [(l, n, t) for l, e in leaves.items() for n, t in e.items()]
+        grads = torch.autograd.grad(blobs["loss"], [t for _, _, t in flat])
+        return (float(blobs["loss"].detach()),
+                {(l, n): g.cpu() for (l, n, _), g in zip(flat, grads)})
+
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    log(f"  CPU step: {time.perf_counter() - t0:.1f} s")
+    for fn in (TA.flash_fwd, TA.flash_bwd_dq, TA.flash_bwd_dkv):
+        fn.launches = 0
+    card = step("cuda")
+    launched = tuple(fn.launches for fn in (TA.flash_fwd, TA.flash_bwd_dq, TA.flash_bwd_dkv))
+    log(f"  flash launches of the card step: forward, dq, dk/dv {launched} (want "
+        f"{BERT_LAYERS} each)")
+    if launched != (BERT_LAYERS,) * 3:
+        raise AssertionError(f"flash launches {launched}")
+    rel_loss = abs(card[0] - cpu[0]) / abs(cpu[0])
+    norm = torch.linalg.vector_norm
+    # a key bias shifts a query's logits by one constant, which the
+    # softmax cancels: its gradient is 0 but for rounding on either device
+    zero = {key for key in cpu[1] if key[1] == "k_b"}
+    errs = {key: float(norm(card[1][key] - w) / norm(w).clamp(min=1e-30))
+            for key, w in cpu[1].items() if key not in zero}
+    noise = {key: max(float(norm(run[1][key]) / norm(run[1][(key[0], "v_b")]))
+                      for run in (card, cpu)) for key in zero}
+    worst = sorted(errs.items(), key=lambda kv: kv[1], reverse=True)
+    log(f"  loss card {card[0]:.7f} vs CPU {cpu[0]:.7f} (relative error {rel_loss:.2e} "
+        f"[<= 1e-5]); gradient relative L2 errors over {len(errs)} tensors, worst: " +
+        ", ".join(f"{l}.{n} {e:.2e}" for (l, n), e in worst[:6]) + " [<= 1e-4]; "
+        f"embeddings.word {errs[('embeddings', 'word')]:.2e}; the {len(zero)} k_b "
+        f"gradients at most {max(noise.values()):.2e} of their layer's v_b [<= 1e-4]")
+    bad = [f"{l}.{n}: {e:.2e}" for (l, n), e in worst if e > 1e-4]
+    bad += [f"{l}.{n} not ~0: {e:.2e}" for (l, n), e in noise.items() if e > 1e-4]
+    if rel_loss > 1e-5 or bad:
+        raise AssertionError(f"card vs CPU BERT step: loss rel {rel_loss:.2e}, {bad}")
+    return worst[0][1]
+
+
+def _bert_argv(prefix, iters, *extra):
+    return ["--config", "base", "--seq-len", str(BERT_SEQ), "--batch-size",
+            str(BERT_BATCH), "--max-iter", str(iters), "--display", "5",
+            "--snapshot-prefix", prefix, "--device", "cuda", *extra]
+
+
+def phase_bert_train(tmp):
+    """BertApp on the card, f32 then bf16, counted kernel by kernel; the
+    final solverstate reloaded and tested."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    from sparknet_tpu_torch.apps import bert_app
+    from sparknet_tpu_torch.ops import attention as TA
+
+    wrappers = (TA.flash_fwd, TA.flash_bwd_dq, TA.flash_bwd_dkv)
+    prefix = os.path.join(tmp, "bert")
+    total = [0, 0, 0]
+
+    def run(iters, *extra):
+        argv = _bert_argv(prefix, iters, *extra)
+        log(f"  bert_app.main({argv})")
+        buf = io.StringIO()
+        for fn in wrappers:
+            fn.launches = 0
+        with contextlib.redirect_stdout(buf):
+            metrics = bert_app.main(argv)
+        counts = tuple(fn.launches for fn in wrappers)
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"  | {line}")
+        losses = [float(x) for x in re.findall(r"Iteration \d+, loss = (\S+),", out)]
+        if len(losses) != iters // 5 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"display losses {losses}")
+        want = (BERT_LAYERS * iters,) * 3
+        log(f"  flash launches: forward {counts[0]}, dq {counts[1]}, dk/dv {counts[2]} "
+            f"(want {want[0]} each: {BERT_LAYERS} per iteration)")
+        if counts != want:
+            raise AssertionError(f"flash launches {counts}, want {want}")
+        for i, n in enumerate(counts):
+            total[i] += n
+        return metrics
+
+    run(BERT_ITERS, "--snapshot", str(BERT_ITERS))
+    run(BERT_BF16_ITERS, "--bf16")
+    args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                              max_iter=BERT_ITERS, device="cuda")
+    solver, feed, _ = bert_app.build(args)
+    solver.restore(f"{prefix}_iter_{BERT_ITERS}.solverstate.npz", feed)
+    if solver.iter != BERT_ITERS:
+        raise AssertionError(f"solverstate iter {solver.iter}")
+    for fn in wrappers:
+        fn.launches = 0
+    metrics = solver.test(feed, test_iter=2)
+    counts = tuple(fn.launches for fn in wrappers)
+    log(f"  solverstate reloaded at iter {solver.iter}; Solver.test over 2 batches: "
+        f"{metrics}; flash launches {counts} (want ({2 * BERT_LAYERS}, 0, 0))")
+    if counts != (2 * BERT_LAYERS, 0, 0) or not all(math.isfinite(v) for v in
+                                                   metrics.values()):
+        raise AssertionError(f"test pass: launches {counts}, metrics {metrics}")
+    for i, n in enumerate(counts):
+        total[i] += n
+    return dict(zip(FLASH_NAMES, total))
+
+
+def phase_bert_profile():
+    """Solver.step of BERT-base on one device-resident batch of 32 x 128."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.apps import bert_app
+
+    args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                              max_iter=1000, device="cuda")
+    solver, feed, _ = bert_app.build(args)
+    feed = itertools.repeat(solver._put_batch(next(feed)))
+    solver.step(feed, 3)  # warm: allocator, library handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    solver.step(feed, reps)
+    b.record()
+    b.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ms = a.elapsed_time(b) / reps
+    tokens = BERT_BATCH * BERT_SEQ
+    log(f"  BERT-base batch {BERT_BATCH} x {BERT_SEQ}, f32, resident batch: {ms:.3f} ms per "
+        f"step (CUDA events, {reps} steps; host clock {wall_ms:.3f} ms), "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.step(feed, steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    total = sum(dev_us(e) for e in kernels) / steps
+    if not total:
+        log("  device time by kernel: not measured (the profiler saw no device events)")
+        return {"ms": ms}
+    flash = {tag: sum(dev_us(e) for e in kernels if tag in e.key) / steps
+             for tag in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    flash_all = sum(flash.values())
+    log(f"  profiled: device busy {total / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms wall "
+        f"(idle share {100 * (1 - total / wall):.1f}%); flash kernels "
+        f"{flash_all / 1e3:.3f} ms = {100 * flash_all / total:.2f}% of device time "
+        f"(forward {flash['flash_fwd_kernel'] / 1e3:.3f}, dq "
+        f"{flash['flash_bwd_dq_kernel'] / 1e3:.3f}, dk/dv "
+        f"{flash['flash_bwd_dkv_kernel'] / 1e3:.3f} ms)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
+        log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:4d}x  {e.key[:90]}")
+    return {"ms": ms}
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
@@ -872,7 +1360,8 @@ def main(argv=None) -> int:
     card = phases.run("card", phase_card)
     built = phases.run("build", phase_build)
     timing = phases.run("kernels", phase_kernels) if built else None
-    serving = train = None
+    flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
+    serving = train = bert = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -882,23 +1371,33 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             train = phases.run("train", phase_train, tmp)
             phases.run("train-profile", phase_train_profile, tmp)
+        phases.run("bert-grads", phase_bert_grads)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
+            bert = phases.run("bert-train", phase_bert_train, tmp)
+        phases.run("bert-profile", phase_bert_profile)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
+    timing.update(flash)
     launches = {
         "lrn_fwd": serving["launches"] + train["launches"][0],
         "lrn_fwd_train": train["launches"][1],
         "lrn_bwd": train["launches"][2],
+        **bert,
     }
     replaces = {
         "lrn_fwd": "sparknet_tpu/ops/lrn.py:85",
         "lrn_fwd_train": "sparknet_tpu/ops/lrn.py:77",
         "lrn_bwd": "sparknet_tpu/ops/lrn.py:93",
+        "flash_fwd": "sparknet_tpu/ops/attention.py:151",
+        "flash_bwd_dq": "sparknet_tpu/ops/attention.py:262",
+        "flash_bwd_dkv": "sparknet_tpu/ops/attention.py:341",
     }
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": "sparknet_tpu_torch/ops/csrc/lrn.cu",
+        "source": "sparknet_tpu_torch/ops/csrc/" + (
+            "lrn.cu" if name.startswith("lrn") else "attention.cu"),
         "replaces": replaces[name],
         "launches": launches[name],
         "max_abs_err": timing[name]["max_abs_err"],
@@ -907,7 +1406,7 @@ def main(argv=None) -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name in ("lrn_fwd", "lrn_fwd_train", "lrn_bwd")]}))
+    } for name in replaces]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card[0], "count": torch.cuda.device_count(),
     }}))

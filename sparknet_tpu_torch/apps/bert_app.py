@@ -1,0 +1,262 @@
+"""BertApp: BERT MLM pre-training on the card.
+
+Counterpart of ``sparknet_tpu/apps/bert_app.py``
+(``python -m sparknet_tpu_torch.apps.bert_app``): pick a config, build
+the MLM feed (a synthetic Markov corpus or text files), and drive the
+Solver on one device with AdamW, linear warmup and poly decay, with
+display-cadence logs and full-state snapshots. Attention takes the flash
+path: the hand-written CUDA kernels on the card.
+
+The command line is the JAX app's, plus ``--device`` (default ``cuda``;
+without a card it raises unless given ``--device cpu``). Each flag this
+port does not take yet raises ``NotImplementedError`` naming it when set
+to anything but its default: the parallel modes and meshes, gradient
+compression, MoE, remat, the orbax format, auto-resume, tracing and
+profiling. The flags that only tune those modes (``--tau``,
+``--pp-microbatches``, ``--moe-top-k``, ``--moe-dispatch``,
+``--moe-capacity``) are not taken.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Dict
+
+import torch
+
+from ..data.prefetch import maybe_prefetch
+from ..data.text import mlm_dataset, mlm_feed
+from ..models.bert import BertConfig, BertMLM
+from ..proto import caffe_pb
+from ..solver.trainer import Solver
+from .cifar_app import _ChunkTimer
+
+CONFIGS = {
+    "base": BertConfig.bert_base,
+    "small": BertConfig.bert_small,
+    "tiny": BertConfig.bert_tiny,
+}
+
+# flag -> the default the port takes; any other value raises
+_UNPORTED = {
+    "parallel": "none",
+    "mesh": "",
+    "layout": None,
+    "grad_compress": None,
+    "moe_experts": 0,
+    "remat": False,
+    "snapshot_format": "npz",
+    "auto_resume": False,
+    "trace": None,
+    "profile_dir": None,
+}
+
+
+def make_solver_param(args) -> caffe_pb.SolverParameter:
+    """AdamW, linear warmup, poly(1.0) decay to zero: the standard BERT
+    pre-training schedule, in SolverParameter terms."""
+    return caffe_pb.SolverParameter(
+        base_lr=args.lr,
+        lr_policy="poly",
+        power=1.0,
+        max_iter=args.max_iter,
+        warmup_iter=max(1, args.max_iter // 100),
+        momentum=0.9,
+        momentum2=0.999,
+        delta=1e-6,
+        weight_decay=0.01,
+        solver_type="ADAMW",
+        display=args.display,
+        random_seed=args.seed,
+    )
+
+
+def make_args(**overrides) -> argparse.Namespace:
+    args = parser().parse_args([])
+    for k, v in overrides.items():
+        if not hasattr(args, k):
+            raise TypeError(f"unknown BertApp arg {k!r}")
+        setattr(args, k, v)
+    return args
+
+
+def _check_ported(args) -> None:
+    for name, default in _UNPORTED.items():
+        if getattr(args, name) != default:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag}={getattr(args, name)!r}: not ported to sparknet_tpu_torch "
+                f"yet (the port takes only {default!r})"
+            )
+
+
+def make_config(args):
+    """(BertConfig, seq_len) from the CLI flags."""
+    cfg = CONFIGS[args.config]()
+    overrides = {}
+    if args.vocab_size:
+        overrides["vocab_size"] = args.vocab_size
+    if args.max_position:
+        overrides["max_position"] = args.max_position
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    seq = args.seq_len or min(128, cfg.max_position)
+    if seq > cfg.max_position:
+        raise ValueError(
+            f"--seq-len {seq} exceeds max_position {cfg.max_position}; "
+            f"raise --max-position"
+        )
+    return cfg, seq
+
+
+def build(args):
+    """(solver, feed, cfg) for parsed ``args``."""
+    _check_ported(args)
+    cfg, seq = make_config(args)
+    if args.attention in ("ring", "ulysses"):
+        raise ValueError(
+            f"--attention {args.attention} is a sequence-parallel "
+            f"implementation: use --parallel sp (or tp with an sp mesh axis)"
+        )
+    bs = args.batch_size
+    max_preds = max(1, int(seq * 0.15) + 1)
+    ds, vsize = mlm_dataset(
+        text_files=args.text_files or None,
+        vocab_size=cfg.vocab_size,
+        n_tokens=args.synthetic_tokens,
+        seq_len=seq,
+        seed=args.seed,
+    )
+    if vsize != cfg.vocab_size:  # a corpus-built vocab may be smaller
+        cfg = dataclasses.replace(cfg, vocab_size=vsize)
+    shapes = {"input_ids": (bs, seq), "mlm_positions": (bs, max_preds)}
+    model = BertMLM(
+        cfg, shapes,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        attention_impl=args.attention or None,
+        device=args.device,
+    )
+    solver = Solver(make_solver_param(args), shapes, model=model, seed=args.seed,
+                    device=args.device)
+    feed = mlm_feed(ds, bs, cfg.vocab_size, max_preds, seed=args.seed)
+    return solver, feed, cfg
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="BERT MLM pre-training (BertApp), PyTorch/CUDA port. Flags "
+                    "marked 'not ported' raise when set to a non-default value.")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="base")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--vocab-size", type=int, default=0,
+                    help="override config vocab size")
+    ap.add_argument("--seq-len", type=int, default=0)
+    ap.add_argument("--max-position", type=int, default=0,
+                    help="override the position-embedding table size")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--max-iter", type=int, default=1000)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--display", type=int, default=20)
+    ap.add_argument("--text-files", nargs="*", default=None)
+    ap.add_argument("--synthetic-tokens", type=int, default=1 << 16)
+    ap.add_argument("--parallel",
+                    choices=("none", "sync", "local", "tp", "sp", "pp", "ep"),
+                    default="none", help="only none is ported (one device)")
+    ap.add_argument("--mesh", default="", help="not ported")
+    ap.add_argument("--layout", default=None, metavar="AXES", help="not ported")
+    ap.add_argument("--grad-compress", choices=("none", "bf16", "int8"), default=None,
+                    help="not ported")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--attention", choices=("flash", "reference", "ring", "ulysses"),
+                    default=None,
+                    help="flash (the default) or reference; ring/ulysses are "
+                         "sequence-parallel and not ported")
+    ap.add_argument("--moe-experts", type=int, default=0, help="not ported")
+    ap.add_argument("--remat", action="store_true", help="not ported")
+    ap.add_argument("--snapshot", type=int, default=0,
+                    help="snapshot the full solver state every N iters")
+    ap.add_argument("--snapshot-prefix", default=os.path.join("runs", "bert"),
+                    help="CWD-relative like Caffe's snapshot_prefix")
+    ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
+                    help="resume from a .solverstate.npz snapshot (either package's)")
+    ap.add_argument("--auto-resume", action="store_true", help="not ported")
+    ap.add_argument("--profile-dir", default=None, help="not ported")
+    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches staged ahead on the device (0 disables)")
+    ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
+                    help="solverstate format; orbax is not ported")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None) -> Dict[str, float]:
+    args = parser().parse_args(argv)
+    solver, feed, cfg = build(args)
+    if args.restore:
+        solver.restore(args.restore, feed)
+    # wrap AFTER restore, so the feed is aligned before staging starts
+    feed = maybe_prefetch(feed, args, args.parallel, solver._put_batch)
+    if args.restore:
+        print(f"Restoring previous solver status from {args.restore} "
+              f"(iter {solver.iter})")
+    n_params = solver.train_net.num_params(solver.params)
+    print(f"BertApp: config={args.config} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers} hidden={cfg.hidden_size} params={n_params} "
+          f"device={solver.device}")
+    timer = _ChunkTimer(args.batch_size * solver.train_net.seq_len, unit="tokens")
+    t0 = time.time()
+    try:
+        metrics = _fit_loop(solver, feed, args, timer)
+    finally:
+        close = getattr(feed, "close", None)
+        if close is not None:
+            close()  # stops the staging thread
+    dt = time.time() - t0
+    print(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
+          f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
+    return metrics
+
+
+def _fit_loop(solver, feed, args, timer) -> Dict[str, float]:
+    """Step to ``max_iter`` in chunks that end at the nearest display or
+    snapshot boundary, so neither cadence skips the other's."""
+    metrics: Dict[str, float] = {}
+    while solver.iter < args.max_iter:
+        targets = [args.max_iter]
+        for interval in (args.display or 20, args.snapshot):
+            if interval:
+                targets.append((solver.iter // interval + 1) * interval)
+        prev_iter = solver.iter
+        timer.update(0)  # reset: exclude snapshot and feed set-up time
+
+        def _log_iter(it, mm):
+            print(f"Iteration {it}, loss = {mm['loss']:.5f}, "
+                  f"mlm_acc = {mm['mlm_acc']:.4f}")
+
+        m = solver.step(feed, min(targets) - solver.iter, log_fn=_log_iter)
+        if m:
+            metrics = {k: float(v) for k, v in m.items()}  # host sync
+        if args.display:
+            print(f"    speed: {timer.update(solver.iter - prev_iter).format()}")
+        preempted = solver.stop_requested
+        if preempted:
+            solver.stop_requested = False  # consumed: the solver is reusable
+        at_end = solver.iter >= args.max_iter
+        if (args.snapshot and (solver.iter % args.snapshot == 0 or at_end)) or (
+                preempted and args.snapshot_prefix):
+            path = f"{args.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
+            solver.save(path)
+            print(f"Snapshotting solver state to {path}")
+        if preempted:
+            print(f"Stopped at iteration {solver.iter}")
+            break
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

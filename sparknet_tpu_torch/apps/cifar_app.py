@@ -83,10 +83,12 @@ def make_transformer(layer, train: bool, solver_dir: str, fallback_mean=None):
 
 
 class _ChunkTimer:
-    """Steps/s and images/s over the window since the last update."""
+    """Steps/s and items/s (images, or BertApp's tokens) over the window
+    since the last update."""
 
-    def __init__(self, items_per_step: int):
+    def __init__(self, items_per_step: int, unit: str = "images"):
         self.items_per_step = items_per_step
+        self.unit = unit
         self._t = time.perf_counter()
         self.steps_per_sec = 0.0
 
@@ -98,7 +100,7 @@ class _ChunkTimer:
 
     def format(self) -> str:
         return (f"steps/s={self.steps_per_sec:.2f} "
-                f"images/s={self.steps_per_sec * self.items_per_step:.0f}")
+                f"{self.unit}/s={self.steps_per_sec * self.items_per_step:.0f}")
 
 
 def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, float]:

@@ -8,7 +8,7 @@ Convolution weights OIHW (PyTorch's order); the JAX package keeps them
 HWIO. The npz format is the JAX package's own (keys ``layer::param``,
 arrays in JAX layout), so one file loads into either package: the
 readers and writers here convert at the boundary. InnerProduct weights
-are (in, out) in both.
+are (in, out) in both, as are all of ``BertMLM``'s weights.
 
 Everything here takes and gives numpy arrays or torch tensors; nothing
 imports JAX.
@@ -26,7 +26,10 @@ WeightCollection = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _conv_layers(net) -> set:
-    return {lp.name for lp in net.layers if lp.type == "Convolution"}
+    """Names of ``net``'s Convolution layers; none for a model built
+    without a prototxt (e.g. ``BertMLM``), whose arrays keep one layout
+    in both packages."""
+    return {lp.name for lp in getattr(net, "layers", ()) if lp.type == "Convolution"}
 
 
 def _from_jax_tree(tree, convs: set) -> WeightCollection:

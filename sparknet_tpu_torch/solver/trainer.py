@@ -128,7 +128,7 @@ def make_eval_step(net: TorchNet) -> Callable:
 
 class Solver:
     """Owns params, state and optimizer slots on ``device`` and drives
-    the train and eval steps.
+    the train and eval steps of a prototxt net or of a ``model``.
 
     ``seed`` (or the solver's ``random_seed`` when set) seeds a CPU
     generator for the fillers, so a seed gives the same weights on
@@ -145,9 +145,33 @@ class Solver:
         compute_dtype: Optional[torch.dtype] = None,
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
+        model: Any = None,
     ):
+        """``model``: any object with the net protocol
+        (``init/apply/loss_and_metrics/param_specs/input_names/
+        blob_shapes`` and a ``device``), e.g.
+        :class:`~sparknet_tpu_torch.models.bert.BertMLM`, used for both
+        phases in place of a prototxt-compiled ``TorchNet``. With
+        ``model``, ``compute_dtype`` (if given) overrides the model's own;
+        ``net_param`` and ``test_input_shapes`` do not apply and raise
+        ``ValueError``, as does a model on another device."""
         self.sp = solver
         self.device = resolve_device(device)
+        if model is not None:
+            if net_param is not None or test_input_shapes is not None:
+                raise ValueError(
+                    "Solver(model=...) is exclusive with net_param/"
+                    "test_input_shapes — the model defines its own net"
+                )
+            if torch.device(model.device) != self.device:
+                raise ValueError(f"Solver(model=...): the model is on {model.device}, "
+                                 f"the solver on {self.device}")
+            if compute_dtype is not None:
+                model.compute_dtype = compute_dtype
+            self.net_param = getattr(model, "net_param", None)
+            self.train_net = self.test_net = model
+            self._finish_init(solver, seed)
+            return
         compute_dtype = torch.float32 if compute_dtype is None else compute_dtype
         if net_param is None:
             if solver.net_param is not None:
@@ -165,6 +189,9 @@ class Solver:
                                   compute_dtype)
         self.test_net = TorchNet(net_param, "TEST", test_input_shapes or input_shapes,
                                  self.device, compute_dtype)
+        self._finish_init(solver, seed)
+
+    def _finish_init(self, solver: caffe_pb.SolverParameter, seed: int) -> None:
         seed = solver.random_seed if solver.random_seed >= 0 else seed
         self.params, self.state = self.train_net.init(torch.Generator().manual_seed(seed))
         self.rng = torch.Generator(device=self.device)
@@ -184,15 +211,17 @@ class Solver:
 
     # ------------------------------------------------------------------
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One host batch on the solver's device: NHWC f32 data, int32 or
-        int64 labels (other integer labels become int64)."""
+        """One host batch on the solver's device. ``label`` stays int32 or
+        int64 (other dtypes become int64); any other int32 or int64 blob
+        (token ids, positions, masks) stays as it is; everything else
+        (NHWC data, weights) becomes f32. Idempotent on device tensors."""
         out = {}
         for name, v in batch.items():
             t = torch.as_tensor(v)
             if name == "label":
                 if t.dtype not in (torch.int32, torch.int64):
                     t = t.to(torch.int64)
-            elif t.dtype != torch.float32:
+            elif t.dtype not in (torch.int32, torch.int64, torch.float32):
                 t = t.to(torch.float32)
             out[name] = t.contiguous().to(self.device)
         return out

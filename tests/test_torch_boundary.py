@@ -68,7 +68,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert "sparknet_tpu_torch.ops.lrn" in out["modules"]
     for name in ("apps.imagenet_app", "apps.cifar_app", "solver.trainer",
                  "solver.caffe_solver", "solver.snapshot", "data.rdd",
-                 "data.preprocess", "data.imagenet"):
+                 "data.preprocess", "data.imagenet", "apps.bert_app", "models.bert",
+                 "ops.attention", "data.text", "data.prefetch"):
         assert f"sparknet_tpu_torch.{name}" in out["modules"], name
     leaked = [m for m in out["loaded"] if _of_jax(m)]
     assert not leaked, leaked
@@ -143,11 +144,11 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 
 
 def test_package_sources_ship_with_the_package():
-    """The kernel source and the deploy prototxt live inside the package
+    """The kernel sources and the deploy prototxt live inside the package
     (and in its package data), so a run from the repo root finds them."""
     from sparknet_tpu_torch.ops import _build
 
-    assert _build.sources() == ["lrn"]
+    assert _build.sources() == ["attention", "lrn"]
     assert os.path.isfile(ALEXNET)
     assert _build.BUILD_DIR == os.path.join(PORT_DIR, "_build")
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()

@@ -20,6 +20,18 @@ plain result computed in f32 (the kernel rounds an f32 result once).
 The backward's dx is a difference of two terms that can cancel to far
 below either, where their f32 rounding exceeds the tiny result's bf16
 ulp: bf16 dx is held to one ulp plus the f32 tolerance.
+
+The flash-attention kernels (forward, dq, dk/dv) are held against their
+plain versions on the card, on the same inputs (the backward kernels
+and their plain versions take the same lse and delta), over causal or
+not, offsets, a kv mask with a fully padded row (whose o, dq, dk and dv
+must be exactly 0), ragged lengths, every head dim the kernels take and
+dropout at 0.1 and 0.5, in f32 and bf16. Tolerances: f32 o and lse
+rtol/atol 2e-5, f32 gradients rtol/atol 1e-4 (the JAX flash tests' own:
+sums of up to D products per logit and of Sk or Sq terms per output, in
+another order); bf16 outputs one bf16 ulp of the plain result (computed
+in f32 from the same bf16 inputs) beyond those. With dropout both sides
+draw the same mask, so the same tolerances hold.
 """
 
 import numpy as np
@@ -27,6 +39,7 @@ import pytest
 import torch
 
 from sparknet_tpu_torch.ops import _build
+from sparknet_tpu_torch.ops import attention as TA
 from sparknet_tpu_torch.ops.lrn import (
     LRNFunction,
     lrn_bwd_reference,
@@ -255,3 +268,145 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     y, d0 = lrn_rows_train(x[:0], 5, 1e-4, 0.75, 1.0)
     assert y.shape == d0.shape == (0, 96)
     assert (lrn_rows_train.launches, lrn_rows_bwd.launches) == before
+
+
+# ------------------------------------------------------------ flash attention
+# (label, b, h, sq, sk, d, causal, q_offset, kv_offset, padded, rate)
+FLASH_CASES = [
+    ("plain", 2, 3, 128, 128, 64, False, 0, 0, False, 0.0),
+    ("causal", 2, 3, 128, 128, 64, True, 0, 0, False, 0.0),
+    ("offsets", 1, 2, 64, 192, 32, True, 128, 0, False, 0.0),
+    ("kv offset", 1, 2, 96, 64, 32, True, 0, 40, False, 0.0),
+    ("padded row", 3, 2, 96, 96, 16, False, 0, 0, True, 0.0),
+    ("ragged", 1, 2, 100, 77, 32, False, 0, 0, False, 0.0),
+    ("ragged causal", 1, 2, 100, 77, 64, True, 0, 0, False, 0.0),
+    ("d128", 1, 2, 130, 70, 128, False, 0, 0, True, 0.0),
+    ("d256", 1, 2, 70, 90, 256, True, 0, 0, False, 0.0),
+    ("dropout 0.1", 2, 3, 128, 128, 64, False, 0, 0, True, 0.1),
+    ("dropout 0.5", 1, 2, 100, 77, 64, True, 0, 0, False, 0.5),
+    ("dropout d256", 1, 2, 64, 80, 256, False, 0, 0, False, 0.1),
+]
+FLASH_IDS = [c[0].replace(" ", "-") for c in FLASH_CASES]
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    _, b, h, sq, sk, d, causal, q_off, kv_off, padded, rate = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=device).to(dtype)
+                   for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)))
+    mask = torch.ones((b, sk), dtype=torch.int8, device=device)
+    if padded:
+        mask[0, sk - sk // 4:] = 0
+        mask[-1] = 0  # a fully padded row
+    offsets = TA.make_offsets(q_off, kv_off, 1234 + seed, device)
+    return q, k, v, do, mask, offsets, causal, 1.0 / d ** 0.5, rate
+
+
+def _within(got, ref, dtype, rtol, atol):
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    tol = atol + rtol * ref.abs()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(ref)
+        tol = tol + torch.ldexp(torch.ones_like(ref), e - 8)
+    return bool(torch.all(err <= tol)), float(err.max())
+
+
+def test_flash_wrappers_on_cpu_run_the_plain_versions_and_launch_nothing():
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(FLASH_CASES[4],
+                                                               torch.float32, "cpu")
+    before = (TA.flash_fwd.launches, TA.flash_bwd_dq.launches, TA.flash_bwd_dkv.launches)
+    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+    ref_o, ref_lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
+    delta = TA.flash_delta(do, o)
+    assert torch.equal(TA.flash_bwd_dq(q, k, v, mask, off, do, lse, delta, causal, scale),
+                       TA.flash_bwd_dq_reference(q, k, v, mask, off, do, lse, delta,
+                                                 causal, scale, 0.0))
+    dk, dv = TA.flash_bwd_dkv(q, k, v, mask, off, do, lse, delta, causal, scale)
+    assert float(o[-1].abs().max()) == float(dk[-1].abs().max()) == 0.0
+    assert float(dv[-1].abs().max()) == 0.0 and float(lse[-1].max()) == float(np.float32(TA.NEG_INF))
+    assert (TA.flash_fwd.launches, TA.flash_bwd_dq.launches,
+            TA.flash_bwd_dkv.launches) == before
+
+
+def test_flash_library_name_carries_source_and_flags():
+    path = _build._target("attention", "/usr/local/cuda/bin/nvcc")
+    assert path.startswith(_build.BUILD_DIR + "/libattention-") and path.endswith(".so")
+    assert path != _build._target("lrn", "/usr/local/cuda/bin/nvcc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain_versions_on_card(case, dtype, cuda_device):
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(case, dtype, cuda_device)
+    before = (TA.flash_fwd.launches, TA.flash_bwd_dq.launches, TA.flash_bwd_dkv.launches)
+    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+    ref_o, ref_lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    delta = TA.flash_delta(do, ref_o)
+    dq = TA.flash_bwd_dq(q, k, v, mask, off, do, ref_lse, delta, causal, scale, rate)
+    dk, dv = TA.flash_bwd_dkv(q, k, v, mask, off, do, ref_lse, delta, causal, scale, rate)
+    torch.cuda.synchronize()
+    ref_dq = TA.flash_bwd_dq_reference(q, k, v, mask, off, do, ref_lse, delta, causal,
+                                       scale, rate)
+    ref_dk, ref_dv = TA.flash_bwd_dkv_reference(q, k, v, mask, off, do, ref_lse, delta,
+                                                causal, scale, rate)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    checks = [("o", o, ref_o, 2e-5), ("lse", lse, ref_lse, 2e-5), ("dq", dq, ref_dq, 1e-4),
+              ("dk", dk, ref_dk, 1e-4), ("dv", dv, ref_dv, 1e-4)]
+    for name, got, ref, tol in checks:
+        kind = torch.float32 if name == "lse" else dtype
+        ok, err = _within(got, ref, kind, tol, tol)
+        assert ok, f"{name}: max |kernel - plain| {err:.3e}"
+    if case[9]:  # the fully padded row: exact zeros
+        for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+            assert float(t[-1].abs().max()) == 0.0, name
+    assert (TA.flash_fwd.launches, TA.flash_bwd_dq.launches,
+            TA.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_flash_function_grads_on_card_match_cpu(cuda_device):
+    """FlashFunction end to end (strided q/k/v views as BERT gives them,
+    dropout from a CPU generator) on the card against the CPU."""
+    rng = np.random.default_rng(3)
+    qkv = rng.normal(size=(2, 96, 3, 4, 32)).astype(np.float32)
+    mask = np.ones((2, 96), np.int32)
+    mask[1, 80:] = 0
+    grads = []
+    for dev in ("cpu", cuda_device):
+        t = torch.from_numpy(qkv).to(dev).requires_grad_(True)
+        q, k, v = (t[:, :, i].transpose(1, 2) for i in range(3))
+        o = TA.flash_attention(q, k, v, kv_mask=torch.from_numpy(mask).to(dev),
+                               dropout_rate=0.1,
+                               dropout_rng=torch.Generator().manual_seed(9))
+        (g,) = torch.autograd.grad(o.sin().sum(), t)
+        grads.append((o.detach().cpu().numpy(), g.cpu().numpy()))
+    np.testing.assert_allclose(grads[1][0], grads[0][0], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(grads[1][1], grads[0][1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(FLASH_CASES[0],
+                                                               torch.float32, cuda_device)
+    before = TA.flash_fwd.launches
+    with pytest.raises(ValueError, match="head dim 48"):
+        TA.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                     v[..., :48].contiguous(), mask, off, causal, scale)
+    with pytest.raises(TypeError, match="not supported"):
+        TA.flash_fwd(q.half(), k.half(), v.half(), mask, off, causal, scale)
+    with pytest.raises(TypeError, match="k is"):
+        TA.flash_fwd(q, k.bfloat16(), v, mask, off, causal, scale)
+    with pytest.raises(ValueError, match="kv_mask"):
+        TA.flash_fwd(q, k, v, mask.int(), off, causal, scale)
+    with pytest.raises(ValueError, match="offsets"):
+        TA.flash_fwd(q, k, v, mask, off.cpu(), causal, scale)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        TA.flash_fwd(q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v, mask, off,
+                     causal, scale)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    with pytest.raises(ValueError, match="lse"):
+        TA.flash_bwd_dq(q, k, v, mask, off, do, lse.double(), lse, causal, scale)
+    assert TA.flash_fwd.launches == before
