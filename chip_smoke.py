@@ -10,7 +10,11 @@ own lines:
 1. card: the device name and the ``nvidia-smi`` name / power-limit line;
 2. build: every kernel of ``sparknet_tpu_torch/ops/csrc`` compiled from
    source (one ``nvcc`` per file, all started together), with timings
-   and the compiler's register/shared-memory report;
+   and the compiler's register/shared-memory report; then the flash
+   forward's SASS (``cuobjdump -sass``) must hold ``HGMMA``, the tensor
+   cores' warpgroup product, in every instantiation, and each
+   instantiation's shared memory, registers and blocks per SM are
+   printed;
 3. kernels: each of the three LRN kernels (inference forward, training
    forward with its f32 residual d, backward) held against its plain
    PyTorch version on the card (tolerances below), odd and even window
@@ -23,11 +27,12 @@ own lines:
    yardstick;
 4. flash-kernels: each of the three flash-attention kernels (forward:
    o and lse; dq; dk/dv) held against its plain PyTorch version on the
-   card over 14 cases, f32 and bf16 (the last at the BertApp run's
-   shapes, 32 x 12 heads x 128 x 64): causal or not, offsets, a kv mask
-   with a fully padded row (whose o, dq, dk and dv must be exactly 0),
-   ragged (100, 77) lengths, head dims 16, 32, 64 and 256, dropout 0.1
-   and 0.5. Then dropout's statistics: the keep rate (v = 1, the mean
+   card over 15 cases, f32 and bf16 (one at the BertApp run's shapes,
+   32 x 12 heads x 128 x 64): causal or not, offsets, a kv mask with a
+   fully padded row (whose o, dq, dk and dv must be exactly 0), ragged
+   (100, 77) lengths, head dims 16, 32, 64 and 256, dropout 0.1 and
+   0.5, and q, k, v as BERT's strided views of one (b, s, 3, h, d) QKV
+   product. Then dropout's statistics: the keep rate (v = 1, the mean
    output within 0.05 of 1) and the forward/backward mask identity (v =
    I with S = D: dv equals the forward's dropped probabilities
    transposed times dO). Then each kernel at BERT-base's shapes (H 12,
@@ -36,7 +41,12 @@ own lines:
    bound, the plain version and one call of
    ``F.scaled_dot_product_attention`` (its autograd backward asked for
    dq alone, or for dk and dv, as the yardsticks of the two backward
-   kernels);
+   kernels). The forward, and SDPA beside it, is also timed by CUDA
+   events around calls made back to back and by ``torch.profiler``
+   (the card's busy time alone, without the wrapper's host time); it
+   stands beside three bounds: the f32 CUDA-core one, its design's
+   tensor-core one (3 + 3 TF32 terms) and the function's own products
+   at the TF32 rate; and it is timed in bf16 at B 32 x S 128 as well;
 5. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
    served on the card through InferenceEngine -> MicroBatcher -> HTTP
    InferenceServer; /healthz, /classify (1, 3, 8 rows), /metrics, then
@@ -85,12 +95,31 @@ Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
 forward (norm1 + norm2), for ``lrn_fwd_train`` and ``lrn_bwd`` per
 batch-256 training step (norm1 + norm2); for the flash kernels per
-launch at B 32 x S 128 (one layer of the bert-train run); "launches"
-counts the main paths' runs (serving and train for LRN, bert-train for
+launch at B 32 x S 128 (one layer of the bert-train run). "ms" is
+the median of single calls, each between CUDA events on an idle card,
+so it holds the wrapper's host time and the launch; ``flash_fwd`` adds
+"loop_ms" (CUDA events around back-to-back calls, over their number)
+and "device_ms" (``torch.profiler``'s device time of the kernel). Each
+"bound_ms" counts the operations at the peak rate of the units that run
+them: 67 TFLOP/s f32 on the CUDA cores for LRN and the flash backward,
+495 TFLOP/s dense TF32 for the flash forward's own two products (its
+split operands make each f32 product three TF32 terms: that design's
+bound is printed beside it); "launches" counts the main paths' runs (serving and train for LRN, bert-train for
 flash). Last comes the result line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the result line, as does a machine without a CUDA card or a
 directory without the port.
+
+    python3 chip_smoke.py --ab OTHER_ROOT
+
+compares this checkout with another checkout of the port (an unpacked
+parent commit) on the same card instead: four processes in turn, the
+other, this, this, the other, each building its own kernels and printing
+one JSON line: the flash forward at B 32 x S 128 and B 8 x S 512 in f32
+and at B 32 x S 128 in bf16 (single calls, back-to-back calls, the
+profiler's device time, the host's time to make one call; SDPA beside
+it), then ``Solver.step`` of BERT-base on one device-resident batch of
+32 x 128, f32 and ``--bf16`` (ms per step by CUDA events).
 
 Tolerances. LRN kernels vs plain, f32: rtol 1e-5, atol 1e-6 (the two
 sum the window in the same order; rsqrt/exp/log and fused multiply-adds
@@ -146,6 +175,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM published peaks (data sheet, dense, at the full 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # tensor cores, dense
 
 # LRN shapes of bvlc_alexnet, per row of the batch
 ALEXNET_LRN = (("norm1", 55 * 55, 96), ("norm2", 27 * 27, 256))
@@ -177,7 +207,13 @@ FLASH_CASES = (
     ("dropout 0.5 d256", 1, 2, 64, 80, 256, False, 0, 0, False, 0.5),
     ("BERT-base layer", BERT_BATCH, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM, False, 0,
      0, True, FLASH_DROPOUT),
+    # q, k, v as BERT's strided views of one (b, s, 3, h, d) QKV product
+    ("strided QKV", 2, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM, False, 0, 0, True,
+     FLASH_DROPOUT, "qkv"),
 )
+# the forward's TF32 terms per product (s = q k^T, o += p v): split
+# operands, f32 3 + 3, bf16 (exact in TF32) 1 + 2
+FLASH_FWD_TERMS = {"float32": (3, 3), "bfloat16": (1, 2)}
 
 
 def log(msg: str = "") -> None:
@@ -232,7 +268,43 @@ def phase_build():
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
+    _flash_fwd_on_tensor_cores(built["attention"].path)
     return built
+
+
+def _flash_fwd_on_tensor_cores(lib_path):
+    """Every flash_fwd_kernel instantiation's SASS holds HGMMA (raises if
+    one does not); each one's shared memory, registers and blocks per SM."""
+    import ctypes
+    import re
+
+    from sparknet_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    funcs = dict(zip(parts[1::2], parts[2::2]))
+    fwd = {n: body.count("HGMMA") for n, body in funcs.items() if "flash_fwd_kernel" in n}
+    log(f"  cuobjdump -sass: {len(fwd)} flash_fwd_kernel instantiations, HGMMA "
+        f"instructions in each: {sorted(fwd.values())}; in the other "
+        f"{len(funcs) - len(fwd)} kernels: "
+        f"{sum(b.count('HGMMA') for n, b in funcs.items() if n not in fwd)}")
+    if len(fwd) != 10 or not all(fwd.values()):
+        raise AssertionError(f"flash_fwd_kernel without HGMMA: {fwd}")
+    lib = _build.library("attention")
+    fn = lib.sparknet_flash_fwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for code, dt in enumerate(("float32", "bfloat16")):
+        for d in (16, 32, 64, 128, 256):
+            out = (ctypes.c_int * 3)()
+            err = fn(d, code, 0, out)
+            if err:
+                raise RuntimeError(f"sparknet_flash_fwd_info({d}, {dt}): cudaError {err}")
+            log(f"  flash_fwd_kernel {dt} D={d}: shared memory {out[0]} bytes "
+                f"({out[0] / 1024:.1f} KiB) per block, {out[1]} registers per thread, "
+                f"{out[2]} blocks per SM")
 
 
 # ------------------------------------------------------------- kernels
@@ -258,6 +330,46 @@ def _time_ms(fn, reps: int = 30, warm: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _time_loop_ms(fn, reps: int = 30, warm: int = 5, runs: int = 5) -> float:
+    """CUDA events around ``reps`` calls made back to back, over
+    ``reps``; the median of ``runs`` such runs. A call's host time
+    overlaps the card's work on the call before, unless it is the longer
+    of the two."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def _host_ms(fn, n: int = 200, runs: int = 5) -> float:
+    """The host's time to make one call: on the host clock over ``n``
+    calls (the card keeps up, so none of them waits on it), the median of
+    ``runs`` such runs."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -664,7 +776,7 @@ def phase_profile(serving):
     up = _time_ms(lambda: host.to("cuda"), reps=20)
     up_pinned = _time_ms(lambda: pinned.to("cuda", non_blocking=True), reps=20)
     fwd = _time_ms(lambda: eng.net.apply(params, state, {"data": xd}, train=False),
-                   reps=20)
+                          reps=20)
     out = eng.net.apply(params, state, {"data": xd}, train=False)[0][eng.output]
     down = _time_ms(lambda: out.cpu(), reps=20)
     log(f"  bucket 32 without the profiler (CUDA events, median of 20): upload "
@@ -938,10 +1050,15 @@ def _flash_inputs(case, dtype, gen):
 
     from sparknet_tpu_torch.ops import attention as TA
 
-    _, b, h, sq, sk, d, causal, q_off, kv_off, padded, rate = case
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
-                                 (b, h, sq, d)))
+    _, b, h, sq, sk, d, causal, q_off, kv_off, padded, rate, *layout = case
+    if layout == ["qkv"]:  # BERT's strided views, no copy (sq == sk)
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda").to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+    else:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
+                                     (b, h, sq, d)))
     mask = torch.ones((b, sk), dtype=torch.int8, device="cuda")
     if padded:
         mask[0, sk - sk // 4:] = 0
@@ -1081,12 +1198,114 @@ def _flash_bounds(b, s):
     }
 
 
+def _device_ms(fn, tag=None, n=20):
+    """Card time per call by ``torch.profiler``: the device time of the
+    kernels whose name holds ``tag`` (every kernel without one), summed
+    over ``n`` calls, over ``n``; None when the profiler saw no device
+    events. Unlike CUDA events it leaves out the host's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and (tag is None or tag in e.key))
+    return us / n / 1e3 if us else None
+
+
+def _fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _fwd_bounds(b, s, dtype):
+    """The forward's least times on the tensor cores at BERT-base's heads
+    in ``dtype``: each the larger of its bytes over 3.35 TB/s (q, k, v read
+    and o written at the dtype's size, lse in f32, the mask and offsets)
+    and its operations over 495 TFLOP/s dense TF32. "design" counts 2 per
+    multiply-add of each of the kernel's TF32 terms (FLASH_FWD_TERMS),
+    "function" only the function's own two products, 4 B H S^2 D."""
+    h, d = BERT_HEADS, BERT_HEAD_DIM
+    es = 4 if dtype == "float32" else 2
+    elems, rows, pairs = b * h * s * d, b * h * s, b * h * s * s * d
+    nbytes = es * 4 * elems + 4 * rows + b * s + 12
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for name, ops in (("design", 2 * sum(FLASH_FWD_TERMS[dtype]) * pairs),
+                      ("function", 4 * pairs)):
+        ops_ms = ops / TF32_FLOPS_PER_S * 1e3
+        out[name] = dict(bound_ms=max(bytes_ms, ops_ms), nbytes=nbytes, ops=ops,
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def _fwd_more_times(kernel, library):
+    """The forward and SDPA timed back to back (``_time_loop_ms``) and by
+    the profiler's device time, beside their single calls."""
+    return dict(loop_ms=_time_loop_ms(kernel), device_ms=_device_ms(kernel, "flash_fwd_kernel"),
+                library_loop_ms=_time_loop_ms(library), library_device_ms=_device_ms(library))
+
+
+def _log_fwd(label, r, bounds):
+    """The forward's three times beside SDPA's, and each tensor-core
+    bound's share of the kernel's device time (of its back-to-back time
+    where the profiler saw nothing)."""
+    card = r["device_ms"] or r["loop_ms"]
+    shares = "; ".join(
+        f"{name} bound {x['bound_ms']:.4f} ms ({x['bound_by']}: {x['nbytes'] / 1e6:.1f} MB, "
+        f"{x['ops'] / 1e9:.2f} GFLOP TF32) = {100 * x['bound_ms'] / card:.1f}% of it"
+        for name, x in bounds.items())
+    log(f"  time flash_fwd {label}: single calls {r['ms']:.4f} ms (SDPA "
+        f"{r['library_ms']:.4f}), back to back {r['loop_ms']:.4f} ms (SDPA "
+        f"{r['library_loop_ms']:.4f}), device time (torch.profiler) "
+        f"{_fmt_ms(r['device_ms'])} (SDPA {_fmt_ms(r['library_device_ms'])}); {shares}")
+
+
+def _time_flash_fwd_bf16(b, s, gen):
+    """The forward in bf16 at (b, s): held against its plain version (one
+    bf16 ulp beyond 2e-5 for o, 2e-5 for lse), then timed beside its
+    tensor-core bounds (1 + 2 terms, half the bytes), the plain version
+    and SDPA in bf16."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.ops import attention as TA
+
+    case = (f"BERT-base B={b} S={s} bf16", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0,
+            False, FLASH_DROPOUT)
+    q, k, v, _, mask, off, causal, scale, rate = _flash_inputs(case, torch.bfloat16, gen)
+    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+    ref_o, ref_lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    for what, got, ref, kind in (("o", o, ref_o, torch.bfloat16),
+                                 ("lse", lse, ref_lse, torch.float32)):
+        ok, err = _flash_within(got, ref, kind, 2e-5)
+        log(f"  check flash_fwd B={b} S={s} bf16 {what}: max_abs_err {err:.2e}"
+            f"{'' if ok else ' MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"flash_fwd bf16 {what} disagrees with its plain version")
+    kernel = functools.partial(TA.flash_fwd, q, k, v, mask, off, causal, scale, rate)
+    library = functools.partial(F.scaled_dot_product_attention, q, k, v, dropout_p=rate)
+    plain = functools.partial(TA.flash_fwd_reference, q, k, v, mask, off, causal, scale, rate)
+    r = dict(ms=_time_ms(kernel), library_ms=_time_ms(library), **_fwd_more_times(kernel, library))
+    _log_fwd(f"B={b} S={s} bf16 (plain {_time_ms(plain, reps=10):.4f} ms)", r,
+             _fwd_bounds(b, s, "bfloat16"))
+
+
 def _time_flash(gen):
     """Each kernel at BERT-base's heads, f32, attention dropout 0.1, held
     against its plain version on the same inputs, then timed with CUDA
     events beside its bound, the plain version and one call of
     F.scaled_dot_product_attention (forward; for dq its autograd backward
-    asked for dq alone, for dk/dv asked for dk and dv)."""
+    asked for dq alone, for dk/dv asked for dk and dv). The forward is
+    also timed back to back and by the profiler, beside its tensor-core
+    bounds (the f32 CUDA-core one kept in its first line), and in bf16 at
+    B 32 x S 128 too."""
     import torch
     import torch.nn.functional as F
 
@@ -1130,13 +1349,22 @@ def _time_flash(gen):
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
             log(f"  time {name} B={b} H={BERT_HEADS} S={s} D={BERT_HEAD_DIM} f32 rate "
                 f"{rate}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-                f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
+                f"{r['library_ms']:.4f} ms, f32 CUDA-core bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
                 f"{ops / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s = "
-                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+            if name == "flash_fwd":
+                # it runs on the tensor cores: its bound is the TF32 one
+                tc = _fwd_bounds(b, s, "float32")
+                r.update(_fwd_more_times(kernel, library))
+                _log_fwd(f"B={b} S={s} f32", r, tc)
+                r.update(bound_ms=tc["function"]["bound_ms"],
+                         bound_by=tc["function"]["bound_by"])
             if (b, s) == (BERT_BATCH, BERT_SEQ):
                 out[name] = r  # the shape of the main path's launches
         del lib_q, lib_kv
+        if (b, s) == (BERT_BATCH, BERT_SEQ):
+            _time_flash_fwd_bf16(b, s, gen)
     return out
 
 
@@ -1274,23 +1502,24 @@ def phase_bert_train(tmp):
     return dict(zip(FLASH_NAMES, total))
 
 
-def phase_bert_profile():
-    """Solver.step of BERT-base on one device-resident batch of 32 x 128."""
+def _bert_resident(bf16=False):
+    """BertApp's BERT-base solver at 32 x 128 (``--bf16`` or f32) and a
+    feed that repeats one device-resident batch."""
     import itertools
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sparknet_tpu_torch.apps import bert_app
 
     args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
-                              max_iter=1000, device="cuda")
+                              max_iter=1000, device="cuda", bf16=bf16)
     solver, feed, _ = bert_app.build(args)
-    feed = itertools.repeat(solver._put_batch(next(feed)))
-    solver.step(feed, 3)  # warm: allocator, library handles
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reps = 10
+    return solver, itertools.repeat(solver._put_batch(next(feed)))
+
+
+def _step_ms(solver, feed, reps=10):
+    """ms per ``Solver.step`` over ``reps`` steps: by CUDA events, and by
+    the host clock."""
+    import torch
+
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1298,8 +1527,20 @@ def phase_bert_profile():
     solver.step(feed, reps)
     b.record()
     b.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    ms = a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / reps, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_bert_profile():
+    """Solver.step of BERT-base on one device-resident batch of 32 x 128."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    solver, feed = _bert_resident()
+    solver.step(feed, 3)  # warm: allocator, library handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    ms, wall_ms = _step_ms(solver, feed, reps)
     tokens = BERT_BATCH * BERT_SEQ
     log(f"  BERT-base batch {BERT_BATCH} x {BERT_SEQ}, f32, resident batch: {ms:.3f} ms per "
         f"step (CUDA events, {reps} steps; host clock {wall_ms:.3f} ms), "
@@ -1336,9 +1577,84 @@ def phase_bert_profile():
     return {"ms": ms}
 
 
+# ------------------------------------------------------------------ ab
+AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
+          (BERT_BATCH, BERT_SEQ, "bfloat16"))
+
+
+def ab_side(root):
+    """One process of ``--ab``: the port under ``root`` measured; one JSON
+    line."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, root)
+    from sparknet_tpu_torch.ops import _build
+    from sparknet_tpu_torch.ops import attention as TA
+
+    if not os.path.abspath(TA.__file__).startswith(os.path.abspath(root) + os.sep):
+        raise RuntimeError(f"imported {TA.__file__}, not the port under {root}")
+    _build.build_all(["attention"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": root}
+    for b, s, dt in AB_FWD:
+        case = (f"B={b} S={s}", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0, False,
+                FLASH_DROPOUT)
+        q, k, v, _, mask, off, causal, scale, rate = _flash_inputs(case, getattr(torch, dt), gen)
+        kernel = functools.partial(TA.flash_fwd, q, k, v, mask, off, causal, scale, rate)
+        library = functools.partial(F.scaled_dot_product_attention, q, k, v, dropout_p=rate)
+        out[f"flash_fwd B{b} S{s} {dt}"] = dict(
+            ms=_time_ms(kernel), library_ms=_time_ms(library), host_ms=_host_ms(kernel),
+            **_fwd_more_times(kernel, library))
+    for bf16 in (False, True):
+        solver, feed = _bert_resident(bf16)
+        solver.step(feed, 3)  # warm: allocator, library handles
+        out[f"bert step {'bf16' if bf16 else 'f32'}"] = dict(
+            zip(("ms", "host_clock_ms"), _step_ms(solver, feed)))
+        del solver, feed
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def ab(other):
+    """``--ab``: the port under ``other`` and this one on one card, in four
+    processes in turn (other, this, this, other), each printing one line;
+    then each number of the two sides beside each other."""
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "sparknet_tpu_torch")):
+        print(f"chip_smoke --ab: no sparknet_tpu_torch package under {other}", file=sys.stderr)
+        return 2
+    phase_card()
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        log(f"ab: {root}")
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-side", root],
+                           capture_output=True, text=True, timeout=900)
+        if p.returncode:
+            log(p.stdout[-4000:])
+            log(p.stderr[-4000:])
+            log(f"chip_smoke --ab: the process for {root} exited {p.returncode}")
+            return 1
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        log(json.dumps(runs[-1]))
+    for key, first in runs[0].items():
+        if key == "root":
+            continue
+        for what in first:
+            log(f"ab {key} {what}: other {[runs[i][key][what] for i in (0, 3)]}, "
+                f"this {[runs[i][key][what] for i in (1, 2)]}")
+    return 0
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="OTHER_ROOT",
+                    help="compare with another checkout of the port on this card")
+    ap.add_argument("--ab-side", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1351,10 +1667,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no sparknet_tpu_torch package beside {__file__}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     # f32 means f32 on the card too: no TF32 in convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.ab_side:
+        ab_side(args.ab_side)
+        return 0
+    sys.path.insert(0, ROOT)
+    if args.ab:
+        return ab(args.ab)
 
     phases = Phases()
     card = phases.run("card", phase_card)
@@ -1406,6 +1727,7 @@ def main(argv=None) -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
+        **{key: timing[name][key] for key in ("loop_ms", "device_ms") if key in timing[name]},
     } for name in replaces]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card[0], "count": torch.cuda.device_count(),

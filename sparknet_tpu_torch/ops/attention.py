@@ -58,7 +58,7 @@ from . import _build
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
 HEAD_DIMS = (16, 32, 64, 128, 256)  # what the kernels take
 DEFAULT_BLOCK_Q = 64   # the kernels' row tile
-DEFAULT_BLOCK_K = 64   # their column tile (32 at head dim 256)
+DEFAULT_BLOCK_K = 64   # the backward kernels' column tile (32 at head dim 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -178,7 +178,8 @@ def dropout_keep(seed: torch.Tensor, b: int, h: int, sq: int, sk: int,
 # ---------------------------------------------------------------------------
 
 def _kernel_cols(d: int) -> int:
-    """The kernels' column tile for head dim ``d``."""
+    """The backward kernels' column tile for head dim ``d``, and the key
+    tile over which the plain forward folds its online softmax."""
     return 32 if d == 256 else DEFAULT_BLOCK_K
 
 
@@ -339,6 +340,26 @@ def _check_qkv(fn: str, q, k, v, kv_mask, offsets, do=None) -> int:
     return code
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and (b, h, s) strides of a (B, H, S, D) ``t`` on 16-byte
+    boundaries (a stride of a dim of size 1 is never used). Written to
+    cost the wrapper little host time: it runs on every forward call."""
+    es = t.element_size()
+    b, h, s, _ = t.shape
+    sb, sh, ss, _ = t.stride()
+    return not ((t.data_ptr() | (sb * es if b > 1 else 0) | (sh * es if h > 1 else 0)
+                 | (ss * es if s > 1 else 0)) & 15)
+
+
+def _fwd_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the forward kernel takes it as it is, else an
+    explicit contiguous copy (a fresh, aligned allocation). The kernel
+    copies K and V rows in 16-byte ``cp.async`` chunks and reads q in
+    16-byte (f32) or 8-byte (bf16) vectors: the base pointer and the row,
+    head and batch strides in bytes must be multiples of 16."""
+    return t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_stats(fn: str, name: str, t: torch.Tensor, q: torch.Tensor) -> None:
     b, h, sq, _ = q.shape
     if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
@@ -386,11 +407,14 @@ def _empty_call(q, k) -> bool:
 def flash_fwd(q, k, v, kv_mask, offsets, causal: bool, scale: float,
               dropout_rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward: ``(o, lse)``. CUDA tensors go to the kernel, CPU
-    tensors to :func:`flash_fwd_reference`. ``flash_fwd.launches`` counts
-    kernel launches."""
+    tensors to :func:`flash_fwd_reference`. q, k and v need a contiguous
+    last dim; one whose base or strides are not 16-byte aligned is copied
+    before the launch (:func:`_fwd_operand`), any other goes to the kernel
+    as it is. ``flash_fwd.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, kv_mask, offsets, causal, scale, dropout_rate)
     _check_qkv("flash_fwd", q, k, v, kv_mask, offsets)
+    q, k, v = (_fwd_operand(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -545,10 +569,10 @@ def flash_attention(
     backward kernels regenerate one keep mask.
 
     ``block_q`` and ``block_k`` are taken for the JAX signature's sake:
-    the kernels' tiles are fixed by the head dim (64 x 64, or 64 x 32 at
-    256). q, k, v may be strided views (e.g. heads split off a fused QKV
-    product) as long as their last dim is contiguous. Under autograd
-    :class:`FlashFunction` runs; otherwise only the forward."""
+    the kernels' tiles are fixed by the head dim. q, k, v may be strided
+    views (e.g. heads split off a fused QKV product) as long as their last
+    dim is contiguous. Under autograd :class:`FlashFunction` runs;
+    otherwise only the forward."""
     del block_q, block_k
     b, _, _, d = q.shape
     sk = k.shape[2]

@@ -22,29 +22,32 @@
 // A query row with no valid key gives o = 0 and lse = NEG_INF; the
 // backward's masked-p guard then gives it zero gradients.
 //
-// What bounds them: operations. Per (query, key) pair the forward does 2D
+// What bounds them: per (query, key) pair the forward does 2D
 // multiply-adds (s, then p v), dq 3D (s, dp, ds K), dk/dv 4D (s, dp,
 // p^T dO, ds^T q); per byte of q, k, v, o and dO that is S/2 to S
-// operations, so at BERT's S = 128 in f32 the operations over 67 TFLOP/s
-// (f32 on the CUDA cores) exceed the bytes over 3.35 TB/s. The least time
-// is the larger of the two, which the caller computes for its shapes.
+// operations. The least time is the larger of bytes over 3.35 TB/s and
+// operations over the peak rate of the units that run them, which the
+// caller computes for its shapes.
 //
-// Design. Correct and simple first: f32 fused multiply-adds on the CUDA
-// cores, no wgmma or TMA. One block of 256 threads (16 x 16) owns a tile
-// of 64 rows (query rows for the forward and dq, key rows for dk/dv) and
-// loops over tiles of COLS columns of the other side (64, or 32 at head
-// dim 256 so that the tiles fit shared memory), so the TPU's sequential
-// k-grid becomes this loop and nothing carries between blocks; the two
-// backward kernels stay split, so no atomics are needed. Tiles are staged
-// in shared memory as f32 (rows padded to D+1 floats, so the threads of a
-// warp read distinct banks); each thread keeps a 4 x COLS/16 tile of s in
-// registers, takes the row max and sum with warp shuffles over its 16
-// lanes, writes p (or ds) to shared memory, and accumulates its 4 x D/16
-// share of the output in registers. Ragged edges of S_q and S_k are masked
-// in the kernel, so the caller pads nothing. A causal tile wholly above the
-// diagonal ends the forward's and dq's loop and is skipped by dk/dv. The
-// offsets and the dropout seed come from a (3,) int32 device tensor, so a
-// traced offset or a seed drawn on the device needs no host read.
+// The forward runs on the tensor cores: TF32 wgmma with operands split
+// into hi and lo parts so that it keeps f32 accuracy, tiles staged by
+// cp.async (its section below). The two backward kernels are correct and
+// simple first: f32 fused multiply-adds on the CUDA cores (67 TFLOP/s),
+// no wgmma or TMA. One block of 256 threads (16 x 16) owns a tile of 64
+// rows (query rows for dq, key rows for dk/dv) and loops over tiles of
+// COLS columns of the other side (64, or 32 at head dim 256 so that the
+// tiles fit shared memory), so the TPU's sequential grid dimension
+// becomes this loop and nothing carries between blocks; the two backward
+// kernels stay split, so no atomics are needed. Tiles are staged in
+// shared memory as f32 (rows padded to D+1 floats, so the threads of a
+// warp read distinct banks); each thread keeps a 4 x COLS/16 tile of s
+// and dp in registers, writes ds (and p) to shared memory, and
+// accumulates its 4 x D/16 share of the output in registers. Ragged edges
+// of S_q and S_k are masked in every kernel, so the caller pads nothing.
+// A causal tile wholly above the diagonal ends the forward's and dq's
+// loop and is skipped by dk/dv. The offsets and the dropout seed come
+// from a (3,) int32 device tensor, so a traced offset or a seed drawn on
+// the device needs no host read.
 //
 // Dropout is a counter-based hash of (seed, b*H + h, query index, key
 // index): the element's own indices within the call, not its tile's, so
@@ -60,11 +63,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 // The launchers' one argument, mirrored field for field by _FlashArgs in
 // ops/attention.py. It has external linkage, as the extern "C" entry
 // points that take it must.
 struct FlashArgs {
-  const void* q;          // (B, H, Sq, D), strides below, last dim contiguous
+  const void* q;          // (B, H, Sq, D), strides below, last dim contiguous;
+                          // q, k, v 16-byte aligned (base, strides) for the forward
   const void* k;          // (B, H, Sk, D)
   const void* v;          // (B, H, Sk, D)
   const void* dout;       // (B, H, Sq, D), backward only
@@ -120,19 +126,6 @@ __device__ __forceinline__ bool keep_bit(uint32_t rk, int ki, uint32_t threshold
   return mix32(rk ^ (static_cast<uint32_t>(ki + 1) * 0x9e3779b9u)) >= threshold;
 }
 
-// Max and sum over the 16 lanes that share a tile row (lanes 0-15 and
-// 16-31 of a warp are two rows).
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Stage rows [r0, r0 + n) of a (rows, D) operand with row stride `ss` into
 // shared memory as f32 times `mul`, row pitch `pitch`; rows at or beyond
 // `limit` become zeros.
@@ -147,26 +140,243 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* src, long 
   }
 }
 
-// Forward: one block per (q tile, h, b). Replaces `_fwd_kernel`
-// (sparknet_tpu/ops/attention.py:151). Bound: 4 B H Sq Sk D operations
-// (s and p v) over 67 TFLOP/s; at BERT-base (B 32, H 12, S 128, D 64)
-// 1.61 GFLOP, 0.024 ms, above the 0.015 ms its 50 MB take at 3.35 TB/s.
-// Against it: each thread's 4 x COLS/16 register tile does 16 fused
-// multiply-adds per 8 shared-memory reads; no tensor cores yet.
-template <typename T, int D, int COLS>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) {
-  constexpr int CPT = COLS / 16;
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                       // kRows x (D+1), q * scale
-  float* ks = qs + kRows * (D + 1);       // COLS x (D+1)
-  float* vs = ks + COLS * (D + 1);        // COLS x D
-  float* ps = vs + COLS * D;              // kRows x (COLS+1), dropped p
-  int* valid = reinterpret_cast<int*>(ps + kRows * (COLS + 1));  // COLS
+// ---------------------------------------------------------------------------
+// Forward on Hopper's tensor cores: TF32 wgmma with split operands
+// ---------------------------------------------------------------------------
+//
+// Replaces `_fwd_kernel` (sparknet_tpu/ops/attention.py:151), which casts
+// q, k and v to f32 and runs both products in f32. One TF32 pass keeps
+// about three decimal digits, too few for the forward's f32 tolerance (o
+// and lse within 2e-5 of the plain version). So an f32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi), x - hi being exact in f32, and
+// a product a b is taken as a_hi b_lo + a_lo b_hi + a_hi b_hi: three TF32
+// wgmma terms into one f32 accumulator, the small ones first. What is left
+// out (a_lo b_lo and the rounding of lo) is about 2^-21 of |a b|. bf16
+// operands are exact in TF32 (8 significant bits of its 11), so at bf16
+// s = q k^T takes one term and o += p v two (p_hi v + p_lo v: p is f32, as
+// on the TPU). One instruction family, wgmma.mma_async m64nNk8 f32.tf32,
+// serves both dtypes; TERMS follow from the dtype (FwdTiles::kSplit).
+//
+// Bound: per (query, key) pair 2 D multiply-adds (s, then p v), each
+// taken as TERMS tensor-core products. At BERT-base (B 32, H 12, S 128,
+// D 64, f32, 3 + 3 terms) 4.83 GFLOP over 495 TFLOP/s dense TF32 is
+// 0.0098 ms, under the 0.015 ms its 50 MB take at 3.35 TB/s: bytes bound
+// it. At B 8 x S 512 (19.3 GFLOP, 0.039 ms) operations do.
+//
+// Design. A block is one warpgroup (128 threads) that owns 64 query rows,
+// the wgmma M, and loops over tiles of KN keys (32 at D 64 and 128, 64
+// below, 8 at D 256 so that f32 fits one block). TF32 wgmma reads both
+// operands K-major from shared memory, and the hardware transposes only
+// 16-bit types, so:
+//   - q and k are K-major as they come ((rows, D), D contiguous): q is
+//     split once into q_hi / q_lo, each key tile into k_hi / k_lo;
+//   - for o += p v the B operand is v with K = keys, so v is written
+//     transposed, vt (D rows of keys), as vt_hi / vt_lo;
+//   - p reaches the second product through shared memory as p_hi / p_lo:
+//     the accumulator's fragment layout is not the A-register layout.
+// Each is in the no-swizzle canonical layout: core matrices of 8 rows of
+// 16 bytes (4 tf32), those adjacent along K 128 bytes apart (the
+// descriptor's LBO), 8-row groups K/4 x 128 bytes apart (SBO), so a k8
+// step moves the start address by 256 bytes. Raw K and V rows come in by
+// cp.async, 16-byte chunks zero-filled past Sk, into a double-buffered
+// staging area: the next tile's copy is in flight while this tile is split
+// and multiplied. Staged rows are XOR-swizzled by chunk, so the split pass
+// reads without bank conflicts. The softmax runs on the s accumulator: in
+// a wgmma m64nN f32 accumulator, warp w's thread holds rows 16 w + lane/4
+// and that + 8, at columns 8 j + 2 (lane % 4) + {0, 1}; a row's max and
+// sum are two shuffles over the lane quad, and each register's (query,
+// key) index, for the masks and the dropout hash, follows from the layout.
+// No TMA, mbarrier ring or warp specialisation yet: each product waits for
+// its own wgmma group.
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kRows;
+constexpr int kFwdThreads = 128;  // one warpgroup
+constexpr int kFwdRows = 64;      // wgmma M: the query rows of a block
+
+// x rounded to TF32 (nearest, ties away): the f32 pattern, low 13 bits 0.
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, LBO and SBO
+// in 16-byte units at bits 0, 16 and 32; layout type 0 at bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory stores visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns those registers.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 16-byte global-to-shared copy; bytes beyond `n` (0 or 16) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group landed
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// d (64 x N, f32) += a (64 x 8) b (N x 8)^T, both tf32 from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Four consecutive elements as f32 (8-byte aligned for bf16, 16 for f32).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// x as four tf32 at hi and, when SPLIT, the remainders x - hi at lo.
+template <bool SPLIT>
+__device__ __forceinline__ void store_split(float* hi, float* lo, float4 x) {
+  const float4 h = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+  *reinterpret_cast<float4*>(hi) = h;
+  if (SPLIT)
+    *reinterpret_cast<float4*>(lo) =
+        make_float4(tf32(x.x - h.x), tf32(x.y - h.y), tf32(x.z - h.z), tf32(x.w - h.w));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The forward's tiles and its shared memory, as float offsets; every
+// buffer is a multiple of 128 bytes.
+template <typename T, int D>
+struct FwdTiles {
+  static constexpr bool kSplit = sizeof(T) == 4;  // f32 q, k, v need a lo part
+  static constexpr int KN = D == 256 ? 8 : D >= 64 ? 32 : 64;  // keys per tile
+  static constexpr int NO = D < 64 ? D : 64;  // wgmma N of o += p v; D / NO of them
+  static constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // per staged row
+  static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
+  static constexpr int kStageBytes = KN * kChunks * 16;  // one raw k or v tile
+  static constexpr int kLo = kSplit ? 1 : 0;
+  static constexpr int kQHi = 0;                              // 64 x D
+  static constexpr int kQLo = kQHi + kFwdRows * D;            // 64 x D (f32)
+  static constexpr int kKHi = kQLo + kLo * kFwdRows * D;      // KN x D
+  static constexpr int kKLo = kKHi + KN * D;                  // KN x D (f32)
+  static constexpr int kVHi = kKLo + kLo * KN * D;            // D x KN
+  static constexpr int kVLo = kVHi + KN * D;                  // D x KN (f32)
+  static constexpr int kPHi = kVLo + kLo * KN * D;            // 64 x KN
+  static constexpr int kPLo = kPHi + kFwdRows * KN;           // 64 x KN
+  static constexpr int kStage = kPLo + kFwdRows * KN;         // 2 x (k, v) raw
+  static constexpr int kValid = kStage + kStageBytes;  // KN ints (4 tiles before)
+  static constexpr size_t kBytes = sizeof(float) * (kValid + KN);
+
+  // Byte offset, in a staged tile, of row r's element e.
+  static __device__ __forceinline__ int staged(int r, int e) {
+    constexpr int per = 16 / static_cast<int>(sizeof(T));
+    return (r * kChunks + ((e / per) ^ (r & kSwz))) * 16 + (e % per) * static_cast<int>(sizeof(T));
+  }
+};
+
+// Forward: one block per (64-query tile, h, b). See the section comment.
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs a) {
+  using L = FwdTiles<T, D>;
+  constexpr int KN = L::KN;
+  constexpr int NO = L::NO;
+  constexpr int kOut = D / NO;
+  extern __shared__ __align__(128) float fwd_smem[];
+  float* const q_hi = fwd_smem + L::kQHi;
+  float* const q_lo = fwd_smem + L::kQLo;
+  float* const k_hi = fwd_smem + L::kKHi;
+  float* const k_lo = fwd_smem + L::kKLo;
+  float* const vt_hi = fwd_smem + L::kVHi;
+  float* const vt_lo = fwd_smem + L::kVLo;
+  float* const p_hi = fwd_smem + L::kPHi;
+  float* const p_lo = fwd_smem + L::kPLo;
+  unsigned char* const stage = reinterpret_cast<unsigned char*>(fwd_smem + L::kStage);
+  int* const valid = reinterpret_cast<int*>(fwd_smem + L::kValid);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
@@ -177,103 +387,193 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
   const int8_t* mask = a.mask + static_cast<long long>(b) * Sk;
 
-  stage<T, D>(qs, D + 1, q, a.q_ss, q0, kRows, Sq, a.scale);
+  // keys this block can see; causal stops at its last query's diagonal
+  int k_end = Sk;
+  if (a.causal) k_end = min(Sk, min(q0 + kFwdRows, Sq) + q_off - kv_off);
+  const int n_tiles = k_end > 0 ? (k_end + KN - 1) / KN : 0;
 
-  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][DPT];
-  uint32_t rk[kRowsPerThread];
-  const uint32_t hk = head_key(static_cast<uint32_t>(a.offsets[2]), b * a.H + h);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-    rk[i] = row_key(hk, q0 + ty + 16 * i);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
+  // raw K and V rows of key tile t into staging buffer t % 2
+  auto prefetch = [&](int t) {
+    unsigned char* sk = stage + (t & 1) * 2 * L::kStageBytes;
+    unsigned char* sv = sk + L::kStageBytes;
+    for (int i = tid; i < KN * L::kChunks; i += kFwdThreads) {
+      const int r = i / L::kChunks;
+      const int c = i % L::kChunks;
+      const int key = t * KN + r;
+      const long long row = key < Sk ? key : 0;  // a valid address; nothing is read
+      const int n = key < Sk ? 16 : 0;
+      const int at = (r * L::kChunks + (c ^ (r & L::kSwz))) * 16;
+      cp_async16(sk + at, reinterpret_cast<const unsigned char*>(k + row * a.k_ss) + c * 16, n);
+      cp_async16(sv + at, reinterpret_cast<const unsigned char*>(v + row * a.v_ss) + c * 16, n);
+    }
+  };
+  if (n_tiles > 0) prefetch(0);
+  cp_async_commit();
+
+  // q, split once; scale is applied to s. Thread i takes row 8 rg + i % 8,
+  // so 8 neighbouring threads fill one core matrix.
+  for (int i = tid; i < kFwdRows * D / 4; i += kFwdThreads) {
+    const int r8 = i & 7;
+    const int kc = (i >> 3) % (D / 4);
+    const int rg = (i >> 3) / (D / 4);
+    const int row = q0 + rg * 8 + r8;
+    const float4 x = row < Sq ? load4(q + row * a.q_ss + 4 * kc) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int at = (rg * (D / 4) + kc) * 32 + r8 * 4;
+    store_split<L::kSplit>(q_hi + at, q_lo + at, x);
   }
-  const int last_q = min(q0 + kRows, Sq) - 1 + q_off;
 
-  for (int k0 = 0; k0 < Sk; k0 += COLS) {
-    if (a.causal && k0 + kv_off > last_q) break;  // the rest is above the diagonal
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(ks, D + 1, k, a.k_ss, k0, COLS, Sk, 1.0f);
-    stage<T, D>(vs, D, v, a.v_ss, k0, COLS, Sk, 1.0f);
-    for (int c = threadIdx.x; c < COLS; c += kThreads)
-      valid[c] = (k0 + c < Sk) && mask[k0 + c] != 0;
+  const int row0 = warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const uint32_t hk = head_key(static_cast<uint32_t>(a.offsets[2]), b * a.H + h);
+  const uint32_t rk[2] = {row_key(hk, q0 + row0), row_key(hk, q0 + row0 + 8)};
+  const int qpos[2] = {q0 + row0 + q_off, q0 + row0 + 8 + q_off};
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float o[kOut][NO / 2];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+#pragma unroll
+    for (int r = 0; r < NO / 2; ++r) o[j][r] = 0.0f;
+
+  // LBO: 128 bytes between K-adjacent core matrices; SBO: K/4 of them
+  const uint64_t dq_hi = smem_desc(q_hi, 128, D * 32), dq_lo = smem_desc(q_lo, 128, D * 32);
+  const uint64_t dk_hi = smem_desc(k_hi, 128, D * 32), dk_lo = smem_desc(k_lo, 128, D * 32);
+  const uint64_t dp_hi = smem_desc(p_hi, 128, KN * 32), dp_lo = smem_desc(p_lo, 128, KN * 32);
+  const uint64_t dv_hi = smem_desc(vt_hi, 128, KN * 32), dv_lo = smem_desc(vt_lo, 128, KN * 32);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * KN;
+    if (t + 1 < n_tiles) prefetch(t + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile t has landed; the last tile's products are done
+
+    // split: k into k_hi / k_lo (K-major as staged), v transposed into vt
+    const unsigned char* sk = stage + (t & 1) * 2 * L::kStageBytes;
+    const unsigned char* sv = sk + L::kStageBytes;
+    for (int i = tid; i < KN * D / 4; i += kFwdThreads) {
+      const int r8 = i & 7;
+      const int kc = (i >> 3) % (D / 4);
+      const int rg = (i >> 3) / (D / 4);
+      const float4 x = load4(reinterpret_cast<const T*>(sk + L::staged(rg * 8 + r8, 4 * kc)));
+      const int at = (rg * (D / 4) + kc) * 32 + r8 * 4;
+      store_split<L::kSplit>(k_hi + at, k_lo + at, x);
+    }
+    for (int i = tid; i < D * KN / 4; i += kFwdThreads) {
+      const int d = i % D;
+      const int kq = i / D;
+      float4 x;
+      x.x = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq, d)));
+      x.y = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 1, d)));
+      x.z = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 2, d)));
+      x.w = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 3, d)));
+      const int at = ((d >> 3) * (KN / 4) + kq) * 32 + (d & 7) * 4;
+      store_split<L::kSplit>(vt_hi + at, vt_lo + at, x);
+    }
+    if (tid < KN) valid[tid] = k0 + tid < Sk && mask[k0 + tid] != 0;
+    fence_async_smem();
     __syncthreads();
 
-    float s[kRowsPerThread][CPT];
+    // s = q k^T: the small terms first, then hi hi
+    float s[KN / 2];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+    for (int r = 0; r < KN / 2; ++r) s[r] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+    if (L::kSplit) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRowsPerThread], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int ks = 0; ks < D / 8; ++ks) {
+        wgmma_tf32(s, dq_hi + 16 * ks, dk_lo + 16 * ks);
+        wgmma_tf32(s, dq_lo + 16 * ks, dk_hi + 16 * ks);
+      }
     }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(s, dq_hi + 16 * ks, dk_hi + 16 * ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
 
+    // online softmax on the accumulator; p (dropped) to p_hi / p_lo
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int qpos = q0 + ty + 16 * i + q_off;
-      float mx = kNegInf;
+    for (int r = 0; r < KN / 2; ++r) {
+      const int i = (r >> 1) & 1;
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      const bool ok = valid[c] && (!a.causal || k0 + c + kv_off <= qpos[i]);
+      s[r] = ok ? s[r] * a.scale : kNegInf;
+      mx[i] = fmaxf(mx[i], s[r]);
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = valid[c] && (!a.causal || k0 + c + kv_off <= qpos);
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - m_new);
-        sum += p;
-        if (a.dropout) p = keep_bit(rk[i], k0 + c, a.threshold) ? p * a.drop_scale : 0.0f;
-        ps[(ty + 16 * i) * (COLS + 1) + c] = p;
-      }
-      l[i] = alpha * l[i] + row_sum16(sum);
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = quad_max(mx[i]);
+      alpha[i] = expf(m[i] - m_new);
       m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
     }
+#pragma unroll
+    for (int r = 0; r < KN / 2; r += 2) {
+      const int i = (r >> 1) & 1;
+      const int c = 8 * (r >> 2) + 2 * (lane & 3);
+      float p0 = expf(s[r] - m[i]);
+      float p1 = expf(s[r + 1] - m[i]);
+      sum[i] += p0;
+      sum[i] += p1;
+      if (a.dropout) {
+        p0 = keep_bit(rk[i], k0 + c, a.threshold) ? p0 * a.drop_scale : 0.0f;
+        p1 = keep_bit(rk[i], k0 + c + 1, a.threshold) ? p1 * a.drop_scale : 0.0f;
+      }
+      const int row = row0 + 8 * i;
+      const int at = ((row >> 3) * (KN / 4) + (c >> 2)) * 32 + (row & 7) * 4 + (c & 3);
+      const float h0 = tf32(p0), h1 = tf32(p1);
+      store2(p_hi + at, h0, h1);
+      store2(p_lo + at, tf32(p0 - h0), tf32(p1 - h1));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+#pragma unroll
+      for (int r = 0; r < NO / 2; ++r) o[j][r] *= alpha[(r >> 1) & 1];
+    fence_async_smem();
     __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < COLS; ++c) {
-      float pv[kRowsPerThread], vv[DPT];
+    // o += p v, D in chunks of NO columns (vt rows)
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) pv[i] = ps[(ty + 16 * i) * (COLS + 1) + c];
+    for (int j = 0; j < kOut; ++j) fence_regs(o[j]);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = vs[c * D + tx + 16 * j];
+    for (int j = 0; j < kOut; ++j) {
+      const uint64_t rows = static_cast<uint64_t>(j * NO * KN / 4);  // 16-byte units
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
+      for (int ks = 0; ks < KN / 8; ++ks) {
+        if (L::kSplit) wgmma_tf32(o[j], dp_hi + 16 * ks, dv_lo + rows + 16 * ks);
+        wgmma_tf32(o[j], dp_lo + 16 * ks, dv_hi + rows + 16 * ks);
+      }
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int ks = 0; ks < KN / 8; ++ks)
+        wgmma_tf32(o[j], dp_hi + 16 * ks, dv_hi + rows + 16 * ks);
     }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) fence_regs(o[j]);
   }
 
   const long long bh = static_cast<long long>(b) * a.H + h;
-  T* o = static_cast<T*>(a.o) + bh * Sq * D;
+  T* out = static_cast<T*>(a.o) + bh * Sq * D;
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row0 + 8 * i;
     if (row >= Sq) continue;
     const bool dead = m[i] <= kNegInf * 0.5f;
     const float l_safe = fmaxf(l[i], 1e-30f);
+    T* orow = out + static_cast<long long>(row) * D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      store(o + static_cast<long long>(row) * D + tx + 16 * j, dead ? 0.0f : acc[i][j] / l_safe);
-    if (tx == 0) a.lse_out[bh * Sq + row] = dead ? kNegInf : m[i] + logf(l_safe);
+    for (int j = 0; j < kOut; ++j)
+#pragma unroll
+      for (int r = 2 * i; r < NO / 2; r += 4)  // row i's registers: r % 4 in {2i, 2i + 1}
+        store2(orow + j * NO + 8 * (r >> 2) + 2 * (lane & 3),
+               dead ? 0.0f : o[j][r] / l_safe, dead ? 0.0f : o[j][r + 1] / l_safe);
+    if ((lane & 3) == 0) a.lse_out[bh * Sq + row] = dead ? kNegInf : m[i] + logf(l_safe);
   }
 }
 
@@ -563,53 +863,99 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int D>
-constexpr int cols_for() { return D == 256 ? 32 : 64; }
+constexpr int cols_for() { return D == 256 ? 32 : 64; }  // the backward kernels' tile
 
 template <int D, int COLS>
 constexpr size_t smem_bytes(int which) {
-  return which == kFwd
-             ? sizeof(float) * (kRows * (D + 1) + COLS * (D + 1) + COLS * D +
-                                kRows * (COLS + 1) + COLS)
-         : which == kDq
+  return which == kDq
              ? sizeof(float) * (2 * kRows * (D + 1) + 2 * COLS * (D + 1) +
                                 kRows * (COLS + 1) + COLS)
              : sizeof(float) * (2 * kRows * (D + 1) + 2 * COLS * (D + 1) +
                                 2 * kRows * (COLS + 1) + 2 * COLS);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int tiles, const FlashArgs& a,
-                   cudaStream_t stream) {
-  // above 48 KB a block's shared memory is dynamic only after this opt-in
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// A kernel's attributes belong to each device's context. They are set on
+// the first launch on a device (bit `device` of `done`), not on every
+// launch: each call costs host time. Above 48 KB a block's shared memory
+// is dynamic only after the opt-in; the forward also asks for the largest
+// carveout, so that two of its 112 KB blocks (f32, D 64) fit one SM.
+template <auto Kernel>
+cudaError_t set_attributes(int device, size_t smem, bool max_carveout) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
+template <auto Kernel>
+cudaError_t launch(size_t smem, bool max_carveout, int threads, int tiles, const FlashArgs& a,
+                   int device, cudaStream_t stream) {
+  const cudaError_t err = set_attributes<Kernel>(device, smem, max_carveout);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(a.H),
                   static_cast<unsigned>(a.B));
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  Kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_which(int which, const FlashArgs& a, cudaStream_t stream) {
+cudaError_t launch_which(int which, const FlashArgs& a, int device, cudaStream_t stream) {
   constexpr int COLS = cols_for<D>();
   const int q_tiles = (a.Sq + kRows - 1) / kRows;
   const int k_tiles = (a.Sk + kRows - 1) / kRows;
   if (which == kFwd)
-    return launch(flash_fwd_kernel<T, D, COLS>, smem_bytes<D, COLS>(kFwd), q_tiles, a, stream);
+    return launch<flash_fwd_kernel<T, D>>(FwdTiles<T, D>::kBytes, true, kFwdThreads,
+                                          (a.Sq + kFwdRows - 1) / kFwdRows, a, device, stream);
   if (which == kDq)
-    return launch(flash_bwd_dq_kernel<T, D, COLS>, smem_bytes<D, COLS>(kDq), q_tiles, a, stream);
-  return launch(flash_bwd_dkv_kernel<T, D, COLS>, smem_bytes<D, COLS>(kDkv), k_tiles, a, stream);
+    return launch<flash_bwd_dq_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDq), false, kThreads,
+                                                   q_tiles, a, device, stream);
+  return launch<flash_bwd_dkv_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDkv), false, kThreads,
+                                                  k_tiles, a, device, stream);
+}
+
+// The forward's dynamic shared memory per block (out[0], bytes), registers
+// per thread (out[1]) and blocks resident per SM (out[2]): the build log's
+// ptxas report has the registers only.
+template <typename T, int D>
+cudaError_t fwd_info(int device, int* out) {
+  constexpr size_t smem = FwdTiles<T, D>::kBytes;
+  cudaError_t err = set_attributes<flash_fwd_kernel<T, D>>(device, smem, true);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<T, D>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_fwd_kernel<T, D>,
+                                                        kFwdThreads, smem);
+  out[0] = static_cast<int>(smem);
+  out[1] = err == cudaSuccess ? attr.numRegs : 0;
+  return err;
 }
 
 template <typename T>
-cudaError_t dispatch_d(int which, int d, const FlashArgs& a, cudaStream_t stream) {
+cudaError_t fwd_info_d(int d, int device, int* out) {
   switch (d) {
-    case 16: return launch_which<T, 16>(which, a, stream);
-    case 32: return launch_which<T, 32>(which, a, stream);
-    case 64: return launch_which<T, 64>(which, a, stream);
-    case 128: return launch_which<T, 128>(which, a, stream);
-    case 256: return launch_which<T, 256>(which, a, stream);
+    case 16: return fwd_info<T, 16>(device, out);
+    case 32: return fwd_info<T, 32>(device, out);
+    case 64: return fwd_info<T, 64>(device, out);
+    case 128: return fwd_info<T, 128>(device, out);
+    case 256: return fwd_info<T, 256>(device, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_d(int which, int d, const FlashArgs& a, int device, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_which<T, 16>(which, a, device, stream);
+    case 32: return launch_which<T, 32>(which, a, device, stream);
+    case 64: return launch_which<T, 64>(which, a, device, stream);
+    case 128: return launch_which<T, 128>(which, a, device, stream);
+    case 256: return launch_which<T, 256>(which, a, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -621,9 +967,9 @@ int run(int which, const FlashArgs* a, int head_dim, int dtype, int device, void
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch_d<float>(which, head_dim, *a, s);
+    err = dispatch_d<float>(which, head_dim, *a, device, s);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(which, head_dim, *a, s);
+    err = dispatch_d<__nv_bfloat16>(which, head_dim, *a, device, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -649,6 +995,14 @@ extern "C" int sparknet_flash_bwd_dq(const FlashArgs* a, int head_dim, int dtype
 extern "C" int sparknet_flash_bwd_dkv(const FlashArgs* a, int head_dim, int dtype, int device,
                                       void* stream) {
   return run(kDkv, a, head_dim, dtype, device, stream);
+}
+
+extern "C" int sparknet_flash_fwd_info(int head_dim, int dtype, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 0) return static_cast<int>(fwd_info_d<float>(head_dim, device, out));
+  if (dtype == 1) return static_cast<int>(fwd_info_d<__nv_bfloat16>(head_dim, device, out));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int sparknet_flash_args_size() { return static_cast<int>(sizeof(FlashArgs)); }

@@ -31,8 +31,18 @@ rtol/atol 2e-5, f32 gradients rtol/atol 1e-4 (the JAX flash tests' own:
 sums of up to D products per logit and of Sk or Sq terms per output, in
 another order); bf16 outputs one bf16 ulp of the plain result (computed
 in f32 from the same bf16 inputs) beyond those. With dropout both sides
-draw the same mask, so the same tolerances hold.
+draw the same mask, so the same tolerances hold. The forward kernel runs
+on TF32 tensor cores with split operands: with v = I and S = D its o is
+the softmax itself, held element by element; it takes BERT's strided
+q/k/v views of one fused QKV product as they are, its wrapper copies an
+operand that its 16-byte ``cp.async`` copies cannot take, and its
+compiled code holds ``HGMMA`` (``cuobjdump -sass``, skipped where the
+toolkit lacks it).
 """
+
+import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -410,3 +420,108 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="lse"):
         TA.flash_bwd_dq(q, k, v, mask, off, do, lse.double(), lse, causal, scale)
     assert TA.flash_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_fwd_with_identity_v_gives_the_softmax(d, dtype, cuda_device):
+    """v = I with S = D: o is softmax(scale q k^T) itself, so a wrong wgmma
+    descriptor or accumulator layout shows at once, element by element."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k = (torch.randn((2, 3, d, d), generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    eye = torch.eye(d, device=cuda_device).to(dtype).expand(2, 3, d, d).contiguous()
+    mask = torch.ones((2, d), dtype=torch.int8, device=cuda_device)
+    off = TA.make_offsets(0, 0, 0, cuda_device)
+    before = TA.flash_fwd.launches
+    o, lse = TA.flash_fwd(q, k, eye, mask, off, False, d ** -0.5, 0.0)
+    torch.cuda.synchronize()
+    assert TA.flash_fwd.launches == before + 1
+    s = (q.float() @ k.float().transpose(-1, -2)) * d ** -0.5
+    ok, err = _within(o, torch.softmax(s, -1), dtype, 2e-5, 2e-5)
+    assert ok, f"o: max |kernel - softmax| {err:.3e}"
+    ok, err = _within(lse, torch.logsumexp(s, -1), torch.float32, 2e-5, 2e-5)
+    assert ok, f"lse: max |kernel - logsumexp| {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_take_bert_strided_qkv_views(dtype, cuda_device):
+    """q, k, v as BERT makes them, (b, s, 3, h, d) sliced and transposed:
+    all three kernels against their plain versions, with a padded row
+    and dropout, and no copy."""
+    b, s, h, d, rate = 2, 128, 12, 64, 0.1
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=cuda_device).to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    assert TA._fwd_operand(q) is q  # the forward wrapper copies nothing either
+    do = torch.randn((b, h, s, d), generator=g, device=cuda_device).to(dtype)
+    mask = torch.ones((b, s), dtype=torch.int8, device=cuda_device)
+    mask[-1] = 0
+    off = TA.make_offsets(0, 0, 99, cuda_device)
+    args = (q, k, v, mask, off)
+    o, lse = TA.flash_fwd(*args, False, d ** -0.5, rate)
+    ref_o, ref_lse = TA.flash_fwd_reference(*args, False, d ** -0.5, rate)
+    delta = TA.flash_delta(do, ref_o)
+    bwd = (*args, do, ref_lse, delta, False, d ** -0.5, rate)
+    dq = TA.flash_bwd_dq(*bwd)
+    dk, dv = TA.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = TA.flash_bwd_dkv_reference(*bwd)
+    checks = [("o", o, ref_o, 2e-5), ("lse", lse, ref_lse, 2e-5),
+              ("dq", dq, TA.flash_bwd_dq_reference(*bwd), 1e-4),
+              ("dk", dk, ref_dk, 1e-4), ("dv", dv, ref_dv, 1e-4)]
+    for name, got, ref, tol in checks:
+        ok, err = _within(got, ref, torch.float32 if name == "lse" else dtype, tol, tol)
+        assert ok, f"{name}: max |kernel - plain| {err:.3e}"
+    for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        assert float(t[-1].abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+def test_flash_fwd_copies_unaligned_operands(cuda_device):
+    """An operand whose base or row stride is not 16-byte aligned is
+    copied by the wrapper, explicitly, and the kernel still runs once."""
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(FLASH_CASES[0],
+                                                               torch.float32, cuda_device)
+    k_off = torch.empty(k.numel() + 1, device=cuda_device)[1:].view(k.shape).copy_(k)
+    v_wide = torch.zeros(v.shape[:3] + (v.shape[3] + 2,), device=cuda_device)[..., :-2]
+    v_wide.copy_(v)  # rows of 66 floats: 264 bytes apart
+    assert not TA._aligned16(k_off) and not TA._aligned16(v_wide)
+    before = TA.flash_fwd.launches
+    want = TA.flash_fwd(q, k, v, mask, off, causal, scale)
+    got = TA.flash_fwd(q, k_off, v_wide, mask, off, causal, scale)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(TA.flash_attention(q, k_off, v_wide, causal=causal, scale=scale),
+                       want[0])
+    assert TA.flash_fwd.launches == before + 3
+
+
+def _sass_functions(sass: str) -> dict:
+    """{mangled name: its SASS} from ``cuobjdump -sass`` output."""
+    parts = re.split(r"Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernel_runs_on_tensor_cores(cuda_device):
+    """Every instantiation of flash_fwd_kernel (5 head dims x f32/bf16)
+    holds HGMMA, Hopper's warpgroup tensor-core instruction; the two
+    backward kernels, on the CUDA cores, hold none."""
+    try:
+        tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    except RuntimeError:
+        pytest.skip("needs the CUDA toolkit's nvcc and cuobjdump")
+    if not os.path.isfile(tool):
+        pytest.skip(f"no cuobjdump beside nvcc ({tool})")
+    lib = _build.build_all(["attention"])["attention"].path
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs = _sass_functions(sass)
+    fwd = {n: body for n, body in funcs.items() if "flash_fwd_kernel" in n}
+    assert len(fwd) == 10, sorted(funcs)
+    assert all("HGMMA" in body for body in fwd.values()), [
+        n for n, body in fwd.items() if "HGMMA" not in body]
+    assert not any("HGMMA" in body for n, body in funcs.items() if n not in fwd)
