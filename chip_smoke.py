@@ -10,11 +10,12 @@ own lines:
 1. card: the device name and the ``nvidia-smi`` name / power-limit line;
 2. build: every kernel of ``sparknet_tpu_torch/ops/csrc`` compiled from
    source (one ``nvcc`` per file, all started together), with timings
-   and the compiler's register/shared-memory report; then the flash
-   forward's SASS (``cuobjdump -sass``) must hold ``HGMMA``, the tensor
-   cores' warpgroup product, in every instantiation, and each
-   instantiation's shared memory, registers and blocks per SM are
-   printed;
+   and the compiler's register/shared-memory report; then the SASS
+   (``cuobjdump -sass``) of the flash forward and of dq must hold
+   ``HGMMA``, the tensor cores' warpgroup product, in every
+   instantiation (dq at f32 D 256 is the one SIMT dq, which must not),
+   and each of their instantiations' shared memory, registers and blocks
+   per SM are printed;
 3. kernels: each of the three LRN kernels (inference forward, training
    forward with its f32 residual d, backward) held against its plain
    PyTorch version on the card (tolerances below), odd and even window
@@ -41,12 +42,14 @@ own lines:
    bound, the plain version and one call of
    ``F.scaled_dot_product_attention`` (its autograd backward asked for
    dq alone, or for dk and dv, as the yardsticks of the two backward
-   kernels). The forward, and SDPA beside it, is also timed by CUDA
+   kernels). Each kernel, and SDPA beside it, is also timed by CUDA
    events around calls made back to back and by ``torch.profiler``
-   (the card's busy time alone, without the wrapper's host time); it
-   stands beside three bounds: the f32 CUDA-core one, its design's
-   tensor-core one (3 + 3 TF32 terms) and the function's own products
-   at the TF32 rate; and it is timed in bf16 at B 32 x S 128 as well;
+   (the card's busy time alone, without the wrapper's host time); each
+   stands beside the f32 CUDA-core bound, the function's own products at
+   the TF32 rate and, for the forward and dq, their design's tensor-core
+   bound (3 + 3 and 3 + 3 + 3 TF32 terms); and all three are held
+   against their plain versions and timed in bf16 at B 32 x S 128 as
+   well;
 5. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
    served on the card through InferenceEngine -> MicroBatcher -> HTTP
    InferenceServer; /healthz, /classify (1, 3, 8 rows), /metrics, then
@@ -97,29 +100,30 @@ forward (norm1 + norm2), for ``lrn_fwd_train`` and ``lrn_bwd`` per
 batch-256 training step (norm1 + norm2); for the flash kernels per
 launch at B 32 x S 128 (one layer of the bert-train run). "ms" is
 the median of single calls, each between CUDA events on an idle card,
-so it holds the wrapper's host time and the launch; ``flash_fwd`` adds
-"loop_ms" (CUDA events around back-to-back calls, over their number)
-and "device_ms" (``torch.profiler``'s device time of the kernel). Each
-"bound_ms" counts the operations at the peak rate of the units that run
-them: 67 TFLOP/s f32 on the CUDA cores for LRN and the flash backward,
-495 TFLOP/s dense TF32 for the flash forward's own two products (its
-split operands make each f32 product three TF32 terms: that design's
-bound is printed beside it); "launches" counts the main paths' runs (serving and train for LRN, bert-train for
-flash). Last comes the result line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
-without the result line, as does a machine without a CUDA card or a
-directory without the port.
+so it holds the wrapper's host time and the launch; the flash kernels
+add "loop_ms" (CUDA events around back-to-back calls, over their
+number) and "device_ms" (``torch.profiler``'s device time of the
+kernel). Each "bound_ms" counts the operations at the peak rate of the
+units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN and dk/dv,
+495 TFLOP/s dense TF32 for the own products of the flash forward (two)
+and dq (three) (their split operands make each f32 product three TF32
+terms: that design's bound is printed beside it); "launches" counts the
+main paths' runs (serving and train for LRN, bert-train for flash).
+Last comes the result line ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero without the result line, as does a machine
+without a CUDA card or a directory without the port.
 
     python3 chip_smoke.py --ab OTHER_ROOT
 
 compares this checkout with another checkout of the port (an unpacked
 parent commit) on the same card instead: four processes in turn, the
 other, this, this, the other, each building its own kernels and printing
-one JSON line: the flash forward at B 32 x S 128 and B 8 x S 512 in f32
-and at B 32 x S 128 in bf16 (single calls, back-to-back calls, the
-profiler's device time, the host's time to make one call; SDPA beside
-it), then ``Solver.step`` of BERT-base on one device-resident batch of
-32 x 128, f32 and ``--bf16`` (ms per step by CUDA events).
+one JSON line: the three flash kernels at B 32 x S 128 and B 8 x S 512
+in f32 and at B 32 x S 128 in bf16 (single calls, back-to-back calls,
+the profiler's device time, the host's time to make one call; SDPA's
+forward or backward beside each), then ``Solver.step`` of BERT-base on
+one device-resident batch of 32 x 128, f32 and ``--bf16`` (ms per step
+by CUDA events).
 
 Tolerances. LRN kernels vs plain, f32: rtol 1e-5, atol 1e-6 (the two
 sum the window in the same order; rsqrt/exp/log and fused multiply-adds
@@ -214,6 +218,12 @@ FLASH_CASES = (
 # the forward's TF32 terms per product (s = q k^T, o += p v): split
 # operands, f32 3 + 3, bf16 (exact in TF32) 1 + 2
 FLASH_FWD_TERMS = {"float32": (3, 3), "bfloat16": (1, 2)}
+# dq's (s = q k^T, dp = dO v^T, dq += ds k): f32 3 + 3 + 3, bf16 1 + 1 + 2
+# (ds is f32); tests/test_torch_flash_tc.py shows that none can go
+FLASH_DQ_TERMS = {"float32": (3, 3, 3), "bfloat16": (1, 1, 2)}
+# each wrapper's kernel, by the name torch.profiler gives its device time
+FLASH_TAGS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 
 
 def log(msg: str = "") -> None:
@@ -268,13 +278,15 @@ def phase_build():
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
-    _flash_fwd_on_tensor_cores(built["attention"].path)
+    _flash_on_tensor_cores(built["attention"].path)
     return built
 
 
-def _flash_fwd_on_tensor_cores(lib_path):
-    """Every flash_fwd_kernel instantiation's SASS holds HGMMA (raises if
-    one does not); each one's shared memory, registers and blocks per SM."""
+def _flash_on_tensor_cores(lib_path):
+    """Every flash_fwd_kernel and flash_bwd_dq_kernel instantiation's SASS
+    holds HGMMA, and no other kernel's does (raises otherwise); f32 dq at
+    D 256 is the one flash_bwd_dq_simt_kernel. Each forward and dq
+    instantiation's shared memory, registers and blocks per SM."""
     import ctypes
     import re
 
@@ -285,26 +297,35 @@ def _flash_fwd_on_tensor_cores(lib_path):
                           timeout=300, check=True).stdout
     parts = re.split(r"Function : (\S+)", sass)
     funcs = dict(zip(parts[1::2], parts[2::2]))
-    fwd = {n: body.count("HGMMA") for n, body in funcs.items() if "flash_fwd_kernel" in n}
-    log(f"  cuobjdump -sass: {len(fwd)} flash_fwd_kernel instantiations, HGMMA "
-        f"instructions in each: {sorted(fwd.values())}; in the other "
-        f"{len(funcs) - len(fwd)} kernels: "
-        f"{sum(b.count('HGMMA') for n, b in funcs.items() if n not in fwd)}")
-    if len(fwd) != 10 or not all(fwd.values()):
-        raise AssertionError(f"flash_fwd_kernel without HGMMA: {fwd}")
+    tc = {}
+    for kernel, want in (("flash_fwd_kernel", 10), ("flash_bwd_dq_kernel", 9)):
+        hgmma = {n: body.count("HGMMA") for n, body in funcs.items() if kernel in n}
+        log(f"  cuobjdump -sass: {len(hgmma)} {kernel} instantiations, HGMMA "
+            f"instructions in each: {sorted(hgmma.values())}")
+        if len(hgmma) != want or not all(hgmma.values()):
+            raise AssertionError(f"{kernel} without HGMMA: {hgmma}")
+        tc.update(hgmma)
+    simt = [n for n in funcs if "flash_bwd_dq_simt_kernel" in n]
+    others = sum(b.count("HGMMA") for n, b in funcs.items() if n not in tc)
+    log(f"  in the other {len(funcs) - len(tc)} kernels ({len(simt)} SIMT dq, f32 D=256): "
+        f"{others}")
+    if len(simt) != 1 or others:
+        raise AssertionError(f"SIMT dq {simt}, HGMMA outside the tensor-core kernels {others}")
     lib = _build.library("attention")
-    fn = lib.sparknet_flash_fwd_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn = lib.sparknet_flash_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    for code, dt in enumerate(("float32", "bfloat16")):
-        for d in (16, 32, 64, 128, 256):
-            out = (ctypes.c_int * 3)()
-            err = fn(d, code, 0, out)
-            if err:
-                raise RuntimeError(f"sparknet_flash_fwd_info({d}, {dt}): cudaError {err}")
-            log(f"  flash_fwd_kernel {dt} D={d}: shared memory {out[0]} bytes "
-                f"({out[0] / 1024:.1f} KiB) per block, {out[1]} registers per thread, "
-                f"{out[2]} blocks per SM")
+    for which, kernel in enumerate(("flash_fwd", "flash_bwd_dq")):
+        for code, dt in enumerate(("float32", "bfloat16")):
+            for d in (16, 32, 64, 128, 256):
+                out = (ctypes.c_int * 4)()
+                err = fn(which, d, code, 0, out)
+                if err:
+                    raise RuntimeError(f"sparknet_flash_info({which}, {d}, {dt}): cudaError {err}")
+                log(f"  {kernel} {dt} D={d}: shared memory {out[0]} bytes "
+                    f"({out[0] / 1024:.1f} KiB) per block, {out[1]} registers per thread, "
+                    f"{out[2]} blocks per SM, {out[3]} threads per block "
+                    f"({'tensor cores' if out[3] == 128 else 'CUDA cores'})")
 
 
 # ------------------------------------------------------------- kernels
@@ -1222,6 +1243,15 @@ def _fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def _tc_bound(nbytes, ops):
+    """The larger of ``nbytes`` over 3.35 TB/s and ``ops`` over 495
+    TFLOP/s dense TF32, and which of the two it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / TF32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), nbytes=nbytes, ops=ops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def _fwd_bounds(b, s, dtype):
     """The forward's least times on the tensor cores at BERT-base's heads
     in ``dtype``: each the larger of its bytes over 3.35 TB/s (q, k, v read
@@ -1233,43 +1263,58 @@ def _fwd_bounds(b, s, dtype):
     es = 4 if dtype == "float32" else 2
     elems, rows, pairs = b * h * s * d, b * h * s, b * h * s * s * d
     nbytes = es * 4 * elems + 4 * rows + b * s + 12
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    out = {}
-    for name, ops in (("design", 2 * sum(FLASH_FWD_TERMS[dtype]) * pairs),
-                      ("function", 4 * pairs)):
-        ops_ms = ops / TF32_FLOPS_PER_S * 1e3
-        out[name] = dict(bound_ms=max(bytes_ms, ops_ms), nbytes=nbytes, ops=ops,
-                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    return out
+    return {"design": _tc_bound(nbytes, 2 * sum(FLASH_FWD_TERMS[dtype]) * pairs),
+            "function": _tc_bound(nbytes, 4 * pairs)}
 
 
-def _fwd_more_times(kernel, library):
-    """The forward and SDPA timed back to back (``_time_loop_ms``) and by
-    the profiler's device time, beside their single calls."""
-    return dict(loop_ms=_time_loop_ms(kernel), device_ms=_device_ms(kernel, "flash_fwd_kernel"),
+def _bwd_bounds(b, s, dtype):
+    """The backward kernels' least times on the tensor cores at
+    BERT-base's heads in ``dtype``, as ``_fwd_bounds``: bytes are q, k, v
+    and dO read and the gradients written at the dtype's size, lse and
+    delta in f32, the mask and offsets. "function" counts the function's
+    own products, dq 6 B H S^2 D (s, dp, ds k) and dk/dv 8 B H S^2 D (s,
+    dp, p^T dO, ds^T q); "design" dq's TF32 terms (FLASH_DQ_TERMS). dk/dv
+    runs on the CUDA cores: it has no tensor-core design."""
+    h, d = BERT_HEADS, BERT_HEAD_DIM
+    es = 4 if dtype == "float32" else 2
+    elems, rows, pairs = b * h * s * d, b * h * s, b * h * s * s * d
+    read = es * 4 * elems + 4 * 2 * rows + b * s + 12
+    return {
+        "flash_bwd_dq": {
+            "design": _tc_bound(read + es * elems, 2 * sum(FLASH_DQ_TERMS[dtype]) * pairs),
+            "function": _tc_bound(read + es * elems, 6 * pairs)},
+        "flash_bwd_dkv": {"function": _tc_bound(read + 2 * es * elems, 8 * pairs)},
+    }
+
+
+def _more_times(kernel, library, tag):
+    """A kernel and its SDPA yardstick timed back to back
+    (``_time_loop_ms``) and by the profiler's device time (the kernels
+    whose name holds ``tag``; every kernel of SDPA's call), beside their
+    single calls."""
+    return dict(loop_ms=_time_loop_ms(kernel), device_ms=_device_ms(kernel, tag),
                 library_loop_ms=_time_loop_ms(library), library_device_ms=_device_ms(library))
 
 
-def _log_fwd(label, r, bounds):
-    """The forward's three times beside SDPA's, and each tensor-core
-    bound's share of the kernel's device time (of its back-to-back time
-    where the profiler saw nothing)."""
+def _log_tc(name, label, r, bounds):
+    """A kernel's three times beside SDPA's, and each tensor-core bound's
+    share of the kernel's device time (of its back-to-back time where the
+    profiler saw nothing)."""
     card = r["device_ms"] or r["loop_ms"]
     shares = "; ".join(
-        f"{name} bound {x['bound_ms']:.4f} ms ({x['bound_by']}: {x['nbytes'] / 1e6:.1f} MB, "
+        f"{kind} bound {x['bound_ms']:.4f} ms ({x['bound_by']}: {x['nbytes'] / 1e6:.1f} MB, "
         f"{x['ops'] / 1e9:.2f} GFLOP TF32) = {100 * x['bound_ms'] / card:.1f}% of it"
-        for name, x in bounds.items())
-    log(f"  time flash_fwd {label}: single calls {r['ms']:.4f} ms (SDPA "
+        for kind, x in bounds.items())
+    log(f"  time {name} {label}: single calls {r['ms']:.4f} ms (SDPA "
         f"{r['library_ms']:.4f}), back to back {r['loop_ms']:.4f} ms (SDPA "
         f"{r['library_loop_ms']:.4f}), device time (torch.profiler) "
         f"{_fmt_ms(r['device_ms'])} (SDPA {_fmt_ms(r['library_device_ms'])}); {shares}")
 
 
-def _time_flash_fwd_bf16(b, s, gen):
-    """The forward in bf16 at (b, s): held against its plain version (one
-    bf16 ulp beyond 2e-5 for o, 2e-5 for lse), then timed beside its
-    tensor-core bounds (1 + 2 terms, half the bytes), the plain version
-    and SDPA in bf16."""
+def _flash_calls(inputs):
+    """{kernel name: (kernel call, plain call, SDPA call)} on ``inputs``,
+    the backward pair given the kernel forward's lse and delta; SDPA's
+    autograd backward is asked for dq alone, or for dk and dv."""
     import functools
 
     import torch
@@ -1277,24 +1322,48 @@ def _time_flash_fwd_bf16(b, s, gen):
 
     from sparknet_tpu_torch.ops import attention as TA
 
+    q, k, v, do, mask, off, causal, scale, rate = inputs
+    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
+    bwd = (q, k, v, mask, off, do, lse, TA.flash_delta(do, o), causal, scale, rate)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib_q = F.scaled_dot_product_attention(qg, k, v, dropout_p=rate)
+    lib_kv = F.scaled_dot_product_attention(q, kg, vg, dropout_p=rate)
+    part = functools.partial
+    return {
+        "flash_fwd": (part(TA.flash_fwd, *inputs[:3], *inputs[4:]),
+                      part(TA.flash_fwd_reference, *inputs[:3], *inputs[4:]),
+                      part(F.scaled_dot_product_attention, q, k, v, dropout_p=rate)),
+        "flash_bwd_dq": (part(TA.flash_bwd_dq, *bwd), part(TA.flash_bwd_dq_reference, *bwd),
+                         part(torch.autograd.grad, lib_q, qg, do, retain_graph=True)),
+        "flash_bwd_dkv": (part(TA.flash_bwd_dkv, *bwd), part(TA.flash_bwd_dkv_reference, *bwd),
+                          part(torch.autograd.grad, lib_kv, (kg, vg), do, retain_graph=True)),
+    }
+
+
+def _time_flash_bf16(b, s, gen):
+    """The three kernels in bf16 at (b, s): held against their plain
+    versions (one bf16 ulp beyond the f32 tolerances; lse f32), then timed
+    beside their tensor-core bounds (half the bytes; the forward 1 + 2
+    terms, dq 1 + 1 + 2), the plain versions and SDPA in bf16."""
+    import torch
+
     case = (f"BERT-base B={b} S={s} bf16", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0,
             False, FLASH_DROPOUT)
-    q, k, v, _, mask, off, causal, scale, rate = _flash_inputs(case, torch.bfloat16, gen)
-    o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
-    ref_o, ref_lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
-    for what, got, ref, kind in (("o", o, ref_o, torch.bfloat16),
-                                 ("lse", lse, ref_lse, torch.float32)):
-        ok, err = _flash_within(got, ref, kind, 2e-5)
-        log(f"  check flash_fwd B={b} S={s} bf16 {what}: max_abs_err {err:.2e}"
-            f"{'' if ok else ' MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"flash_fwd bf16 {what} disagrees with its plain version")
-    kernel = functools.partial(TA.flash_fwd, q, k, v, mask, off, causal, scale, rate)
-    library = functools.partial(F.scaled_dot_product_attention, q, k, v, dropout_p=rate)
-    plain = functools.partial(TA.flash_fwd_reference, q, k, v, mask, off, causal, scale, rate)
-    r = dict(ms=_time_ms(kernel), library_ms=_time_ms(library), **_fwd_more_times(kernel, library))
-    _log_fwd(f"B={b} S={s} bf16 (plain {_time_ms(plain, reps=10):.4f} ms)", r,
-             _fwd_bounds(b, s, "bfloat16"))
+    inputs = _flash_inputs(case, torch.bfloat16, gen)
+    for name, checks in _flash_all(inputs).items():
+        for what, got, ref, tol in checks:
+            ok, err = _flash_within(got, ref, torch.float32 if what == "lse" else torch.bfloat16,
+                                    tol)
+            log(f"  check {name} B={b} S={s} bf16 {what}: max_abs_err {err:.2e}"
+                f"{'' if ok else ' MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"{name} bf16 {what} disagrees with its plain version")
+    bounds = {"flash_fwd": _fwd_bounds(b, s, "bfloat16"), **_bwd_bounds(b, s, "bfloat16")}
+    for name, (kernel, plain, library) in _flash_calls(inputs).items():
+        r = dict(ms=_time_ms(kernel), library_ms=_time_ms(library),
+                 **_more_times(kernel, library, FLASH_TAGS[name]))
+        _log_tc(name, f"B={b} S={s} bf16 (plain {_time_ms(plain, reps=10):.4f} ms)", r,
+                bounds[name])
 
 
 def _time_flash(gen):
@@ -1302,69 +1371,45 @@ def _time_flash(gen):
     against its plain version on the same inputs, then timed with CUDA
     events beside its bound, the plain version and one call of
     F.scaled_dot_product_attention (forward; for dq its autograd backward
-    asked for dq alone, for dk/dv asked for dk and dv). The forward is
-    also timed back to back and by the profiler, beside its tensor-core
-    bounds (the f32 CUDA-core one kept in its first line), and in bf16 at
-    B 32 x S 128 too."""
+    asked for dq alone, for dk/dv asked for dk and dv); and back to back
+    and by the profiler, beside its tensor-core bounds (the f32 CUDA-core
+    one kept in its first line). The forward's and dq's bound is then the
+    tensor-core one of their function; dk/dv, on the CUDA cores, keeps the
+    f32 one. All three in bf16 at B 32 x S 128 too."""
     import torch
-    import torch.nn.functional as F
-
-    from sparknet_tpu_torch.ops import attention as TA
 
     out = {}
     for b, s in FLASH_TIMED:
         case = (f"BERT-base B={b} S={s}", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0,
                 False, FLASH_DROPOUT)
         inputs = _flash_inputs(case, torch.float32, gen)
-        q, k, v, do, mask, off, causal, scale, rate = inputs
         errs = {}
         for name, checks in _flash_all(inputs).items():
             errs[name] = _held(f"{name} B={b} S={s}", [(w, g, r) for w, g, r, _ in checks
                                                       if w != "lse"], tol=checks[0][3])
-        o, lse = TA.flash_fwd(q, k, v, mask, off, causal, scale, rate)
-        delta = TA.flash_delta(do, o)
-        bwd = (q, k, v, mask, off, do, lse, delta, causal, scale, rate)
-        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        lib_q = F.scaled_dot_product_attention(qg, k, v, dropout_p=rate)
-        lib_kv = F.scaled_dot_product_attention(q, kg, vg, dropout_p=rate)
-        calls = {
-            "flash_fwd": (lambda: TA.flash_fwd(q, k, v, mask, off, causal, scale, rate),
-                          lambda: TA.flash_fwd_reference(q, k, v, mask, off, causal, scale,
-                                                         rate),
-                          lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate)),
-            "flash_bwd_dq": (lambda: TA.flash_bwd_dq(*bwd),
-                             lambda: TA.flash_bwd_dq_reference(*bwd),
-                             lambda: torch.autograd.grad(lib_q, qg, do, retain_graph=True)),
-            "flash_bwd_dkv": (lambda: TA.flash_bwd_dkv(*bwd),
-                              lambda: TA.flash_bwd_dkv_reference(*bwd),
-                              lambda: torch.autograd.grad(lib_kv, (kg, vg), do,
-                                                          retain_graph=True)),
-        }
         bounds = _flash_bounds(b, s)
-        for name, (kernel, plain, library) in calls.items():
+        tc = {"flash_fwd": _fwd_bounds(b, s, "float32"), **_bwd_bounds(b, s, "float32")}
+        for name, (kernel, plain, library) in _flash_calls(inputs).items():
             nbytes, ops = bounds[name]
             r = dict(err=errs[name], ms=_time_ms(kernel), plain_ms=_time_ms(plain, reps=10),
                      library_ms=_time_ms(library))
             r.update(_bound(nbytes, ops))
             r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
             log(f"  time {name} B={b} H={BERT_HEADS} S={s} D={BERT_HEAD_DIM} f32 rate "
-                f"{rate}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+                f"{FLASH_DROPOUT}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
                 f"{r['library_ms']:.4f} ms, f32 CUDA-core bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP), "
                 f"{ops / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s = "
                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
-            if name == "flash_fwd":
-                # it runs on the tensor cores: its bound is the TF32 one
-                tc = _fwd_bounds(b, s, "float32")
-                r.update(_fwd_more_times(kernel, library))
-                _log_fwd(f"B={b} S={s} f32", r, tc)
-                r.update(bound_ms=tc["function"]["bound_ms"],
-                         bound_by=tc["function"]["bound_by"])
+            r.update(_more_times(kernel, library, FLASH_TAGS[name]))
+            _log_tc(name, f"B={b} S={s} f32", r, tc[name])
+            if name != "flash_bwd_dkv":  # on the tensor cores: the bound is the TF32 one
+                r.update(bound_ms=tc[name]["function"]["bound_ms"],
+                         bound_by=tc[name]["function"]["bound_by"])
             if (b, s) == (BERT_BATCH, BERT_SEQ):
                 out[name] = r  # the shape of the main path's launches
-        del lib_q, lib_kv
         if (b, s) == (BERT_BATCH, BERT_SEQ):
-            _time_flash_fwd_bf16(b, s, gen)
+            _time_flash_bf16(b, s, gen)
     return out
 
 
@@ -1585,10 +1630,7 @@ AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
 def ab_side(root):
     """One process of ``--ab``: the port under ``root`` measured; one JSON
     line."""
-    import functools
-
     import torch
-    import torch.nn.functional as F
 
     sys.path.insert(0, root)
     from sparknet_tpu_torch.ops import _build
@@ -1602,12 +1644,12 @@ def ab_side(root):
     for b, s, dt in AB_FWD:
         case = (f"B={b} S={s}", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0, False,
                 FLASH_DROPOUT)
-        q, k, v, _, mask, off, causal, scale, rate = _flash_inputs(case, getattr(torch, dt), gen)
-        kernel = functools.partial(TA.flash_fwd, q, k, v, mask, off, causal, scale, rate)
-        library = functools.partial(F.scaled_dot_product_attention, q, k, v, dropout_p=rate)
-        out[f"flash_fwd B{b} S{s} {dt}"] = dict(
-            ms=_time_ms(kernel), library_ms=_time_ms(library), host_ms=_host_ms(kernel),
-            **_fwd_more_times(kernel, library))
+        inputs = _flash_inputs(case, getattr(torch, dt), gen)
+        for name, (kernel, _, library) in _flash_calls(inputs).items():
+            out[f"{name} B{b} S{s} {dt}"] = dict(
+                ms=_time_ms(kernel), library_ms=_time_ms(library), host_ms=_host_ms(kernel),
+                **_more_times(kernel, library, FLASH_TAGS[name]))
+        del inputs
     for bf16 in (False, True):
         solver, feed = _bert_resident(bf16)
         solver.step(feed, 3)  # warm: allocator, library handles

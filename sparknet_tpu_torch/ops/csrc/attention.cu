@@ -29,25 +29,32 @@
 // operations over the peak rate of the units that run them, which the
 // caller computes for its shapes.
 //
-// The forward runs on the tensor cores: TF32 wgmma with operands split
-// into hi and lo parts so that it keeps f32 accuracy, tiles staged by
-// cp.async (its section below). The two backward kernels are correct and
-// simple first: f32 fused multiply-adds on the CUDA cores (67 TFLOP/s),
-// no wgmma or TMA. One block of 256 threads (16 x 16) owns a tile of 64
-// rows (query rows for dq, key rows for dk/dv) and loops over tiles of
-// COLS columns of the other side (64, or 32 at head dim 256 so that the
-// tiles fit shared memory), so the TPU's sequential grid dimension
-// becomes this loop and nothing carries between blocks; the two backward
-// kernels stay split, so no atomics are needed. Tiles are staged in
-// shared memory as f32 (rows padded to D+1 floats, so the threads of a
-// warp read distinct banks); each thread keeps a 4 x COLS/16 tile of s
-// and dp in registers, writes ds (and p) to shared memory, and
-// accumulates its 4 x D/16 share of the output in registers. Ragged edges
-// of S_q and S_k are masked in every kernel, so the caller pads nothing.
-// A causal tile wholly above the diagonal ends the forward's and dq's
-// loop and is skipped by dk/dv. The offsets and the dropout seed come
-// from a (3,) int32 device tensor, so a traced offset or a seed drawn on
-// the device needs no host read.
+// The forward and dq run on the tensor cores: TF32 wgmma with operands
+// split into hi and lo parts so that they keep f32 accuracy, tiles staged
+// by cp.async (their sections below). One head dimension is the
+// exception: f32 dq at D 256 keeps the SIMT kernel, because its q and dO
+// as hi and lo alone would take 256 KB of shared memory, more than the
+// 227 KB a block may have (launch_spec, an explicit dispatch);
+// chip_smoke.py's build phase checks for HGMMA in every forward and
+// tensor-core dq instantiation and for none elsewhere, and its --ab mode
+// times all three kernels against another checkout.
+//
+// The dk/dv kernel, and that one dq, are correct and simple first: f32
+// fused multiply-adds on the CUDA cores (67 TFLOP/s), no wgmma or TMA. One
+// block of 256 threads (16 x 16) owns a tile of 64 rows (query rows for
+// dq, key rows for dk/dv) and loops over tiles of COLS columns of the
+// other side (64, or 32 at head dim 256 so that the tiles fit shared
+// memory), so the TPU's sequential grid dimension becomes this loop and
+// nothing carries between blocks; the two backward kernels stay split, so
+// no atomics are needed. Tiles are staged in shared memory as f32 (rows
+// padded to D+1 floats, so the threads of a warp read distinct banks);
+// each thread keeps a 4 x COLS/16 tile of s and dp in registers, writes ds
+// (and p) to shared memory, and accumulates its 4 x D/16 share of the
+// output in registers. Ragged edges of S_q and S_k are masked in every
+// kernel, so the caller pads nothing. A causal tile wholly above the
+// diagonal ends the forward's and dq's loop and is skipped by dk/dv. The
+// offsets and the dropout seed come from a (3,) int32 device tensor, so a
+// traced offset or a seed drawn on the device needs no host read.
 //
 // Dropout is a counter-based hash of (seed, b*H + h, query index, key
 // index): the element's own indices within the call, not its tile's, so
@@ -70,7 +77,8 @@
 // points that take it must.
 struct FlashArgs {
   const void* q;          // (B, H, Sq, D), strides below, last dim contiguous;
-                          // q, k, v 16-byte aligned (base, strides) for the forward
+                          // q, k, v (and dO) 16-byte aligned (base, strides)
+                          // for the forward and dq
   const void* k;          // (B, H, Sk, D)
   const void* v;          // (B, H, Sk, D)
   const void* dout;       // (B, H, Sq, D), backward only
@@ -189,8 +197,8 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* src, long 
 // No TMA, mbarrier ring or warp specialisation yet: each product waits for
 // its own wgmma group.
 
-constexpr int kFwdThreads = 128;  // one warpgroup
-constexpr int kFwdRows = 64;      // wgmma M: the query rows of a block
+constexpr int kTcThreads = 128;  // the tensor-core kernels' block: one warpgroup
+constexpr int kTcRows = 64;      // wgmma M: the query rows of a block
 
 // x rounded to TF32 (nearest, ties away): the f32 pattern, low 13 bits 0.
 __device__ __forceinline__ float tf32(float x) {
@@ -288,6 +296,45 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d (64 x N, f32) += a (64 x 8, tf32 in registers) b (N x 8, tf32 in shared
+// memory)^T. Warp w's thread holds a at rows 16 w + lane/4 (a[0], a[2])
+// and that + 8 (a[1], a[3]), columns lane % 4 (a[0], a[1]) and that + 4.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // Four consecutive elements as f32 (8-byte aligned for bf16, 16 for f32).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -324,6 +371,79 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Rows [0, n) of an (n, D) operand into the canonical K-major layout (core
+// matrices of 8 rows of 4 values, K-adjacent ones 128 bytes apart), as hi
+// and, when SPLIT, lo. load(r, c) gives row r's values c .. c + 3. Thread
+// i takes row 8 rg + i % 8, so 8 neighbouring threads fill one core matrix.
+template <int D, bool SPLIT, typename Load4>
+__device__ __forceinline__ void split_kmajor(float* hi, float* lo, int n, Load4 load) {
+  for (int i = threadIdx.x; i < n * D / 4; i += kTcThreads) {
+    const int r8 = i & 7;
+    const int kc = (i >> 3) % (D / 4);
+    const int rg = (i >> 3) / (D / 4);
+    const int at = (rg * (D / 4) + kc) * 32 + r8 * 4;
+    store_split<SPLIT>(hi + at, lo + at, load(rg * 8 + r8, 4 * kc));
+  }
+}
+
+// A (KN, D) tile written transposed, (D, KN), in the same layout; load(r,
+// e) gives row r's element e.
+template <int D, int KN, bool SPLIT, typename Load>
+__device__ __forceinline__ void split_transposed(float* hi, float* lo, Load load) {
+  for (int i = threadIdx.x; i < D * KN / 4; i += kTcThreads) {
+    const int d = i % D;
+    const int kq = i / D;
+    const float4 x = make_float4(load(4 * kq, d), load(4 * kq + 1, d), load(4 * kq + 2, d),
+                                 load(4 * kq + 3, d));
+    const int at = ((d >> 3) * (KN / 4) + kq) * 32 + (d & 7) * 4;
+    store_split<SPLIT>(hi + at, lo + at, x);
+  }
+}
+
+// Raw K and V rows of key tiles of KN keys, staged by cp.async in two
+// buffers of (k, v): 16-byte chunks, zero-filled past Sk, XOR-swizzled by
+// chunk so that the split passes read without bank conflicts.
+template <typename T, int D, int KN>
+struct KVStage {
+  static constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // per staged row
+  static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
+  static constexpr int kTileBytes = KN * kChunks * 16;  // one raw k or v tile
+  static constexpr int kFloats = kTileBytes;  // four tiles, counted in floats
+
+  // Byte offset, in a staged tile, of row r's element e.
+  static __device__ __forceinline__ int at(int r, int e) {
+    constexpr int per = 16 / static_cast<int>(sizeof(T));
+    return (r * kChunks + ((e / per) ^ (r & kSwz))) * 16 + (e % per) * static_cast<int>(sizeof(T));
+  }
+  // Row r's four values from element e (8-byte aligned for bf16, 16 for f32).
+  static __device__ __forceinline__ float4 load4_at(const unsigned char* tile, int r, int e) {
+    return load4(reinterpret_cast<const T*>(tile + at(r, e)));
+  }
+  static __device__ __forceinline__ float value_at(const unsigned char* tile, int r, int e) {
+    return to_f32(*reinterpret_cast<const T*>(tile + at(r, e)));
+  }
+  // Buffer t % 2: its k tile, then its v tile.
+  static __device__ __forceinline__ unsigned char* k_tile(unsigned char* stage, int t) {
+    return stage + (t & 1) * 2 * kTileBytes;
+  }
+  // Issues the copies of key tile t's K and V rows into buffer t % 2.
+  static __device__ __forceinline__ void prefetch(unsigned char* stage, const T* k, long long k_ss,
+                                                  const T* v, long long v_ss, int t, int Sk) {
+    unsigned char* sk = k_tile(stage, t);
+    unsigned char* sv = sk + kTileBytes;
+    for (int i = threadIdx.x; i < KN * kChunks; i += kTcThreads) {
+      const int r = i / kChunks;
+      const int c = i % kChunks;
+      const int key = t * KN + r;
+      const long long row = key < Sk ? key : 0;  // a valid address; nothing is read
+      const int n = key < Sk ? 16 : 0;
+      const int to = (r * kChunks + (c ^ (r & kSwz))) * 16;
+      cp_async16(sk + to, reinterpret_cast<const unsigned char*>(k + row * k_ss) + c * 16, n);
+      cp_async16(sv + to, reinterpret_cast<const unsigned char*>(v + row * v_ss) + c * 16, n);
+    }
+  }
+};
+
 // The forward's tiles and its shared memory, as float offsets; every
 // buffer is a multiple of 128 bytes.
 template <typename T, int D>
@@ -331,32 +451,24 @@ struct FwdTiles {
   static constexpr bool kSplit = sizeof(T) == 4;  // f32 q, k, v need a lo part
   static constexpr int KN = D == 256 ? 8 : D >= 64 ? 32 : 64;  // keys per tile
   static constexpr int NO = D < 64 ? D : 64;  // wgmma N of o += p v; D / NO of them
-  static constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // per staged row
-  static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
-  static constexpr int kStageBytes = KN * kChunks * 16;  // one raw k or v tile
+  using Stage = KVStage<T, D, KN>;
   static constexpr int kLo = kSplit ? 1 : 0;
-  static constexpr int kQHi = 0;                              // 64 x D
-  static constexpr int kQLo = kQHi + kFwdRows * D;            // 64 x D (f32)
-  static constexpr int kKHi = kQLo + kLo * kFwdRows * D;      // KN x D
-  static constexpr int kKLo = kKHi + KN * D;                  // KN x D (f32)
-  static constexpr int kVHi = kKLo + kLo * KN * D;            // D x KN
-  static constexpr int kVLo = kVHi + KN * D;                  // D x KN (f32)
-  static constexpr int kPHi = kVLo + kLo * KN * D;            // 64 x KN
-  static constexpr int kPLo = kPHi + kFwdRows * KN;           // 64 x KN
-  static constexpr int kStage = kPLo + kFwdRows * KN;         // 2 x (k, v) raw
-  static constexpr int kValid = kStage + kStageBytes;  // KN ints (4 tiles before)
+  static constexpr int kQHi = 0;                               // 64 x D
+  static constexpr int kQLo = kQHi + kTcRows * D;              // 64 x D (f32)
+  static constexpr int kKHi = kQLo + kLo * kTcRows * D;        // KN x D
+  static constexpr int kKLo = kKHi + KN * D;                   // KN x D (f32)
+  static constexpr int kVHi = kKLo + kLo * KN * D;             // D x KN
+  static constexpr int kVLo = kVHi + KN * D;                   // D x KN (f32)
+  static constexpr int kPHi = kVLo + kLo * KN * D;             // 64 x KN
+  static constexpr int kPLo = kPHi + kTcRows * KN;             // 64 x KN
+  static constexpr int kStage = kPLo + kTcRows * KN;           // 2 x (k, v) raw
+  static constexpr int kValid = kStage + Stage::kFloats;       // KN ints
   static constexpr size_t kBytes = sizeof(float) * (kValid + KN);
-
-  // Byte offset, in a staged tile, of row r's element e.
-  static __device__ __forceinline__ int staged(int r, int e) {
-    constexpr int per = 16 / static_cast<int>(sizeof(T));
-    return (r * kChunks + ((e / per) ^ (r & kSwz))) * 16 + (e % per) * static_cast<int>(sizeof(T));
-  }
 };
 
 // Forward: one block per (64-query tile, h, b). See the section comment.
 template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs a) {
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel(const FlashArgs a) {
   using L = FwdTiles<T, D>;
   constexpr int KN = L::KN;
   constexpr int NO = L::NO;
@@ -376,7 +488,7 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int q0 = blockIdx.x * kFwdRows;
+  const int q0 = blockIdx.x * kTcRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int Sq = a.Sq, Sk = a.Sk;
@@ -389,38 +501,18 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs 
 
   // keys this block can see; causal stops at its last query's diagonal
   int k_end = Sk;
-  if (a.causal) k_end = min(Sk, min(q0 + kFwdRows, Sq) + q_off - kv_off);
+  if (a.causal) k_end = min(Sk, min(q0 + kTcRows, Sq) + q_off - kv_off);
   const int n_tiles = k_end > 0 ? (k_end + KN - 1) / KN : 0;
 
-  // raw K and V rows of key tile t into staging buffer t % 2
-  auto prefetch = [&](int t) {
-    unsigned char* sk = stage + (t & 1) * 2 * L::kStageBytes;
-    unsigned char* sv = sk + L::kStageBytes;
-    for (int i = tid; i < KN * L::kChunks; i += kFwdThreads) {
-      const int r = i / L::kChunks;
-      const int c = i % L::kChunks;
-      const int key = t * KN + r;
-      const long long row = key < Sk ? key : 0;  // a valid address; nothing is read
-      const int n = key < Sk ? 16 : 0;
-      const int at = (r * L::kChunks + (c ^ (r & L::kSwz))) * 16;
-      cp_async16(sk + at, reinterpret_cast<const unsigned char*>(k + row * a.k_ss) + c * 16, n);
-      cp_async16(sv + at, reinterpret_cast<const unsigned char*>(v + row * a.v_ss) + c * 16, n);
-    }
-  };
-  if (n_tiles > 0) prefetch(0);
+  using S = typename L::Stage;
+  if (n_tiles > 0) S::prefetch(stage, k, a.k_ss, v, a.v_ss, 0, Sk);
   cp_async_commit();
 
-  // q, split once; scale is applied to s. Thread i takes row 8 rg + i % 8,
-  // so 8 neighbouring threads fill one core matrix.
-  for (int i = tid; i < kFwdRows * D / 4; i += kFwdThreads) {
-    const int r8 = i & 7;
-    const int kc = (i >> 3) % (D / 4);
-    const int rg = (i >> 3) / (D / 4);
-    const int row = q0 + rg * 8 + r8;
-    const float4 x = row < Sq ? load4(q + row * a.q_ss + 4 * kc) : make_float4(0.f, 0.f, 0.f, 0.f);
-    const int at = (rg * (D / 4) + kc) * 32 + r8 * 4;
-    store_split<L::kSplit>(q_hi + at, q_lo + at, x);
-  }
+  // q, split once (rows past Sq are zeros); scale is applied to s
+  split_kmajor<D, L::kSplit>(q_hi, q_lo, kTcRows, [&](int r, int c) {
+    const int row = q0 + r;
+    return row < Sq ? load4(q + row * a.q_ss + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  });
 
   const int row0 = warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
   const uint32_t hk = head_key(static_cast<uint32_t>(a.offsets[2]), b * a.H + h);
@@ -442,33 +534,18 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs 
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * KN;
-    if (t + 1 < n_tiles) prefetch(t + 1);
+    if (t + 1 < n_tiles) S::prefetch(stage, k, a.k_ss, v, a.v_ss, t + 1, Sk);
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();  // tile t has landed; the last tile's products are done
 
     // split: k into k_hi / k_lo (K-major as staged), v transposed into vt
-    const unsigned char* sk = stage + (t & 1) * 2 * L::kStageBytes;
-    const unsigned char* sv = sk + L::kStageBytes;
-    for (int i = tid; i < KN * D / 4; i += kFwdThreads) {
-      const int r8 = i & 7;
-      const int kc = (i >> 3) % (D / 4);
-      const int rg = (i >> 3) / (D / 4);
-      const float4 x = load4(reinterpret_cast<const T*>(sk + L::staged(rg * 8 + r8, 4 * kc)));
-      const int at = (rg * (D / 4) + kc) * 32 + r8 * 4;
-      store_split<L::kSplit>(k_hi + at, k_lo + at, x);
-    }
-    for (int i = tid; i < D * KN / 4; i += kFwdThreads) {
-      const int d = i % D;
-      const int kq = i / D;
-      float4 x;
-      x.x = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq, d)));
-      x.y = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 1, d)));
-      x.z = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 2, d)));
-      x.w = to_f32(*reinterpret_cast<const T*>(sv + L::staged(4 * kq + 3, d)));
-      const int at = ((d >> 3) * (KN / 4) + kq) * 32 + (d & 7) * 4;
-      store_split<L::kSplit>(vt_hi + at, vt_lo + at, x);
-    }
+    const unsigned char* sk = S::k_tile(stage, t);
+    const unsigned char* sv = sk + S::kTileBytes;
+    split_kmajor<D, L::kSplit>(k_hi, k_lo, KN,
+                               [&](int r, int c) { return S::load4_at(sk, r, c); });
+    split_transposed<D, KN, L::kSplit>(vt_hi, vt_lo,
+                                       [&](int r, int e) { return S::value_at(sv, r, e); });
     if (tid < KN) valid[tid] = k0 + tid < Sk && mask[k0 + tid] != 0;
     fence_async_smem();
     __syncthreads();
@@ -577,14 +654,323 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(const FlashArgs 
   }
 }
 
-// dq: one block per (q tile, h, b), looping over k tiles. Replaces
-// `_bwd_dq_kernel` (sparknet_tpu/ops/attention.py:262). Bound: 6 B H Sq Sk
-// D operations (s, dp, ds K) over 67 TFLOP/s; 2.42 GFLOP, 0.036 ms at
-// BERT-base, above the 0.019 ms of its 63 MB. Against it: s and dp share
+// ---------------------------------------------------------------------------
+// dq on Hopper's tensor cores: three TF32 wgmma products with split operands
+// ---------------------------------------------------------------------------
+//
+// Replaces `_bwd_dq_kernel` (sparknet_tpu/ops/attention.py:262): per key
+// tile, s = q k^T, p = exp(scale s - lse) (0 where masked), dp = dO v^T
+// with the dropout mask regenerated, ds = p (dp - delta), dq += ds k;
+// written once as dq scale. Bound: 6 B H Sq Sk D operations (its three
+// products) over 495 TFLOP/s dense TF32, or its bytes (q, k, v, dO read,
+// dq written) over 3.35 TB/s: at BERT-base (B 32, H 12, S 128, D 64, f32)
+// 2.42 GFLOP is 0.0049 ms, under the 0.0189 ms of its 63 MB, so bytes
+// bound it; at B 8 x S 512 operations do (9.66 GFLOP, 0.0195 ms).
+//
+// Design, the forward's carried over (its section comment): one warpgroup
+// owns 64 query rows, the wgmma M, and loops over tiles of KN keys. f32
+// operands are split into hi and lo and each product is taken as three
+// TF32 terms, the small ones first: 3 + 3 + 3 at f32; at bf16 (exact in
+// TF32) 1 for s, 1 for dp and 2 for dq += ds k (ds is f32: ds_hi k +
+// ds_lo k). TF32 wgmma reads both operands K-major, so:
+//   - q and dO, the A operands of s and dp, are split once per block:
+//     at D <= 64 into registers, as wgmma A fragments (kRegA: D / 2 a
+//     thread for each of q and dO, twice that at f32), which leaves the
+//     shared-memory reads of the two products to their small B operands;
+//     at D 128 and 256 (too many registers) into shared memory;
+//   - each key tile's k is split K-major for s (the B operand, K = D),
+//     and also written transposed, kt (D rows of keys), for dq += ds k,
+//     whose reduction runs over keys: the forward's vt, applied to k;
+//   - v is split K-major for dp; it needs no transpose;
+//   - ds reaches the third product through shared memory as ds_hi /
+//     ds_lo, like the forward's p.
+// Raw K and V rows come in by cp.async, double-buffered and XOR-swizzled
+// by chunk, as in the forward. The s and dp products are issued as one
+// wgmma group before a single wait; the mask, p, dropout and ds run on
+// their accumulators, indexed from the fragment layout; the dq
+// accumulator (64 x D, in wgmma N-chunks of at most 64) stays in
+// registers across the key loop. KN keeps two or more blocks on an SM
+// where it can (f32 D 64: KN 32, 96.1 KiB); f32 D 256 does not fit at all
+// (kFits) and keeps the SIMT kernel further below. At f32 D 64, on an
+// H100, A in registers with KN 32 took 0.76x the card time of A in shared
+// memory with KN 16, which took 0.72x that of KN 32 (PERF.md).
+
+template <typename T, int D>
+struct DqTiles {
+  static constexpr bool kSplit = sizeof(T) == 4;  // f32 q, k, v, dO need a lo part
+  // q and dO as hi and lo are 256 KB at f32 D 256: more than a block may have
+  static constexpr bool kFits = !(kSplit && D == 256);
+  // q and dO as wgmma A fragments in registers, not in shared memory
+  static constexpr bool kRegA = D <= 64;
+  static constexpr int kA = kRegA ? 0 : 1;  // q and dO tiles in shared memory
+  static constexpr int KN =  // keys per tile
+      D == 16 ? 64 : D == 32 ? (kSplit ? 32 : 64) : D == 64 ? 32 : 16;
+  static constexpr int NQ = D < 64 ? D : 64;  // wgmma N of dq += ds k; D / NQ of them
+  using Stage = KVStage<T, D, KN>;
+  static constexpr int kLo = kSplit ? 1 : 0;
+  static constexpr int kQHi = 0;                               // 64 x D
+  static constexpr int kQLo = kQHi + kA * kTcRows * D;         // 64 x D (f32)
+  static constexpr int kOHi = kQLo + kA * kLo * kTcRows * D;   // dO, 64 x D
+  static constexpr int kOLo = kOHi + kA * kTcRows * D;         // 64 x D (f32)
+  static constexpr int kKHi = kOLo + kA * kLo * kTcRows * D;   // KN x D
+  static constexpr int kKLo = kKHi + KN * D;                   // KN x D (f32)
+  static constexpr int kVHi = kKLo + kLo * KN * D;             // KN x D
+  static constexpr int kVLo = kVHi + KN * D;                   // KN x D (f32)
+  static constexpr int kTHi = kVLo + kLo * KN * D;             // kt, D x KN
+  static constexpr int kTLo = kTHi + KN * D;                   // D x KN (f32)
+  static constexpr int kSHi = kTLo + kLo * KN * D;             // ds, 64 x KN
+  static constexpr int kSLo = kSHi + kTcRows * KN;             // 64 x KN
+  static constexpr int kStage = kSLo + kTcRows * KN;           // 2 x (k, v) raw
+  static constexpr int kValid = kStage + Stage::kFloats;       // KN ints
+  static constexpr size_t kBytes = sizeof(float) * (kValid + KN);
+  static_assert(!kFits || kBytes <= 232448, "dq tiles exceed a block's shared memory");
+};
+
+// dq: one block per (64-query tile, h, b). See the section comment.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel(const FlashArgs a) {
+  using L = DqTiles<T, D>;
+  constexpr int KN = L::KN;
+  constexpr int NQ = L::NQ;
+  constexpr int kOut = D / NQ;
+  extern __shared__ __align__(128) float dq_smem[];
+  float* const q_hi = dq_smem + L::kQHi;
+  float* const q_lo = dq_smem + L::kQLo;
+  float* const do_hi = dq_smem + L::kOHi;
+  float* const do_lo = dq_smem + L::kOLo;
+  float* const k_hi = dq_smem + L::kKHi;
+  float* const k_lo = dq_smem + L::kKLo;
+  float* const v_hi = dq_smem + L::kVHi;
+  float* const v_lo = dq_smem + L::kVLo;
+  float* const kt_hi = dq_smem + L::kTHi;
+  float* const kt_lo = dq_smem + L::kTLo;
+  float* const ds_hi = dq_smem + L::kSHi;
+  float* const ds_lo = dq_smem + L::kSLo;
+  unsigned char* const stage = reinterpret_cast<unsigned char*>(dq_smem + L::kStage);
+  int* const valid = reinterpret_cast<int*>(dq_smem + L::kValid);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kTcRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const int q_off = a.offsets[0];
+  const int kv_off = a.offsets[1];
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const int8_t* mask = a.mask + static_cast<long long>(b) * Sk;
+
+  // keys this block can see; causal stops at its last query's diagonal
+  int k_end = Sk;
+  if (a.causal) k_end = min(Sk, min(q0 + kTcRows, Sq) + q_off - kv_off);
+  const int n_tiles = k_end > 0 ? (k_end + KN - 1) / KN : 0;
+
+  using S = typename L::Stage;
+  if (n_tiles > 0) S::prefetch(stage, k, a.k_ss, v, a.v_ss, 0, Sk);
+  cp_async_commit();
+
+  const int row0 = warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+
+  // q and dO, split once (rows past Sq are zeros); scale is applied to s
+  constexpr int kFrag = L::kRegA ? D / 8 : 1;
+  uint32_t qa[2][kFrag][4], oa[2][kFrag][4];  // [hi, lo][k step][register]
+  if constexpr (L::kRegA) {
+#pragma unroll
+    for (int ks = 0; ks < kFrag; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + row0 + 8 * (j & 1);
+        const int col = 8 * ks + (lane & 3) + 4 * (j >> 1);
+        const float x = row < Sq ? to_f32(q[row * a.q_ss + col]) : 0.0f;
+        const float g = row < Sq ? to_f32(dout[row * a.do_ss + col]) : 0.0f;
+        const float xh = tf32(x), gh = tf32(g);
+        qa[0][ks][j] = __float_as_uint(xh);
+        oa[0][ks][j] = __float_as_uint(gh);
+        qa[1][ks][j] = __float_as_uint(tf32(x - xh));
+        oa[1][ks][j] = __float_as_uint(tf32(g - gh));
+      }
+  } else {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    split_kmajor<D, L::kSplit>(q_hi, q_lo, kTcRows, [&](int r, int c) {
+      return q0 + r < Sq ? load4(q + (q0 + r) * a.q_ss + c) : zero;
+    });
+    split_kmajor<D, L::kSplit>(do_hi, do_lo, kTcRows, [&](int r, int c) {
+      return q0 + r < Sq ? load4(dout + (q0 + r) * a.do_ss + c) : zero;
+    });
+  }
+
+  const uint32_t hk = head_key(static_cast<uint32_t>(a.offsets[2]), static_cast<int>(bh));
+  float lse[2], delta[2];
+  uint32_t rk[2];
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row0 + 8 * i;
+    lse[i] = row < Sq ? a.lse[bh * Sq + row] : 0.0f;
+    delta[i] = row < Sq ? a.delta[bh * Sq + row] : 0.0f;
+    rk[i] = row_key(hk, row);
+    qpos[i] = row + q_off;
+  }
+  float acc[kOut][NQ / 2];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+#pragma unroll
+    for (int r = 0; r < NQ / 2; ++r) acc[j][r] = 0.0f;
+
+  // LBO: 128 bytes between K-adjacent core matrices; SBO: K/4 of them
+  const uint64_t dq_hi = smem_desc(q_hi, 128, D * 32), dq_lo = smem_desc(q_lo, 128, D * 32);
+  const uint64_t ddo_hi = smem_desc(do_hi, 128, D * 32), ddo_lo = smem_desc(do_lo, 128, D * 32);
+  const uint64_t dk_hi = smem_desc(k_hi, 128, D * 32), dk_lo = smem_desc(k_lo, 128, D * 32);
+  const uint64_t dv_hi = smem_desc(v_hi, 128, D * 32), dv_lo = smem_desc(v_lo, 128, D * 32);
+  const uint64_t dkt_hi = smem_desc(kt_hi, 128, KN * 32), dkt_lo = smem_desc(kt_lo, 128, KN * 32);
+  const uint64_t dds_hi = smem_desc(ds_hi, 128, KN * 32), dds_lo = smem_desc(ds_lo, 128, KN * 32);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * KN;
+    if (t + 1 < n_tiles) S::prefetch(stage, k, a.k_ss, v, a.v_ss, t + 1, Sk);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile t has landed; the last tile's products are done
+
+    // split: k and v as staged (K-major), k also transposed into kt
+    const unsigned char* sk = S::k_tile(stage, t);
+    const unsigned char* sv = sk + S::kTileBytes;
+    split_kmajor<D, L::kSplit>(k_hi, k_lo, KN,
+                               [&](int r, int c) { return S::load4_at(sk, r, c); });
+    split_kmajor<D, L::kSplit>(v_hi, v_lo, KN,
+                               [&](int r, int c) { return S::load4_at(sv, r, c); });
+    split_transposed<D, KN, L::kSplit>(kt_hi, kt_lo,
+                                       [&](int r, int e) { return S::value_at(sk, r, e); });
+    if (tid < KN) valid[tid] = k0 + tid < Sk && mask[k0 + tid] != 0;
+    fence_async_smem();
+    __syncthreads();
+
+    // s = q k^T and dp = dO v^T, one wgmma group: small terms first
+    float s[KN / 2], dp[KN / 2];
+#pragma unroll
+    for (int r = 0; r < KN / 2; ++r) s[r] = dp[r] = 0.0f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    if constexpr (L::kRegA) {
+      if (L::kSplit) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          wgmma_tf32(s, qa[0][ks], dk_lo + 16 * ks);
+          wgmma_tf32(s, qa[1][ks], dk_hi + 16 * ks);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(s, qa[0][ks], dk_hi + 16 * ks);
+      if (L::kSplit) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          wgmma_tf32(dp, oa[0][ks], dv_lo + 16 * ks);
+          wgmma_tf32(dp, oa[1][ks], dv_hi + 16 * ks);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(dp, oa[0][ks], dv_hi + 16 * ks);
+    } else {
+      if (L::kSplit) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          wgmma_tf32(s, dq_hi + 16 * ks, dk_lo + 16 * ks);
+          wgmma_tf32(s, dq_lo + 16 * ks, dk_hi + 16 * ks);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(s, dq_hi + 16 * ks, dk_hi + 16 * ks);
+      if (L::kSplit) {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          wgmma_tf32(dp, ddo_hi + 16 * ks, dv_lo + 16 * ks);
+          wgmma_tf32(dp, ddo_lo + 16 * ks, dv_hi + 16 * ks);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(dp, ddo_hi + 16 * ks, dv_hi + 16 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // ds = p (dp - delta) on the accumulators, to ds_hi / ds_lo
+#pragma unroll
+    for (int r = 0; r < KN / 2; r += 2) {
+      const int i = (r >> 1) & 1;
+      const int c = 8 * (r >> 2) + 2 * (lane & 3);
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = valid[c + e] && (!a.causal || k0 + c + e + kv_off <= qpos[i]);
+        // masked logits give p = 0 even where lse is itself NEG_INF
+        const float sv = ok ? s[r + e] * a.scale : kNegInf;
+        const float p = sv <= kNegInf * 0.5f ? 0.0f : expf(sv - lse[i]);
+        float g = dp[r + e];
+        if (a.dropout) g = keep_bit(rk[i], k0 + c + e, a.threshold) ? g * a.drop_scale : 0.0f;
+        ds[e] = p * (g - delta[i]);
+      }
+      const int row = row0 + 8 * i;
+      const int at = ((row >> 3) * (KN / 4) + (c >> 2)) * 32 + (row & 7) * 4 + (c & 3);
+      const float h0 = tf32(ds[0]), h1 = tf32(ds[1]);
+      store2(ds_hi + at, h0, h1);
+      store2(ds_lo + at, tf32(ds[0] - h0), tf32(ds[1] - h1));
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // dq += ds k, D in chunks of NQ columns (kt rows)
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) fence_regs(acc[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const uint64_t rows = static_cast<uint64_t>(j * NQ * KN / 4);  // 16-byte units
+#pragma unroll
+      for (int ks = 0; ks < KN / 8; ++ks) {
+        if (L::kSplit) wgmma_tf32(acc[j], dds_hi + 16 * ks, dkt_lo + rows + 16 * ks);
+        wgmma_tf32(acc[j], dds_lo + 16 * ks, dkt_hi + rows + 16 * ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KN / 8; ++ks)
+        wgmma_tf32(acc[j], dds_hi + 16 * ks, dkt_hi + rows + 16 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) fence_regs(acc[j]);
+  }
+
+  // a row whose every key is masked has ds = 0, so dq = 0 exactly
+  T* out = static_cast<T*>(a.dq) + bh * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row0 + 8 * i;
+    if (row >= Sq) continue;
+    T* orow = out + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+#pragma unroll
+      for (int r = 2 * i; r < NQ / 2; r += 4)  // row i's registers: r % 4 in {2i, 2i + 1}
+        store2(orow + j * NQ + 8 * (r >> 2) + 2 * (lane & 3), acc[j][r] * a.scale,
+               acc[j][r + 1] * a.scale);
+  }
+}
+
+// dq on the CUDA cores, for f32 at head dim 256 only (DqTiles::kFits):
+// one block per (q tile, h, b), looping over k tiles. Bound: 6 B H Sq Sk
+// D operations (s, dp, ds K) over 67 TFLOP/s. Against it: s and dp share
 // one pass over D (16 shared-memory reads per 32 multiply-adds a thread),
 // and p is recomputed from lse rather than stored by the forward.
 template <typename T, int D, int COLS>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt_kernel(const FlashArgs a) {
   constexpr int CPT = COLS / 16;
   constexpr int DPT = D / 16;
   extern __shared__ float smem[];
@@ -863,7 +1249,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <int D>
-constexpr int cols_for() { return D == 256 ? 32 : 64; }  // the backward kernels' tile
+constexpr int cols_for() { return D == 256 ? 32 : 64; }  // the SIMT kernels' tile
 
 template <int D, int COLS>
 constexpr size_t smem_bytes(int which) {
@@ -874,106 +1260,90 @@ constexpr size_t smem_bytes(int which) {
                                 2 * kRows * (COLS + 1) + 2 * COLS);
 }
 
-// A kernel's attributes belong to each device's context. They are set on
-// the first launch on a device (bit `device` of `done`), not on every
-// launch: each call costs host time. Above 48 KB a block's shared memory
-// is dynamic only after the opt-in; the forward also asks for the largest
-// carveout, so that two of its 112 KB blocks (f32, D 64) fit one SM.
-template <auto Kernel>
-cudaError_t set_attributes(int device, size_t smem, bool max_carveout) {
-  static std::atomic<unsigned long long> done{0};
-  const unsigned long long bit = device < 64 ? 1ull << device : 0;
-  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess && max_carveout)
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
-  return err;
-}
+// One kernel instantiation as it is launched: its dynamic shared memory,
+// whether it asks for the largest carveout (so that two 112 KB blocks fit
+// one SM), its block size, and the devices on which its attributes are
+// set (bit `device`). Every kernel's grid tile has 64 rows.
+struct Spec {
+  void (*kernel)(FlashArgs);
+  size_t smem;
+  bool max_carveout;
+  int threads;
+  std::atomic<unsigned long long>* set_on;
+};
 
 template <auto Kernel>
-cudaError_t launch(size_t smem, bool max_carveout, int threads, int tiles, const FlashArgs& a,
-                   int device, cudaStream_t stream) {
-  const cudaError_t err = set_attributes<Kernel>(device, smem, max_carveout);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(a.H),
-                  static_cast<unsigned>(a.B));
-  Kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
+Spec make_spec(size_t smem, bool max_carveout, int threads) {
+  static std::atomic<unsigned long long> set_on{0};
+  return {Kernel, smem, max_carveout, threads, &set_on};
 }
 
+// The kernel that runs `which` at (T, D): dq on the tensor cores, except
+// at f32 D 256, whose tiles do not fit a block (DqTiles::kFits), where the
+// SIMT kernel runs.
 template <typename T, int D>
-cudaError_t launch_which(int which, const FlashArgs& a, int device, cudaStream_t stream) {
+Spec launch_spec(int which) {
   constexpr int COLS = cols_for<D>();
-  const int q_tiles = (a.Sq + kRows - 1) / kRows;
-  const int k_tiles = (a.Sk + kRows - 1) / kRows;
   if (which == kFwd)
-    return launch<flash_fwd_kernel<T, D>>(FwdTiles<T, D>::kBytes, true, kFwdThreads,
-                                          (a.Sq + kFwdRows - 1) / kFwdRows, a, device, stream);
-  if (which == kDq)
-    return launch<flash_bwd_dq_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDq), false, kThreads,
-                                                   q_tiles, a, device, stream);
-  return launch<flash_bwd_dkv_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDkv), false, kThreads,
-                                                  k_tiles, a, device, stream);
+    return make_spec<flash_fwd_kernel<T, D>>(FwdTiles<T, D>::kBytes, true, kTcThreads);
+  if (which == kDq) {
+    if constexpr (DqTiles<T, D>::kFits)
+      return make_spec<flash_bwd_dq_kernel<T, D>>(DqTiles<T, D>::kBytes, true, kTcThreads);
+    else
+      return make_spec<flash_bwd_dq_simt_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDq), false,
+                                                             kThreads);
+  }
+  return make_spec<flash_bwd_dkv_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDkv), false, kThreads);
 }
 
-// The forward's dynamic shared memory per block (out[0], bytes), registers
-// per thread (out[1]) and blocks resident per SM (out[2]): the build log's
-// ptxas report has the registers only.
-template <typename T, int D>
-cudaError_t fwd_info(int device, int* out) {
-  constexpr size_t smem = FwdTiles<T, D>::kBytes;
-  cudaError_t err = set_attributes<flash_fwd_kernel<T, D>>(device, smem, true);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<T, D>);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], flash_fwd_kernel<T, D>,
-                                                        kFwdThreads, smem);
-  out[0] = static_cast<int>(smem);
-  out[1] = err == cudaSuccess ? attr.numRegs : 0;
+template <typename T>
+bool spec_d(int which, int d, Spec* s) {
+  switch (d) {
+    case 16: *s = launch_spec<T, 16>(which); return true;
+    case 32: *s = launch_spec<T, 32>(which); return true;
+    case 64: *s = launch_spec<T, 64>(which); return true;
+    case 128: *s = launch_spec<T, 128>(which); return true;
+    case 256: *s = launch_spec<T, 256>(which); return true;
+    default: return false;
+  }
+}
+
+bool find_spec(int which, int head_dim, int dtype, Spec* s) {
+  if (which < kFwd || which > kDkv) return false;
+  if (dtype == 0) return spec_d<float>(which, head_dim, s);
+  if (dtype == 1) return spec_d<__nv_bfloat16>(which, head_dim, s);
+  return false;
+}
+
+// A kernel's attributes belong to each device's context. They are set on
+// the first launch on a device, not on every launch: each call costs host
+// time. Above 48 KB a block's shared memory is dynamic only after the
+// opt-in.
+cudaError_t set_attributes(const Spec& s, int device) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (bit && (s.set_on->load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(s.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(s.smem));
+  if (err == cudaSuccess && s.max_carveout)
+    err = cudaFuncSetAttribute(s.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) s.set_on->fetch_or(bit, std::memory_order_acq_rel);
   return err;
-}
-
-template <typename T>
-cudaError_t fwd_info_d(int d, int device, int* out) {
-  switch (d) {
-    case 16: return fwd_info<T, 16>(device, out);
-    case 32: return fwd_info<T, 32>(device, out);
-    case 64: return fwd_info<T, 64>(device, out);
-    case 128: return fwd_info<T, 128>(device, out);
-    case 256: return fwd_info<T, 256>(device, out);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_d(int which, int d, const FlashArgs& a, int device, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_which<T, 16>(which, a, device, stream);
-    case 32: return launch_which<T, 32>(which, a, device, stream);
-    case 64: return launch_which<T, 64>(which, a, device, stream);
-    case 128: return launch_which<T, 128>(which, a, device, stream);
-    case 256: return launch_which<T, 256>(which, a, device, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 int run(int which, const FlashArgs* a, int head_dim, int dtype, int device, void* stream) {
   if (a->B <= 0 || a->H <= 0 || a->Sq <= 0 || a->Sk <= 0) return 0;
   if (a->H > 65535 || a->B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Spec s;
+  if (!find_spec(which, head_dim, dtype, &s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = set_attributes(s, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch_d<float>(which, head_dim, *a, device, s);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(which, head_dim, *a, device, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  const int rows = which == kDkv ? a->Sk : a->Sq;
+  const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), static_cast<unsigned>(a->H),
+                  static_cast<unsigned>(a->B));
+  s.kernel<<<grid, s.threads, s.smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -997,12 +1367,24 @@ extern "C" int sparknet_flash_bwd_dkv(const FlashArgs* a, int head_dim, int dtyp
   return run(kDkv, a, head_dim, dtype, device, stream);
 }
 
-extern "C" int sparknet_flash_fwd_info(int head_dim, int dtype, int device, int* out) {
+// The kernel that runs `which` (0 forward, 1 dq, 2 dk/dv) at head_dim and
+// dtype: its dynamic shared memory per block (out[0], bytes), registers
+// per thread (out[1]), blocks resident per SM (out[2]) and threads per
+// block (out[3]: 128, one warpgroup, on the tensor cores; 256 on the CUDA
+// cores). The build log's ptxas report has the registers only.
+extern "C" int sparknet_flash_info(int which, int head_dim, int dtype, int device, int* out) {
+  Spec s;
+  if (!find_spec(which, head_dim, dtype, &s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0) return static_cast<int>(fwd_info_d<float>(head_dim, device, out));
-  if (dtype == 1) return static_cast<int>(fwd_info_d<__nv_bfloat16>(head_dim, device, out));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (err == cudaSuccess) err = set_attributes(s, device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, s.kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], s.kernel, s.threads, s.smem);
+  out[0] = static_cast<int>(s.smem);
+  out[1] = err == cudaSuccess ? attr.numRegs : 0;
+  out[3] = s.threads;
+  return static_cast<int>(err);
 }
 
 extern "C" int sparknet_flash_args_size() { return static_cast<int>(sizeof(FlashArgs)); }

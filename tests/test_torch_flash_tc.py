@@ -1,12 +1,14 @@
-"""The tensor-core flash forward's arithmetic, on the CPU.
+"""The tensor-core flash forward's and dq's arithmetic, on the CPU.
 
-The forward kernel (``sparknet_tpu_torch/ops/csrc/attention.cu``) takes
-both of its products on TF32 tensor cores with split operands: an f32
-x is hi + lo, hi = tf32(x) (nearest, ties away from zero, as
+The forward and dq kernels (``sparknet_tpu_torch/ops/csrc/attention.cu``)
+take their products on TF32 tensor cores with split operands: an f32 x
+is hi + lo, hi = tf32(x) (nearest, ties away from zero, as
 ``cvt.rna.tf32.f32``) and lo = tf32(x - hi), and a product a b is
 a_hi b_lo + a_lo b_hi + a_hi b_hi summed in f32. f32 q, k, v take three
 terms in s = q k^T and three in o += p v; bf16 ones take one term in s
 (bf16 is exact in TF32) and two in o += p v (p is f32: p_lo v + p_hi v).
+dq takes 3 + 3 + 3 terms at f32 (s = q k^T, dp = dO v^T, dq += ds k)
+and 1 + 1 + 2 at bf16 (ds is f32: ds_lo k + ds_hi k).
 
 There is no card here, so this file emulates that arithmetic in plain
 PyTorch: TF32 rounding through the int32 view, each term an f32 matrix
@@ -19,24 +21,36 @@ an online softmax, dropout of p after l). At BERT-base's head shape (H
   ``flash_fwd_reference``, o and lse, for f32 and for bf16 inputs, and
   within 2e-5 of the JAX package's flash forward (interpret mode) too;
 - a single TF32 pass *outside* that tolerance, which is why the split
-  exists.
+  exists;
+- the split dq, over the dq kernel's key tiles with p from lse and
+  dropout on dp, within the card's 1e-4 (rtol and atol) of
+  ``flash_bwd_dq_reference``, f32 and bf16, at BERT-base heads and at D
+  256 x S 1024; without dropout within 1e-4 of the JAX package's dq
+  (``jax.vjp`` of its flash attention in interpret mode). Each prints its
+  worst error (``pytest -s``).
 
-``_fwd_operand``, the forward wrapper's explicit copy of an operand
-the kernel cannot take as it is, is held here as well.
+``_fwd_operand``, the forward and dq wrappers' explicit copy of an
+operand the kernels cannot take as it is, is held here as well.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from sparknet_tpu.ops import attention as JA
 from sparknet_tpu_torch.ops import attention as TA
 
 TOL = 2e-5  # chip_smoke's f32 o and lse tolerance, rtol and atol
+GRAD_TOL = 1e-4  # chip_smoke's f32 dq tolerance, rtol and atol
 B, H, S, D = 2, 12, 128, 64  # BERT-base heads, a small batch
-KEY_TILE = 32  # the kernel's key tile at D 64
+KEY_TILE = 32  # the forward kernel's key tile at D 64
+# the dq kernel's key tile (DqTiles::KN) and TF32 terms (s, dp, dq += ds k)
+DQ_KEY_TILE = {(torch.float32, 64): 32, (torch.bfloat16, 64): 32,
+               (torch.float32, 256): 16, (torch.bfloat16, 256): 16}
+DQ_TERMS = {torch.float32: (3, 3, 3), torch.bfloat16: (1, 1, 2)}
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -91,6 +105,28 @@ def _tc_forward(q, k, v, kv_mask, offsets, causal, scale, rate, s_terms, pv_term
     o = torch.where(dead, 0.0, acc / l_safe)
     lse = torch.where(dead, TA.NEG_INF, m + torch.log(l_safe))[..., 0]
     return o, lse
+
+
+def _tc_dq(q, k, v, kv_mask, offsets, do, lse, delta, causal, scale, rate, terms, key_tile):
+    """The dq kernel with its three products emulated term by term, over
+    key tiles of its width: p = exp(scale s - lse) (0 where masked), dp
+    dropped and rescaled, ds = p (dp - delta), dq += ds k; dq scale in f32."""
+    s_terms, dp_terms, dq_terms = terms
+    sk = k.shape[2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    valid, keep = TA._mask_and_keep(q, k, kv_mask, offsets, causal, rate)
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, sk, key_tile):
+        k1 = min(k0 + key_tile, sk)
+        kt = kf[:, :, k0:k1]
+        s = _product(qf, kt.transpose(-1, -2), s_terms) * scale
+        s = torch.where(valid[..., k0:k1], s, TA.NEG_INF)
+        p = torch.where(s <= TA.NEG_INF * 0.5, 0.0, torch.exp(s - lse[..., None]))
+        dp = _product(dof, vf[:, :, k0:k1].transpose(-1, -2), dp_terms)
+        if keep is not None:
+            dp = torch.where(keep[..., k0:k1], dp * TA.drop_scale(rate), 0.0)
+        acc = acc + _product(p * (dp - delta[..., None]), kt, dq_terms)
+    return acc * scale
 
 
 def _bert_heads(dtype, rate=0.1, seed=0):
@@ -174,3 +210,108 @@ def test_fwd_operand_copies_only_what_the_forward_kernel_cannot_take():
         got = TA._fwd_operand(bad)
         assert got is not bad and got.is_contiguous() and TA._aligned16(got)
         assert torch.equal(got, bad)
+
+
+def _dq_inputs(dtype, b=B, h=H, s=S, d=D, rate=0.1, seed=0):
+    """q, k, v, dO from numpy, rounded to ``dtype`` and held as f32; a kv
+    mask whose last row has padded keys; the plain forward's lse and
+    delta = sum(dO o); the rest of the dq kernel's arguments."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32))
+                   .to(dtype).float() for _ in range(4))
+    mask = torch.ones((b, s), dtype=torch.int8)
+    mask[-1, s - s // 4:] = 0
+    off = TA.make_offsets(0, 0, 321 + seed, "cpu")
+    scale = d ** -0.5
+    o, lse = TA.flash_fwd_reference(q, k, v, mask, off, False, scale, rate)
+    return q, k, v, mask, off, do, lse, TA.flash_delta(do, o), False, scale, rate
+
+
+def _dq_excess(got, want, label):
+    """max |got - want| - GRAD_TOL (1 + |want|), printed with the worst
+    absolute error: <= 0 within the card's dq tolerance."""
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - GRAD_TOL * (1 + want.abs())).max())
+    print(f"{label}: max |emulated - plain| {err:.3e}, excess over 1e-4 (1 + |dq|) "
+          f"{excess:.3e}, largest |dq| {float(want.abs().max()):.3e}")
+    return excess
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32-3+3+3-terms",
+                                                                       "bf16-1+1+2-terms"])
+def test_split_tf32_dq_matches_the_plain_version(dtype):
+    args = _dq_inputs(dtype)
+    got = _tc_dq(*args, DQ_TERMS[dtype], DQ_KEY_TILE[(dtype, D)])
+    want = TA.flash_bwd_dq_reference(*args)
+    assert _dq_excess(got, want, f"dq BERT-base heads {dtype}") <= 0
+    assert float(want[-1].abs().max()) > 0  # the padded keys leave the row live
+
+
+def test_split_tf32_dq_matches_jax():
+    """Without dropout (the JAX package's CPU path has no random bits)
+    the emulated dq kernel against ``jax.vjp`` of the JAX flash attention
+    in interpret mode, on the same numpy inputs and dO."""
+    q, k, v, mask, off, do, lse, delta, causal, scale, _ = _dq_inputs(
+        torch.float32, b=1, rate=0.0, seed=4)
+    got = _tc_dq(q, k, v, mask, off, do, lse, delta, causal, scale, 0.0,
+                 DQ_TERMS[torch.float32], DQ_KEY_TILE[(torch.float32, D)])
+    jk, jv, jmask = (jnp.asarray(t.numpy()) for t in (k, v, mask != 0))
+    _, vjp = jax.vjp(lambda jq: JA.flash_attention(jq, jk, jv, kv_mask=jmask, interpret=True,
+                                                   block_q=64, block_k=64),
+                     jnp.asarray(q.numpy()))
+    (want,) = vjp(jnp.asarray(do.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("terms", [(1, 3, 3), (3, 1, 3), (3, 3, 1)],
+                         ids=["s-one-pass", "dp-one-pass", "dq-one-pass"])
+def test_dq_with_one_product_in_one_tf32_pass_misses_the_tolerance(terms):
+    """f32 dq keeps all nine terms: any one of its three products taken in
+    a single TF32 pass leaves dq outside 1e-4 at BERT-base heads."""
+    args = _dq_inputs(torch.float32)
+    got = _tc_dq(*args, terms, DQ_KEY_TILE[(torch.float32, D)])
+    assert _dq_excess(got, TA.flash_bwd_dq_reference(*args), f"dq terms {terms}") > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_tf32_dq_holds_at_d256_s1024(dtype):
+    """Long rows and wide heads add terms to each sum: one head at D 256
+    and S 1024, with dropout 0.1 and padded keys."""
+    args = _dq_inputs(dtype, b=1, h=1, s=1024, d=256)
+    got = _tc_dq(*args, DQ_TERMS[dtype], DQ_KEY_TILE[(dtype, 256)])
+    want = TA.flash_bwd_dq_reference(*args)
+    assert _dq_excess(got, want, f"dq D 256 S 1024 {dtype}") <= 0
+
+
+def test_flash_bwd_dq_hands_the_kernel_aligned_operands(monkeypatch):
+    """``flash_bwd_dq`` passes q, k, v and dO through ``_fwd_operand``: an
+    operand with 264-byte rows reaches the launch as an aligned copy,
+    BERT's strided q view and contiguous ones as they are. Run on meta
+    tensors (no data) with the device checks and the launch stubbed, so
+    that no card is needed; the launch records the strides it was given."""
+    seen, launched = [], []
+
+    def spy(t):
+        out = fwd_operand(t)
+        seen.append((t, out))
+        return out
+
+    fwd_operand = TA._fwd_operand
+    monkeypatch.setattr(TA, "_fwd_operand", spy)
+    monkeypatch.setattr(TA, "_check_qkv", lambda *a, **kw: 0)
+    monkeypatch.setattr(TA, "_launch", lambda fn, entry, a, q: launched.append(
+        (entry, a.q_ss, a.k_ss, a.v_ss, a.do_ss)))
+    meta = "meta"
+    b, h, s, d = 2, 12, 128, 64
+    q = torch.empty((b, s, 3, h, d), device=meta)[:, :, 0].transpose(1, 2)  # BERT's view
+    k = torch.empty((b, h, s, d + 2), device=meta)[..., :d]                 # 264-byte rows
+    v, do = (torch.empty((b, h, s, d), device=meta) for _ in range(2))
+    stats = torch.empty((b, h, s), device=meta)
+    mask = torch.empty((b, s), dtype=torch.int8, device=meta)
+    off = torch.empty((3,), dtype=torch.int32, device=meta)
+    before = TA.flash_bwd_dq.launches
+    TA.flash_bwd_dq(q, k, v, mask, off, do, stats, stats, False, d ** -0.5, 0.1)
+    assert len(seen) == 4 and all(t is want for (t, _), want in zip(seen, (q, k, v, do)))
+    assert [out is t for t, out in seen] == [True, False, True, True]
+    assert launched == [("sparknet_flash_bwd_dq", 3 * h * d, d, d, d)]
+    assert TA.flash_bwd_dq.launches == before + 1

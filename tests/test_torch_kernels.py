@@ -31,13 +31,14 @@ rtol/atol 2e-5, f32 gradients rtol/atol 1e-4 (the JAX flash tests' own:
 sums of up to D products per logit and of Sk or Sq terms per output, in
 another order); bf16 outputs one bf16 ulp of the plain result (computed
 in f32 from the same bf16 inputs) beyond those. With dropout both sides
-draw the same mask, so the same tolerances hold. The forward kernel runs
-on TF32 tensor cores with split operands: with v = I and S = D its o is
-the softmax itself, held element by element; it takes BERT's strided
-q/k/v views of one fused QKV product as they are, its wrapper copies an
-operand that its 16-byte ``cp.async`` copies cannot take, and its
-compiled code holds ``HGMMA`` (``cuobjdump -sass``, skipped where the
-toolkit lacks it).
+draw the same mask, so the same tolerances hold. The forward and dq
+kernels run on TF32 tensor cores with split operands: with v = I and S =
+D the forward's o is the softmax itself, and with k = I dq is scale ds
+itself (the transposed k tile's layout), held element by element; both
+take BERT's strided q/k/v views of one fused QKV product as they are,
+their wrappers copy an operand that their 16-byte ``cp.async`` copies
+cannot take, and their compiled code holds ``HGMMA`` (``cuobjdump
+-sass``, skipped where the toolkit lacks it).
 """
 
 import os
@@ -295,6 +296,12 @@ FLASH_CASES = [
     ("dropout 0.1", 2, 3, 128, 128, 64, False, 0, 0, True, 0.1),
     ("dropout 0.5", 1, 2, 100, 77, 64, True, 0, 0, False, 0.5),
     ("dropout d256", 1, 2, 64, 80, 256, False, 0, 0, False, 0.1),
+    # every head dim with causal offsets, ragged lengths (no multiple of
+    # any key tile), dropout and a padded row: dq runs three designs
+    *((f"offsets d{d}", 2, 2, 100, 150, d, True, 60, 20, True, 0.1) for d in TA.HEAD_DIMS),
+    # long rows and wide heads add terms to every sum (the CPU emulation
+    # of the split terms holds here too, tests/test_torch_flash_tc.py)
+    ("d256 s1024", 2, 1, 1024, 1024, 256, False, 0, 0, True, 0.1),
 ]
 FLASH_IDS = [c[0].replace(" ", "-") for c in FLASH_CASES]
 
@@ -499,6 +506,52 @@ def test_flash_fwd_copies_unaligned_operands(cuda_device):
     assert TA.flash_fwd.launches == before + 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_bwd_dq_with_identity_k_gives_scale_ds(d, dtype, cuda_device):
+    """k = I with S = D: dq is scale ds itself, ds = p (dO v^T - delta)
+    with p = exp(scale q - lse), so a wrong layout of the transposed k
+    tile (the B operand of dq += ds k) shows at once, element by element."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, v, do = (torch.randn((2, 3, d, d), generator=g, device=cuda_device).to(dtype)
+                for _ in range(3))
+    eye = torch.eye(d, device=cuda_device).to(dtype).expand(2, 3, d, d).contiguous()
+    mask = torch.ones((2, d), dtype=torch.int8, device=cuda_device)
+    off = TA.make_offsets(0, 0, 0, cuda_device)
+    scale = d ** -0.5
+    s = q.float() * scale
+    lse = torch.logsumexp(s, -1)
+    delta = torch.randn(lse.shape, generator=g, device=cuda_device)
+    before = TA.flash_bwd_dq.launches
+    dq = TA.flash_bwd_dq(q, eye, v, mask, off, do, lse, delta, False, scale, 0.0)
+    torch.cuda.synchronize()
+    assert TA.flash_bwd_dq.launches == before + 1
+    ds = torch.exp(s - lse[..., None]) * (do.float() @ v.float().transpose(-1, -2)
+                                          - delta[..., None])
+    ok, err = _within(dq, scale * ds, dtype, 1e-4, 1e-4)
+    assert ok, f"dq: max |kernel - scale ds| {err:.3e}"
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_copies_unaligned_operands(cuda_device):
+    """A q, k, v or dO whose base or row stride is not 16-byte aligned is
+    copied by the dq wrapper, explicitly, and the kernel still runs once."""
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(FLASH_CASES[9],
+                                                               torch.float32, cuda_device)
+    _, lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    delta = TA.flash_delta(do, q)
+    q_off = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape).copy_(q)
+    do_wide = torch.zeros(do.shape[:3] + (do.shape[3] + 2,), device=cuda_device)[..., :-2]
+    do_wide.copy_(do)  # rows of 66 floats: 264 bytes apart
+    assert not TA._aligned16(q_off) and not TA._aligned16(do_wide)
+    before = TA.flash_bwd_dq.launches
+    want = TA.flash_bwd_dq(q, k, v, mask, off, do, lse, delta, causal, scale, rate)
+    got = TA.flash_bwd_dq(q_off, k, v, mask, off, do_wide, lse, delta, causal, scale, rate)
+    assert torch.equal(got, want)
+    assert TA.flash_bwd_dq.launches == before + 2
+
+
 def _sass_functions(sass: str) -> dict:
     """{mangled name: its SASS} from ``cuobjdump -sass`` output."""
     parts = re.split(r"Function : (\S+)", sass)
@@ -508,8 +561,10 @@ def _sass_functions(sass: str) -> dict:
 @pytest.mark.cuda
 def test_flash_fwd_kernel_runs_on_tensor_cores(cuda_device):
     """Every instantiation of flash_fwd_kernel (5 head dims x f32/bf16)
-    holds HGMMA, Hopper's warpgroup tensor-core instruction; the two
-    backward kernels, on the CUDA cores, hold none."""
+    and of flash_bwd_dq_kernel (the same but f32 at D 256, which runs
+    flash_bwd_dq_simt_kernel) holds HGMMA, Hopper's warpgroup tensor-core
+    instruction; the kernels on the CUDA cores (dk/dv, that one dq) hold
+    none."""
     try:
         tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     except RuntimeError:
@@ -520,8 +575,10 @@ def test_flash_fwd_kernel_runs_on_tensor_cores(cuda_device):
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True,
                           timeout=300).stdout
     funcs = _sass_functions(sass)
-    fwd = {n: body for n, body in funcs.items() if "flash_fwd_kernel" in n}
-    assert len(fwd) == 10, sorted(funcs)
-    assert all("HGMMA" in body for body in fwd.values()), [
-        n for n, body in fwd.items() if "HGMMA" not in body]
-    assert not any("HGMMA" in body for n, body in funcs.items() if n not in fwd)
+    tc = {n: body for n, body in funcs.items()
+          if "flash_fwd_kernel" in n or "flash_bwd_dq_kernel" in n}
+    assert len(tc) == 19 and sum("flash_bwd_dq_simt_kernel" in n for n in funcs) == 1, \
+        sorted(funcs)
+    assert all("HGMMA" in body for body in tc.values()), [
+        n for n, body in tc.items() if "HGMMA" not in body]
+    assert not any("HGMMA" in body for n, body in funcs.items() if n not in tc)
