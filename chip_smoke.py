@@ -11,11 +11,11 @@ own lines:
 2. build: every kernel of ``sparknet_tpu_torch/ops/csrc`` compiled from
    source (one ``nvcc`` per file, all started together), with timings
    and the compiler's register/shared-memory report; then the SASS
-   (``cuobjdump -sass``) of the flash forward and of dq must hold
-   ``HGMMA``, the tensor cores' warpgroup product, in every
-   instantiation (dq at f32 D 256 is the one SIMT dq, which must not),
-   and each of their instantiations' shared memory, registers and blocks
-   per SM are printed;
+   (``cuobjdump -sass``) of the flash forward, dq and dk/dv must hold
+   ``HGMMA``, the tensor cores' warpgroup product, in every tensor-core
+   instantiation (dq at f32 D 256 and dk/dv at D 256, f32 and bf16, are
+   the SIMT kernels, which must not), and each of their instantiations'
+   shared memory, registers and blocks per SM are printed;
 3. kernels: each of the three LRN kernels (inference forward, training
    forward with its f32 residual d, backward) held against its plain
    PyTorch version on the card (tolerances below), odd and even window
@@ -36,8 +36,9 @@ own lines:
    product. Then dropout's statistics: the keep rate (v = 1, the mean
    output within 0.05 of 1) and the forward/backward mask identity (v =
    I with S = D: dv equals the forward's dropped probabilities
-   transposed times dO). Then each kernel at BERT-base's shapes (H 12,
-   D 64, f32, attention dropout 0.1; B 32 x S 128, and B 8 x S 512),
+   transposed times dO; at D 128 the tensor-core dk/dv kernel runs it).
+   Then each kernel at BERT-base's shapes (H 12, D 64, f32, attention
+   dropout 0.1; B 32 x S 128, and B 8 x S 512),
    held against its plain version and timed with CUDA events beside its
    bound, the plain version and one call of
    ``F.scaled_dot_product_attention`` (its autograd backward asked for
@@ -46,10 +47,9 @@ own lines:
    events around calls made back to back and by ``torch.profiler``
    (the card's busy time alone, without the wrapper's host time); each
    stands beside the f32 CUDA-core bound, the function's own products at
-   the TF32 rate and, for the forward and dq, their design's tensor-core
-   bound (3 + 3 and 3 + 3 + 3 TF32 terms); and all three are held
-   against their plain versions and timed in bf16 at B 32 x S 128 as
-   well;
+   the TF32 rate and its design's tensor-core bound (3 + 3, 3 + 3 + 3
+   and 3 + 3 + 3 + 3 TF32 terms); and all three are held against their
+   plain versions and timed in bf16 at B 32 x S 128 as well;
 5. serving: full-width ``bvlc_alexnet`` (random weights from seed 0)
    served on the card through InferenceEngine -> MicroBatcher -> HTTP
    InferenceServer; /healthz, /classify (1, 3, 8 rows), /metrics, then
@@ -104,11 +104,12 @@ so it holds the wrapper's host time and the launch; the flash kernels
 add "loop_ms" (CUDA events around back-to-back calls, over their
 number) and "device_ms" (``torch.profiler``'s device time of the
 kernel). Each "bound_ms" counts the operations at the peak rate of the
-units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN and dk/dv,
-495 TFLOP/s dense TF32 for the own products of the flash forward (two)
-and dq (three) (their split operands make each f32 product three TF32
-terms: that design's bound is printed beside it); "launches" counts the
-main paths' runs (serving and train for LRN, bert-train for flash).
+units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
+TFLOP/s dense TF32 for the own products of the flash forward (two), dq
+(three) and dk/dv (four) (their split operands make each f32 product
+three TF32 terms: that design's bound is printed beside it); "launches"
+counts the main paths' runs (serving and train for LRN, bert-train for
+flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
@@ -221,6 +222,9 @@ FLASH_FWD_TERMS = {"float32": (3, 3), "bfloat16": (1, 2)}
 # dq's (s = q k^T, dp = dO v^T, dq += ds k): f32 3 + 3 + 3, bf16 1 + 1 + 2
 # (ds is f32); tests/test_torch_flash_tc.py shows that none can go
 FLASH_DQ_TERMS = {"float32": (3, 3, 3), "bfloat16": (1, 1, 2)}
+# dk/dv's (s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q): f32
+# 3 + 3 + 3 + 3, bf16 1 + 1 + 2 + 2 (p and ds are f32)
+FLASH_DKV_TERMS = {"float32": (3, 3, 3, 3), "bfloat16": (1, 1, 2, 2)}
 # each wrapper's kernel, by the name torch.profiler gives its device time
 FLASH_TAGS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
               "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
@@ -283,10 +287,11 @@ def phase_build():
 
 
 def _flash_on_tensor_cores(lib_path):
-    """Every flash_fwd_kernel and flash_bwd_dq_kernel instantiation's SASS
-    holds HGMMA, and no other kernel's does (raises otherwise); f32 dq at
-    D 256 is the one flash_bwd_dq_simt_kernel. Each forward and dq
-    instantiation's shared memory, registers and blocks per SM."""
+    """Every flash_fwd_kernel, flash_bwd_dq_kernel and flash_bwd_dkv_kernel
+    instantiation's SASS holds HGMMA, and no other kernel's does (raises
+    otherwise); f32 dq at D 256 is the one flash_bwd_dq_simt_kernel, dk/dv
+    at D 256 the two flash_bwd_dkv_simt_kernel. Each instantiation's
+    shared memory, registers and blocks per SM."""
     import ctypes
     import re
 
@@ -298,24 +303,27 @@ def _flash_on_tensor_cores(lib_path):
     parts = re.split(r"Function : (\S+)", sass)
     funcs = dict(zip(parts[1::2], parts[2::2]))
     tc = {}
-    for kernel, want in (("flash_fwd_kernel", 10), ("flash_bwd_dq_kernel", 9)):
+    for kernel, want in (("flash_fwd_kernel", 10), ("flash_bwd_dq_kernel", 9),
+                         ("flash_bwd_dkv_kernel", 8)):
         hgmma = {n: body.count("HGMMA") for n, body in funcs.items() if kernel in n}
         log(f"  cuobjdump -sass: {len(hgmma)} {kernel} instantiations, HGMMA "
             f"instructions in each: {sorted(hgmma.values())}")
         if len(hgmma) != want or not all(hgmma.values()):
             raise AssertionError(f"{kernel} without HGMMA: {hgmma}")
         tc.update(hgmma)
-    simt = [n for n in funcs if "flash_bwd_dq_simt_kernel" in n]
+    simt_dq = [n for n in funcs if "flash_bwd_dq_simt_kernel" in n]
+    simt_dkv = [n for n in funcs if "flash_bwd_dkv_simt_kernel" in n]
     others = sum(b.count("HGMMA") for n, b in funcs.items() if n not in tc)
-    log(f"  in the other {len(funcs) - len(tc)} kernels ({len(simt)} SIMT dq, f32 D=256): "
-        f"{others}")
-    if len(simt) != 1 or others:
-        raise AssertionError(f"SIMT dq {simt}, HGMMA outside the tensor-core kernels {others}")
+    log(f"  in the other {len(funcs) - len(tc)} kernels ({len(simt_dq)} SIMT dq, f32 D=256; "
+        f"{len(simt_dkv)} SIMT dk/dv, D=256): {others}")
+    if len(simt_dq) != 1 or len(simt_dkv) != 2 or others:
+        raise AssertionError(f"SIMT dq {simt_dq}, SIMT dk/dv {simt_dkv}, HGMMA outside the "
+                             f"tensor-core kernels {others}")
     lib = _build.library("attention")
     fn = lib.sparknet_flash_info
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    for which, kernel in enumerate(("flash_fwd", "flash_bwd_dq")):
+    for which, kernel in enumerate(FLASH_NAMES):
         for code, dt in enumerate(("float32", "bfloat16")):
             for d in (16, 32, 64, 128, 256):
                 out = (ctypes.c_int * 4)()
@@ -1194,7 +1202,8 @@ def _flash_dropout_statistics(gen):
                              False, s ** -0.5, rate)
     err_mask = float((dv - p_dropped.transpose(-1, -2) @ g).abs().mean())
     err_all = float((dv - p_all.transpose(-1, -2) @ g).abs().mean())
-    log(f"  dropout mask identity (v = I, S = D = {s}, rate {rate}): mean |dv - "
+    log(f"  dropout mask identity (v = I, S = D = {s}, rate {rate}; the tensor-core dk/dv "
+        f"kernel): mean |dv - "
         f"p_dropped^T dO| {err_mask:.2e} [< 1e-5], against the keep-all p {err_all:.2e} "
         f"[> 100x]")
     if not (err_mask < 1e-5 and err_all > 100 * err_mask):
@@ -1273,8 +1282,8 @@ def _bwd_bounds(b, s, dtype):
     and dO read and the gradients written at the dtype's size, lse and
     delta in f32, the mask and offsets. "function" counts the function's
     own products, dq 6 B H S^2 D (s, dp, ds k) and dk/dv 8 B H S^2 D (s,
-    dp, p^T dO, ds^T q); "design" dq's TF32 terms (FLASH_DQ_TERMS). dk/dv
-    runs on the CUDA cores: it has no tensor-core design."""
+    dp, p^T dO, ds^T q); "design" their kernels' TF32 terms
+    (FLASH_DQ_TERMS, FLASH_DKV_TERMS)."""
     h, d = BERT_HEADS, BERT_HEAD_DIM
     es = 4 if dtype == "float32" else 2
     elems, rows, pairs = b * h * s * d, b * h * s, b * h * s * s * d
@@ -1283,7 +1292,9 @@ def _bwd_bounds(b, s, dtype):
         "flash_bwd_dq": {
             "design": _tc_bound(read + es * elems, 2 * sum(FLASH_DQ_TERMS[dtype]) * pairs),
             "function": _tc_bound(read + es * elems, 6 * pairs)},
-        "flash_bwd_dkv": {"function": _tc_bound(read + 2 * es * elems, 8 * pairs)},
+        "flash_bwd_dkv": {
+            "design": _tc_bound(read + 2 * es * elems, 2 * sum(FLASH_DKV_TERMS[dtype]) * pairs),
+            "function": _tc_bound(read + 2 * es * elems, 8 * pairs)},
     }
 
 
@@ -1344,7 +1355,8 @@ def _time_flash_bf16(b, s, gen):
     """The three kernels in bf16 at (b, s): held against their plain
     versions (one bf16 ulp beyond the f32 tolerances; lse f32), then timed
     beside their tensor-core bounds (half the bytes; the forward 1 + 2
-    terms, dq 1 + 1 + 2), the plain versions and SDPA in bf16."""
+    terms, dq 1 + 1 + 2, dk/dv 1 + 1 + 2 + 2), the plain versions and SDPA
+    in bf16."""
     import torch
 
     case = (f"BERT-base B={b} S={s} bf16", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0,
@@ -1373,9 +1385,9 @@ def _time_flash(gen):
     F.scaled_dot_product_attention (forward; for dq its autograd backward
     asked for dq alone, for dk/dv asked for dk and dv); and back to back
     and by the profiler, beside its tensor-core bounds (the f32 CUDA-core
-    one kept in its first line). The forward's and dq's bound is then the
-    tensor-core one of their function; dk/dv, on the CUDA cores, keeps the
-    f32 one. All three in bf16 at B 32 x S 128 too."""
+    one kept in its first line). Each kernel's bound is then the
+    tensor-core one of its function. All three in bf16 at B 32 x S 128
+    too."""
     import torch
 
     out = {}
@@ -1403,9 +1415,8 @@ def _time_flash(gen):
                 f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
             r.update(_more_times(kernel, library, FLASH_TAGS[name]))
             _log_tc(name, f"B={b} S={s} f32", r, tc[name])
-            if name != "flash_bwd_dkv":  # on the tensor cores: the bound is the TF32 one
-                r.update(bound_ms=tc[name]["function"]["bound_ms"],
-                         bound_by=tc[name]["function"]["bound_by"])
+            r.update(bound_ms=tc[name]["function"]["bound_ms"],  # on the tensor cores
+                     bound_by=tc[name]["function"]["bound_by"])
             if (b, s) == (BERT_BATCH, BERT_SEQ):
                 out[name] = r  # the shape of the main path's launches
         if (b, s) == (BERT_BATCH, BERT_SEQ):

@@ -58,7 +58,7 @@ from . import _build
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
 HEAD_DIMS = (16, 32, 64, 128, 256)  # what the kernels take
 DEFAULT_BLOCK_Q = 64   # the kernels' row tile
-DEFAULT_BLOCK_K = 64   # the dk/dv kernel's column tile (32 at head dim 256)
+DEFAULT_BLOCK_K = 64   # the JAX signature's block_k; the kernels' tiles follow D
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -178,8 +178,8 @@ def dropout_keep(seed: torch.Tensor, b: int, h: int, sq: int, sk: int,
 # ---------------------------------------------------------------------------
 
 def _kernel_cols(d: int) -> int:
-    """The dk/dv kernel's column tile for head dim ``d``, and the key tile
-    over which the plain forward folds its online softmax."""
+    """The key tile over which the plain forward folds its online softmax
+    at head dim ``d`` (the SIMT kernels' column tile)."""
     return 32 if d == 256 else DEFAULT_BLOCK_K
 
 
@@ -352,11 +352,12 @@ def _aligned16(t: torch.Tensor) -> bool:
 
 
 def _fwd_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the forward and dq kernels take it as it is, else
-    an explicit contiguous copy (a fresh, aligned allocation). The kernels
-    copy K and V rows in 16-byte ``cp.async`` chunks and read q (and dO)
-    in 16-byte (f32) or 8-byte (bf16) vectors: the base pointer and the
-    row, head and batch strides in bytes must be multiples of 16."""
+    """``t`` itself when the flash kernels take it as it is, else an
+    explicit contiguous copy (a fresh, aligned allocation). The kernels
+    copy tiles of rows in 16-byte ``cp.async`` chunks (K and V in the
+    forward and dq, q and dO in dk/dv) and read the other operands in
+    16-byte (f32) or 8-byte (bf16) vectors: the base pointer and the row,
+    head and batch strides in bytes must be multiples of 16."""
     return t if _aligned16(t) else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -461,14 +462,18 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, kv_mask, offsets, do, lse, delta, causal: bool, scale: float,
                   dropout_rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash backward ``(dk, dv)``. CUDA tensors go to the kernel, CPU
-    tensors to :func:`flash_bwd_dkv_reference`. ``flash_bwd_dkv.launches``
-    counts kernel launches."""
+    tensors to :func:`flash_bwd_dkv_reference`. Like the forward and dq
+    kernels, the dk/dv kernel stages its operands by 16-byte copies: a q,
+    k, v or dO whose base or strides are not 16-byte aligned is copied
+    before the launch (:func:`_fwd_operand`), any other goes as it is.
+    ``flash_bwd_dkv.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, kv_mask, offsets, do, lse, delta, causal,
                                        scale, dropout_rate)
     _check_qkv("flash_bwd_dkv", q, k, v, kv_mask, offsets, do)
     _check_stats("flash_bwd_dkv", "lse", lse, q)
     _check_stats("flash_bwd_dkv", "delta", delta, q)
+    q, k, v, do = (_fwd_operand(t) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if _empty_call(q, k):

@@ -29,32 +29,30 @@
 // operations over the peak rate of the units that run them, which the
 // caller computes for its shapes.
 //
-// The forward and dq run on the tensor cores: TF32 wgmma with operands
-// split into hi and lo parts so that they keep f32 accuracy, tiles staged
-// by cp.async (their sections below). One head dimension is the
-// exception: f32 dq at D 256 keeps the SIMT kernel, because its q and dO
-// as hi and lo alone would take 256 KB of shared memory, more than the
-// 227 KB a block may have (launch_spec, an explicit dispatch);
-// chip_smoke.py's build phase checks for HGMMA in every forward and
-// tensor-core dq instantiation and for none elsewhere, and its --ab mode
-// times all three kernels against another checkout.
+// All three run on the tensor cores: TF32 wgmma with operands split into
+// hi and lo parts so that they keep f32 accuracy, tiles staged by cp.async
+// (their sections below). Two head-dimension routes are the exception and
+// keep SIMT kernels, by an explicit dispatch (launch_spec): f32 dq at D
+// 256, because its q and dO as hi and lo alone would take 256 KB of shared
+// memory, more than the 227 KB a block may have; and dk/dv at D 256 in
+// both dtypes, because its dk and dv accumulators alone would take 256
+// registers a thread, more than the 255 a thread may have.
+// chip_smoke.py's build phase checks for HGMMA in every tensor-core
+// instantiation and for none elsewhere, and its --ab mode times all three
+// kernels against another checkout.
 //
-// The dk/dv kernel, and that one dq, are correct and simple first: f32
-// fused multiply-adds on the CUDA cores (67 TFLOP/s), no wgmma or TMA. One
-// block of 256 threads (16 x 16) owns a tile of 64 rows (query rows for
-// dq, key rows for dk/dv) and loops over tiles of COLS columns of the
-// other side (64, or 32 at head dim 256 so that the tiles fit shared
-// memory), so the TPU's sequential grid dimension becomes this loop and
-// nothing carries between blocks; the two backward kernels stay split, so
-// no atomics are needed. Tiles are staged in shared memory as f32 (rows
-// padded to D+1 floats, so the threads of a warp read distinct banks);
-// each thread keeps a 4 x COLS/16 tile of s and dp in registers, writes ds
-// (and p) to shared memory, and accumulates its 4 x D/16 share of the
-// output in registers. Ragged edges of S_q and S_k are masked in every
-// kernel, so the caller pads nothing. A causal tile wholly above the
-// diagonal ends the forward's and dq's loop and is skipped by dk/dv. The
-// offsets and the dropout seed come from a (3,) int32 device tensor, so a
-// traced offset or a seed drawn on the device needs no host read.
+// Every kernel's block owns 64 rows (query rows for the forward and dq,
+// key rows for dk/dv) and loops over tiles of the other side, so the TPU's
+// sequential grid dimension becomes this loop and nothing carries between
+// blocks; the two backward kernels stay split, so no atomics are needed.
+// Ragged edges of S_q and S_k are masked in every kernel, so the caller
+// pads nothing. A causal tile wholly above the diagonal ends the forward's
+// and dq's loop and is skipped by dk/dv. The SIMT kernels are correct and
+// simple: f32 fused multiply-adds on the CUDA cores (67 TFLOP/s), 256
+// threads (16 x 16) a block, tiles of 32 columns staged in shared memory
+// as f32 rows padded to D+1 floats. The offsets and the dropout seed come
+// from a (3,) int32 device tensor, so a traced offset or a seed drawn on
+// the device needs no host read.
 //
 // Dropout is a counter-based hash of (seed, b*H + h, query index, key
 // index): the element's own indices within the call, not its tile's, so
@@ -78,7 +76,7 @@
 struct FlashArgs {
   const void* q;          // (B, H, Sq, D), strides below, last dim contiguous;
                           // q, k, v (and dO) 16-byte aligned (base, strides)
-                          // for the forward and dq
+                          // for the tensor-core kernels
   const void* k;          // (B, H, Sk, D)
   const void* v;          // (B, H, Sk, D)
   const void* dout;       // (B, H, Sq, D), backward only
@@ -400,14 +398,15 @@ __device__ __forceinline__ void split_transposed(float* hi, float* lo, Load load
   }
 }
 
-// Raw K and V rows of key tiles of KN keys, staged by cp.async in two
-// buffers of (k, v): 16-byte chunks, zero-filled past Sk, XOR-swizzled by
+// Raw rows of two (rows, D) operands (k and v in the forward and dq, q and
+// dO in dk/dv), tiles of N rows staged by cp.async in two buffers of both:
+// 16-byte chunks, zero-filled past the operands' last row, XOR-swizzled by
 // chunk so that the split passes read without bank conflicts.
-template <typename T, int D, int KN>
-struct KVStage {
+template <typename T, int D, int N>
+struct TileStage {
   static constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;  // per staged row
   static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
-  static constexpr int kTileBytes = KN * kChunks * 16;  // one raw k or v tile
+  static constexpr int kTileBytes = N * kChunks * 16;  // one raw tile of one operand
   static constexpr int kFloats = kTileBytes;  // four tiles, counted in floats
 
   // Byte offset, in a staged tile, of row r's element e.
@@ -422,24 +421,25 @@ struct KVStage {
   static __device__ __forceinline__ float value_at(const unsigned char* tile, int r, int e) {
     return to_f32(*reinterpret_cast<const T*>(tile + at(r, e)));
   }
-  // Buffer t % 2: its k tile, then its v tile.
-  static __device__ __forceinline__ unsigned char* k_tile(unsigned char* stage, int t) {
+  // Buffer t % 2: its tile of the first operand, then that of the second.
+  static __device__ __forceinline__ unsigned char* first(unsigned char* stage, int t) {
     return stage + (t & 1) * 2 * kTileBytes;
   }
-  // Issues the copies of key tile t's K and V rows into buffer t % 2.
-  static __device__ __forceinline__ void prefetch(unsigned char* stage, const T* k, long long k_ss,
-                                                  const T* v, long long v_ss, int t, int Sk) {
-    unsigned char* sk = k_tile(stage, t);
-    unsigned char* sv = sk + kTileBytes;
-    for (int i = threadIdx.x; i < KN * kChunks; i += kTcThreads) {
+  // Issues the copies of tile t's rows of x and y (each `rows` long) into
+  // buffer t % 2.
+  static __device__ __forceinline__ void prefetch(unsigned char* stage, const T* x, long long x_ss,
+                                                  const T* y, long long y_ss, int t, int rows) {
+    unsigned char* sx = first(stage, t);
+    unsigned char* sy = sx + kTileBytes;
+    for (int i = threadIdx.x; i < N * kChunks; i += kTcThreads) {
       const int r = i / kChunks;
       const int c = i % kChunks;
-      const int key = t * KN + r;
-      const long long row = key < Sk ? key : 0;  // a valid address; nothing is read
-      const int n = key < Sk ? 16 : 0;
+      const int at = t * N + r;
+      const long long row = at < rows ? at : 0;  // a valid address; nothing is read
+      const int n = at < rows ? 16 : 0;
       const int to = (r * kChunks + (c ^ (r & kSwz))) * 16;
-      cp_async16(sk + to, reinterpret_cast<const unsigned char*>(k + row * k_ss) + c * 16, n);
-      cp_async16(sv + to, reinterpret_cast<const unsigned char*>(v + row * v_ss) + c * 16, n);
+      cp_async16(sx + to, reinterpret_cast<const unsigned char*>(x + row * x_ss) + c * 16, n);
+      cp_async16(sy + to, reinterpret_cast<const unsigned char*>(y + row * y_ss) + c * 16, n);
     }
   }
 };
@@ -451,7 +451,7 @@ struct FwdTiles {
   static constexpr bool kSplit = sizeof(T) == 4;  // f32 q, k, v need a lo part
   static constexpr int KN = D == 256 ? 8 : D >= 64 ? 32 : 64;  // keys per tile
   static constexpr int NO = D < 64 ? D : 64;  // wgmma N of o += p v; D / NO of them
-  using Stage = KVStage<T, D, KN>;
+  using Stage = TileStage<T, D, KN>;
   static constexpr int kLo = kSplit ? 1 : 0;
   static constexpr int kQHi = 0;                               // 64 x D
   static constexpr int kQLo = kQHi + kTcRows * D;              // 64 x D (f32)
@@ -540,7 +540,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_kernel(const FlashArgs a
     __syncthreads();  // tile t has landed; the last tile's products are done
 
     // split: k into k_hi / k_lo (K-major as staged), v transposed into vt
-    const unsigned char* sk = S::k_tile(stage, t);
+    const unsigned char* sk = S::first(stage, t);
     const unsigned char* sv = sk + S::kTileBytes;
     split_kmajor<D, L::kSplit>(k_hi, k_lo, KN,
                                [&](int r, int c) { return S::load4_at(sk, r, c); });
@@ -706,7 +706,7 @@ struct DqTiles {
   static constexpr int KN =  // keys per tile
       D == 16 ? 64 : D == 32 ? (kSplit ? 32 : 64) : D == 64 ? 32 : 16;
   static constexpr int NQ = D < 64 ? D : 64;  // wgmma N of dq += ds k; D / NQ of them
-  using Stage = KVStage<T, D, KN>;
+  using Stage = TileStage<T, D, KN>;
   static constexpr int kLo = kSplit ? 1 : 0;
   static constexpr int kQHi = 0;                               // 64 x D
   static constexpr int kQLo = kQHi + kA * kTcRows * D;         // 64 x D (f32)
@@ -838,7 +838,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel(const FlashArg
     __syncthreads();  // tile t has landed; the last tile's products are done
 
     // split: k and v as staged (K-major), k also transposed into kt
-    const unsigned char* sk = S::k_tile(stage, t);
+    const unsigned char* sk = S::first(stage, t);
     const unsigned char* sv = sk + S::kTileBytes;
     split_kmajor<D, L::kSplit>(k_hi, k_lo, KN,
                                [&](int r, int c) { return S::load4_at(sk, r, c); });
@@ -961,6 +961,331 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel(const FlashArg
       for (int r = 2 * i; r < NQ / 2; r += 4)  // row i's registers: r % 4 in {2i, 2i + 1}
         store2(orow + j * NQ + 8 * (r >> 2) + 2 * (lane & 3), acc[j][r] * a.scale,
                acc[j][r + 1] * a.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv on Hopper's tensor cores: four TF32 wgmma products with split operands
+// ---------------------------------------------------------------------------
+//
+// Replaces `_bwd_dkv_kernel` (sparknet_tpu/ops/attention.py:341): per query
+// tile, with keys as rows and queries as columns, s^T = k q^T, p = exp(scale
+// s - lse) (0 where masked), dp^T = v dO^T with the dropout mask
+// regenerated, ds^T = p (dp - delta), dv += drop(p)^T dO and dk += ds^T q;
+// written once, dk times scale. Bound: 8 B H Sq Sk D operations (its four
+// products) over 495 TFLOP/s dense TF32, or its bytes (q, k, v, dO read,
+// dk and dv written) over 3.35 TB/s: at BERT-base (B 32, H 12, S 128, D 64,
+// f32) 3.22 GFLOP is 0.0065 ms, under the 0.0227 ms of its 76 MB, so bytes
+// bound it, and the design's 12 terms (9.66 GFLOP, 0.0195 ms) stay under
+// them too; at B 8 x S 512 operations do (38.7 GFLOP of terms, 0.078 ms).
+//
+// Design, dq's carried over with rows and columns swapped: one warpgroup
+// owns 64 key rows, the wgmma M, and loops over tiles of QN queries. TF32
+// terms, the small ones first: 3 + 3 + 3 + 3 at f32; at bf16 (exact in
+// TF32) 1 for s, 1 for dp and 2 each for dv and dk (p and ds are f32: their
+// hi and lo parts times the bf16 operand). TF32 wgmma reads B K-major, so:
+//   - k and v, the A operands of s^T and dp^T, are split once per block
+//     into shared memory (as wgmma A fragments they would add 128
+//     registers a thread at f32 D 64 beside the dk and dv accumulators);
+//   - each query tile's q and dO are split K-major, the B operands of s^T
+//     and dp^T (K = D), and also written transposed, qt and dOt (D rows of
+//     queries), the B operands of dk += ds^T q and dv += p^T dO, whose
+//     reduction runs over queries: the forward's vt, applied to q and dO;
+//   - drop(p)^T and ds^T never leave registers: they are the A fragments
+//     of those two products. An accumulator holds columns 2 (lane % 4) and
+//     that + 1 of each 8, an A fragment columns lane % 4 and that + 4; the
+//     order of a reduction is free, so qt and dOt hold each 8 queries in
+//     the order 0 2 4 6 1 3 5 7 (frag_query), and accumulator registers
+//     4 ks + {0, 2, 1, 3} are the fragment of k step ks as they stand;
+//   - lse and delta, per column here (per row in dq), are staged per tile
+//     in shared memory.
+// Raw q and dO rows come in by cp.async, double-buffered and XOR-swizzled
+// by chunk (TileStage). s^T and dp^T are one wgmma group before a single
+// wait, dv and dk another; the masks, p, dropout and ds run on the
+// accumulators, indexed from the fragment layout; dk and dv (64 x D each,
+// in wgmma N-chunks of at most 64) stay in registers across the query
+// loop. Query tiles wholly before a causal diagonal are skipped. Routes
+// (DkvTiles::kFits): D 16, 32, 64 and 128 run here at f32 and bf16; at D
+// 256 the dk and dv accumulators alone would take 256 registers a thread,
+// more than a thread may have, so both dtypes keep the SIMT kernel further
+// below. QN keeps two blocks on an SM where it can: at f32 D 64, 16
+// queries take 112.1 KiB (32 would take 160.1 KiB, one block).
+
+template <typename T, int D>
+struct DkvTiles {
+  static constexpr bool kSplit = sizeof(T) == 4;  // f32 q, k, v, dO need a lo part
+  // dk and dv in registers: D / 2 + D / 2 a thread, 256 at D 256
+  static constexpr bool kFits = D <= 128;
+  static constexpr int QN = D <= 32 || (D == 64 && !kSplit) ? 32 : 16;  // queries per tile
+  static constexpr int NO = D < 64 ? D : 64;  // wgmma N of dk and dv; D / NO of each
+  using Stage = TileStage<T, D, QN>;
+  static constexpr int kLo = kSplit ? 1 : 0;
+  static constexpr int kKHi = 0;                          // 64 x D
+  static constexpr int kKLo = kKHi + kTcRows * D;         // 64 x D (f32)
+  static constexpr int kVHi = kKLo + kLo * kTcRows * D;   // 64 x D
+  static constexpr int kVLo = kVHi + kTcRows * D;         // 64 x D (f32)
+  static constexpr int kQHi = kVLo + kLo * kTcRows * D;   // QN x D
+  static constexpr int kQLo = kQHi + QN * D;              // QN x D (f32)
+  static constexpr int kOHi = kQLo + kLo * QN * D;        // dO, QN x D
+  static constexpr int kOLo = kOHi + QN * D;              // QN x D (f32)
+  static constexpr int kQtHi = kOLo + kLo * QN * D;       // qt, D x QN
+  static constexpr int kQtLo = kQtHi + QN * D;            // D x QN (f32)
+  static constexpr int kOtHi = kQtLo + kLo * QN * D;      // dOt, D x QN
+  static constexpr int kOtLo = kOtHi + QN * D;            // D x QN (f32)
+  static constexpr int kStage = kOtLo + kLo * QN * D;     // 2 x (q, dO) raw
+  static constexpr int kLse = kStage + Stage::kFloats;    // QN
+  static constexpr int kDelta = kLse + QN;                // QN
+  static constexpr size_t kBytes = sizeof(float) * (kDelta + QN);
+  static_assert(!kFits || kBytes <= 232448, "dk/dv tiles exceed a block's shared memory");
+};
+
+// The query that qt and dOt hold at position r of a tile: within each 8,
+// position c holds query 2 c (c < 4) or 2 (c - 4) + 1, the order in which
+// an accumulator's columns fall into an A fragment's.
+__device__ __forceinline__ int frag_query(int r) {
+  return (r & ~7) | ((r >> 2) & 1) | ((r & 3) << 1);
+}
+
+// Keeps wgmma A fragments in their registers until the products that read
+// them have been waited for.
+template <int S, int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[S][N][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[s][n][j])::"memory");
+}
+
+// dk/dv: one block per (64-key tile, h, b). See the section comment.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_kernel(const FlashArgs a) {
+  using L = DkvTiles<T, D>;
+  constexpr int QN = L::QN;
+  constexpr int NO = L::NO;
+  constexpr int kOut = D / NO;
+  constexpr int kSteps = QN / 8;  // k8 steps of dk += ds^T q and dv += p^T dO
+  extern __shared__ __align__(128) float dkv_smem[];
+  float* const k_hi = dkv_smem + L::kKHi;
+  float* const k_lo = dkv_smem + L::kKLo;
+  float* const v_hi = dkv_smem + L::kVHi;
+  float* const v_lo = dkv_smem + L::kVLo;
+  float* const q_hi = dkv_smem + L::kQHi;
+  float* const q_lo = dkv_smem + L::kQLo;
+  float* const do_hi = dkv_smem + L::kOHi;
+  float* const do_lo = dkv_smem + L::kOLo;
+  float* const qt_hi = dkv_smem + L::kQtHi;
+  float* const qt_lo = dkv_smem + L::kQtLo;
+  float* const dot_hi = dkv_smem + L::kOtHi;
+  float* const dot_lo = dkv_smem + L::kOtLo;
+  unsigned char* const stage = reinterpret_cast<unsigned char*>(dkv_smem + L::kStage);
+  float* const lse_s = dkv_smem + L::kLse;
+  float* const delta_s = dkv_smem + L::kDelta;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * kTcRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int Sq = a.Sq, Sk = a.Sk;
+  const int q_off = a.offsets[0];
+  const int kv_off = a.offsets[1];
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const int8_t* mask = a.mask + static_cast<long long>(b) * Sk;
+
+  // query tiles that can see these keys; causal starts at the tile of the
+  // first query on key k0's diagonal
+  const int n_tiles = (Sq + QN - 1) / QN;
+  int t_begin = 0;
+  if (a.causal) {
+    const int first_q = k0 + kv_off - q_off;
+    t_begin = first_q >= Sq ? n_tiles : first_q > 0 ? first_q / QN : 0;
+  }
+
+  using S = typename L::Stage;
+  if (t_begin < n_tiles) S::prefetch(stage, q, a.q_ss, dout, a.do_ss, t_begin, Sq);
+  cp_async_commit();
+
+  // k and v, split once (rows past Sk are zeros)
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  split_kmajor<D, L::kSplit>(k_hi, k_lo, kTcRows, [&](int r, int c) {
+    return k0 + r < Sk ? load4(k + (k0 + r) * a.k_ss + c) : zero;
+  });
+  split_kmajor<D, L::kSplit>(v_hi, v_lo, kTcRows, [&](int r, int c) {
+    return k0 + r < Sk ? load4(v + (k0 + r) * a.v_ss + c) : zero;
+  });
+
+  const int row0 = warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
+  const uint32_t hk = head_key(static_cast<uint32_t>(a.offsets[2]), static_cast<int>(bh));
+  bool kvalid[2];
+  int kpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row0 + 8 * i;
+    kvalid[i] = key < Sk && mask[key] != 0;
+    kpos[i] = key + kv_off;
+  }
+  float dk[kOut][NO / 2], dv[kOut][NO / 2];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j)
+#pragma unroll
+    for (int r = 0; r < NO / 2; ++r) dk[j][r] = dv[j][r] = 0.0f;
+
+  // wgmma descriptors of the A (k, v) and B operands; LBO: 128 bytes
+  // between K-adjacent core matrices; SBO: K/4 of them
+  const uint64_t ak_hi = smem_desc(k_hi, 128, D * 32), ak_lo = smem_desc(k_lo, 128, D * 32);
+  const uint64_t av_hi = smem_desc(v_hi, 128, D * 32), av_lo = smem_desc(v_lo, 128, D * 32);
+  const uint64_t bq_hi = smem_desc(q_hi, 128, D * 32), bq_lo = smem_desc(q_lo, 128, D * 32);
+  const uint64_t bdo_hi = smem_desc(do_hi, 128, D * 32), bdo_lo = smem_desc(do_lo, 128, D * 32);
+  const uint64_t bqt_hi = smem_desc(qt_hi, 128, QN * 32), bqt_lo = smem_desc(qt_lo, 128, QN * 32);
+  const uint64_t bdot_hi = smem_desc(dot_hi, 128, QN * 32),
+                 bdot_lo = smem_desc(dot_lo, 128, QN * 32);
+
+  for (int t = t_begin; t < n_tiles; ++t) {
+    const int q0 = t * QN;
+    if (t + 1 < n_tiles) S::prefetch(stage, q, a.q_ss, dout, a.do_ss, t + 1, Sq);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile t has landed; the last tile's products are done
+
+    // split: q and dO as staged (K-major), both also transposed into qt and
+    // dOt in fragment order; the tile's lse and delta
+    const unsigned char* sq = S::first(stage, t);
+    const unsigned char* sd = sq + S::kTileBytes;
+    split_kmajor<D, L::kSplit>(q_hi, q_lo, QN,
+                               [&](int r, int c) { return S::load4_at(sq, r, c); });
+    split_kmajor<D, L::kSplit>(do_hi, do_lo, QN,
+                               [&](int r, int c) { return S::load4_at(sd, r, c); });
+    split_transposed<D, QN, L::kSplit>(
+        qt_hi, qt_lo, [&](int r, int e) { return S::value_at(sq, frag_query(r), e); });
+    split_transposed<D, QN, L::kSplit>(
+        dot_hi, dot_lo, [&](int r, int e) { return S::value_at(sd, frag_query(r), e); });
+    if (tid < QN) {
+      const bool in = q0 + tid < Sq;
+      lse_s[tid] = in ? a.lse[bh * Sq + q0 + tid] : 0.0f;
+      delta_s[tid] = in ? a.delta[bh * Sq + q0 + tid] : 0.0f;
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v dO^T, one wgmma group: small terms first
+    float s[QN / 2], dp[QN / 2];
+#pragma unroll
+    for (int r = 0; r < QN / 2; ++r) s[r] = dp[r] = 0.0f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    if (L::kSplit) {
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        wgmma_tf32(s, ak_hi + 16 * ks, bq_lo + 16 * ks);
+        wgmma_tf32(s, ak_lo + 16 * ks, bq_hi + 16 * ks);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(s, ak_hi + 16 * ks, bq_hi + 16 * ks);
+    if (L::kSplit) {
+#pragma unroll
+      for (int ks = 0; ks < D / 8; ++ks) {
+        wgmma_tf32(dp, av_hi + 16 * ks, bdo_lo + 16 * ks);
+        wgmma_tf32(dp, av_lo + 16 * ks, bdo_hi + 16 * ks);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) wgmma_tf32(dp, av_hi + 16 * ks, bdo_hi + 16 * ks);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // drop(p) and ds = p (drop(dp) - delta) on the accumulators, as the hi
+    // and lo A fragments of each k step: register r of the accumulator is
+    // register ((r & 1) << 1) | ((r >> 1) & 1) of step r / 4's fragment
+    uint32_t pa[2][kSteps][4], sa[2][kSteps][4];  // [hi, lo][k step][register]
+#pragma unroll
+    for (int r = 0; r < QN / 2; ++r) {
+      const int i = (r >> 1) & 1;
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      const int query = q0 + c;
+      const bool ok = kvalid[i] && query < Sq && (!a.causal || kpos[i] <= query + q_off);
+      // masked logits give p = 0 even where lse is itself NEG_INF
+      const float sv = ok ? s[r] * a.scale : kNegInf;
+      const float p = sv <= kNegInf * 0.5f ? 0.0f : expf(sv - lse_s[c]);
+      float pd = p, g = dp[r];
+      if (a.dropout) {
+        const bool keep = keep_bit(row_key(hk, query), k0 + row0 + 8 * i, a.threshold);
+        pd = keep ? p * a.drop_scale : 0.0f;
+        g = keep ? g * a.drop_scale : 0.0f;
+      }
+      const float ds = p * (g - delta_s[c]);
+      const int j = ((r & 1) << 1) | i;
+      const float ph = tf32(pd), dh = tf32(ds);
+      pa[0][r >> 2][j] = __float_as_uint(ph);
+      pa[1][r >> 2][j] = __float_as_uint(tf32(pd - ph));
+      sa[0][r >> 2][j] = __float_as_uint(dh);
+      sa[1][r >> 2][j] = __float_as_uint(tf32(ds - dh));
+    }
+
+    // dv += drop(p)^T dO and dk += ds^T q, D in chunks of NO columns (dOt
+    // and qt rows), one wgmma group
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      fence_regs(dv[j]);
+      fence_regs(dk[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const uint64_t rows = static_cast<uint64_t>(j * NO * QN / 4);  // 16-byte units
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        if (L::kSplit) wgmma_tf32(dv[j], pa[0][ks], bdot_lo + rows + 16 * ks);
+        wgmma_tf32(dv[j], pa[1][ks], bdot_hi + rows + 16 * ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32(dv[j], pa[0][ks], bdot_hi + rows + 16 * ks);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        if (L::kSplit) wgmma_tf32(dk[j], sa[0][ks], bqt_lo + rows + 16 * ks);
+        wgmma_tf32(dk[j], sa[1][ks], bqt_hi + rows + 16 * ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32(dk[j], sa[0][ks], bqt_hi + rows + 16 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_frags(pa);
+    fence_frags(sa);
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      fence_regs(dv[j]);
+      fence_regs(dk[j]);
+    }
+  }
+
+  // rows of a masked key took p = ds = 0 from every query, so they are 0
+  // exactly; q entered unscaled, so dk takes `scale` here
+  T* dkp = static_cast<T*>(a.dk) + bh * Sk * D;
+  T* dvp = static_cast<T*>(a.dv) + bh * Sk * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row0 + 8 * i;
+    if (key >= Sk) continue;
+    const long long at = static_cast<long long>(key) * D;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+#pragma unroll
+      for (int r = 2 * i; r < NO / 2; r += 4) {  // row i's registers: r % 4 in {2i, 2i + 1}
+        const int col = j * NO + 8 * (r >> 2) + 2 * (lane & 3);
+        store2(dkp + at + col, dk[j][r] * a.scale, dk[j][r + 1] * a.scale);
+        store2(dvp + at + col, dv[j][r], dv[j][r + 1]);
+      }
   }
 }
 
@@ -1091,14 +1416,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_simt_kernel(const Flash
   }
 }
 
-// dk/dv: one block per (k tile, h, b), looping over q tiles; the tile's
-// rows are keys, its columns queries. Replaces `_bwd_dkv_kernel`
-// (sparknet_tpu/ops/attention.py:341). Bound: 8 B H Sq Sk D operations
-// (s, dp, p^T dO, ds^T q) over 67 TFLOP/s; 3.22 GFLOP, 0.048 ms at
-// BERT-base, above the 0.023 ms of its 76 MB. Against it: as dq, and dk
-// and dv accumulate in registers over the q loop, written once.
+// dk/dv on the CUDA cores, for head dim 256 only (DkvTiles::kFits): one
+// block per (k tile, h, b), looping over q tiles; the tile's rows are
+// keys, its columns queries. Bound: 8 B H Sq Sk D operations (s, dp, p^T
+// dO, ds^T q) over 67 TFLOP/s. Against it: as dq's, and dk and dv
+// accumulate in registers over the q loop, written once.
 template <typename T, int D, int COLS>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_simt_kernel(const FlashArgs a) {
   constexpr int CPT = COLS / 16;
   constexpr int DPT = D / 16;
   extern __shared__ float smem[];
@@ -1248,8 +1572,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const FlashArgs
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <int D>
-constexpr int cols_for() { return D == 256 ? 32 : 64; }  // the SIMT kernels' tile
+constexpr int kSimtCols = 32;  // the SIMT kernels' column tile (they run at D 256)
 
 template <int D, int COLS>
 constexpr size_t smem_bytes(int which) {
@@ -1278,12 +1601,13 @@ Spec make_spec(size_t smem, bool max_carveout, int threads) {
   return {Kernel, smem, max_carveout, threads, &set_on};
 }
 
-// The kernel that runs `which` at (T, D): dq on the tensor cores, except
-// at f32 D 256, whose tiles do not fit a block (DqTiles::kFits), where the
-// SIMT kernel runs.
+// The kernel that runs `which` at (T, D): every one on the tensor cores,
+// except dq at f32 D 256, whose tiles do not fit a block (DqTiles::kFits),
+// and dk/dv at D 256, whose accumulators do not fit a thread's registers
+// (DkvTiles::kFits): there the SIMT kernels run.
 template <typename T, int D>
 Spec launch_spec(int which) {
-  constexpr int COLS = cols_for<D>();
+  constexpr int COLS = kSimtCols;
   if (which == kFwd)
     return make_spec<flash_fwd_kernel<T, D>>(FwdTiles<T, D>::kBytes, true, kTcThreads);
   if (which == kDq) {
@@ -1293,7 +1617,11 @@ Spec launch_spec(int which) {
       return make_spec<flash_bwd_dq_simt_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDq), false,
                                                              kThreads);
   }
-  return make_spec<flash_bwd_dkv_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDkv), false, kThreads);
+  if constexpr (DkvTiles<T, D>::kFits)
+    return make_spec<flash_bwd_dkv_kernel<T, D>>(DkvTiles<T, D>::kBytes, true, kTcThreads);
+  else
+    return make_spec<flash_bwd_dkv_simt_kernel<T, D, COLS>>(smem_bytes<D, COLS>(kDkv), false,
+                                                            kThreads);
 }
 
 template <typename T>

@@ -1,14 +1,16 @@
-"""The tensor-core flash forward's and dq's arithmetic, on the CPU.
+"""The tensor-core flash kernels' arithmetic (forward, dq, dk/dv), on the CPU.
 
-The forward and dq kernels (``sparknet_tpu_torch/ops/csrc/attention.cu``)
-take their products on TF32 tensor cores with split operands: an f32 x
+The flash kernels (``sparknet_tpu_torch/ops/csrc/attention.cu``) take
+their products on TF32 tensor cores with split operands: an f32 x
 is hi + lo, hi = tf32(x) (nearest, ties away from zero, as
 ``cvt.rna.tf32.f32``) and lo = tf32(x - hi), and a product a b is
 a_hi b_lo + a_lo b_hi + a_hi b_hi summed in f32. f32 q, k, v take three
 terms in s = q k^T and three in o += p v; bf16 ones take one term in s
 (bf16 is exact in TF32) and two in o += p v (p is f32: p_lo v + p_hi v).
 dq takes 3 + 3 + 3 terms at f32 (s = q k^T, dp = dO v^T, dq += ds k)
-and 1 + 1 + 2 at bf16 (ds is f32: ds_lo k + ds_hi k).
+and 1 + 1 + 2 at bf16 (ds is f32: ds_lo k + ds_hi k); dk/dv 3 + 3 + 3 + 3
+at f32 (s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q) and 1 + 1
++ 2 + 2 at bf16 (p and ds are f32).
 
 There is no card here, so this file emulates that arithmetic in plain
 PyTorch: TF32 rounding through the int32 view, each term an f32 matrix
@@ -26,11 +28,20 @@ an online softmax, dropout of p after l). At BERT-base's head shape (H
   dropout on dp, within the card's 1e-4 (rtol and atol) of
   ``flash_bwd_dq_reference``, f32 and bf16, at BERT-base heads and at D
   256 x S 1024; without dropout within 1e-4 of the JAX package's dq
-  (``jax.vjp`` of its flash attention in interpret mode). Each prints its
-  worst error (``pytest -s``).
+  (``jax.vjp`` of its flash attention in interpret mode);
+- the split dk and dv, over the dk/dv kernel's query tiles with p from
+  lse and dropout on p and dp, likewise: within 1e-4 of
+  ``flash_bwd_dkv_reference``, f32 and bf16, at BERT-base heads (the
+  padded keys' rows exactly 0) and at D 128 x S 1024 (the largest head
+  dim on its tensor cores), and without dropout within 1e-4 of the JAX
+  package's dk and dv.
+- any one f32 product of dq or of dk/dv taken in a single TF32 pass
+  misses 1e-4, which is why each keeps three terms.
+Each prints its worst error (``pytest -s``).
 
-``_fwd_operand``, the forward and dq wrappers' explicit copy of an
-operand the kernels cannot take as it is, is held here as well.
+``_fwd_operand``, the wrappers' explicit copy of an operand the kernels
+cannot take as it is, is held here as well, and the backward wrappers
+are shown to pass every operand through it.
 """
 
 import numpy as np
@@ -51,6 +62,11 @@ KEY_TILE = 32  # the forward kernel's key tile at D 64
 DQ_KEY_TILE = {(torch.float32, 64): 32, (torch.bfloat16, 64): 32,
                (torch.float32, 256): 16, (torch.bfloat16, 256): 16}
 DQ_TERMS = {torch.float32: (3, 3, 3), torch.bfloat16: (1, 1, 2)}
+# the dk/dv kernel's query tile (DkvTiles::QN) and TF32 terms (s^T, dp^T,
+# dv += p^T dO, dk += ds^T q)
+DKV_QUERY_TILE = {(torch.float32, 64): 16, (torch.bfloat16, 64): 32,
+                  (torch.float32, 128): 16, (torch.bfloat16, 128): 16}
+DKV_TERMS = {torch.float32: (3, 3, 3, 3), torch.bfloat16: (1, 1, 2, 2)}
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +143,35 @@ def _tc_dq(q, k, v, kv_mask, offsets, do, lse, delta, causal, scale, rate, terms
             dp = torch.where(keep[..., k0:k1], dp * TA.drop_scale(rate), 0.0)
         acc = acc + _product(p * (dp - delta[..., None]), kt, dq_terms)
     return acc * scale
+
+
+def _tc_dkv(q, k, v, kv_mask, offsets, do, lse, delta, causal, scale, rate, terms,
+            query_tile):
+    """The dk/dv kernel with its four products emulated term by term, over
+    query tiles of its width, keys as rows: s^T = k q^T, p = exp(scale s -
+    lse) (0 where masked), p and dp dropped by one keep mask, ds = p (dp -
+    delta), dv += drop(p)^T dO, dk += ds^T q; ``(dk scale, dv)`` in f32."""
+    s_terms, dp_terms, dv_terms, dk_terms = terms
+    sq = q.shape[2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    valid, keep = TA._mask_and_keep(q, k, kv_mask, offsets, causal, rate)
+    dk, dv = torch.zeros(kf.shape), torch.zeros(vf.shape)
+    for q0 in range(0, sq, query_tile):
+        q1 = min(q0 + query_tile, sq)
+        qt, dot = qf[:, :, q0:q1], dof[:, :, q0:q1]
+        s = _product(kf, qt.transpose(-1, -2), s_terms) * scale  # (b, h, sk, tile)
+        s = torch.where(valid[..., q0:q1, :].transpose(-1, -2), s, TA.NEG_INF)
+        p = torch.where(s <= TA.NEG_INF * 0.5, 0.0, torch.exp(s - lse[..., None, q0:q1]))
+        dp = _product(vf, dot.transpose(-1, -2), dp_terms)
+        p_drop = p
+        if keep is not None:
+            kept = keep[..., q0:q1, :].transpose(-1, -2)
+            p_drop = torch.where(kept, p * TA.drop_scale(rate), 0.0)
+            dp = torch.where(kept, dp * TA.drop_scale(rate), 0.0)
+        ds = p * (dp - delta[..., None, q0:q1])
+        dv = dv + _product(p_drop, dot, dv_terms)
+        dk = dk + _product(ds, qt, dk_terms)
+    return dk * scale, dv
 
 
 def _bert_heads(dtype, rate=0.1, seed=0):
@@ -227,13 +272,13 @@ def _dq_inputs(dtype, b=B, h=H, s=S, d=D, rate=0.1, seed=0):
     return q, k, v, mask, off, do, lse, TA.flash_delta(do, o), False, scale, rate
 
 
-def _dq_excess(got, want, label):
+def _grad_excess(got, want, label):
     """max |got - want| - GRAD_TOL (1 + |want|), printed with the worst
-    absolute error: <= 0 within the card's dq tolerance."""
+    absolute error: <= 0 within the card's gradient tolerance."""
     err = float((got - want).abs().max())
     excess = float(((got - want).abs() - GRAD_TOL * (1 + want.abs())).max())
-    print(f"{label}: max |emulated - plain| {err:.3e}, excess over 1e-4 (1 + |dq|) "
-          f"{excess:.3e}, largest |dq| {float(want.abs().max()):.3e}")
+    print(f"{label}: max |emulated - plain| {err:.3e}, excess over 1e-4 (1 + |grad|) "
+          f"{excess:.3e}, largest |grad| {float(want.abs().max()):.3e}")
     return excess
 
 
@@ -243,7 +288,7 @@ def test_split_tf32_dq_matches_the_plain_version(dtype):
     args = _dq_inputs(dtype)
     got = _tc_dq(*args, DQ_TERMS[dtype], DQ_KEY_TILE[(dtype, D)])
     want = TA.flash_bwd_dq_reference(*args)
-    assert _dq_excess(got, want, f"dq BERT-base heads {dtype}") <= 0
+    assert _grad_excess(got, want, f"dq BERT-base heads {dtype}") <= 0
     assert float(want[-1].abs().max()) > 0  # the padded keys leave the row live
 
 
@@ -270,7 +315,7 @@ def test_dq_with_one_product_in_one_tf32_pass_misses_the_tolerance(terms):
     a single TF32 pass leaves dq outside 1e-4 at BERT-base heads."""
     args = _dq_inputs(torch.float32)
     got = _tc_dq(*args, terms, DQ_KEY_TILE[(torch.float32, D)])
-    assert _dq_excess(got, TA.flash_bwd_dq_reference(*args), f"dq terms {terms}") > 0
+    assert _grad_excess(got, TA.flash_bwd_dq_reference(*args), f"dq terms {terms}") > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -280,7 +325,7 @@ def test_split_tf32_dq_holds_at_d256_s1024(dtype):
     args = _dq_inputs(dtype, b=1, h=1, s=1024, d=256)
     got = _tc_dq(*args, DQ_TERMS[dtype], DQ_KEY_TILE[(dtype, 256)])
     want = TA.flash_bwd_dq_reference(*args)
-    assert _dq_excess(got, want, f"dq D 256 S 1024 {dtype}") <= 0
+    assert _grad_excess(got, want, f"dq D 256 S 1024 {dtype}") <= 0
 
 
 def test_flash_bwd_dq_hands_the_kernel_aligned_operands(monkeypatch):
@@ -315,3 +360,90 @@ def test_flash_bwd_dq_hands_the_kernel_aligned_operands(monkeypatch):
     assert [out is t for t, out in seen] == [True, False, True, True]
     assert launched == [("sparknet_flash_bwd_dq", 3 * h * d, d, d, d)]
     assert TA.flash_bwd_dq.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-3+3+3+3-terms", "bf16-1+1+2+2-terms"])
+def test_split_tf32_dkv_matches_the_plain_version(dtype):
+    args = _dq_inputs(dtype)
+    dk, dv = _tc_dkv(*args, DKV_TERMS[dtype], DKV_QUERY_TILE[(dtype, D)])
+    want_dk, want_dv = TA.flash_bwd_dkv_reference(*args)
+    assert _grad_excess(dk, want_dk, f"dk BERT-base heads {dtype}") <= 0
+    assert _grad_excess(dv, want_dv, f"dv BERT-base heads {dtype}") <= 0
+    padded = slice(S - S // 4, None)  # the last row's masked keys: exact zeros
+    assert float(dk[-1, :, padded].abs().max()) == float(dv[-1, :, padded].abs().max()) == 0
+    assert float(want_dk[-1].abs().max()) > 0 and float(want_dv[-1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_tf32_dkv_holds_at_d128_s1024(dtype):
+    """The largest head dim on the dk/dv kernel's tensor cores, with long
+    columns: one head at D 128 and S 1024, dropout 0.1 and padded keys."""
+    args = _dq_inputs(dtype, b=1, h=1, s=1024, d=128)
+    dk, dv = _tc_dkv(*args, DKV_TERMS[dtype], DKV_QUERY_TILE[(dtype, 128)])
+    want_dk, want_dv = TA.flash_bwd_dkv_reference(*args)
+    assert _grad_excess(dk, want_dk, f"dk D 128 S 1024 {dtype}") <= 0
+    assert _grad_excess(dv, want_dv, f"dv D 128 S 1024 {dtype}") <= 0
+
+
+def test_split_tf32_dkv_matches_jax():
+    """Without dropout the emulated dk/dv kernel against ``jax.vjp`` of the
+    JAX flash attention in interpret mode, on the same numpy inputs and dO."""
+    q, k, v, mask, off, do, lse, delta, causal, scale, _ = _dq_inputs(
+        torch.float32, b=1, rate=0.0, seed=5)
+    dk, dv = _tc_dkv(q, k, v, mask, off, do, lse, delta, causal, scale, 0.0,
+                     DKV_TERMS[torch.float32], DKV_QUERY_TILE[(torch.float32, D)])
+    jq, jmask = jnp.asarray(q.numpy()), jnp.asarray(mask.numpy() != 0)
+    _, vjp = jax.vjp(lambda jk, jv: JA.flash_attention(jq, jk, jv, kv_mask=jmask,
+                                                       interpret=True, block_q=64,
+                                                       block_k=64),
+                     jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))
+    want_dk, want_dv = vjp(jnp.asarray(do.numpy()))
+    np.testing.assert_allclose(dk.numpy(), np.asarray(want_dk), rtol=GRAD_TOL, atol=GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(want_dv), rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("terms", [(1, 3, 3, 3), (3, 1, 3, 3), (3, 3, 1, 3), (3, 3, 3, 1)],
+                         ids=["s-one-pass", "dp-one-pass", "dv-one-pass", "dk-one-pass"])
+def test_dkv_with_one_product_in_one_tf32_pass_misses_the_tolerance(terms):
+    """f32 dk/dv keeps all twelve terms: any one of its four products taken
+    in a single TF32 pass leaves dk or dv outside 1e-4 at BERT-base heads."""
+    args = _dq_inputs(torch.float32)
+    dk, dv = _tc_dkv(*args, terms, DKV_QUERY_TILE[(torch.float32, D)])
+    want_dk, want_dv = TA.flash_bwd_dkv_reference(*args)
+    assert max(_grad_excess(dk, want_dk, f"dk terms {terms}"),
+               _grad_excess(dv, want_dv, f"dv terms {terms}")) > 0
+
+
+def test_flash_bwd_dkv_hands_the_kernel_aligned_operands(monkeypatch):
+    """``flash_bwd_dkv`` passes q, k, v and dO through ``_fwd_operand``, as
+    ``flash_bwd_dq`` does: on meta tensors, with the device checks and the
+    launch stubbed, an operand with 264-byte rows reaches the launch as an
+    aligned copy and BERT's strided q view and contiguous ones as they are."""
+    seen, launched = [], []
+
+    def spy(t):
+        out = fwd_operand(t)
+        seen.append((t, out))
+        return out
+
+    fwd_operand = TA._fwd_operand
+    monkeypatch.setattr(TA, "_fwd_operand", spy)
+    monkeypatch.setattr(TA, "_check_qkv", lambda *a, **kw: 0)
+    monkeypatch.setattr(TA, "_launch", lambda fn, entry, a, q: launched.append(
+        (entry, a.q_ss, a.k_ss, a.v_ss, a.do_ss)))
+    meta = "meta"
+    b, h, s, d = 2, 12, 128, 64
+    q = torch.empty((b, s, 3, h, d), device=meta)[:, :, 0].transpose(1, 2)  # BERT's view
+    do = torch.empty((b, h, s, d + 2), device=meta)[..., :d]                # 264-byte rows
+    k, v = (torch.empty((b, h, s, d), device=meta) for _ in range(2))
+    stats = torch.empty((b, h, s), device=meta)
+    mask = torch.empty((b, s), dtype=torch.int8, device=meta)
+    off = torch.empty((3,), dtype=torch.int32, device=meta)
+    before = TA.flash_bwd_dkv.launches
+    dk, dv = TA.flash_bwd_dkv(q, k, v, mask, off, do, stats, stats, False, d ** -0.5, 0.1)
+    assert len(seen) == 4 and all(t is want for (t, _), want in zip(seen, (q, k, v, do)))
+    assert [out is t for t, out in seen] == [True, True, True, False]
+    assert launched == [("sparknet_flash_bwd_dkv", 3 * h * d, d, d, d)]
+    assert dk.shape == dv.shape == (b, h, s, d)
+    assert TA.flash_bwd_dkv.launches == before + 1

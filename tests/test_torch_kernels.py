@@ -31,14 +31,16 @@ rtol/atol 2e-5, f32 gradients rtol/atol 1e-4 (the JAX flash tests' own:
 sums of up to D products per logit and of Sk or Sq terms per output, in
 another order); bf16 outputs one bf16 ulp of the plain result (computed
 in f32 from the same bf16 inputs) beyond those. With dropout both sides
-draw the same mask, so the same tolerances hold. The forward and dq
-kernels run on TF32 tensor cores with split operands: with v = I and S =
-D the forward's o is the softmax itself, and with k = I dq is scale ds
-itself (the transposed k tile's layout), held element by element; both
-take BERT's strided q/k/v views of one fused QKV product as they are,
+draw the same mask, so the same tolerances hold. The three flash kernels
+run on TF32 tensor cores with split operands (but for the SIMT routes: dq
+at f32 D 256, dk/dv at D 256): with v = I and S = D the forward's o is
+the softmax itself, with k = I dq is scale ds itself (the transposed k
+tile's layout), and with q = I dk is scale ds^T itself (the transposed q
+tile's layout, its queries in fragment order), held element by element;
+all take BERT's strided q/k/v views of one fused QKV product as they are,
 their wrappers copy an operand that their 16-byte ``cp.async`` copies
-cannot take, and their compiled code holds ``HGMMA`` (``cuobjdump
--sass``, skipped where the toolkit lacks it).
+cannot take, and the tensor-core kernels' compiled code holds ``HGMMA``
+(``cuobjdump -sass``, skipped where the toolkit lacks it).
 """
 
 import os
@@ -552,6 +554,56 @@ def test_flash_bwd_dq_copies_unaligned_operands(cuda_device):
     assert TA.flash_bwd_dq.launches == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_bwd_dkv_with_identity_q_gives_scale_ds(d, dtype, cuda_device):
+    """q = I with S = D: dk is scale ds^T itself, ds = p (dO v^T - delta)
+    with p = exp(scale k^T - lse), so a wrong layout of the transposed q
+    tile (the B operand of dk += ds^T q, its queries in fragment order)
+    shows at once, element by element; dv is held to p^T dO beside it."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    k, v, do = (torch.randn((2, 3, d, d), generator=g, device=cuda_device).to(dtype)
+                for _ in range(3))
+    eye = torch.eye(d, device=cuda_device).to(dtype).expand(2, 3, d, d).contiguous()
+    mask = torch.ones((2, d), dtype=torch.int8, device=cuda_device)
+    off = TA.make_offsets(0, 0, 0, cuda_device)
+    scale = d ** -0.5
+    s = k.float().transpose(-1, -2) * scale  # s[query i, key j] = k[j, i]
+    lse = torch.logsumexp(s, -1)
+    delta = torch.randn(lse.shape, generator=g, device=cuda_device)
+    before = TA.flash_bwd_dkv.launches
+    dk, dv = TA.flash_bwd_dkv(eye, k, v, mask, off, do, lse, delta, False, scale, 0.0)
+    torch.cuda.synchronize()
+    assert TA.flash_bwd_dkv.launches == before + 1
+    p = torch.exp(s - lse[..., None])
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    for name, got, want in (("dk", dk, scale * ds.transpose(-1, -2)),
+                            ("dv", dv, p.transpose(-1, -2) @ do.float())):
+        ok, err = _within(got, want, dtype, 1e-4, 1e-4)
+        assert ok, f"{name}: max |kernel - plain| {err:.3e}"
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dkv_copies_unaligned_operands(cuda_device):
+    """A q, k, v or dO whose base or row stride is not 16-byte aligned is
+    copied by the dk/dv wrapper, explicitly, and the kernel still runs once."""
+    q, k, v, do, mask, off, causal, scale, rate = _flash_inputs(FLASH_CASES[9],
+                                                               torch.float32, cuda_device)
+    _, lse = TA.flash_fwd_reference(q, k, v, mask, off, causal, scale, rate)
+    delta = TA.flash_delta(do, q)
+    q_wide = torch.zeros(q.shape[:3] + (q.shape[3] + 2,), device=cuda_device)[..., :-2]
+    q_wide.copy_(q)  # rows of 66 floats: 264 bytes apart
+    k_off = torch.empty(k.numel() + 1, device=cuda_device)[1:].view(k.shape).copy_(k)
+    do_off = torch.empty(do.numel() + 1, device=cuda_device)[1:].view(do.shape).copy_(do)
+    assert not any(TA._aligned16(t) for t in (q_wide, k_off, do_off))
+    before = TA.flash_bwd_dkv.launches
+    want = TA.flash_bwd_dkv(q, k, v, mask, off, do, lse, delta, causal, scale, rate)
+    got = TA.flash_bwd_dkv(q_wide, k_off, v, mask, off, do_off, lse, delta, causal, scale, rate)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert TA.flash_bwd_dkv.launches == before + 2
+
+
 def _sass_functions(sass: str) -> dict:
     """{mangled name: its SASS} from ``cuobjdump -sass`` output."""
     parts = re.split(r"Function : (\S+)", sass)
@@ -560,11 +612,12 @@ def _sass_functions(sass: str) -> dict:
 
 @pytest.mark.cuda
 def test_flash_fwd_kernel_runs_on_tensor_cores(cuda_device):
-    """Every instantiation of flash_fwd_kernel (5 head dims x f32/bf16)
-    and of flash_bwd_dq_kernel (the same but f32 at D 256, which runs
-    flash_bwd_dq_simt_kernel) holds HGMMA, Hopper's warpgroup tensor-core
-    instruction; the kernels on the CUDA cores (dk/dv, that one dq) hold
-    none."""
+    """Every instantiation of flash_fwd_kernel (5 head dims x f32/bf16), of
+    flash_bwd_dq_kernel (the same but f32 at D 256, which runs
+    flash_bwd_dq_simt_kernel) and of flash_bwd_dkv_kernel (D 16 to 128 x
+    f32/bf16; D 256 runs flash_bwd_dkv_simt_kernel) holds HGMMA, Hopper's
+    warpgroup tensor-core instruction; the three kernels on the CUDA cores
+    hold none."""
     try:
         tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     except RuntimeError:
@@ -576,9 +629,10 @@ def test_flash_fwd_kernel_runs_on_tensor_cores(cuda_device):
                           timeout=300).stdout
     funcs = _sass_functions(sass)
     tc = {n: body for n, body in funcs.items()
-          if "flash_fwd_kernel" in n or "flash_bwd_dq_kernel" in n}
-    assert len(tc) == 19 and sum("flash_bwd_dq_simt_kernel" in n for n in funcs) == 1, \
-        sorted(funcs)
+          if "flash_fwd_kernel" in n or "flash_bwd_dq_kernel" in n
+          or "flash_bwd_dkv_kernel" in n}
+    assert len(tc) == 27 and sum("flash_bwd_dq_simt_kernel" in n for n in funcs) == 1 \
+        and sum("flash_bwd_dkv_simt_kernel" in n for n in funcs) == 2, sorted(funcs)
     assert all("HGMMA" in body for body in tc.values()), [
         n for n, body in tc.items() if "HGMMA" not in body]
     assert not any("HGMMA" in body for n, body in funcs.items() if n not in tc)
