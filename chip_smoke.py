@@ -15,17 +15,24 @@ own lines:
    ``HGMMA``, the tensor cores' warpgroup product, in every tensor-core
    instantiation (dq at f32 D 256 and dk/dv at D 256, f32 and bf16, are
    the SIMT kernels, which must not), and each of their instantiations'
-   shared memory, registers and blocks per SM are printed;
+   shared memory, registers and blocks per SM are printed; the LRN quad
+   kernels must access global memory only in 16- or 8-byte vectors, the
+   staged ones in none;
 3. kernels: each of the three LRN kernels (inference forward, training
    forward with its f32 residual d, backward) held against its plain
    PyTorch version on the card (tolerances below), odd and even window
-   sizes, f32 and bf16, AlexNet's shapes at batches 1, 8 and 32; then,
-   at the shapes the train path gives it (the TEST batch of 50 for the
+   sizes, ragged M, f32 and bf16, AlexNet's shapes at batches 1, 8 and
+   32, on both of its routes: the quad route (C a multiple of 4 up to
+   1024, operands 16-byte aligned) and the staged route (C 97 and 1500,
+   x and g or d 4 bytes past a 16-byte boundary); each case prints the
+   route each kernel took and must take the one it names. Then, at the
+   shapes the train path gives it (the TEST batch of 50 for the
    inference kernel, AlexNet's batch of 256 for the training kernels)
    and at serving bucket 32, held again against the plain version on
-   the same inputs and timed with CUDA events, beside its
-   memory/compute bound, the plain version and a one-call PyTorch
-   yardstick;
+   the same inputs and timed by single calls, back to back and by
+   ``torch.profiler``, beside its memory/compute bound (its share by
+   single calls and by device time), the plain version and a one-call
+   PyTorch yardstick;
 4. flash-kernels: each of the three flash-attention kernels (forward:
    o and lse; dq; dk/dv) held against its plain PyTorch version on the
    card over 15 cases, f32 and bf16 (one at the BertApp run's shapes,
@@ -100,10 +107,10 @@ forward (norm1 + norm2), for ``lrn_fwd_train`` and ``lrn_bwd`` per
 batch-256 training step (norm1 + norm2); for the flash kernels per
 launch at B 32 x S 128 (one layer of the bert-train run). "ms" is
 the median of single calls, each between CUDA events on an idle card,
-so it holds the wrapper's host time and the launch; the flash kernels
-add "loop_ms" (CUDA events around back-to-back calls, over their
-number) and "device_ms" (``torch.profiler``'s device time of the
-kernel). Each "bound_ms" counts the operations at the peak rate of the
+so it holds the wrapper's host time and the launch; every kernel adds
+"loop_ms" (CUDA events around back-to-back calls, over their number)
+and "device_ms" (``torch.profiler``'s device time of the kernel, over
+the launches it recorded). Each "bound_ms" counts the operations at the peak rate of the
 units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
@@ -119,12 +126,16 @@ without a CUDA card or a directory without the port.
 compares this checkout with another checkout of the port (an unpacked
 parent commit) on the same card instead: four processes in turn, the
 other, this, this, the other, each building its own kernels and printing
-one JSON line: the three flash kernels at B 32 x S 128 and B 8 x S 512
-in f32 and at B 32 x S 128 in bf16 (single calls, back-to-back calls,
-the profiler's device time, the host's time to make one call; SDPA's
-forward or backward beside each), then ``Solver.step`` of BERT-base on
-one device-resident batch of 32 x 128, f32 and ``--bf16`` (ms per step
-by CUDA events).
+one JSON line: the three LRN kernels at AlexNet's batch of 256 and the
+inference forward at serving bucket 32 (norm1 + norm2, f32), then the
+three flash kernels at B 32 x S 128 and B 8 x S 512 in f32 and at B 32 x
+S 128 in bf16 (each by single calls, back-to-back calls, the profiler's
+device time and the host's time to make one call; SDPA's forward or
+backward beside each flash kernel), then ``Solver.step`` of AlexNet on
+one device-resident batch of 256, the bucket-32 serving forward
+(``engine.infer`` by the host clock, and the net's forward by CUDA
+events), and ``Solver.step`` of BERT-base on one device-resident batch
+of 32 x 128, f32 and ``--bf16`` (ms per step by CUDA events).
 
 Tolerances. LRN kernels vs plain, f32: rtol 1e-5, atol 1e-6 (the two
 sum the window in the same order; rsqrt/exp/log and fused multiply-adds
@@ -225,6 +236,10 @@ FLASH_DQ_TERMS = {"float32": (3, 3, 3), "bfloat16": (1, 1, 2)}
 # dk/dv's (s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q): f32
 # 3 + 3 + 3 + 3, bf16 1 + 1 + 2 + 2 (p and ds are f32)
 FLASH_DKV_TERMS = {"float32": (3, 3, 3, 3), "bfloat16": (1, 1, 2, 2)}
+# each LRN wrapper's kernels (every route), by a prefix of the names
+# torch.profiler gives their device time
+LRN_TAGS = {"lrn_fwd": "lrn_fwd_rows", "lrn_fwd_train": "lrn_fwd_rows",
+            "lrn_bwd": "lrn_bwd_rows"}
 # each wrapper's kernel, by the name torch.profiler gives its device time
 FLASH_TAGS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
               "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
@@ -283,7 +298,44 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
     _flash_on_tensor_cores(built["attention"].path)
+    _lrn_vector_accesses(built["lrn"].path)
     return built
+
+
+def _sass(lib_path):
+    """{kernel's mangled name: its SASS} of a built library."""
+    import re
+
+    from sparknet_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def _lrn_vector_accesses(lib_path):
+    """Every LRN quad-route instantiation loads and stores global memory
+    only in 16- or 8-byte vectors (LDG/STG .128 or .64), and the staged
+    ones in none (raises otherwise); prints each kernel's counts."""
+    import re
+
+    bad = []
+    for name, body in sorted(_sass(lib_path).items()):
+        if "lrn_" not in name:
+            continue
+        wide, narrow = {"LDG": 0, "STG": 0}, {"LDG": 0, "STG": 0}
+        for op, suffix in re.findall(r"\b(LDG|STG)((?:\.\w+)*)\s", body):
+            (wide if {"128", "64"} & set(suffix.split(".")) else narrow)[op] += 1
+        quad = "_quad_kernel" in name
+        log(f"  cuobjdump -sass {name[:70]}: 16/8-byte loads {wide['LDG']}, stores "
+            f"{wide['STG']}; narrower loads {narrow['LDG']}, stores {narrow['STG']}")
+        if quad != all(wide.values()) or (quad and any(narrow.values())):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"LRN kernels whose global accesses are not as their route "
+                             f"says: {bad}")
 
 
 def _flash_on_tensor_cores(lib_path):
@@ -293,15 +345,10 @@ def _flash_on_tensor_cores(lib_path):
     at D 256 the two flash_bwd_dkv_simt_kernel. Each instantiation's
     shared memory, registers and blocks per SM."""
     import ctypes
-    import re
 
     from sparknet_tpu_torch.ops import _build
 
-    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    parts = re.split(r"Function : (\S+)", sass)
-    funcs = dict(zip(parts[1::2], parts[2::2]))
+    funcs = _sass(lib_path)
     tc = {}
     for kernel, want in (("flash_fwd_kernel", 10), ("flash_bwd_dq_kernel", 9),
                          ("flash_bwd_dkv_kernel", 8)):
@@ -402,22 +449,43 @@ def _host_ms(fn, n: int = 200, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+QUAD, STAGED = ("quad",) * 3, ("staged",) * 3
+
+
 def lrn_cases():
-    """(label, m, c, size, alpha, beta, k, dtype name)."""
+    """(label, m, c, size, alpha, beta, k, dtype name, operands placed 4
+    bytes past a 16-byte boundary ("xg": x and g; "d": d), the routes the
+    inference forward, training forward and backward must take)."""
     cases = []
     for dt in ("float32", "bfloat16"):
         for b in (1, 8, 32):  # serving buckets; 8 is the grads phase's batch
             for name, hw, c in ALEXNET_LRN:
-                cases.append((f"{name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt))
+                cases.append((f"{name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt, "", QUAD))
         cases += [
-            ("ragged M=1000", 1000, 96, 5, 0.5, 0.75, 2.0, dt),
-            ("even size 4", 4096, 96, 4, 0.5, 0.75, 1.0, dt),
-            ("C=1024", 2048, 1024, 5, 0.5, 0.75, 1.0, dt),
-            ("C=1500 (two chunks)", 700, 1500, 7, 0.5, 0.75, 1.0, dt),
+            ("ragged M=1003", 1003, 96, 5, 0.5, 0.75, 2.0, dt, "", QUAD),
+            ("even size 4", 4096, 96, 4, 0.5, 0.75, 1.0, dt, "", QUAD),
+            ("even size 6, ragged", 1001, 256, 6, 0.5, 1.0, 1.0, dt, "", QUAD),
+            ("C=1024", 2048, 1024, 5, 0.5, 0.75, 1.0, dt, "", QUAD),
+            ("C=97", 1000, 97, 5, 0.5, 0.75, 2.0, dt, "", STAGED),
+            ("C=97 even size 4", 999, 97, 4, 0.5, 0.6, 1.0, dt, "", STAGED),
+            ("C=1500 (two chunks)", 700, 1500, 7, 0.5, 0.75, 1.0, dt, "", STAGED),
+            ("x, g unaligned", 1000, 96, 5, 0.5, 0.75, 1.0, dt, "xg", STAGED),
+            ("d unaligned", 1000, 96, 4, 0.5, 0.75, 1.0, dt, "d", ("quad", "quad", "staged")),
         ]
         for beta in (0.5, 1.0, 0.6):
-            cases.append((f"beta={beta}", 3001, 256, 5, 0.5, beta, 1.0, dt))
+            cases.append((f"beta={beta}", 3001, 256, 5, 0.5, beta, 1.0, dt, "", QUAD))
     return cases
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    import torch
+
+    off = 4 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _check(got, ref, dtype, cancels=False):
@@ -450,14 +518,22 @@ def phase_kernels():
     names = ("lrn_fwd", "lrn_fwd_train", "lrn_bwd")
     worst = {(n, dt): 0.0 for n in names for dt in ("float32", "bfloat16")}
     failures = []
-    for label, m, c, size, alpha, beta, k, dt in lrn_cases():
+    wrappers = (lrn_rows, lrn_rows_train, lrn_rows_bwd)
+    for label, m, c, size, alpha, beta, k, dt, unaligned, want in lrn_cases():
         dtype = getattr(torch, dt)
         x = (2.0 * torch.randn(m, c, generator=gen, device=dev)).to(dtype)
         g = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+        if "x" in unaligned:
+            x, g = _unaligned(x), _unaligned(g)
         y = lrn_rows(x, size, alpha, beta, k)
         yt, d = lrn_rows_train(x, size, alpha, beta, k)
+        if "d" in unaligned:
+            d = _unaligned(d)
         dx = lrn_rows_bwd(g, x, d, size, alpha, beta)
         torch.cuda.synchronize()
+        routes = tuple(w.last_route for w in wrappers)
+        if routes != want:
+            failures.append(f"{label} {dt}: routes {routes}, want {want}")
         ref_y, ref_d = lrn_fwd_train_reference(x.float(), size, alpha, beta, k)
         ref_dx = lrn_bwd_reference(g.float(), x.float(), d, size, alpha, beta)
         checks = (
@@ -474,10 +550,12 @@ def phase_kernels():
             line.append(f"{what} {e:.2e}{'' if ok else ' MISMATCH'}")
             if not ok:
                 failures.append(f"{name} {what} {label} {dt} ({tol})")
-        log(f"  lrn {label:<22} {dt:<8} ({m}, {c}) size={size} beta={beta}: "
-            f"max_abs_err fwd {line[0]}, train {line[1]}, {line[2]}, bwd {line[3]}")
+        log(f"  lrn {label:<22} {dt:<8} ({m}, {c}) size={size} beta={beta} routes "
+            f"{'/'.join(routes)}: max_abs_err fwd {line[0]}, train {line[1]}, {line[2]}, "
+            f"bwd {line[3]}")
     if failures:
-        raise AssertionError(f"LRN kernels disagree with their plain versions: {failures}")
+        raise AssertionError(f"LRN kernels disagree with their plain versions or took "
+                             f"another route: {failures}")
     for n in names:
         log(f"  worst |kernel - plain| {n}: f32 {worst[(n, 'float32')]:.3e}, bf16 "
             f"{worst[(n, 'bfloat16')]:.3e} (each within its tolerance)")
@@ -494,20 +572,32 @@ def phase_kernels():
 def _totals(rows):
     """Sum per-shape timings; the bound kind of the summed bound; the
     worst |kernel - plain| over the shapes."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    keys = ("ms", "loop_ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
     out = {k: sum(r[k] for r in rows) for k in keys}
+    dev = [r["device_ms"] for r in rows]
+    out["device_ms"] = None if None in dev else sum(dev)
     out["err"] = max(r["err"] for r in rows)
     out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
     return out
 
 
 def _report(label, m, c, r, nbytes, ops):
-    log(f"  time {label} ({m}, {c}) f32: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}"
-        f": {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop), "
-        f"{nbytes / (r['ms'] * 1e-3) / 1e9:.0f} GB/s = "
-        f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    card = r["device_ms"] or r["loop_ms"]
+    log(f"  time {label} ({m}, {c}) f32, {r['route']} route: kernel single calls "
+        f"{r['ms']:.4f} ms, back to back {r['loop_ms']:.4f} ms, device time "
+        f"(torch.profiler) {_fmt_ms(r['device_ms'])}; plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop); share of bound "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% by single calls, "
+        f"{100 * r['bound_ms'] / card:.1f}% by device time "
+        f"({nbytes / (card * 1e-3) / 1e9:.0f} GB/s)")
+
+
+def _lrn_times(fn, tag):
+    """An LRN kernel back to back and by the profiler's device time (the
+    kernels whose name holds ``tag``, LRN_TAGS)."""
+    return dict(loop_ms=_time_loop_ms(fn), device_ms=_device_ms(fn, tag))
 
 
 def _held(label, pairs, tol=None):
@@ -557,9 +647,10 @@ def _time_inference(gen, n):
         err = _held(f"lrn_fwd {name} B={n}", [(
             "y", lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"]),
             lrn_reference(x, g["size"], g["alpha"], g["beta"], g["k"]))])
+        kernel = lambda: lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"])  # noqa: E731
         r = dict(
-            err=err,
-            ms=_time_ms(lambda: lrn_rows(x, g["size"], g["alpha"], g["beta"], g["k"])),
+            err=err, route=lrn_rows.last_route,
+            ms=_time_ms(kernel), **_lrn_times(kernel, LRN_TAGS["lrn_fwd"]),
             plain_ms=_time_ms(lambda: lrn_reference(x, g["size"], g["alpha"], g["beta"],
                                                     g["k"])),
             library_ms=_time_ms(lambda: F.local_response_norm(
@@ -603,10 +694,11 @@ def _time_training(gen):
         x_nchw = x.view(n, h, h, c).permute(0, 3, 1, 2).requires_grad_(True)
         g_nchw = g.view(n, h, h, c).permute(0, 3, 1, 2)
         y_lib = F.local_response_norm(x_nchw, p["size"], p["alpha"], p["beta"], p["k"])
+        fwd_kernel = lambda: lrn_rows_train(x, p["size"], p["alpha"], p["beta"], p["k"])  # noqa: E731
+        bwd_kernel = lambda: lrn_rows_bwd(g, x, d, p["size"], p["alpha"], p["beta"])  # noqa: E731
         fwd = dict(
-            err=fwd_err,
-            ms=_time_ms(lambda: lrn_rows_train(x, p["size"], p["alpha"], p["beta"],
-                                               p["k"])),
+            err=fwd_err, route=lrn_rows_train.last_route,
+            ms=_time_ms(fwd_kernel), **_lrn_times(fwd_kernel, LRN_TAGS["lrn_fwd_train"]),
             plain_ms=_time_ms(lambda: lrn_fwd_train_reference(
                 x, p["size"], p["alpha"], p["beta"], p["k"])),
             library_ms=_time_ms(lambda: F.local_response_norm(
@@ -617,8 +709,8 @@ def _time_training(gen):
         fwd.update(_bound(nbytes, ops))
         _report(f"lrn_fwd_train {name} B={n}", m, c, fwd, nbytes, ops)
         bwd = dict(
-            err=bwd_err,
-            ms=_time_ms(lambda: lrn_rows_bwd(g, x, d, p["size"], p["alpha"], p["beta"])),
+            err=bwd_err, route=lrn_rows_bwd.last_route,
+            ms=_time_ms(bwd_kernel), **_lrn_times(bwd_kernel, LRN_TAGS["lrn_bwd"]),
             plain_ms=_time_ms(lambda: lrn_bwd_reference(g, x, d, p["size"], p["alpha"],
                                                         p["beta"])),
             library_ms=_time_ms(lambda: torch.autograd.grad(
@@ -816,7 +908,7 @@ def phase_profile(serving):
     if not total:
         log("  device time by kernel: not measured (the profiler saw no device events)")
         return None
-    lrn = sum(dev_us(e) for e in kernels if "lrn_fwd" in e.key) / reps
+    lrn = sum(dev_us(e) for e in kernels if LRN_TAGS["lrn_fwd"] in e.key) / reps
     log(f"  bucket 32: device busy {total / 1e3:.3f} ms per forward of "
         f"{wall / 1e3:.3f} ms wall under the profiler (idle share "
         f"{100 * (1 - total / wall):.1f}%); LRN kernel {lrn / 1e3:.4f} ms = "
@@ -1009,33 +1101,31 @@ def phase_train(tmp):
     return {"launches": counts, "losses": losses}
 
 
-def phase_train_profile(tmp):
-    """Solver.step on one device-resident batch of 256."""
+def _alexnet_resident(tmp):
+    """ImageNetApp's AlexNet solver at batch 256 (the train phase's
+    solver file under ``tmp``) and a feed that repeats one
+    device-resident batch."""
     import itertools
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sparknet_tpu_torch.apps import imagenet_app
 
     args = imagenet_app.make_args(synthetic=True, synthetic_n=512,
                                   solver=_solver_file(tmp), device="cuda")
     solver, train_feed, _ = imagenet_app.build(args)
-    batch = solver._put_batch(next(train_feed))
-    feed = itertools.repeat(batch)
+    return solver, itertools.repeat(solver._put_batch(next(train_feed)))
+
+
+def phase_train_profile(tmp):
+    """Solver.step on one device-resident batch of 256."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    solver, feed = _alexnet_resident(tmp)
     solver.step(feed, 3)  # warm: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reps = 10
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    a.record()
-    solver.step(feed, reps)
-    b.record()
-    b.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    ms = a.elapsed_time(b) / reps
+    ms, wall_ms = _step_ms(solver, feed, reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  batch {TRAIN_BATCH}, f32, resident batch: {ms:.3f} ms per step (CUDA events, "
         f"{reps} steps; host clock {wall_ms:.3f} ms), {TRAIN_BATCH / ms * 1e3:.1f} images/s, "
@@ -1058,13 +1148,13 @@ def phase_train_profile(tmp):
         log("  device time by kernel: not measured (the profiler saw no device events)")
         return {"ms": ms}
     lrn = {tag: sum(dev_us(e) for e in kernels if tag in e.key) / steps
-           for tag in ("lrn_fwd_rows_kernel", "lrn_bwd_rows_kernel")}
+           for tag in (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"])}
     lrn_all = sum(lrn.values())
     log(f"  profiled: device busy {total / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms "
         f"wall (idle share {100 * (1 - total / wall):.1f}%); LRN kernels "
         f"{lrn_all / 1e3:.4f} ms = {100 * lrn_all / total:.2f}% of device time "
-        f"(forward {lrn['lrn_fwd_rows_kernel'] / 1e3:.4f} ms, backward "
-        f"{lrn['lrn_bwd_rows_kernel'] / 1e3:.4f} ms)")
+        f"(forward {lrn[LRN_TAGS['lrn_fwd_train']] / 1e3:.4f} ms, backward "
+        f"{lrn[LRN_TAGS['lrn_bwd']] / 1e3:.4f} ms)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:3d}x  {e.key[:90]}")
     return {"ms": ms}
@@ -1230,9 +1320,11 @@ def _flash_bounds(b, s):
 
 def _device_ms(fn, tag=None, n=20):
     """Card time per call by ``torch.profiler``: the device time of the
-    kernels whose name holds ``tag`` (every kernel without one), summed
-    over ``n`` calls, over ``n``; None when the profiler saw no device
-    events. Unlike CUDA events it leaves out the host's time."""
+    kernels whose name holds ``tag``, over the launches of them that the
+    profiler recorded (a call launches one; the profiler has been seen to
+    record fewer than it was given, which is logged), or of every kernel
+    over ``n`` without a tag; None when the profiler saw no device events.
+    Unlike CUDA events it leaves out the host's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1242,10 +1334,19 @@ def _device_ms(fn, tag=None, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and (tag is None or tag in e.key)]
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and (tag is None or tag in e.key))
-    return us / n / 1e3 if us else None
+             for e in events)
+    if not us:
+        return None
+    calls = n
+    if tag is not None:
+        calls = sum(e.count for e in events)
+        if calls != n:
+            log(f"  (torch.profiler recorded {calls} of {n} launches of {tag}: averaged over "
+                f"those)")
+    return us / calls / 1e3
 
 
 def _fmt_ms(x):
@@ -1638,6 +1739,80 @@ AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
           (BERT_BATCH, BERT_SEQ, "bfloat16"))
 
 
+def _ab_lrn(gen):
+    """``--ab``'s LRN timings, f32, AlexNet's two LRN layers summed: the
+    three kernels at batch 256 and the inference forward at serving
+    bucket 32, each by single calls, back to back, the profiler's device
+    time (LRN_TAGS) and the host's time per call (per two calls, one per
+    layer)."""
+    import torch
+
+    from sparknet_tpu_torch.ops import lrn as TL
+
+    p = LRN_GEOM
+    out = {}
+    for n, kinds in ((TRAIN_BATCH, ("lrn_fwd", "lrn_fwd_train", "lrn_bwd")),
+                     (32, ("lrn_fwd",))):
+        layers = {kind: [] for kind in kinds}
+        for _, hw, c in ALEXNET_LRN:
+            x = torch.relu(torch.randn(n * hw, c, generator=gen, device="cuda"))
+            g = torch.randn(n * hw, c, generator=gen, device="cuda")
+            _, d = TL.lrn_rows_train(x, p["size"], p["alpha"], p["beta"], p["k"])
+            calls = {
+                "lrn_fwd": lambda: TL.lrn_rows(x, p["size"], p["alpha"], p["beta"], p["k"]),
+                "lrn_fwd_train": lambda: TL.lrn_rows_train(x, p["size"], p["alpha"], p["beta"],
+                                                           p["k"]),
+                "lrn_bwd": lambda: TL.lrn_rows_bwd(g, x, d, p["size"], p["alpha"], p["beta"]),
+            }
+            for kind in kinds:
+                fn = calls[kind]
+                layers[kind].append(dict(
+                    ms=_time_ms(fn), loop_ms=_time_loop_ms(fn),
+                    device_ms=_device_ms(fn, LRN_TAGS[kind]), host_ms=_host_ms(fn, n=50)))
+            del x, g, d, calls
+        for kind, rows in layers.items():
+            out[f"{kind} B{n} f32 (norm1 + norm2)"] = {
+                key: None if None in vals else sum(vals)
+                for key, vals in ((key, [r[key] for r in rows]) for key in rows[0])}
+    return out
+
+
+def _ab_alexnet():
+    """``--ab``'s AlexNet end-to-end numbers: ms per ``Solver.step`` on
+    one device-resident batch of 256 (CUDA events, and the host clock),
+    and the bucket-32 serving forward: ``engine.infer`` (median of 20,
+    host clock, upload + forward + download) and the net's forward alone
+    on a resident batch (CUDA events, median of 20)."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        solver, feed = _alexnet_resident(tmp)
+        solver.step(feed, 3)  # warm: cuDNN algorithm choice, allocator
+        out["alexnet step f32 B256"] = dict(zip(("ms", "host_clock_ms"), _step_ms(solver, feed)))
+        del solver, feed
+    torch.cuda.empty_cache()
+    eng = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=(32,))
+    eng.warmup()
+    x = np.random.default_rng(0).normal(size=(32,) + eng._row_shapes["data"]).astype(np.float32)
+    times = []
+    for _ in range(22):
+        t0 = time.perf_counter()
+        eng.infer(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    params, state, _ = eng._weights_snapshot()
+    xd = torch.from_numpy(x).cuda()
+    out["alexnet bucket 32 f32"] = dict(
+        infer_ms=statistics.median(times[2:]),
+        forward_ms=_time_ms(lambda: eng.net.apply(params, state, {"data": xd}, train=False),
+                            reps=20))
+    return out
+
+
 def ab_side(root):
     """One process of ``--ab``: the port under ``root`` measured; one JSON
     line."""
@@ -1649,9 +1824,11 @@ def ab_side(root):
 
     if not os.path.abspath(TA.__file__).startswith(os.path.abspath(root) + os.sep):
         raise RuntimeError(f"imported {TA.__file__}, not the port under {root}")
-    _build.build_all(["attention"])
+    _build.build_all(["attention", "lrn"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": root}
+    out.update(_ab_lrn(gen))
+    torch.cuda.empty_cache()
     for b, s, dt in AB_FWD:
         case = (f"B={b} S={s}", b, BERT_HEADS, s, s, BERT_HEAD_DIM, False, 0, 0, False,
                 FLASH_DROPOUT)
@@ -1661,6 +1838,8 @@ def ab_side(root):
                 ms=_time_ms(kernel), library_ms=_time_ms(library), host_ms=_host_ms(kernel),
                 **_more_times(kernel, library, FLASH_TAGS[name]))
         del inputs
+    out.update(_ab_alexnet())
+    torch.cuda.empty_cache()
     for bf16 in (False, True):
         solver, feed = _bert_resident(bf16)
         solver.step(feed, 3)  # warm: allocator, library handles

@@ -18,6 +18,23 @@ version, written step by step:
 - backward, dx from g, x and d: :func:`lrn_rows_bwd` /
   :func:`lrn_bwd_reference`.
 
+Each kernel has two CUDA routes, which :func:`lrn_route` picks per call
+and each wrapper names in ``<wrapper>.last_route``:
+
+- ``"quad"``: C a multiple of 4, at most :data:`QUAD_MAX_C`, every
+  operand 16-byte aligned. A thread owns 4
+  adjacent channels of a row, reads each input once as one 16-byte
+  vector (bf16 g and x: 8 bytes), keeps its centre in registers, and
+  sums the windows out of a zero-padded row in shared memory. AlexNet's
+  C of 96 and 256 take it.
+- ``"staged"``: every other shape (C of 3, 97 or 1500, an operand at an
+  unaligned offset): rows staged element by element in chunks of up to
+  1024 channels plus the window's halo.
+
+Either way the backward reads g, x and d once each. It keeps the TPU
+kernel's contract, d a saved residual; a variant that recomputes d from
+x in the backward remains an option for a later change.
+
 Each wrapper launches its kernel on a CUDA tensor and runs the plain
 version on a CPU tensor; nothing falls back, so a build or launch
 failure raises. Each counts its launches in ``<wrapper>.launches``.
@@ -40,11 +57,26 @@ import torch.nn.functional as F
 
 from . import _build
 
-# The kernels take any C; the window's halo is staged beside a chunk of
-# at most 1024 channels in 48 KB of shared memory, which bounds size.
+# The kernels take any C; the staged route holds the window's halo beside
+# a chunk of at most 1024 channels in 48 KB of shared memory, which bounds
+# size.
 MAX_SIZE = (48 * 1024) // 4 - 1024 + 1
+QUAD_MAX_C = 1024  # the quad route's widest row: one block's 256 threads
+ROUTES = ("quad", "staged")  # codes 0 and 1 of csrc/lrn.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lrn_route(c: int, *operands: torch.Tensor) -> str:
+    """The kernel route for rows of ``c`` channels, given every operand
+    the kernel reads or writes: ``"quad"`` where C is a multiple of 4 of
+    at most :data:`QUAD_MAX_C` and every operand's pointer is 16-byte
+    aligned (``csrc/lrn.cu`` ``quad_geom`` checks the same; its padded
+    rows fit shared memory for every size up to :data:`MAX_SIZE`);
+    ``"staged"`` otherwise."""
+    if c % 4 == 0 and c <= QUAD_MAX_C and all(t.data_ptr() % 16 == 0 for t in operands):
+        return "quad"
+    return "staged"
 
 
 def _inv_beta(d: torch.Tensor, beta: float) -> torch.Tensor:
@@ -111,9 +143,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("lrn")
     if lib.sparknet_lrn_fwd.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.sparknet_lrn_fwd.argtypes = [p, p, ll, i, i, f, f, f, i, i, p]
-        lib.sparknet_lrn_fwd_train.argtypes = [p, p, p, ll, i, i, f, f, f, i, i, p]
-        lib.sparknet_lrn_bwd.argtypes = [p, p, p, p, ll, i, i, f, f, i, i, p]
+        lib.sparknet_lrn_fwd.argtypes = [p, p, ll, i, i, f, f, f, i, i, i, p]
+        lib.sparknet_lrn_fwd_train.argtypes = [p, p, p, ll, i, i, f, f, f, i, i, i, p]
+        lib.sparknet_lrn_bwd.argtypes = [p, p, p, p, ll, i, i, f, f, i, i, i, p]
         for fn in (lib.sparknet_lrn_fwd, lib.sparknet_lrn_fwd_train,
                    lib.sparknet_lrn_bwd):
             fn.restype = ctypes.c_int
@@ -168,7 +200,8 @@ def lrn_rows(x2d: torch.Tensor, size: int, alpha: float, beta: float,
     (M, C) tensor.
 
     A CUDA tensor goes to the kernel, a CPU tensor to
-    :func:`lrn_reference`. ``lrn_rows.launches`` counts kernel launches."""
+    :func:`lrn_reference`. ``lrn_rows.launches`` counts kernel launches,
+    ``lrn_rows.last_route`` names the route of the last one."""
     if x2d.device.type == "cpu":
         return lrn_reference(x2d, size, alpha, beta, k)
     code = _check_rows("lrn_rows", x2d, size)
@@ -176,17 +209,20 @@ def lrn_rows(x2d: torch.Tensor, size: int, alpha: float, beta: float,
     y = torch.empty_like(x2d)
     if y.numel() == 0:
         return y  # nothing to launch
+    route = lrn_route(c, x2d, y)
     lib = _lib()
     err = lib.sparknet_lrn_fwd(
         x2d.data_ptr(), y.data_ptr(), m, c, size, alpha / size, k, beta,
-        code, x2d.device.index, _stream(x2d),
+        code, ROUTES.index(route), x2d.device.index, _stream(x2d),
     )
-    _raise_on(lib, err, "lrn")
+    _raise_on(lib, err, f"lrn ({route} route)")
     lrn_rows.launches += 1
+    lrn_rows.last_route = route
     return y
 
 
 lrn_rows.launches = 0
+lrn_rows.last_route = None
 
 
 def lrn_rows_train(x2d: torch.Tensor, size: int, alpha: float, beta: float,
@@ -196,7 +232,8 @@ def lrn_rows_train(x2d: torch.Tensor, size: int, alpha: float, beta: float,
 
     A CUDA tensor goes to the kernel, a CPU tensor to
     :func:`lrn_fwd_train_reference`. ``lrn_rows_train.launches`` counts
-    kernel launches."""
+    kernel launches, ``lrn_rows_train.last_route`` names the route of the
+    last one."""
     if x2d.device.type == "cpu":
         return lrn_fwd_train_reference(x2d, size, alpha, beta, k)
     code = _check_rows("lrn_rows_train", x2d, size)
@@ -205,17 +242,20 @@ def lrn_rows_train(x2d: torch.Tensor, size: int, alpha: float, beta: float,
     d = torch.empty(x2d.shape, dtype=torch.float32, device=x2d.device)
     if y.numel() == 0:
         return y, d
+    route = lrn_route(c, x2d, y, d)
     lib = _lib()
     err = lib.sparknet_lrn_fwd_train(
         x2d.data_ptr(), y.data_ptr(), d.data_ptr(), m, c, size, alpha / size,
-        k, beta, code, x2d.device.index, _stream(x2d),
+        k, beta, code, ROUTES.index(route), x2d.device.index, _stream(x2d),
     )
-    _raise_on(lib, err, "lrn training forward")
+    _raise_on(lib, err, f"lrn training forward ({route} route)")
     lrn_rows_train.launches += 1
+    lrn_rows_train.last_route = route
     return y, d
 
 
 lrn_rows_train.launches = 0
+lrn_rows_train.last_route = None
 
 
 def lrn_rows_bwd(g: torch.Tensor, x: torch.Tensor, d: torch.Tensor, size: int,
@@ -225,7 +265,8 @@ def lrn_rows_bwd(g: torch.Tensor, x: torch.Tensor, d: torch.Tensor, size: int,
 
     CUDA tensors go to the kernel, CPU tensors to
     :func:`lrn_bwd_reference`. ``lrn_rows_bwd.launches`` counts kernel
-    launches."""
+    launches, ``lrn_rows_bwd.last_route`` names the route of the last
+    one."""
     if x.device.type == "cpu":
         return lrn_bwd_reference(g, x, d, size, alpha, beta)
     code = _check_rows("lrn_rows_bwd", x, size)
@@ -235,17 +276,20 @@ def lrn_rows_bwd(g: torch.Tensor, x: torch.Tensor, d: torch.Tensor, size: int,
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
+    route = lrn_route(c, g, x, d, dx)
     lib = _lib()
     err = lib.sparknet_lrn_bwd(
         g.data_ptr(), x.data_ptr(), d.data_ptr(), dx.data_ptr(), m, c, size,
-        alpha / size, beta, code, x.device.index, _stream(x),
+        alpha / size, beta, code, ROUTES.index(route), x.device.index, _stream(x),
     )
-    _raise_on(lib, err, "lrn backward")
+    _raise_on(lib, err, f"lrn backward ({route} route)")
     lrn_rows_bwd.launches += 1
+    lrn_rows_bwd.last_route = route
     return dx
 
 
 lrn_rows_bwd.launches = 0
+lrn_rows_bwd.last_route = None
 
 
 class LRNFunction(torch.autograd.Function):

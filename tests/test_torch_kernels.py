@@ -19,7 +19,14 @@ f32: rtol 1e-5, atol 1e-6; bf16 output: within one bf16 ulp of the
 plain result computed in f32 (the kernel rounds an f32 result once).
 The backward's dx is a difference of two terms that can cancel to far
 below either, where their f32 rounding exceeds the tiny result's bf16
-ulp: bf16 dx is held to one ulp plus the f32 tolerance.
+ulp: bf16 dx is held to one ulp plus the f32 tolerance. Each LRN kernel
+has two routes (``lrn_route``): the quad route (C a multiple of 4 up to
+1024, every operand 16-byte aligned) and the staged route (every other
+shape); each route of each kernel is held against the plain versions at
+those tolerances, on ragged M, even sizes, C of 97 and 1500, and an
+operand at an offset of 4 bytes, in f32 and bf16, and each case must take
+the route it names. The quad route itself refuses an unaligned operand
+or a C it does not take.
 
 The flash-attention kernels (forward, dq, dk/dv) are held against their
 plain versions on the card, on the same inputs (the backward kernels
@@ -244,6 +251,112 @@ def test_training_kernels_match_references_on_card(cuda_device):
     n = 2 * len(ROW_CASES)
     assert (lrn_rows_train.launches, lrn_rows_bwd.launches) == (before[0] + n,
                                                                  before[1] + n)
+
+
+# (label, rows, C, size, beta, k, alpha, operands placed 4 bytes past a
+#  16-byte boundary, routes of the inference forward, training forward
+#  and backward)
+QUAD, STAGED = ("quad",) * 3, ("staged",) * 3
+ROUTE_CASES = [
+    ("c96 ragged", 1003, 96, 5, 0.75, 1.0, 1e-4, "", QUAD),
+    ("c96 even size 4 ragged", 997, 96, 4, 0.75, 1.0, 0.5, "", QUAD),
+    ("c256 even size 6 ragged", 1001, 256, 6, 1.0, 1.0, 0.5, "", QUAD),
+    ("c1024", 61, 1024, 5, 0.6, 1.0, 0.5, "", QUAD),
+    ("c4 size 9", 501, 4, 9, 0.5, 2.0, 0.5, "", QUAD),
+    ("c97", 1000, 97, 5, 0.75, 2.0, 0.5, "", STAGED),
+    ("c97 even size 4", 999, 97, 4, 0.6, 1.0, 0.5, "", STAGED),
+    ("c1500 two chunks", 70, 1500, 7, 0.75, 1.0, 0.5, "", STAGED),
+    # a window so wide that the quad route fits fewer rows a block, and
+    # the staged backward a narrower chunk, in shared memory
+    ("c96 size 2001", 23, 96, 2001, 0.75, 1.0, 0.5, "", QUAD),
+    ("c1500 size 10001", 3, 1500, 10001, 0.75, 1.0, 0.5, "", STAGED),
+    ("x and g unaligned", 1000, 96, 5, 0.75, 1.0, 0.5, "xg", STAGED),
+    ("d unaligned", 1000, 96, 4, 0.75, 1.0, 0.5, "d", ("quad", "quad", "staged")),
+]
+ROUTE_IDS = [c[0].replace(" ", "-") for c in ROUTE_CASES]
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose pointer is 4 bytes past a 16-byte
+    boundary: a view at an offset of 4 bytes into a larger buffer."""
+    off = 4 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _held(got, ref, dtype, cancels=False):
+    ref = ref.cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), ref, **F32_TOL)
+        return
+    err = np.abs(got.float().cpu().numpy() - ref)
+    tol = _bf16_ulp(ref)
+    if cancels:
+        tol = tol + F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(ref)
+    assert np.all(err <= tol), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=ROUTE_IDS)
+def test_every_route_matches_plain_versions_on_card(case, dtype, cuda_device):
+    """The three kernels on the route each case names, against their plain
+    versions (the backward's fed the same d)."""
+    _, m, c, size, beta, k, alpha, unaligned, routes = case
+    x = torch.from_numpy(_rows(m, c)).to(cuda_device, dtype)
+    g = torch.from_numpy(_rows(m, c, seed=1) / 2).to(cuda_device, dtype)
+    if "x" in unaligned:
+        x, g = _unaligned(x), _unaligned(g)
+    before = (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches)
+    y = lrn_rows(x, size, alpha, beta, k)
+    yt, d = lrn_rows_train(x, size, alpha, beta, k)
+    if "d" in unaligned:
+        d = _unaligned(d)
+    dx = lrn_rows_bwd(g, x, d, size, alpha, beta)
+    torch.cuda.synchronize()
+    assert (lrn_rows.last_route, lrn_rows_train.last_route,
+            lrn_rows_bwd.last_route) == routes
+    assert (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches) == tuple(
+        n + 1 for n in before)
+    ref_y, ref_d = lrn_fwd_train_reference(x.float(), size, alpha, beta, k)
+    _held(y, lrn_reference(x.float(), size, alpha, beta, k), dtype)
+    _held(yt, ref_y, dtype)
+    np.testing.assert_allclose(d.cpu().numpy(), ref_d.cpu().numpy(), **F32_TOL)
+    _held(dx, lrn_bwd_reference(g.float(), x.float(), d, size, alpha, beta), dtype,
+          cancels=True)
+
+
+@pytest.mark.cuda
+def test_quad_route_refuses_what_it_does_not_take(cuda_device):
+    """Asked for the quad route, the library checks again: an operand off
+    a 16-byte boundary, or C not a multiple of 4, launches nothing and
+    returns cudaErrorInvalidValue (1)."""
+    from sparknet_tpu_torch.ops.lrn import _lib, _stream
+
+    lib = _lib()
+    quad = 0
+    x = torch.ones(64, 96, device=cuda_device)
+    y = torch.zeros_like(x)
+    stream = _stream(x)
+    ok = lib.sparknet_lrn_fwd(x.data_ptr(), y.data_ptr(), 64, 96, 5, 1e-4 / 5, 1.0, 0.75, 0,
+                              quad, 0, stream)
+    assert ok == 0
+    xu = _unaligned(x)
+    assert lib.sparknet_lrn_fwd(xu.data_ptr(), y.data_ptr(), 64, 96, 5, 1e-4 / 5, 1.0, 0.75,
+                                0, quad, 0, stream) == 1
+    x97 = torch.ones(64, 97, device=cuda_device)
+    y97 = torch.zeros_like(x97)
+    assert lib.sparknet_lrn_fwd(x97.data_ptr(), y97.data_ptr(), 64, 97, 5, 1e-4 / 5, 1.0,
+                                0.75, 0, quad, 0, stream) == 1
+    d = torch.ones_like(x)
+    assert lib.sparknet_lrn_bwd(x.data_ptr(), x.data_ptr(), _unaligned(d).data_ptr(),
+                                y.data_ptr(), 64, 96, 5, 1e-4 / 5, 0.75, 0, quad, 0,
+                                stream) == 1
+    torch.cuda.synchronize()
+    assert not torch.any(y97)
 
 
 @pytest.mark.cuda
