@@ -21,8 +21,8 @@ own lines:
 3. kernels: each of the three LRN kernels (inference forward, training
    forward with its f32 residual d, backward) held against its plain
    PyTorch version on the card (tolerances below), odd and even window
-   sizes, ragged M, f32 and bf16, AlexNet's shapes at batches 1, 8 and
-   32, on both of its routes: the quad route (C a multiple of 4 up to
+   sizes, ragged M, f32 and bf16, AlexNet's shapes at batches 1, 8, 32
+   and 128 (one alexnet-local worker's rows), on both of its routes: the quad route (C a multiple of 4 up to
    1024, operands 16-byte aligned) and the staged route (C 97 and 1500,
    x and g or d 4 bytes past a 16-byte boundary); each case prints the
    route each kernel took and must take the one it names. Then, at the
@@ -99,7 +99,42 @@ own lines:
 13. bert-profile: ``Solver.step`` of BERT-base on one device-resident
    batch of 32 x 128: ms per step by CUDA events, tokens/s, peak device
    memory, then ``torch.profiler`` over 3 steps: device time by kernel,
-   the flash kernels' share and the device's idle share.
+   the flash kernels' share and the device's idle share;
+14. cifar-app: ``CifarApp`` through ``main([...])``: the port's
+   cifar10_quick solver at its full net and batch of 100, the 5,000-image
+   synthetic set (mean file absent: the full set's mean), 300
+   iterations (test_iter 10 before the loop and at the end, display
+   50). The test loss must fall below half its first value, the last
+   display loss below the first test loss, and the last test accuracy
+   reach chance (0.1) plus 0.5; the last ``speed:`` line's steps/s and
+   images/s are printed;
+15. local-sgd: ``ParallelSolver(mode="local", tau=10)`` on cifar10_quick
+   at batch 100 over 4 workers on cuda:0, once for each wire format
+   (``--grad-compress`` none, bf16, int8): one round on the card held
+   against the same round on the CPU from the same weights and batches
+   (each worker's weights, then the average within what the wire
+   format's flipped roundings can move it);
+   19 more rounds, ms per round and the average's share (host clock,
+   synchronized), the round loss must fall below half its first value
+   and the weights stay finite. With none, one round under
+   ``torch.profiler`` (the card's busy time against the round's wall
+   time, and the launches), then one more round's worker weights must
+   all differ, and their average under a bucketed config must be
+   bit-equal to the leaf-by-leaf one on the card. Then
+   ``mode="sync"`` over the same 4 workers, 10 steps, against one
+   worker (``Solver``) on the same global batches. Last, three faults
+   planted on the card (a row split shifted by one row, twice the
+   learning rate, a sum in place of the mean) in the first local round
+   and in the 10 sync steps: each must read above the 10-step limit
+   that the sound runs read below;
+16. alexnet-local: ``ImageNetApp``'s ``build`` with ``--parallel local
+   --tau 2`` over 2 workers on cuda:0 (``workers=``), full-width
+   ``bvlc_alexnet`` at batch 256 (128 a worker), 4 iterations through
+   ``train_loop`` (test_iter 2 before and after): the display losses
+   finite, each LRN training kernel launched twice per worker step (16
+   each), the inference kernel twice per test batch, and the final
+   solverstate's slots carrying the worker axis (2, 11, 11, 3, 96) and
+   restoring equal.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -115,8 +150,8 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving and train for LRN, bert-train for
-flash).
+counts the main paths' runs (serving, train and alexnet-local for LRN,
+bert-train for flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
@@ -157,6 +192,26 @@ differ by less than 1e-5 relative may trade places (f32 convolutions
 sum in another order on the card; TF32 is switched off for both convs
 and matmuls, so those differences stay near f32 rounding).
 
+The parallel phases: f32 convolutions reduce in another order on the
+card than on the CPU, and on a batch of 25 than of 100, and cuDNN's
+weight gradients sum with atomics; a max-pool or ReLU branch that flips
+on that rounding moves a few gradients by their size, and 10 steps of
+training carry that to up to 7.9e-4 relative L2 in 10 sync steps
+(measured on the CPU: 4 x 25 against 1 x 100 rows of this feed, first
+flips after 2-6 steps) and to 1.12e-3 in a local worker's 10 steps of
+25 rows, card against CPU. So sync's 4 workers against one worker: the
+weights after step 1 and every step's loss within 1e-4 relative, the
+weights after 10 steps within 1e-2 relative L2 per tensor; each
+worker's weights after one local round (10 steps) on the card against
+the CPU's within 1e-2 (wrong rows, rates or averaging move them by 1e-1
+or more). The
+averaged weights, element by element: within the mean of the workers'
+differences, plus 1e-6 of the average's operands (its f32 rounding),
+plus what a rounding of the wire format that flips between the two
+runs can move them (``_quanta``: where the two runs' deltas straddle a
+rounding boundary, bf16 moves a worker's element by up to two ulps of
+it and int8 by its bucket's shared scale, each over the 4 workers).
+
 Flash kernels vs plain (the backward pair fed the plain forward's lse
 and delta): f32 o and lse rtol = atol = 2e-5, f32 dq, dk, dv rtol = atol
 = 1e-4, the JAX flash tests' own (sums of D products per logit and of
@@ -177,6 +232,7 @@ both devices instead.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -198,6 +254,25 @@ ALEXNET_LRN = (("norm1", 55 * 55, 96), ("norm2", 27 * 27, 256))
 LRN_GEOM = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 TRAIN_BATCH, TEST_BATCH = 256, 50  # the train_val prototxt's data layers
 TRAIN_ITERS = 20
+
+# the parallel phases: CifarApp's run, tau-local SGD on cifar10_quick,
+# and AlexNet's local rounds
+CIFAR_ITERS = 300
+CIFAR_ACC_MARGIN = 0.5  # the last test accuracy must reach chance (0.1) + this
+LOCAL_WORKERS, LOCAL_TAU, LOCAL_ROUNDS = 4, 10, 20
+SYNC_STEPS = 10
+# relative L2 per tensor: one step's weights, and each step's loss, on
+# another device or batch split; 10 steps' weights: a max-pool or ReLU
+# branch that flips on that rounding moves a few gradients by their
+# size, and training carries it (measured: up to 7.9e-4 after 10 sync
+# steps on the CPU, 4 x 25 against 1 x 100 rows of this feed; 1.12e-3
+# for a local worker's 10 steps of 25 rows, card against CPU). The
+# faults phase_local_sgd plants on the card read 1.24e-1 or more (a row
+# split shifted by one row, over 10 sync steps; NVIDIA H100 80GB HBM3 at
+# 700 W), so the limit sits about 10x from either side
+LOCAL_STEP_TOL = 1e-4
+LOCAL_CARD_TOL = 1e-2
+ALEXNET_LOCAL_ITERS = 4
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -277,12 +352,17 @@ def phase_card():
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
         f"count {torch.cuda.device_count()}")
-    smi = subprocess.run(
+    smi = _smi()
+    log(smi)
+    return name, smi
+
+
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(smi)
-    return name, smi
 
 
 # --------------------------------------------------------------- build
@@ -458,7 +538,9 @@ def lrn_cases():
     inference forward, training forward and backward must take)."""
     cases = []
     for dt in ("float32", "bfloat16"):
-        for b in (1, 8, 32):  # serving buckets; 8 is the grads phase's batch
+        # serving buckets; 8 is the grads phase's batch, 128 one
+        # alexnet-local worker's
+        for b in (1, 8, 32, 128):
             for name, hw, c in ALEXNET_LRN:
                 cases.append((f"{name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt, "", QUAD))
         cases += [
@@ -1734,6 +1816,488 @@ def phase_bert_profile():
     return {"ms": ms}
 
 
+# ------------------------------------------------- parallel training
+def _cifar_solver_file(tmp: str, iters: int, test_iter: int, display: int) -> str:
+    """The port's cifar10_quick solver (base_lr 0.001, momentum 0.9,
+    decay 4e-3) cut to ``iters`` iterations, tests before the loop and at
+    the end, snapshots under ``tmp``."""
+    from sparknet_tpu_torch.models import CIFAR_QUICK_SOLVER, CIFAR_QUICK_TRAIN_TEST
+
+    text = open(CIFAR_QUICK_SOLVER).read()
+    for key, value in (("net", f'"{CIFAR_QUICK_TRAIN_TEST}"'), ("test_iter", test_iter),
+                       ("test_interval", iters), ("display", display),
+                       ("snapshot", iters),
+                       ("snapshot_prefix", f'"{os.path.join(tmp, "cifar")}"')):
+        lines = [ln for ln in text.splitlines() if not ln.startswith(f"{key}:")]
+        text = "\n".join(lines + [f"{key}: {value}"]) + "\n"
+    path = os.path.join(tmp, "cifar_smoke_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_cifar_app(tmp):
+    """CifarApp through ``main([...])`` on the card: cifar10_quick at its
+    batch of 100 on the synthetic set."""
+    log(f"  card: {_smi()}")
+    import contextlib
+    import io
+    import math
+    import re
+
+    from sparknet_tpu_torch.apps import cifar_app
+
+    argv = ["--solver", _cifar_solver_file(tmp, CIFAR_ITERS, 10, 50), "--synthetic",
+            "--synthetic-n", "5000", "--max-iter", str(CIFAR_ITERS), "--device", "cuda"]
+    log(f"  cifar_app.main({argv})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        last_test = cifar_app.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+)", out)]
+    tests = [float(v) for v in re.findall(r"Test net output: loss = (\S+)", out)]
+    accs = [float(v) for v in re.findall(r"Test net output: accuracy = (\S+)", out)]
+    speed = re.findall(r"speed: steps/s=(\S+) images/s=(\S+)", out)
+    if len(losses) != CIFAR_ITERS // 50 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"display losses {losses}")
+    if len(tests) != 2 or not tests[1] < 0.5 * tests[0] or not losses[-1] < tests[0]:
+        raise AssertionError(f"the loss did not fall: test losses {tests}, train {losses}")
+    if not accs[-1] >= 0.1 + CIFAR_ACC_MARGIN:
+        raise AssertionError(f"last test accuracy {accs[-1]}, chance 0.1 + margin "
+                             f"{CIFAR_ACC_MARGIN}")
+    steps_s, images_s = (float(x) for x in speed[-1])
+    log(f"  test loss {tests[0]:.4f} -> {tests[1]:.4f}, accuracy {accs[-1]:.4f} (chance "
+        f"0.1, want >= {0.1 + CIFAR_ACC_MARGIN}); speed: {steps_s} steps/s, {images_s} "
+        f"images/s at batch 100 through the serial feed")
+    return {"steps_per_s": steps_s, "images_per_s": images_s, "last_test": last_test}
+
+
+def _cifar_parallel(workers, mode, tau=1, compress="none", bucket_mb=4.0):
+    """A ParallelSolver on cifar10_quick at batch 100 over ``workers``,
+    weights from seed 0 (the same on every device)."""
+    from sparknet_tpu_torch.models import CIFAR_QUICK_SOLVER, CIFAR_QUICK_TRAIN_TEST
+    from sparknet_tpu_torch.parallel import CommConfig, ParallelSolver
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    shapes = {"data": (100, 32, 32, 3), "label": (100,)}
+    return ParallelSolver(caffe_pb.load_solver(CIFAR_QUICK_SOLVER), shapes,
+                          net_param=caffe_pb.load_net(CIFAR_QUICK_TRAIN_TEST),
+                          workers=workers, mode=mode, tau=tau, seed=0,
+                          comm_config=CommConfig(compress=compress, bucket_mb=bucket_mb))
+
+
+def _cifar_feed():
+    """CifarApp's serial feed over the 5,000-image synthetic set, the
+    full-set mean subtracted."""
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.data.cifar import cifar10_dataset
+    from sparknet_tpu_torch.data.preprocess import Transformer
+
+    ds, mean = cifar10_dataset(None, synthetic_n=5000)
+    return cifar_app.make_feed(ds, Transformer(mean_image=mean), 100, seed=0)
+
+
+def _rel_errs(got, want):
+    """Each tensor's relative L2 error of ``got`` (card) against ``want``."""
+    from sparknet_tpu_torch.parallel import comm
+
+    out = []
+    for g, w in zip(comm.tree_leaves(got), comm.tree_leaves(want)):
+        g = g.detach().cpu().double()
+        w = w.detach().cpu().double()
+        out.append(float((g - w).norm() / w.norm().clamp_min(1e-30)))
+    return out
+
+
+def _shifted_rows(batch, w, num_workers, axis, device):
+    """A planted fault: ``local_sgd.worker_rows`` with every worker but
+    the first starting one row early (rows overlap, the last is lost)."""
+    out = {}
+    for k, x in batch.items():
+        per = x.shape[axis] // num_workers
+        out[k] = x.narrow(axis, max(w * per - 1, 0), per).to(device)
+    return out
+
+
+def _summed(xs):
+    """A planted fault: ``comm._mean`` without its division."""
+    acc = xs[0].clone()
+    for x in xs[1:]:
+        acc += x.to(acc.device)
+    return acc
+
+
+@contextlib.contextmanager
+def _planted(fault, solver):
+    """Run with one fault planted: ``rows`` (a row split shifted by one
+    row), ``rate`` (twice ``solver``'s learning rate) or ``sum`` (a sum
+    in place of the workers' mean)."""
+    from sparknet_tpu_torch.parallel import comm, data_parallel, local_sgd
+
+    saved = []
+    if fault == "rows":
+        saved += [(m, "worker_rows", m.worker_rows) for m in (local_sgd, data_parallel)]
+        local_sgd.worker_rows = data_parallel.worker_rows = _shifted_rows
+    elif fault == "rate":
+        saved.append((solver.sp, "base_lr", solver.sp.base_lr))
+        solver.sp.base_lr *= 2
+    else:
+        saved.append((comm, "_mean", comm._mean))
+        comm._mean = _summed
+    try:
+        yield
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+
+
+PLANTED = ("rows", "rate", "sum")
+
+
+def phase_local_sgd():
+    """SparkNet's tau-local SGD on the card: cifar10_quick, batch 100, 4
+    workers on cuda:0, tau 10, for each wire format; then sync data
+    parallel against one worker."""
+    log(f"  card: {_smi()}")
+    import itertools
+    import math
+
+    import torch
+
+    from sparknet_tpu_torch.parallel import CommConfig, comm, make_round_reduce
+    from sparknet_tpu_torch.parallel.local_sgd import RESIDUAL_KEY, stack_round_batches
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    workers = ["cuda:0"] * LOCAL_WORKERS
+    feed = _cifar_feed()
+    first = [next(feed) for _ in range(LOCAL_TAU)]
+    out = {}
+    for compress in ("none", "bf16", "int8"):
+        card = _cifar_parallel(workers, "local", LOCAL_TAU, compress)
+        cpu = _cifar_parallel(["cpu"] * LOCAL_WORKERS, "local", LOCAL_TAU, compress)
+        seen = {}
+        for name, solver in (("card", card), ("cpu", cpu)):
+            seen[name] = _spy_reduce(solver)
+        card.step(iter(first), LOCAL_TAU)
+        m0 = cpu.step(iter(first), LOCAL_TAU)
+        for solver in (card, cpu):
+            solver._reduce_fn = solver._reduce_fn.wrapped
+        held = _held_round(compress, card, cpu, seen["card"], seen["cpu"])
+        if compress == "none":
+            reference = cpu, seen["cpu"]
+        reduce_ms, round_ms, losses = [], [], []
+        reduce_fn = card._reduce_fn
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = reduce_fn(*args)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+
+        card._reduce_fn = timed
+        for _ in range(LOCAL_ROUNDS - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = card.step(feed, LOCAL_TAU)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+        card._reduce_fn = reduce_fn
+        finite = all(bool(torch.isfinite(x).all()) for x in comm.tree_leaves(card.params))
+        r_ms, d_ms = statistics.median(round_ms), statistics.median(reduce_ms)
+        log(f"  {compress}: rounds 2-{LOCAL_ROUNDS}: {r_ms:.2f} ms per round (median, "
+            f"host clock, synchronized), of which the average {d_ms:.3f} ms "
+            f"({100 * d_ms / r_ms:.1f}%); round loss {float(m0['loss']):.4f} -> "
+            f"{losses[-1]:.4f}; comm {json.dumps({k: v for k, v in card.comm_report().items() if k != 'buckets'})}")
+        if not finite or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{compress}: non-finite weights or losses {losses}")
+        if not losses[-1] < 0.5 * float(m0["loss"]):
+            raise AssertionError(f"{compress}: the round loss did not fall: {losses}")
+        if compress != "none" and RESIDUAL_KEY not in card.opt_state:
+            raise AssertionError(f"{compress}: no error-feedback residual")
+        out[compress] = {"round_ms": r_ms, "reduce_ms": d_ms, "card_vs_cpu": held}
+        if compress == "none":
+            _profile_round(card, feed)
+            # one more τ-step body, its workers' weights averaged twice on
+            # the card: under a bucketed config and leaf by leaf
+            stacked = card._put_batch(stack_round_batches(
+                [next(feed) for _ in range(LOCAL_TAU)]))
+            p_start, ps, sts, _, _ = card._round_fn(LOCAL_TAU)(
+                card.params, card.state, card.opt_state, stacked, card.iter,
+                card._worker_generators(card.iter))
+            cfg = CommConfig(mode="bucketed", bucket_mb=0.1)
+            bucketed, _, _ = make_round_reduce(cfg)(p_start, ps, sts, None)
+            mono = comm.reduce_per_leaf(ps)
+            same = all(torch.equal(a, b) for a, b in zip(comm.tree_leaves(bucketed),
+                                                         comm.tree_leaves(mono)))
+            differ = all(not torch.equal(comm.tree_leaves(ps[0])[0],
+                                         comm.tree_leaves(p)[0]) for p in ps[1:])
+            log(f"  lossless average on the card: bucketed config (bucket_mb "
+                f"{cfg.bucket_mb}) bit-equal to leaf by leaf: {same}; every "
+                f"worker's end-of-round weights differ from worker 0's: {differ}")
+            if not (same and differ):
+                raise AssertionError(f"bucketed == per-leaf {same}, workers differ {differ}")
+    # sync data parallel against one worker on the same global batches
+    sync = _cifar_parallel(workers, "sync")
+    single = Solver(sync.sp, {"data": (100, 32, 32, 3), "label": (100,)},
+                    net_param=sync.net_param, seed=0, device="cuda")
+    errs, losses = [], []
+    sync_batches = [next(feed) for _ in range(SYNC_STEPS)]
+    for b in sync_batches:
+        m, m1 = sync.step(iter([b]), 1), single.step(iter([b]), 1)
+        losses.append(abs(float(m["loss"]) - float(m1["loss"])) / abs(float(m1["loss"])))
+        errs.append(max(_rel_errs(sync.params, single.params)))
+    log(f"  sync, {LOCAL_WORKERS} workers x 25 rows vs 1 worker x 100 rows, "
+        f"{SYNC_STEPS} steps: worst relative L2 error of the weights {errs[0]:.2e} after "
+        f"step 1 [<= {LOCAL_STEP_TOL:g}], {errs[-1]:.2e} after step {SYNC_STEPS} "
+        f"[<= {LOCAL_CARD_TOL:g}]; each step's loss within {max(losses):.2e} relative "
+        f"[<= {LOCAL_STEP_TOL:g}]")
+    if errs[0] > LOCAL_STEP_TOL or errs[-1] > LOCAL_CARD_TOL or max(losses) > LOCAL_STEP_TOL:
+        raise AssertionError(f"sync vs one worker: weights {errs}, losses {losses}")
+    out["sync"] = errs
+    out["planted"] = _plant_faults(workers, first, reference, sync_batches, single)
+    sound = max([out[c]["card_vs_cpu"]["workers"] for c in ("none", "bf16", "int8")]
+                + [errs[-1]])
+    low = min(out["planted"].values())
+    log(f"  limit {LOCAL_CARD_TOL:g}: the sound runs' worst reading {sound:.2e} "
+        f"({LOCAL_CARD_TOL / sound:.1f}x below it), the planted faults' least {low:.2e} "
+        f"({low / LOCAL_CARD_TOL:.1f}x above it)")
+    if low <= LOCAL_CARD_TOL:
+        raise AssertionError(f"a planted fault passes the {LOCAL_CARD_TOL:g} limit: "
+                             f"{out['planted']}")
+    return out
+
+
+def _plant_faults(workers, first, reference, sync_batches, single):
+    """Each planted fault's reading on the card, by the limit that holds
+    the sound runs: the first local round's workers' weights and their
+    average against the sound CPU round (the worse of the two), and the
+    10 sync steps' weights against the one-worker run."""
+    cpu, seen_cpu = reference
+    readings = {}
+    for fault in PLANTED:
+        bad = _cifar_parallel(workers, "local", LOCAL_TAU)
+        seen = _spy_reduce(bad)
+        with _planted(fault, bad):
+            bad.step(iter(first), LOCAL_TAU)
+        ws = max(max(_rel_errs(a, b)) for a, b in zip(seen["ps"], seen_cpu["ps"]))
+        avg = max(_rel_errs(bad.params, cpu.params))
+        readings[f"local {fault}"] = max(ws, avg)
+        log(f"  planted {fault}, local round: workers' weights {ws:.2e}, average "
+            f"{avg:.2e} relative L2 against the sound CPU round [want > "
+            f"{LOCAL_CARD_TOL:g}]")
+    for fault in PLANTED:
+        bad = _cifar_parallel(workers, "sync")
+        with _planted(fault, bad):
+            for b in sync_batches:
+                bad.step(iter([b]), 1)
+        readings[f"sync {fault}"] = max(_rel_errs(bad.params, single.params))
+        log(f"  planted {fault}, {SYNC_STEPS} sync steps: weights "
+            f"{readings[f'sync {fault}']:.2e} relative L2 against one worker [want > "
+            f"{LOCAL_CARD_TOL:g}]")
+    return readings
+
+
+def _spy_reduce(solver):
+    """Wrap ``solver``'s round average to keep what it was given: the
+    round-start weights, the workers' end-of-round weights, the residual."""
+    seen = {}
+    fn = solver._reduce_fn
+
+    def spy(p_start, ps, sts, res):
+        seen.update(p_start=p_start, ps=ps, res=res)
+        return fn(p_start, ps, sts, res)
+
+    spy.wrapped = fn
+    solver._reduce_fn = spy
+    return seen
+
+
+def _payloads(seen):
+    """Each worker's payload of the round, leaf by leaf, f64 on the CPU:
+    its weight delta plus its residual row."""
+    from sparknet_tpu_torch.parallel import comm
+
+    starts = [x.double().cpu() for x in comm.tree_leaves(seen["p_start"])]
+    rows = ([x.double().cpu() for x in comm.tree_leaves(seen["res"])]
+            if seen["res"] is not None else None)
+    return [[e.double().cpu() - s + (rows[i][w] if rows else 0.0)
+             for i, (e, s) in enumerate(zip(comm.tree_leaves(p), starts))]
+            for w, p in enumerate(seen["ps"])]
+
+
+def _quanta(seen_card, seen_cpu, compress, bucket_bytes):
+    """Per element of each leaf, how far roundings that flip between the
+    card and the CPU can move the average: bf16, the workers' two ulps
+    of what each sent (two: a value across a power of two has twice the
+    ulp) over the worker count; int8, its bucket's shared scale (absmax /
+    127, the larger of the two runs') plus 127 times the two scales'
+    difference (every element dequantizes by its own run's scale); 0
+    lossless."""
+    import torch
+
+    from sparknet_tpu_torch.parallel import comm
+
+    cpu = _payloads(seen_cpu)
+    zeros = [torch.zeros_like(x) for x in cpu[0]]
+    if compress == "none":
+        return zeros
+    if compress == "bf16":
+        for pw in cpu:
+            for i, x in enumerate(pw):
+                _, e = torch.frexp(x)  # x = m 2^e, 0.5 <= |m| < 1; bf16's ulp: 2^(e-8)
+                zeros[i] += torch.where(x != 0, torch.ldexp(torch.ones_like(x), e - 7),
+                                        0.0) / len(cpu)
+        return zeros
+    card = _payloads(seen_card)
+    leaves = comm.tree_leaves(seen_cpu["p_start"])
+    for bucket in comm.plan_buckets(leaves, bucket_bytes):
+        scales = [max(float(pw[i].abs().max()) for pw in run for i in bucket) / 127.0
+                  for run in (card, cpu)]
+        for i in bucket:
+            zeros[i] += max(scales) + 127.0 * abs(scales[0] - scales[1])
+    return zeros
+
+
+def _held_round(compress, card, cpu, seen_card, seen_cpu):
+    """One round on the card held against the CPU's: each worker's
+    end-of-round weights within LOCAL_CARD_TOL relative L2 error; the
+    averaged weights, element by element, within the mean of the
+    workers' differences plus the quanta a flipped rounding can move
+    them (``_quanta``) and 1e-6 of the average's operands."""
+    import torch
+
+    from sparknet_tpu_torch.parallel import comm
+
+    worker = max(max(_rel_errs(a, b)) for a, b in zip(seen_card["ps"], seen_cpu["ps"]))
+    quanta = _quanta(seen_card, seen_cpu, compress, cpu.comm.bucket_bytes)
+    ps_card = [[x.double().cpu() for x in comm.tree_leaves(p)] for p in seen_card["ps"]]
+    ps_cpu = [[x.double().cpu() for x in comm.tree_leaves(p)] for p in seen_cpu["ps"]]
+    starts = [x.double().cpu() for x in comm.tree_leaves(seen_cpu["p_start"])]
+    worst = flips = 0.0
+    for i, (g, w) in enumerate(zip(comm.tree_leaves(card.params), comm.tree_leaves(cpu.params))):
+        g, w = g.double().cpu(), w.double().cpu()
+        spread = sum((a[i] - b[i]).abs() for a, b in zip(ps_card, ps_cpu)) / len(ps_card)
+        # the f32 rounding of start + mean(deltas), in both runs: 1e-6 of
+        # the operands' size (the weight itself may cancel to ~0)
+        size = starts[i].abs() + torch.stack([(p[i] - starts[i]).abs() for p in ps_cpu]).amax(0)
+        slack = 1e-6 * size + 1e-12
+        diff = (g - w).abs()
+        worst = max(worst, float((diff / (spread + quanta[i] + slack)).max()))
+        flips += int((diff > spread + slack).sum())
+    avg = max(_rel_errs(card.params, cpu.params))
+    log(f"  {compress}: one round ({LOCAL_WORKERS} workers x {LOCAL_TAU} steps of 25 rows), "
+        f"card vs CPU from the same weights and batches: workers' weights worst relative "
+        f"L2 error {worker:.2e} [<= {LOCAL_CARD_TOL:g}]; averaged weights {avg:.2e}, "
+        f"{flips:.0f} elements past the workers' spread (flipped roundings), worst "
+        f"|difference| / (spread + quanta + rounding) {worst:.3f} [<= 1]")
+    if worker > LOCAL_CARD_TOL or worst > 1.0:
+        raise AssertionError(f"{compress}: card vs CPU round: workers {worker:.2e}, "
+                             f"average {worst:.3f}")
+    return {"workers": worker, "average": avg, "flips": flips, "worst_ratio": worst}
+
+
+def _profile_round(solver, feed):
+    """One local round under ``torch.profiler``: the card's busy time
+    against the round's wall time, and the kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.step(feed, solver.tau)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0) for e in kernels) / 1e3
+    if not busy_ms:
+        log("  profiled round: device time not measured (the profiler saw no device "
+            "events)")
+        return
+    launches = sum(e.count for e in kernels)
+    log(f"  profiled round: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle "
+        f"share {100 * (1 - busy_ms / wall_ms):.1f}%), {launches} kernel launches, "
+        f"{launches / (solver.tau * len(solver.workers)):.0f} a worker step")
+
+
+def _alexnet_local_solver(tmp):
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    path = os.path.join(tmp, "alexnet_local_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(
+            f'net: "{ALEXNET_TRAIN_VAL}"\n'
+            f"test_iter: 2\ntest_interval: {ALEXNET_LOCAL_ITERS}\nbase_lr: 0.01\n"
+            'lr_policy: "step"\ngamma: 0.1\nstepsize: 100000\ndisplay: 2\n'
+            f"max_iter: {ALEXNET_LOCAL_ITERS}\nmomentum: 0.9\nweight_decay: 0.0005\n"
+            f"snapshot: {ALEXNET_LOCAL_ITERS}\n"
+            f'snapshot_prefix: "{os.path.join(tmp, "alexnet_local")}"\n'
+        )
+    return path
+
+
+def phase_alexnet_local(tmp):
+    """ImageNetApp's solver with ``--parallel local --tau 2`` over 2
+    workers on cuda:0: full-width bvlc_alexnet, batch 256 (128 a
+    worker), counted kernel by kernel."""
+    log(f"  card: {_smi()}")
+    import contextlib
+    import io
+    import math
+    import re
+
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.apps.cifar_app import train_loop
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.solver import snapshot
+
+    args = imagenet_app.make_args(synthetic=True, synthetic_n=512,
+                                  solver=_alexnet_local_solver(tmp), device="cuda",
+                                  parallel="local", tau="2")
+    solver, train_feed, test_feed = imagenet_app.build(args, workers=["cuda:0"] * 2)
+    log(f"  imagenet_app.build({args}, workers=[cuda:0, cuda:0]): {type(solver).__name__} "
+        f"mode {solver.mode}, tau {solver.tau}, workers {[str(d) for d in solver.workers]}")
+    buf = io.StringIO()
+    lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+    with contextlib.redirect_stdout(buf):
+        train_loop(solver, train_feed, test_feed)
+    counts = (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+)", out)]
+    if len(losses) != ALEXNET_LOCAL_ITERS // 2 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"display losses {losses}")
+    tests = 2  # before the loop and at the end
+    want = (2 * 2 * tests, 2 * 2 * ALEXNET_LOCAL_ITERS, 2 * 2 * ALEXNET_LOCAL_ITERS)
+    log(f"  LRN launches: inference {counts[0]} (want {want[0]}: 2 per test batch), "
+        f"training forward {counts[1]}, backward {counts[2]} (want {want[1]} each: 2 "
+        f"per worker step, 2 workers a step)")
+    if counts != want:
+        raise AssertionError(f"LRN launches {counts}, want {want}")
+    path = os.path.join(tmp, f"alexnet_local_iter_{ALEXNET_LOCAL_ITERS}.solverstate.npz")
+    st = snapshot.load_state(path)
+    lead = st["opt_state"]["momentum"]["conv1"]["weight"].shape
+    before = {k: t.clone() for k, t in solver.opt_state["momentum"]["conv1"].items()}
+    solver.restore(path)
+    after = solver.opt_state["momentum"]["conv1"]
+    same = all(torch.equal(before[k], after[k].to(before[k].device)) for k in before)
+    log(f"  solverstate: momentum conv1 weight {tuple(lead)} in the file (worker, HWIO), "
+        f"{tuple(after['weight'].shape)} restored (worker, OIHW), equal: {same}")
+    if tuple(lead) != (2, 11, 11, 3, 96) or not same or st["it"] != ALEXNET_LOCAL_ITERS:
+        raise AssertionError(f"solverstate: iter {st['it']}, lead {lead}, equal {same}")
+    return {"launches": counts}
+
+
 # ------------------------------------------------------------------ ab
 AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
           (BERT_BATCH, BERT_SEQ, "bfloat16"))
@@ -1914,7 +2478,7 @@ def main(argv=None) -> int:
     built = phases.run("build", phase_build)
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
-    serving = train = bert = None
+    serving = train = bert = local = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -1928,14 +2492,19 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
             bert = phases.run("bert-train", phase_bert_train, tmp)
         phases.run("bert-profile", phase_bert_profile)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar_") as tmp:
+            phases.run("cifar-app", phase_cifar_app, tmp)
+        phases.run("local-sgd", phase_local_sgd)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_local_") as tmp:
+            local = phases.run("alexnet-local", phase_alexnet_local, tmp)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
     timing.update(flash)
     launches = {
-        "lrn_fwd": serving["launches"] + train["launches"][0],
-        "lrn_fwd_train": train["launches"][1],
-        "lrn_bwd": train["launches"][2],
+        "lrn_fwd": serving["launches"] + train["launches"][0] + local["launches"][0],
+        "lrn_fwd_train": train["launches"][1] + local["launches"][1],
+        "lrn_bwd": train["launches"][2] + local["launches"][2],
         **bert,
     }
     replaces = {

@@ -1,36 +1,97 @@
-"""The image apps' shared helpers and training loop.
+"""CifarApp: CIFAR-10 end-to-end training, and the image apps' shared
+helpers and training loop.
 
-Counterpart of the helpers of ``sparknet_tpu/apps/cifar_app.py`` that
-``ImageNetApp`` uses: the data layer and batch size of a phase, the
-source shape, the ``transform_param`` transformer, and
-:func:`train_loop`, Caffe's loop with
+Counterpart of ``sparknet_tpu/apps/cifar_app.py``
+(``python -m sparknet_tpu_torch.apps.cifar_app``): reads a Caffe solver
+prototxt (default: the port's ``cifar10_quick_solver.prototxt``), loads
+CIFAR-10 (binary, pickle or tarball layout under ``--data-dir``, or the
+deterministic synthetic set with ``--synthetic`` or when none is there),
+applies the net's ``transform_param`` (a ``mean_file`` .binaryproto, or
+the full dataset's mean when that file is absent) in a serial host
+feed, and trains on one device (``--parallel none``) or over the
+workers of :mod:`..parallel` (``--parallel sync|local``, ``--tau``,
+``--grad-compress``) with Caffe's loop, :func:`train_loop`:
 
 - the pre-loop test gate (``test_initialization``, or a resume on a
-  test boundary);
+  test boundary); each test is headed by Caffe's ``Iteration N,
+  Testing net (#0)`` line;
 - steps in chunks that stop at the next test, snapshot or ``max_iter``
   boundary;
 - ``Iteration N, loss = ...`` lines at ``display`` and one ``speed:``
   line per chunk (images/s over the chunk, after a device sync);
-- the end-of-run test, then ``Optimization Done``;
+- the end-of-run test, then ``Optimization Done``, then for a parallel
+  solver its ``comm:`` record (and ``tau:`` under ``--tau auto``);
 - when ``snapshot`` is non-zero and ``snapshot_prefix`` is set,
   snapshots at every ``snapshot`` boundary and at the end of the run,
   as the JAX loop writes them.
 
-CifarApp's own ``main`` waits for the CIFAR loader. The chaos,
-reshard, flight-recorder and telemetry hooks of the JAX loop are not
-ported.
+The command line is the JAX app's, plus ``--device`` (default ``cuda``;
+without a card it raises unless given ``--device cpu``). Each flag the
+port does not take yet raises ``NotImplementedError`` naming it when
+set to a value the port does not take (``_UNPORTED``). The parallel
+apps run one worker per visible card; the chaos, reshard,
+flight-recorder and telemetry hooks of the JAX loop are not ported.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
+import sys
 import time
-from typing import Dict
+from typing import Dict, Iterator
 
+import numpy as np
+
+from ..data.cifar import cifar10_dataset
 from ..data.preprocess import Transformer
+from ..models import CIFAR_QUICK_SOLVER
 from ..nets import weights as W
+from ..parallel import ParallelSolver, comm
 from ..proto import caffe_pb
+from ..proto.caffemodel import load_binaryproto_mean
 from ..solver.trainer import Solver, resolve_model_path
+
+# flag -> the values the port takes; any other raises
+_UNPORTED = {
+    "layout": (None,),
+    "data_workers": (-1, 0),
+    "native_loader": ("auto", "off"),
+    "data_format": (None, "auto"),
+    "data_cache": (None,),
+    "weights": (None,),
+    "auto_resume": (False,),
+    "snapshot_format": ("npz",),
+    "prefetch": (0,),
+    "trace": (None,),
+    "profile_dir": (None,),
+    "chaos": (None,),
+    "supervise": (False,),
+}
+
+
+def check_ported(args, unported) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of
+    ``unported`` (flag -> the values the port takes) set otherwise."""
+    for name, ok in unported.items():
+        if getattr(args, name) not in ok:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag}={getattr(args, name)!r}: not ported to sparknet_tpu_torch "
+                f"yet (the port takes only {' or '.join(map(repr, ok))})")
+
+
+def _dataset_mean(ds) -> np.ndarray:
+    """Per-pixel mean over a dataset's "data" rows: Caffe's
+    compute_image_mean, regenerated when the .binaryproto is absent."""
+    total = None
+    count = 0
+    for i in range(ds.num_partitions):
+        part = ds.collect_partition(i)["data"].astype(np.float64)
+        total = part.sum(0) if total is None else total + part.sum(0)
+        count += len(part)
+    return (total / max(count, 1)).astype(np.float32)
 
 
 def _data_layer(net: caffe_pb.NetParameter, phase: str):
@@ -63,23 +124,76 @@ def source_data_shape(ds, crop_size, native, default_hw):
 
 
 def make_transformer(layer, train: bool, solver_dir: str, fallback_mean=None):
-    """transform_param -> Transformer. A ``mean_file`` is not read (the
-    binaryproto reader is not ported): a file that exists raises, a
-    missing one takes ``fallback_mean()`` (per-channel values)."""
+    """transform_param -> Transformer, resolving ``mean_file``: a real
+    .binaryproto wins; otherwise ``fallback_mean()`` supplies the mean
+    (a per-channel vector, or a per-pixel (H, W, C) image)."""
     tp = layer.transform_param if layer else None
     t = Transformer.from_message(tp, train=train)
     if tp is not None and tp.get("mean_file") is not None:
         mf = resolve_model_path(str(tp.get("mean_file")), solver_dir)
         if os.path.exists(mf):
-            raise NotImplementedError(
-                f"mean_file {mf}: reading a .binaryproto mean is not ported to "
-                f"sparknet_tpu_torch yet (mean_value is)"
-            )
-        if fallback_mean is not None:
+            t.mean_image = load_binaryproto_mean(mf)
+        elif fallback_mean is not None:
             m = fallback_mean()
             if m is not None:
-                t.mean_values = m
+                m = np.asarray(m, np.float32)
+                if m.ndim == 1:
+                    t.mean_values = m
+                else:
+                    t.mean_image = m
     return t
+
+
+def make_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+    """The serial host feed: batches of ``{"data": f32 NHWC, "label":
+    int32}`` as numpy, the solver moves them to the device. The stream
+    is the JAX package's serial ``make_feed``'s, bit for bit (its worker
+    feed, ``workers > 0``, is not ported)."""
+
+    def transform(batch, rng):
+        return {
+            "data": np.asarray(transformer(batch["data"], rng), np.float32),
+            "label": np.asarray(batch["label"], np.int32),
+        }
+
+    return ds.batches(batch_size, shuffle=True, seed=seed, transform=transform)
+
+
+def comm_config_from(args) -> comm.CommConfig:
+    """``--grad-compress`` and ``SPARKNET_COMM`` / ``SPARKNET_GRAD_COMPRESS``
+    / ``SPARKNET_COMM_BUCKET_MB`` -> the parallel solver's config."""
+    return comm.resolve_config(compress=getattr(args, "grad_compress", None) or None)
+
+
+def make_solver(args, sp, shapes, workers=None, **kw) -> Solver:
+    """The app's solver: ``Solver`` for ``--parallel none``, else
+    ``ParallelSolver`` in mode ``--parallel`` with ``--tau`` over
+    ``workers`` (default: one worker per visible device of
+    ``--device``)."""
+    if args.parallel == "none":
+        if getattr(args, "grad_compress", None):
+            # one device has no gradient communication to compress
+            raise ValueError("--grad-compress requires --parallel sync|local")
+        return Solver(sp, shapes, device=args.device, **kw)
+    return ParallelSolver(sp, shapes, workers=workers, mode=args.parallel, tau=args.tau,
+                          comm_config=comm_config_from(args), device=args.device, **kw)
+
+
+def _native_source(layer, solver_dir: str):
+    """The on-disk source a Caffe data layer names (LMDB, ImageData list,
+    HDF5 list), resolved as the JAX package resolves it; None if
+    absent."""
+    field = {"Data": "data_param", "ImageData": "image_data_param",
+             "HDF5Data": "hdf5_data_param"}.get(layer.type if layer else None)
+    p = layer.sub(field) if field else None
+    if p is None or p.get("source") is None:
+        return None
+    src = str(p.get("source"))
+    for cand in (src, os.path.join(solver_dir, src)):
+        if os.path.exists(cand):
+            return cand
+    return None
 
 
 class _ChunkTimer:
@@ -115,6 +229,7 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
 
     def run_test() -> None:
         nonlocal last_test
+        log(f"Iteration {solver.iter}, Testing net (#0)")  # Caffe's Solver::Test line
         last_test = solver.test(test_feed)
         for k, v in last_test.items():
             log(f"    Test net output: {k} = {v:.4f}")
@@ -169,4 +284,159 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
     dt = time.time() - t0
     log(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
         f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
+    if hasattr(solver, "comm_report"):
+        # one `comm:` JSON line (bucket plan, wire-byte estimate); under
+        # --tau auto the controller's record as a `tau:` line and a file
+        # beside the snapshots
+        report = solver.comm_report()
+        tc = solver.tau_controller
+        if tc is not None:
+            report.pop("tau_controller", None)
+            log(f"tau: {tc.json_line()}")
+            path = tc.write_report(sp.snapshot_prefix)
+            if path:
+                log(f"tau controller report written to {path}")
+        log(f"comm: {json.dumps(report)}")
     return last_test
+
+
+def build(args, workers=None):
+    """(solver, train_feed, test_feed) for parsed ``args``; ``workers``
+    (devices, may repeat) overrides the parallel solver's default of one
+    worker per visible device."""
+    check_ported(args, _UNPORTED)
+    sp = caffe_pb.load_solver(args.solver)
+    solver_dir = os.path.dirname(os.path.abspath(args.solver))
+    if args.max_iter:
+        sp.max_iter = args.max_iter
+
+    net_path = sp.net or sp.train_net
+    if net_path:
+        net_path = resolve_model_path(net_path, solver_dir)
+    net_param = caffe_pb.load_net(net_path) if net_path else sp.net_param
+
+    train_layer = _data_layer(net_param, "TRAIN")
+    test_layer = _data_layer(net_param, "TEST")
+    train_bs = args.batch_size or _batch_size(train_layer, 100)
+    test_bs = _batch_size(test_layer, train_bs)
+
+    if not args.synthetic:
+        # the JAX app reads a Caffe-native source (LMDB, ImageData,
+        # HDF5) that the prototxt names and the disk holds; the port does
+        # not, and must not quietly train on something else instead
+        for layer in (train_layer, test_layer):
+            src = _native_source(layer, solver_dir)
+            if src is not None:
+                raise NotImplementedError(
+                    f"{layer.type} layer {layer.name!r} source {src}: reading Caffe's "
+                    f"native sources (LMDB, ImageData, HDF5) is not ported to "
+                    f"sparknet_tpu_torch yet; pass --synthetic or --data-dir")
+    data_dir = None if args.synthetic else args.data_dir
+    train_ds, mean = cifar10_dataset(data_dir, train=True, synthetic_n=args.synthetic_n)
+    test_ds, _ = cifar10_dataset(data_dir, train=False, synthetic_n=args.synthetic_n)
+    test_rows = sum(len(test_ds.collect_partition(i)["label"])
+                    for i in range(test_ds.num_partitions))
+    if test_rows < test_bs:
+        # the feed drops an epoch's remainder, so a test set smaller than
+        # one batch would yield none (the JAX app raises here)
+        print(f"NOTE: the test set holds {test_rows} images, fewer than the test "
+              f"batch of {test_bs}: testing on batches of {test_rows}"
+              + ("" if args.parallel == "none" else
+                 f", which the worker count of --parallel must divide"),
+              file=sys.stderr, flush=True)
+        test_bs = test_rows
+
+    # a mean regenerated from data covers the full training set, once,
+    # shared by the train and test transformers
+    def needs_regenerated_mean(layer):
+        tp = layer.transform_param if layer else None
+        if tp is None or tp.get("mean_file") is None:
+            return False
+        return not os.path.exists(resolve_model_path(str(tp.get("mean_file")), solver_dir))
+
+    if needs_regenerated_mean(train_layer) or needs_regenerated_mean(test_layer):
+        mean = _dataset_mean(train_ds)
+    train_tf = make_transformer(train_layer, True, solver_dir, lambda: mean)
+    test_tf = make_transformer(test_layer, False, solver_dir, lambda: mean)
+
+    th, tw, tc = source_data_shape(train_ds, train_tf.crop_size, False, (32, 32))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, False, (32, 32))
+    shapes = {"data": (train_bs, th, tw, tc), "label": (train_bs,)}
+    test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
+    solver = make_solver(args, sp, shapes, workers, test_input_shapes=test_shapes,
+                         net_param=net_param, solver_dir=solver_dir, seed=args.seed)
+    train_feed = make_feed(train_ds, train_tf, train_bs, seed=args.seed)
+    test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
+    solver.env_meta["loader"] = "python"
+    return solver, train_feed, test_feed
+
+
+def arg_parser() -> argparse.ArgumentParser:
+    """The CifarApp command line, the JAX app's plus ``--device``; flags
+    marked 'not ported' raise when set to another value."""
+    ap = argparse.ArgumentParser(
+        description="CIFAR-10 training (CifarApp), PyTorch/CUDA port")
+    ap.add_argument("--solver", default=CIFAR_QUICK_SOLVER)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--data-dir", default=os.environ.get("CIFAR10_DIR"))
+    ap.add_argument("--synthetic", action="store_true",
+                    help="use the deterministic synthetic dataset")
+    ap.add_argument("--synthetic-n", type=int, default=10000)
+    ap.add_argument("--max-iter", type=int, default=0)
+    ap.add_argument("--batch-size", type=int, default=0)
+    ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="auto (default) and off mean the serial Python feed here; "
+                         "the C++ loader is not ported, so on raises")
+    ap.add_argument("--data-workers", type=int, default=-1,
+                    help="-1 (default) and 0 mean the serial feed here; worker "
+                         "processes are not ported")
+    ap.add_argument("--data-format", choices=("auto", "packed"), default=None,
+                    help="packed is not ported")
+    ap.add_argument("--data-cache", nargs="?", const="default", default=None,
+                    metavar="NS", help="not ported")
+    ap.add_argument("--parallel", choices=("none", "sync", "local"), default="none",
+                    help="sync: gradients averaged every step; local: SparkNet's "
+                         "tau-local SGD; over one worker per visible device")
+    ap.add_argument("--layout", default=None, metavar="AXES", help="not ported")
+    ap.add_argument("--tau", default="10",
+                    help="local-SGD sync period: an integer, or 'auto' for the "
+                         "controller (SPARKNET_TAU_INITIAL, _MIN, _MAX)")
+    ap.add_argument("--grad-compress", choices=("none", "bf16", "int8"), default=None,
+                    help="compress the gradient / weight-delta average (bf16, or "
+                         "int8 with a shared per-bucket scale) with error-feedback "
+                         "residuals (also SPARKNET_GRAD_COMPRESS; requires "
+                         "--parallel sync|local)")
+    ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
+                    help="resume from a .solverstate.npz snapshot (either package's)")
+    ap.add_argument("--auto-resume", action="store_true", help="not ported")
+    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
+    ap.add_argument("--profile-dir", default=None, help="not ported")
+    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--prefetch", type=int, default=0,
+                    help="batches staged ahead on the device; the port stages none "
+                         "(0, default; the JAX app's is 2): prefetching moves no "
+                         "result, other values are not ported")
+    ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
+                    help="solverstate format; orbax is not ported")
+    ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
+    ap.add_argument("--supervise", action="store_true", help="not ported")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None):
+    args = arg_parser().parse_args(argv)
+    solver, train_feed, test_feed = build(args)
+    if args.restore:
+        solver.restore(args.restore, train_feed)
+        print(f"Restoring previous solver status from {args.restore} "
+              f"(iter {solver.iter})")
+    print(f"CifarApp: net={solver.net_param.name} params={W.num_params(solver.params)} "
+          f"max_iter={solver.sp.max_iter} device={solver.device}")
+    return train_loop(solver, train_feed, test_feed)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,33 +5,35 @@ Counterpart of ``sparknet_tpu/apps/imagenet_app.py``
 and train_val prototxts, loads ImageNet (npz shards, or the synthetic
 stand-in with ``--synthetic``), applies the net's ``transform_param``
 (crop, mirror, channel means) in a serial host feed, and trains on one
-device with test-interval evaluation and snapshots.
+device, or over the workers of ``..parallel`` (``--parallel sync|local``,
+``--tau``, ``--grad-compress``), with test-interval evaluation and
+snapshots.
 
 The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). ``--arch
 alexnet`` is the one architecture whose prototxts the port ships. Each
 flag this port does not take yet raises ``NotImplementedError`` naming
-it when set to anything but its default.
+it when set to a value the port does not take (``_UNPORTED``).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Iterator
 
-import numpy as np
 import torch
 
 from ..data.imagenet import BGR_MEAN, imagenet_dataset
-from ..data.preprocess import Transformer
 from ..models import PROTOTXT_DIR
 from ..nets import weights as W
 from ..proto import caffe_pb
-from ..solver.trainer import Solver, resolve_model_path
+from ..solver.trainer import resolve_model_path
 from .cifar_app import (
     _batch_size,
     _data_layer,
+    check_ported,
+    make_feed,
+    make_solver,
     make_transformer,
     source_data_shape,
     train_loop,
@@ -53,44 +55,24 @@ _ARCH_MISSING = {
     "vgg16": "its prototxts (its layer types are all ported)",
 }
 
-# flag -> the default the port takes; any other value raises
+# flag -> the values the port takes; any other raises
 _UNPORTED = {
-    "layout": None,
-    "parallel": "none",
-    "grad_compress": None,
-    "tau": "10",
-    "device_augment": False,
-    "native_loader": "auto",
-    "data_workers": -1,
-    "data_format": None,
-    "data_cache": None,
-    "remat": False,
-    "auto_resume": False,
-    "weights": None,
-    "profile_dir": None,
-    "trace": None,
-    "prefetch": 0,
-    "snapshot_format": "npz",
-    "chaos": None,
-    "supervise": False,
+    "layout": (None,),
+    "device_augment": (False,),
+    "native_loader": ("auto",),
+    "data_workers": (-1,),
+    "data_format": (None,),
+    "data_cache": (None,),
+    "remat": (False,),
+    "auto_resume": (False,),
+    "weights": (None,),
+    "profile_dir": (None,),
+    "trace": (None,),
+    "prefetch": (0,),
+    "snapshot_format": ("npz",),
+    "chaos": (None,),
+    "supervise": (False,),
 }
-
-
-def make_feed(
-    ds, transformer: Transformer, batch_size: int, seed: int = 0,
-) -> Iterator[Dict[str, np.ndarray]]:
-    """The serial host feed: batches of ``{"data": f32 NHWC, "label":
-    int32}`` as numpy, the solver moves them to the device. The stream
-    is the JAX package's serial ``make_feed``'s, bit for bit (the worker
-    feed, ``workers > 0`` there, is not ported)."""
-
-    def transform(batch, rng):
-        return {
-            "data": np.asarray(transformer(batch["data"], rng), np.float32),
-            "label": np.asarray(batch["label"], np.int32),
-        }
-
-    return ds.batches(batch_size, shuffle=True, seed=seed, transform=transform)
 
 
 def make_args(**overrides) -> argparse.Namespace:
@@ -104,13 +86,7 @@ def make_args(**overrides) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    for name, default in _UNPORTED.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}={getattr(args, name)!r}: not ported to sparknet_tpu_torch "
-                f"yet (the port takes only {default!r})"
-            )
+    check_ported(args, _UNPORTED)
     if args.solver is None and args.arch != "alexnet":
         raise NotImplementedError(
             f"--arch {args.arch}: the port ships only bvlc_alexnet's prototxts; "
@@ -118,8 +94,10 @@ def _check_ported(args) -> None:
         )
 
 
-def build(args):
-    """(solver, train_feed, test_feed) for parsed ``args``."""
+def build(args, workers=None):
+    """(solver, train_feed, test_feed) for parsed ``args``; ``workers``
+    (devices, may repeat) overrides the parallel solver's default of one
+    worker per visible device."""
     _check_ported(args)
     solver_path = args.solver or os.path.join(ZOO, ARCH_SOLVERS[args.arch])
     sp = caffe_pb.load_solver(solver_path)
@@ -153,11 +131,10 @@ def build(args):
     shapes = {"data": (train_bs, ch, cw, cc), "label": (train_bs,)}
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
 
-    solver = Solver(
-        sp, shapes, test_input_shapes=test_shapes, net_param=net_param,
+    solver = make_solver(
+        args, sp, shapes, workers, test_input_shapes=test_shapes, net_param=net_param,
         solver_dir=solver_dir, seed=args.seed,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.device,
     )
     train_feed = make_feed(train_ds, train_tf, train_bs, seed=args.seed)
     test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
@@ -185,10 +162,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=0)
     ap.add_argument("--layout", default=None, metavar="AXES", help="not ported")
     ap.add_argument("--parallel", choices=("none", "sync", "local"), default="none",
-                    help="only none is ported (one device)")
+                    help="sync: gradients averaged every step; local: SparkNet's "
+                         "tau-local SGD; over one worker per visible device")
     ap.add_argument("--grad-compress", choices=("none", "bf16", "int8"), default=None,
-                    help="not ported")
-    ap.add_argument("--tau", default="10", help="local-SGD period; not ported")
+                    help="compress the gradient / weight-delta average, with "
+                         "error-feedback residuals (requires --parallel sync|local)")
+    ap.add_argument("--tau", default="10",
+                    help="local-SGD sync period: an integer, or 'auto'")
     ap.add_argument("--device-augment", action="store_true", help="not ported")
     ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
                     choices=("auto", "on", "off"),

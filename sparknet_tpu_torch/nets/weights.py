@@ -39,7 +39,8 @@ def _from_jax_tree(tree, convs: set) -> WeightCollection:
         for name, arr in entry.items():
             t = torch.from_numpy(np.array(arr, np.float32))
             if layer in convs and name == "weight":
-                t = t.permute(3, 2, 0, 1).contiguous()
+                n = t.dim() - 4  # a leading worker axis, if any, stays in front
+                t = t.permute(*range(n), n + 3, n + 2, n, n + 1).contiguous()
             out[layer][name] = t
     return out
 
@@ -51,7 +52,8 @@ def _to_jax_tree(tree: WeightCollection, convs: set) -> Dict[str, Dict[str, np.n
         for name, t in entry.items():
             t = t.detach().to("cpu", torch.float32)
             if layer in convs and name == "weight":
-                t = t.permute(2, 3, 1, 0)
+                n = t.dim() - 4  # a leading worker axis, if any, stays in front
+                t = t.permute(*range(n), n + 2, n + 3, n + 1, n)
             out[layer][name] = np.ascontiguousarray(t.numpy())
     return out
 
@@ -77,7 +79,9 @@ def to_jax_params(params: WeightCollection, net) -> Dict[str, Dict[str, np.ndarr
 def from_jax_slots(opt_state, net) -> Dict[str, WeightCollection]:
     """The JAX package's optimizer state (slot name -> a tree shaped like
     params, e.g. ``{"momentum": ...}``) as the port's f32 CPU tensors;
-    every slot converts as :func:`from_jax_params` converts the weights."""
+    every slot converts as :func:`from_jax_params` converts the weights.
+    A leading worker axis (τ-local SGD's slots, the error-feedback
+    residual ``comm_residual``) stays in front."""
     convs = _conv_layers(net)
     return {slot: _from_jax_tree(tree, convs) for slot, tree in opt_state.items()}
 

@@ -1,0 +1,353 @@
+"""Communication layer: bucketed reductions over the worker axis, with
+optional bf16/int8 compression and error-feedback residuals.
+
+Counterpart of ``sparknet_tpu/parallel/comm.py``. There, a reduction is
+a collective inside ``shard_map`` (``pmean``/``pmax``/``psum`` over the
+``"dp"`` mesh axis). Here a reduction is a function over the worker
+axis: it takes one tree (or flat buffer) per worker, each on its
+worker's device, and returns the result on the first worker's device.
+Workers that share a device (``["cuda:0"] * 4``) reduce with no copy.
+
+- **Bucketing.** :func:`plan_buckets` groups the flattened leaves into
+  size-bounded buckets in *reverse* flatten order, never mixing dtypes,
+  and :func:`reduce_bucketed` reduces a compressed payload as one
+  concatenated buffer a bucket.
+- **Compression.** ``bf16`` puts bf16 on the wire and accumulates in
+  f32; ``int8`` quantizes against one scale shared by the workers
+  (their largest ``|x|`` / 127), rounds half to even, clips to ±127 and
+  accumulates in int16 (so at most 256 workers). The part quantization
+  dropped comes back as an f32 **residual**, re-injected next round.
+
+The mean is the workers' values added one after another in rank order,
+then divided by the count. A lossless mean is taken leaf by leaf
+whatever the mode: in one process a bucket's concatenation would change
+no bit of it, so the plan matters only to the lossy wire formats (and
+to :func:`wire_bytes`). Trees are nested dicts of tensors; they flatten
+in sorted key order at every level, the JAX package's order, so both
+packages plan the same buckets for the same net.
+
+The knobs are the JAX package's: ``SPARKNET_COMM`` (``bucketed`` /
+``monolithic``, recorded and reported), ``SPARKNET_GRAD_COMPRESS``
+(``none`` / ``bf16`` / ``int8``, also the apps' ``--grad-compress``)
+and ``SPARKNET_COMM_BUCKET_MB``. The JAX package's in-backward overlap
+(``overlap_reduce_on_backward``) has no counterpart: the port reduces
+after the workers' backward passes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+COMM_ENV = "SPARKNET_COMM"
+COMPRESS_ENV = "SPARKNET_GRAD_COMPRESS"
+BUCKET_MB_ENV = "SPARKNET_COMM_BUCKET_MB"
+
+COMM_MODES = ("auto", "bucketed", "monolithic")
+COMPRESS_MODES = ("none", "bf16", "int8")
+
+# int8 payloads are accumulated in int16: with the shared per-bucket
+# scale each element is in [-127, 127], so up to 256 workers sum
+# without overflow
+_INT8_ACC_DTYPE = torch.int16
+_INT8_MAX_WORKERS = 256
+
+
+# --------------------------------------------------------------------------
+# trees
+# --------------------------------------------------------------------------
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The leaves of a nested dict of tensors, keys sorted at every
+    level (``jax.tree_util``'s order for dicts)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(tree_leaves(tree),
+                                                       *map(tree_leaves, rest))])
+
+
+# --------------------------------------------------------------------------
+# config
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CommConfig:
+    """Resolved communication settings for one solver.
+
+    ``mode`` is the JAX package's (``monolithic``, ``bucketed``, or
+    ``auto``, resolved per training mode by :meth:`for_local` and
+    :meth:`for_sync`); the port records and reports it, and takes a
+    lossless mean leaf by leaf under any of them. ``compress`` needs a
+    bucketed mode."""
+
+    mode: str = "auto"
+    compress: str = "none"
+    bucket_mb: float = 4.0
+
+    def __post_init__(self):
+        if self.mode not in COMM_MODES:
+            raise ValueError(f"comm mode {self.mode!r} (want {'|'.join(COMM_MODES)})")
+        if self.compress not in COMPRESS_MODES:
+            raise ValueError(f"grad compression {self.compress!r} "
+                             f"(want {'|'.join(COMPRESS_MODES)})")
+        if self.compress != "none" and self.mode == "monolithic":
+            raise ValueError(
+                "grad compression requires the bucketed comm path "
+                f"({COMM_ENV}=bucketed); monolithic has no place to quantize")
+        if self.bucket_mb <= 0:
+            raise ValueError(f"bucket_mb must be > 0, got {self.bucket_mb}")
+
+    @property
+    def bucket_bytes(self) -> int:
+        return int(self.bucket_mb * 1e6)
+
+    def for_local(self) -> str:
+        """τ-local rounds default to the bucketed path."""
+        return "bucketed" if self.mode == "auto" else self.mode
+
+    def for_sync(self) -> str:
+        """Sync data parallel defaults to the per-leaf (monolithic) mean
+        unless compression needs the bucketed path or the caller asked
+        for it."""
+        if self.mode == "auto":
+            return "bucketed" if self.compress != "none" else "monolithic"
+        return self.mode
+
+    @property
+    def wants_residual(self) -> bool:
+        """Lossy compression carries an error-feedback residual in the
+        optimizer state; ``none`` leaves its layout untouched."""
+        return self.compress in ("bf16", "int8")
+
+
+def resolve_config(compress: Optional[str] = None, mode: Optional[str] = None,
+                   bucket_mb: Optional[float] = None) -> CommConfig:
+    """Explicit args win; the environment fills the rest
+    (``SPARKNET_COMM`` / ``SPARKNET_GRAD_COMPRESS`` /
+    ``SPARKNET_COMM_BUCKET_MB``)."""
+    mode = mode or os.environ.get(COMM_ENV, "").strip() or "auto"
+    compress = compress or os.environ.get(COMPRESS_ENV, "").strip() or "none"
+    if bucket_mb is None:
+        raw = os.environ.get(BUCKET_MB_ENV, "").strip()
+        try:
+            bucket_mb = float(raw) if raw else 4.0
+        except ValueError:
+            raise ValueError(
+                f"{BUCKET_MB_ENV} must be a float MB count, got {raw!r}") from None
+    return CommConfig(mode=mode, compress=compress, bucket_mb=bucket_mb)
+
+
+# --------------------------------------------------------------------------
+# bucket planning
+# --------------------------------------------------------------------------
+
+def _nbytes(leaf: torch.Tensor) -> int:
+    return leaf.numel() * leaf.element_size()
+
+
+def plan_buckets(leaves: Sequence[torch.Tensor], bucket_bytes: int
+                 ) -> Tuple[Tuple[int, ...], ...]:
+    """Greedy size-bounded grouping of flattened leaves, in REVERSE
+    flatten order (output-side layers first, the order backward makes
+    their gradients). A leaf larger than the bound gets its own bucket;
+    dtypes never mix inside a bucket (its payload is one buffer)."""
+    plan: List[Tuple[int, ...]] = []
+    cur: List[int] = []
+    cur_bytes = 0
+    cur_dtype = None
+    for i in reversed(range(len(leaves))):
+        leaf = leaves[i]
+        nbytes = _nbytes(leaf)
+        if cur and (cur_bytes + nbytes > bucket_bytes or leaf.dtype != cur_dtype):
+            plan.append(tuple(cur))
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nbytes
+        cur_dtype = leaf.dtype
+    if cur:
+        plan.append(tuple(cur))
+    return tuple(plan)
+
+
+def bucket_histogram(plan: Sequence[Sequence[int]], leaves: Sequence[torch.Tensor]) -> dict:
+    """Bucket-size distribution: how well the bound packs this tree."""
+    sizes = [sum(_nbytes(leaves[i]) for i in bucket) for bucket in plan]
+    if not sizes:
+        return {"buckets": 0}
+    return {
+        "buckets": len(sizes),
+        "leaves": sum(len(b) for b in plan),
+        "min_bytes": min(sizes),
+        "max_bytes": max(sizes),
+        "mean_bytes": int(sum(sizes) / len(sizes)),
+        "total_bytes": sum(sizes),
+        "bytes": sizes,
+    }
+
+
+def wire_bytes(plan: Sequence[Sequence[int]], leaves: Sequence[torch.Tensor],
+               compress: str = "none") -> int:
+    """Payload bytes ONE worker contributes to one reduction: ``none``
+    moves the native dtype, ``bf16`` two bytes an element, ``int8`` the
+    int16 accumulation type plus an f32 scale a bucket. An estimate of
+    the algorithm's traffic, not a measurement."""
+    total = 0
+    acc_size = torch.empty((), dtype=_INT8_ACC_DTYPE).element_size()
+    for bucket in plan:
+        n = sum(leaves[i].numel() for i in bucket)
+        if compress == "bf16":
+            total += 2 * n
+        elif compress == "int8":
+            total += acc_size * n + 4
+        else:
+            total += sum(_nbytes(leaves[i]) for i in bucket)
+    return total
+
+
+# --------------------------------------------------------------------------
+# bucket payload packing
+# --------------------------------------------------------------------------
+
+def _concat_bucket(leaves: Sequence[torch.Tensor], bucket: Sequence[int]) -> torch.Tensor:
+    if len(bucket) == 1:
+        return leaves[bucket[0]].reshape(-1)
+    return torch.cat([leaves[i].reshape(-1) for i in bucket])
+
+
+def _split_bucket(flat: torch.Tensor, leaves: Sequence[torch.Tensor],
+                  bucket: Sequence[int], out: List[Any]) -> None:
+    off = 0
+    for i in bucket:
+        n = leaves[i].numel()
+        out[i] = flat[off:off + n].reshape(leaves[i].shape)
+        off += n
+
+
+# --------------------------------------------------------------------------
+# the reduction over the worker axis
+# --------------------------------------------------------------------------
+
+def _mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The workers' values summed in rank order, divided by the count,
+    on the first worker's device."""
+    home = xs[0].device
+    acc = xs[0].clone()
+    for x in xs[1:]:
+        acc += x.to(home)
+    return acc / float(len(xs))
+
+
+def _reduce_payload(flats: Sequence[torch.Tensor], compress: str
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One bucket's mean over the workers (one flat buffer each) in the
+    configured wire format. Returns the reduced buffer on the first
+    worker's device and, per worker, what its peers received from it
+    (the error-feedback reference; the buffer itself when lossless)."""
+    n = len(flats)
+    if compress == "bf16":
+        # bf16 on the wire, f32 accumulation: summing IN bf16 would add
+        # error the residual cannot see (it measures only the local cast)
+        sent = [f.to(torch.bfloat16).to(f.dtype) for f in flats]
+        return _mean(sent), sent
+    if compress == "int8":
+        if n > _INT8_MAX_WORKERS:
+            raise ValueError(
+                f"int8 gradient compression accumulates in int16 and supports at "
+                f"most {_INT8_MAX_WORKERS} workers, got {n}")
+        home = flats[0].device
+        # one scale for every worker, so the summed ints dequantize with
+        # one multiply
+        absmax = torch.stack([f.abs().max().to(home) for f in flats]).max()
+        scale = torch.clamp(absmax, min=1e-30) / 127.0
+        qs = [torch.clamp(torch.round(f / scale.to(f.device)), -127.0, 127.0)
+              for f in flats]
+        acc = qs[0].to(_INT8_ACC_DTYPE)
+        for q in qs[1:]:
+            acc += q.to(home, _INT8_ACC_DTYPE)
+        red = (acc.to(flats[0].dtype) * scale) / float(n)
+        return red, [q * scale.to(q.device) for q in qs]
+    return _mean(flats), list(flats)
+
+
+def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
+                    residual: Optional[Any] = None) -> Tuple[Any, Optional[Any]]:
+    """Mean of the workers' trees (one a worker, each on its worker's
+    device), bucket by bucket, in the configured wire format.
+
+    Returns ``(reduced_tree, new_residual)``, the tree on the first
+    worker's device. With a lossy ``compress`` the caller passes the
+    residual: a tree shaped like one worker's, each leaf with a leading
+    worker axis (f32, zeros to start); each worker's payload is its
+    value plus its residual row, and the new residual is what
+    quantization dropped, f32, with the same layout on the first
+    worker's device. With ``compress="none"`` the residual passes
+    through untouched and the result is :func:`reduce_per_leaf`'s."""
+    if not config.wants_residual:
+        return reduce_per_leaf(trees), residual
+    n = len(trees)
+    leaves_w = [tree_leaves(t) for t in trees]
+    leaves = leaves_w[0]
+    if not leaves:
+        return trees[0], residual
+    plan = plan_buckets(leaves, config.bucket_bytes)
+    out: List[Any] = [None] * len(leaves)
+    res_leaves = tree_leaves(residual) if residual is not None else []
+    if len(res_leaves) != len(leaves):
+        raise ValueError(
+            f"error-feedback residual has {len(res_leaves)} leaves, the tree has "
+            f"{len(leaves)}: the optimizer state is out of step with --grad-compress")
+    if any(r.shape[0] != n for r in res_leaves):
+        raise ValueError(f"error-feedback residual: worker axis of "
+                         f"{res_leaves[0].shape[0]}, {n} workers")
+    home = leaves[0].device
+    new_res: List[Any] = [None] * len(leaves)
+    for bucket in plan:
+        payloads = []
+        for w, lw in enumerate(leaves_w):
+            flat = _concat_bucket(lw, bucket)
+            res = _concat_bucket([r[w] for r in res_leaves], bucket)
+            payloads.append(flat + res.to(flat.device, flat.dtype))
+        red, sent = _reduce_payload(payloads, config.compress)
+        _split_bucket(red, leaves, bucket, out)
+        # residuals stay f32 whatever the payload dtype
+        stacked = torch.stack([(p - s).to(home, torch.float32)
+                               for p, s in zip(payloads, sent)])
+        off = 0
+        for i in bucket:
+            m = leaves[i].numel()
+            new_res[i] = stacked[:, off:off + m].reshape((n,) + tuple(leaves[i].shape))
+            off += m
+    return tree_unflatten(trees[0], out), tree_unflatten(trees[0], new_res)
+
+
+def reduce_per_leaf(trees: Sequence[Any]) -> Any:
+    """The lossless mean, leaf by leaf."""
+    return tree_unflatten(trees[0], [_mean(xs) for xs in zip(*map(tree_leaves, trees))])
+
+
+def init_residual(tree: Any, num_workers: int) -> Any:
+    """Zero error-feedback residuals shaped like ``tree`` with a leading
+    worker axis, f32 (quantization error is small and must accumulate
+    without itself rounding away), on each leaf's device."""
+    return tree_map(lambda x: torch.zeros((num_workers,) + tuple(x.shape),
+                                          dtype=torch.float32, device=x.device), tree)

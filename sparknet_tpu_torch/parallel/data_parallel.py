@@ -1,0 +1,86 @@
+"""Synchronous data parallelism: the workers' gradients averaged every
+step.
+
+Counterpart of ``sparknet_tpu/parallel/data_parallel.py``. Each worker
+takes its contiguous rows of the global batch and computes its gradient
+from the shared weights on its own device; the gradients are averaged
+through :mod:`.comm` and one update with the one set of solver slots
+follows, so the weights stay replicated without a weight average.
+
+- lossless: the mean of the workers' gradients, leaf by leaf, the
+  gradient of the mean loss over the global batch;
+- under ``--grad-compress bf16|int8``: bucketed and compressed with a
+  per-worker residual (:data:`~.local_sgd.RESIDUAL_KEY` in the optimizer
+  state, leading worker axis), both through :func:`comm.reduce_bucketed`.
+
+With ``iter_size > 1`` each worker accumulates its micro-batches before
+the reduction. Each worker draws its Dropout masks from its own
+generator.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+from ..proto.caffe_pb import SolverParameter
+from ..solver.caffe_solver import make_update_fn, mults_for_params
+from ..solver.trainer import accumulate_grads, make_eval_step, make_grad_fn
+from . import comm
+from .local_sgd import RESIDUAL_KEY, worker_rows
+
+
+def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
+                       config: Optional[comm.CommConfig] = None) -> Callable:
+    """``train_step(params, state, opt_state, batch, it, generators) ->
+    (params, state, opt_state, metrics)``.
+
+    ``nets``: one train net a worker (each worker's device is its
+    net's); ``params``, ``state`` and ``opt_state`` live on the first
+    worker's device and are updated there in place. ``batch``: the
+    global batch as tensors on that device (with ``iter_size > 1``, a
+    list of that many micro-batches); ``generators``: one a worker."""
+    config = config or comm.CommConfig()
+    grad_fns = [make_grad_fn(net) for net in nets]
+    n = len(nets)
+    update = None
+
+    def train_step(params, state, opt_state, batch, it, generators):
+        nonlocal update
+        if update is None:
+            lr_m, dec_m = mults_for_params(params, nets[0].param_specs())
+            update = make_update_fn(sp, lr_m, dec_m)
+        grads, states, metrics = [], [], []
+        for w, net in enumerate(nets):
+            dev = net.device
+            p = params if dev == nets[0].device else comm.tree_map(
+                lambda x: x.to(dev), params)
+            st = comm.tree_map(lambda x: x.to(dev), state)
+            if sp.iter_size > 1:
+                micros = [worker_rows(mb, w, n, 0, dev) for mb in batch]
+                g, st, m = accumulate_grads(grad_fns[w], p, st, micros, generators[w])
+            else:
+                g, st, m = grad_fns[w](p, st, worker_rows(batch, w, n, 0, dev),
+                                       generators[w])
+            grads.append(g)
+            states.append(st)
+            metrics.append(m)
+        opt_solver = {k: v for k, v in opt_state.items() if k != RESIDUAL_KEY}
+        residual = opt_state.get(RESIDUAL_KEY)
+        g, residual = comm.reduce_bucketed(grads, config, residual=residual)
+        # one update of the one set of weights and slots
+        params, opt_solver = update(params, g, opt_solver, it)
+        state = comm.reduce_per_leaf(states)
+        home = nets[0].device
+        metrics = {k: comm._mean([m[k].to(home) for m in metrics]) for k in metrics[0]}
+        if residual is not None:
+            opt_solver = {**opt_solver, RESIDUAL_KEY: residual}
+        return params, state, opt_solver, metrics
+
+    return train_step
+
+
+def make_dp_eval_step(net: Any) -> Callable:
+    """The eval step on the replicated weights: the test net over the
+    whole global batch on the first worker's device (its metrics are
+    batch means, so this equals the mean of the workers' shards)."""
+    return make_eval_step(net)

@@ -1,0 +1,298 @@
+"""ParallelSolver: training over several workers.
+
+Counterpart of ``sparknet_tpu/parallel/trainer.py``, which plays the
+reference's Spark driver (broadcast, train on every executor, average)
+with the driver's work compiled away. Here the workers are a list of
+devices (:func:`.mesh.make_workers`; a device may be named more than
+once) in one process, and the solver's params, net state and slots live
+on the first worker's device. Two modes:
+
+- ``mode="sync"``: one global batch an iteration, split by rows over
+  the workers; their gradients are averaged through :mod:`.comm` and
+  one update follows (:mod:`.data_parallel`).
+- ``mode="local"``: SparkNet's τ-local SGD: each worker runs τ
+  independent steps on its rows with its own solver slots, then the
+  weights are averaged (:mod:`.local_sgd`). ``tau="auto"`` hands τ to
+  :class:`.tau_controller.TauController`.
+
+Communication routes through :mod:`.comm` in both modes (buckets,
+optional bf16/int8 compression with error-feedback residuals in the
+optimizer state). The snapshot is the JAX package's solverstate:
+local mode's slots and the residual keep their leading worker axis, so
+a file written by either package restores the other's solver.
+
+Each worker draws Dropout masks from its own ``torch.Generator``, seeded
+from (the solver's seed, the round's or step's first iteration, the
+worker's rank): a resumed run draws the masks of the uninterrupted one.
+The JAX package folds the worker index into its PRNG key instead, so
+masks match it only in distribution.
+
+Not ported: ``layout=`` (the rule-table sharding path) and live
+``reshard``, which raise; multi-process training over hosts.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import sys
+import time
+from collections import deque
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import resolve_device
+from ..nets.torchnet import TorchNet
+from ..proto import caffe_pb
+from ..solver.caffe_solver import init_opt_state
+from ..solver.trainer import Solver
+from . import comm as comm_mod
+from .data_parallel import make_dp_eval_step, make_dp_train_step
+from .local_sgd import (
+    RESIDUAL_KEY,
+    RoundBuffer,
+    init_local_opt_state,
+    init_local_residual,
+    make_local_scan,
+    make_round_reduce,
+    stack_round_batches,
+)
+from .mesh import make_workers
+from .tau_controller import TauController, parse_tau
+
+
+def _worker_seed(seed: int, it: int, w: int) -> int:
+    digest = hashlib.blake2b(f"{seed}/{it}/{w}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+
+
+class ParallelSolver(Solver):
+    def __init__(
+        self,
+        solver: caffe_pb.SolverParameter,
+        input_shapes: Dict[str, Tuple[int, ...]],
+        *,
+        workers: Optional[Sequence[Any]] = None,
+        mode: str = "sync",
+        tau=1,
+        comm_config: Optional[comm_mod.CommConfig] = None,
+        layout: Optional[Any] = None,
+        **kw: Any,
+    ):
+        """``workers``: the worker devices (default: :func:`make_workers`
+        on ``device``, one worker per visible card for ``"cuda"``). The
+        solver's own ``device`` is the first worker's. Every train and
+        test input's batch must divide by the worker count."""
+        if kw.get("batch_transform") is not None:
+            raise ValueError("batch_transform (device-side augmentation) is not "
+                             "supported by ParallelSolver; use the base Solver")
+        if layout is not None:
+            raise NotImplementedError(
+                "ParallelSolver(layout=...) (--layout): the rule-table sharding path "
+                "is not ported to sparknet_tpu_torch yet")
+        if mode not in ("sync", "local"):
+            raise ValueError(f"mode {mode!r} (want 'sync' or 'local')")
+        device = kw.pop("device", None)
+        if workers is None:
+            workers = make_workers(device="cuda" if device is None else device)
+        else:
+            workers = make_workers(devices=workers)
+            if device is not None and resolve_device(device).type != workers[0].type:
+                raise ValueError(f"ParallelSolver: device={device!r} but the first "
+                                 f"worker is on {workers[0]}")
+        super().__init__(solver, input_shapes, device=workers[0], **kw)
+        self.workers: List[torch.device] = list(workers)
+        self.mode = mode
+        self.comm = comm_config if comm_config is not None else comm_mod.resolve_config()
+        # recorded into the solverstate's env
+        self.env_meta["grad_compress"] = self.comm.compress
+        tau0, tau_auto = parse_tau(tau)
+        self.tau = int(tau0)
+        self.tau_controller: Optional[TauController] = None
+        if tau_auto:
+            if mode == "sync":
+                raise ValueError("tau='auto' drives local-SGD round length: it needs "
+                                 "mode='local' (--parallel local)")
+            self.tau_controller = TauController(tau=self.tau)
+            self.tau = self.tau_controller.tau
+        if mode != "sync" and self.tau > 1:
+            # a local round yields only its τ-mean metrics, so the display
+            # window counts rounds: ceil(average_loss / tau) of them cover
+            # about the last average_loss iterations
+            self._loss_window = deque(maxlen=-(-max(1, solver.average_loss) // self.tau))
+        n = len(self.workers)
+        for which, net in (("train", self.train_net), ("test", self.test_net)):
+            for name in net.input_names:
+                bs = net.blob_shapes[name][0]
+                if bs % n:
+                    raise ValueError(f"{which} input {name!r}: batch {bs} not divisible "
+                                     f"by {n} workers")
+        self._nets = self._worker_nets(input_shapes)
+        self._generators = [torch.Generator(device=d) for d in self.workers]
+        if mode == "sync":
+            if self.comm.wants_residual:
+                self.opt_state[RESIDUAL_KEY] = init_local_residual(self.params, n)
+            step = make_dp_train_step(self._nets, solver, self.comm)
+            self._train_step = (lambda p, s, o, b, it, _rng:
+                                step(p, s, o, b, it, self._worker_generators(it)))
+        else:
+            if self.tau < 1:
+                raise ValueError(f"tau must be >= 1, got {self.tau}")
+            self.opt_state = self._reinit_opt_state()
+            # round functions by τ: the last round of a step(n) with
+            # n % tau != 0 runs a shorter one rather than overshooting n
+            self._rounds: Dict[int, Any] = {}
+            self._reduce_fn = make_round_reduce(self.comm)
+            self._round_buffer = RoundBuffer()
+        self._eval_step = make_dp_eval_step(self.test_net)
+
+    # ------------------------------------------------------------------
+    def _worker_nets(self, input_shapes) -> List[Any]:
+        """One train net a worker: the solver's own on its device, one
+        more per other device (its ``device`` is the worker's)."""
+        by_dev = {self.device: self.train_net}
+        for dev in self.workers:
+            if dev in by_dev:
+                continue
+            if not isinstance(self.train_net, TorchNet):
+                raise NotImplementedError(
+                    f"ParallelSolver(model=...) with workers on {dev} and "
+                    f"{self.device}: a model's workers must share its device")
+            by_dev[dev] = TorchNet(self.net_param, "TRAIN", input_shapes, dev,
+                                   self.train_net.compute_dtype)
+        return [by_dev[d] for d in self.workers]
+
+    def _worker_generators(self, it: int) -> List[torch.Generator]:
+        for w, g in enumerate(self._generators):
+            g.manual_seed(_worker_seed(self.seed, it, w))
+        return self._generators
+
+    def _reinit_opt_state(self):
+        n = len(self.workers)
+        if self.mode == "sync":
+            opt = init_opt_state(self.sp, self.params)
+        else:
+            opt = init_local_opt_state(self.sp, self.params, n)
+        if self.comm.wants_residual:
+            opt[RESIDUAL_KEY] = init_local_residual(self.params, n)
+        return opt
+
+    def _reconcile_residual(self, opt_state):
+        """Snapshot against config: a snapshot without residuals restored
+        into a lossy run gets zero residuals; a lossy snapshot restored
+        into a lossless run drops them. Either way with a warning."""
+        wants, has = self.comm.wants_residual, RESIDUAL_KEY in opt_state
+        if wants and not has:
+            print("WARNING: snapshot carries no error-feedback residuals (taken "
+                  "without --grad-compress?): starting compression from zero "
+                  "residuals", file=sys.stderr, flush=True)
+            opt_state = dict(opt_state)
+            opt_state[RESIDUAL_KEY] = init_local_residual(self.params, len(self.workers))
+        elif has and not wants:
+            print("WARNING: dropping the snapshot's error-feedback residuals "
+                  "(--grad-compress is off in this run)", file=sys.stderr, flush=True)
+            opt_state = {k: v for k, v in opt_state.items() if k != RESIDUAL_KEY}
+        return opt_state
+
+    def _place_opt_state(self, opt_state):
+        opt_state = self._reconcile_residual(super()._place_opt_state(opt_state))
+        n = len(self.workers)
+        shapes = [tuple(p.shape) for p in comm_mod.tree_leaves(self.params)]
+        for key, tree in opt_state.items():
+            lead = (n,) if (self.mode == "local" or key == RESIDUAL_KEY) else ()
+            got = [tuple(x.shape) for x in comm_mod.tree_leaves(tree)]
+            if got != [lead + s for s in shapes]:
+                raise ValueError(
+                    f"solverstate slot {key!r} does not fit this {self.mode} solver "
+                    f"over {n} workers (a leading worker axis of {n} on "
+                    f"{'every slot' if lead else 'the residual only'}); restore with "
+                    f"weights_only=True to start the slots afresh")
+        return opt_state
+
+    def reshard(self, new_layout, *, reason: str = "explicit"):
+        raise NotImplementedError("ParallelSolver.reshard: live resharding is not "
+                                  "ported to sparknet_tpu_torch yet")
+
+    def sync(self) -> None:
+        for dev in dict.fromkeys(self.workers):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def comm_report(self) -> Dict[str, Any]:
+        """The active communication config, the bucket plan over this
+        model's params and its wire-byte estimate, and the τ
+        controller's record when one drives τ."""
+        leaves = comm_mod.tree_leaves(self.params)
+        plan = comm_mod.plan_buckets(leaves, self.comm.bucket_bytes)
+        mode = self.comm.for_local() if self.mode == "local" else self.comm.for_sync()
+        out = {
+            "mode": mode,
+            "compress": self.comm.compress,
+            "bucket_mb": self.comm.bucket_mb,
+            "workers": [str(d) for d in self.workers],
+            "buckets": comm_mod.bucket_histogram(plan, leaves),
+            "wire_bytes_per_reduction": comm_mod.wire_bytes(plan, leaves,
+                                                            self.comm.compress),
+        }
+        if self.tau_controller is not None:
+            out["tau_controller"] = self.tau_controller.snapshot()
+        return out
+
+    # ------------------------------------------------------------------
+    def _round_fn(self, tau: int):
+        """The τ-step body for rounds of ``tau`` steps."""
+        if tau not in self._rounds:
+            self._rounds[tau] = make_local_scan(self._nets, self.sp, tau)
+        return self._rounds[tau]
+
+    def _next_iteration_batch(self, batches):
+        """One iteration's host batch; ``iter_size`` micro-batches stacked
+        on a leading axis when accumulating (no round buffer: the round's
+        stack copies these only at round end)."""
+        if self.sp.iter_size > 1:
+            return stack_round_batches([next(batches) for _ in range(self.sp.iter_size)])
+        return next(batches)
+
+    def step(self, batches: Iterator[Dict[str, Any]], n: int = 1, log_fn=None):
+        if self.mode == "sync":
+            return super().step(batches, n, log_fn)
+        metrics: Dict[str, Any] = {}
+        end = self.iter + n
+        controller = self.tau_controller
+        while self.iter < end:
+            if self.stop_requested:
+                break
+            tau = min(self.tau, end - self.iter)
+            stacked = self._put_batch(stack_round_batches(
+                [self._next_iteration_batch(batches) for _ in range(tau)],
+                buffer=self._round_buffer))
+            gens = self._worker_generators(self.iter)
+            prev = self.iter
+            t0 = time.perf_counter()
+            opt_solver = {k: v for k, v in self.opt_state.items() if k != RESIDUAL_KEY}
+            resid = self.opt_state.get(RESIDUAL_KEY)
+            p_start, ps, sts, opt_out, metrics = self._round_fn(tau)(
+                self.params, self.state, opt_solver, stacked, self.iter, gens)
+            if controller is not None:
+                self.sync()
+            t1 = time.perf_counter()
+            self.params, self.state, resid = self._reduce_fn(p_start, ps, sts, resid)
+            self.opt_state = ({**opt_out, RESIDUAL_KEY: resid}
+                              if self.comm.wants_residual else opt_out)
+            self.iter += tau
+            if controller is not None:
+                # a host sync a round: the controller's price, paid only
+                # under --tau auto
+                self.sync()
+                t2 = time.perf_counter()
+                self.tau = controller.observe_round(
+                    round_s=max(t2 - t0, 1e-9), sync_s=t2 - t1,
+                    loss=float(metrics.get("loss", 0.0)), advisories=None)
+            d = self.sp.display
+            if log_fn and d:
+                # round metrics are τ-means; the window holds
+                # ceil(average_loss / tau) rounds
+                self._push_loss(metrics)
+                if (self.iter // d) > (prev // d):
+                    log_fn(self.iter, self._smoothed(metrics))
+        return metrics

@@ -193,6 +193,7 @@ class Solver:
 
     def _finish_init(self, solver: caffe_pb.SolverParameter, seed: int) -> None:
         seed = solver.random_seed if solver.random_seed >= 0 else seed
+        self.seed = seed
         self.params, self.state = self.train_net.init(torch.Generator().manual_seed(seed))
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(seed)
@@ -309,12 +310,10 @@ class Solver:
         self.params = _to(params, self.device)
         self.state = _to(state, self.device)
         if weights_only:
-            self.opt_state = init_opt_state(self.sp, self.params)
+            self.opt_state = self._reinit_opt_state()
         else:
-            self.opt_state = {
-                slot: _to(tree, self.device)
-                for slot, tree in W.from_jax_slots(st["opt_state"], self.train_net).items()
-            }
+            self.opt_state = self._place_opt_state(
+                W.from_jax_slots(st["opt_state"], self.train_net))
         rng = np.asarray(st["rng"])
         have = self.rng.get_state()
         if rng.dtype == np.uint8 and rng.shape == tuple(have.shape):
@@ -329,6 +328,17 @@ class Solver:
         self._loss_window.clear()  # a restarted Caffe starts empty
         if feed is not None:
             self.align_feed(feed)
+
+    def _reinit_opt_state(self):
+        """Fresh optimizer slots for the current params (a weights-only
+        restore); the parallel solver builds its own layout."""
+        return init_opt_state(self.sp, self.params)
+
+    def _place_opt_state(self, opt_state):
+        """Restored optimizer slots (slot -> tree of CPU tensors) on the
+        solver's device; the parallel solver also checks its worker
+        axis and its error-feedback residual."""
+        return {slot: _to(tree, self.device) for slot, tree in opt_state.items()}
 
     def align_feed(self, feed) -> None:
         """Advance a seeded feed past the batches a restored run already

@@ -69,7 +69,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
     for name in ("apps.imagenet_app", "apps.cifar_app", "solver.trainer",
                  "solver.caffe_solver", "solver.snapshot", "data.rdd",
                  "data.preprocess", "data.imagenet", "apps.bert_app", "models.bert",
-                 "ops.attention", "data.text", "data.prefetch"):
+                 "ops.attention", "data.text", "data.prefetch", "data.cifar",
+                 "proto.wire", "proto.caffemodel", "parallel.mesh", "parallel.comm",
+                 "parallel.local_sgd", "parallel.data_parallel",
+                 "parallel.tau_controller", "parallel.trainer"):
         assert f"sparknet_tpu_torch.{name}" in out["modules"], name
     leaked = [m for m in out["loaded"] if _of_jax(m)]
     assert not leaked, leaked
@@ -137,6 +140,22 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Solver(load_solver(f'net: "{train_val}"', is_path=False),
                {"data": (1, 227, 227, 3), "label": (1,)})
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.parallel import ParallelSolver, make_workers
+    from sparknet_tpu_torch.parallel import trainer as parallel_trainer
+
+    assert parallel_trainer.ParallelSolver is ParallelSolver
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cifar_app.main(["--synthetic", "--synthetic-n", "500", "--max-iter", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelSolver(load_solver(f'net: "{train_val}"', is_path=False),
+                       {"data": (2, 227, 227, 3), "label": (2,)}, mode="local")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelSolver(load_solver(f'net: "{train_val}"', is_path=False),
+                       {"data": (2, 227, 227, 3), "label": (2,)},
+                       workers=["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_workers()
     # asked for, the CPU works
     assert TorchNet(net, "TEST", device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
@@ -155,8 +174,10 @@ def test_package_sources_ship_with_the_package():
     assert "sparknet_tpu_torch/_build/" in ignored
     names = {m.name for m in pkgutil.iter_modules(sparknet_tpu_torch.__path__)}
     assert {"ops", "nets", "proto", "serve", "tools", "telemetry", "solver", "data",
-            "apps"} <= names
-    for name in ("bvlc_alexnet_train_val.prototxt", "bvlc_alexnet_solver.prototxt"):
+            "apps", "parallel"} <= names
+    for name in ("bvlc_alexnet_train_val.prototxt", "bvlc_alexnet_solver.prototxt",
+                 "cifar10_quick_train_test.prototxt", "cifar10_quick_solver.prototxt",
+                 "cifar10_quick_deploy.prototxt"):
         assert os.path.isfile(os.path.join(PORT_DIR, "models", "prototxt", name))
 
 

@@ -307,7 +307,7 @@ def test_imagenet_app_trains_full_width_alexnet_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--parallel", "sync"], "--parallel"),
+    (["--parallel", "sync", "--layout", "dp=1"], "--layout"),
     (["--native-loader", "on"], "--native-loader"),
     (["--data-workers", "2"], "--data-workers"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
