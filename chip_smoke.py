@@ -77,7 +77,8 @@ own lines:
    below). The card runs the two training kernels inside autograd;
 9. train: ``ImageNetApp`` through ``main([...])``: ``--arch alexnet
    --synthetic`` at the prototxt's batch of 256, 227 crop, 1000 classes,
-   f32, 20 iterations (test_iter 2 at test_interval 20, display 5), then
+   f32, 20 iterations (test_iter 2 at test_interval 20, display 5; the
+   app's default feed: the C++ loader, ``--prefetch 2``), then
    the final solverstate reloaded. Each training kernel must launch
    exactly twice per iteration, the inference kernel twice per test
    batch;
@@ -134,7 +135,27 @@ own lines:
    finite, each LRN training kernel launched twice per worker step (16
    each), the inference kernel twice per test batch, and the final
    solverstate's slots carrying the worker axis (2, 11, 11, 3, 96) and
-   restoring equal.
+   restoring equal;
+17. feed: the 2,048-image synthetic set packed by
+   ``tools/pack_records.py``; the first 8 batches (256 227x227 f32
+   crops) of 4 worker processes, of the pinned side-stream prefetch
+   (its side stream slowed so that the staging thread runs a ring ahead
+   of the uploads, each batch copied back at once without waiting), of
+   device augmentation on the card and of the pack held bit for bit
+   against the serial feed's; the prefetch check run again with each of
+   its two races planted (the consumer not waiting on the upload's
+   event; a pinned buffer refilled before its upload left it), each of
+   which it must catch; two constructions of the C++ loader against
+   each other; ``nproc`` and ``df /dev/shm``. Then ``ImageNetApp`` through
+   ``main([...])`` at batch 256, 30 iterations in chunks of 10 (a test
+   batch between), through each train feed path: serial with
+   ``--prefetch 0`` and 2, ``--data-workers 4`` and cores - 1,
+   ``--native-loader on``, ``--device-augment``, ``--data-format
+   packed``, and packed with ``--data-cache`` twice (cold, then warm:
+   every batch a hit). Each prints its chunks' images/s beside the
+   resident step's, its ``input pipeline:`` / ``data cache:`` lines and
+   whether the step waited on the host; each must launch the LRN kernels
+   8 / 60 / 60 times, and read 0 pickle fallbacks.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -150,8 +171,8 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving, train and alexnet-local for LRN,
-bert-train for flash).
+counts the main paths' runs (serving, train, alexnet-local and feed
+for LRN, bert-train for flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
@@ -273,6 +294,13 @@ SYNC_STEPS = 10
 LOCAL_STEP_TOL = 1e-4
 LOCAL_CARD_TOL = 1e-2
 ALEXNET_LOCAL_ITERS = 4
+
+# the feed phase: ImageNetApp's AlexNet at its batch of 256 on the
+# 2,048-image synthetic set, FEED_ITERS iterations a path in chunks of
+# FEED_CHUNK (a test batch between chunks; each chunk's speed: line
+# read), and the first FEED_CHECK batches of each Python path held bit
+# for bit
+FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 30, 10, 8
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -1868,9 +1896,11 @@ def phase_cifar_app(tmp):
         raise AssertionError(f"last test accuracy {accs[-1]}, chance 0.1 + margin "
                              f"{CIFAR_ACC_MARGIN}")
     steps_s, images_s = (float(x) for x in speed[-1])
+    loader = (re.findall(r"data loader: (\S+)", out) or ["unknown"])[0]
     log(f"  test loss {tests[0]:.4f} -> {tests[1]:.4f}, accuracy {accs[-1]:.4f} (chance "
         f"0.1, want >= {0.1 + CIFAR_ACC_MARGIN}); speed: {steps_s} steps/s, {images_s} "
-        f"images/s at batch 100 through the serial feed")
+        f"images/s at batch 100 through the app's default feed ({loader} loader, "
+        f"--prefetch 2)")
     return {"steps_per_s": steps_s, "images_per_s": images_s, "last_test": last_test}
 
 
@@ -2298,6 +2328,296 @@ def phase_alexnet_local(tmp):
     return {"launches": counts}
 
 
+# ---------------------------------------------------------------- feed
+def _feed_solver_file(tmp: str) -> str:
+    """The zoo's rate and schedule; a test batch every FEED_CHUNK
+    iterations, which ends a chunk and its ``speed:`` line."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    path = os.path.join(tmp, "alexnet_feed_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(
+            f'net: "{ALEXNET_TRAIN_VAL}"\n'
+            f"test_iter: 1\ntest_interval: {FEED_CHUNK}\nbase_lr: 0.01\n"
+            'lr_policy: "step"\ngamma: 0.1\nstepsize: 100000\n'
+            f"display: {FEED_CHUNK}\nmax_iter: {FEED_ITERS}\nmomentum: 0.9\n"
+            f'weight_decay: 0.0005\nsnapshot: 0\nsnapshot_prefix: "{tmp}/feed"\n'
+        )
+    return path
+
+
+def _feed_parts():
+    """The app's train set and train transformer (the serial feed's
+    pieces), as ``imagenet_app.build`` makes them."""
+    from sparknet_tpu_torch.apps.cifar_app import _data_layer, make_transformer
+    from sparknet_tpu_torch.data.imagenet import BGR_MEAN, imagenet_dataset
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    net = caffe_pb.load_net(ALEXNET_TRAIN_VAL)
+    tf = make_transformer(_data_layer(net, "TRAIN"), True,
+                          os.path.dirname(ALEXNET_TRAIN_VAL), lambda: BGR_MEAN)
+    return imagenet_dataset(None, train=True, synthetic_n=FEED_N), tf
+
+
+def _df_shm():
+    """``df -h /dev/shm``'s lines."""
+    return subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                          text=True).stdout.splitlines() or ["df: no output"]
+
+
+# GPU clock cycles the staging check spins the side stream for before
+# each upload (~0.5 s on an H100's ~1.98 GHz clock)
+STAGE_SLEEP_CYCLES = 1_000_000_000
+
+
+def _staged_readback(host, fault=None):
+    """``host`` (a list of batch dicts) through ``prefetch_to_device(size
+    =2)`` on the card, with the side stream slowed: each upload waits
+    behind ~0.5 s of spinning on its stream, so the staging thread runs
+    ahead of the copies by the whole ring. Each batch is copied back into
+    pinned host memory on the consumer's stream at once, without waiting,
+    and the copies are returned once the card is idle. A copy read before
+    its upload completed, or a pinned buffer refilled before its upload
+    left it, gives other bytes than ``host``.
+
+    ``fault`` plants one of those two races to show the check sees it:
+    ``"no-wait"`` makes ``Stream.wait_event`` a no-op (the consumer's
+    stream does not wait on the upload's event); ``"early-refill"`` makes
+    ``Event.synchronize`` a no-op (a ring slot is refilled without waiting
+    for its last upload)."""
+    import torch
+
+    from sparknet_tpu_torch.data import prefetch
+
+    orig_upload = prefetch.PinnedStager._upload
+
+    def slow_upload(self, bufs):
+        with torch.cuda.stream(self.stream):
+            torch.cuda._sleep(STAGE_SLEEP_CYCLES)
+        return orig_upload(self, bufs)
+
+    patches = [(prefetch.PinnedStager, "_upload", slow_upload)]
+    if fault == "no-wait":
+        patches.append((torch.cuda.Stream, "wait_event", lambda self, event: None))
+    elif fault == "early-refill":
+        patches.append((torch.cuda.Event, "synchronize", lambda self: None))
+    elif fault is not None:
+        raise ValueError(fault)
+    outs = [{k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype, pin_memory=True)
+             for k, v in b.items()} for b in host]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        staged = prefetch.prefetch_to_device(iter(host), size=2, device="cuda")
+        for out in outs:
+            for k, v in next(staged).items():
+                out[k].copy_(v, non_blocking=True)
+        staged.close()
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return outs
+
+
+def _staging_checks(host):
+    """The pinned side-stream staging held against ``host``, and each of
+    its two races planted, each of which the same check must catch."""
+    _held_batches("prefetch 2, pinned and side-stream (slowed), read back from the card",
+                  _staged_readback(host), host)
+    for fault in ("no-wait", "early-refill"):
+        try:
+            _held_batches(f"planted fault {fault}", _staged_readback(host, fault), host)
+        except AssertionError as e:
+            log(f"  planted fault {fault}: caught ({e})")
+        else:
+            raise AssertionError(f"the staging check missed the planted fault {fault}")
+
+
+def _held_batches(label, got, want):
+    """``got`` and ``want`` (lists of batch dicts) equal, bit for bit."""
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            gk = g[k].cpu().numpy() if hasattr(g[k], "cpu") else np.asarray(g[k])
+            if gk.dtype != w[k].dtype or not np.array_equal(gk, w[k]):
+                raise AssertionError(f"{label}: batch {i} {k} differs from the serial feed's")
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} batches, want {len(want)}")
+    log(f"  {label}: the first {len(want)} batches equal the serial feed's, bit for bit")
+
+
+def _feed_checks(tmp, packed):
+    """The bit-for-bit checks of the feed paths against the serial feed
+    (batches of 256 227x227 f32 crops), and the native loader's
+    determinism."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.apps.cifar_app import make_feed, make_native_feed
+    from sparknet_tpu_torch.apps.imagenet_app import make_device_feed
+    from sparknet_tpu_torch.data.prefetch import prefetch_to_device
+    from sparknet_tpu_torch.data.records import packed_dataset
+
+    ds, tf = _feed_parts()
+    n = FEED_CHECK
+    serial = list(itertools.islice(make_feed(ds, tf, TRAIN_BATCH, seed=0), n))
+    workers = make_feed(ds, tf, TRAIN_BATCH, seed=0, workers=4)
+    try:
+        got = list(itertools.islice(workers, n))
+        if workers.metrics.shm_fallbacks:
+            raise AssertionError(f"{workers.metrics.shm_fallbacks} pickle fallbacks")
+    finally:
+        workers.close()
+    _held_batches("4 worker processes", got, serial)
+    _staging_checks(serial)
+    fn = tf.device_fn()
+    staged = prefetch_to_device(make_device_feed(ds, tf, TRAIN_BATCH, seed=0), size=2,
+                                device="cuda")
+    got = []
+    for b in itertools.islice(staged, n):
+        b = fn({k: torch.as_tensor(v) for k, v in b.items()})
+        got.append({k: v.cpu() for k, v in b.items()})
+    staged.close()
+    _held_batches("device augmentation on the card (uint8 + plan uploaded)", got, serial)
+    pds = packed_dataset(packed, train=True)
+    it = make_feed(pds, tf, TRAIN_BATCH, seed=0)
+    got = list(itertools.islice(it, n))
+    it.close()
+    _held_batches("packed records", got, serial)
+    del serial, got
+    loaders = [make_native_feed(ds, tf, TRAIN_BATCH, seed=0, required=True)
+               for _ in range(2)]
+    try:
+        for i in range(n):
+            a, b = next(loaders[0]), next(loaders[1])
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"native loader: batch {i} {k} differs between "
+                                         f"two constructions")
+    finally:
+        for ld in loaders:
+            ld.close()
+    log(f"  native loader: the first {n} batches of two constructions are identical "
+        f"(its stream is the C++ loader's own, not the serial feed's)")
+    torch.cuda.empty_cache()
+
+
+def phase_feed(tmp, resident_ms):
+    """ImageNetApp's AlexNet through each train feed path, images/s beside
+    the resident step's; the Python paths' batches held bit for bit."""
+    import io
+    import math
+    import re
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.data.cache import ShmBatchCache
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.tools import pack_records
+
+    smi = _smi()
+    cores = os.cpu_count() or 1
+    log(f"  card: {smi}; nproc {cores}")
+    for line in _df_shm():
+        log(f"  df /dev/shm | {line}")
+    packed = os.path.join(tmp, "packed")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        pack_records.main(["--source", "synthetic-imagenet", "--n", str(FEED_N), "--out",
+                           packed])
+    log(f"  packed by tools/pack_records.py in {time.perf_counter() - t0:.1f} s: "
+        f"{buf.getvalue().strip()}")
+    _feed_checks(tmp, packed)
+
+    ns = f"chip-smoke-{os.getpid()}"
+    py = ["--native-loader", "off"]
+    paths = [
+        ("serial, prefetch 0", py + ["--data-workers", "0", "--prefetch", "0"]),
+        ("serial, prefetch 2", py + ["--data-workers", "0"]),
+        ("4 workers", py + ["--data-workers", "4"]),
+        (f"{cores - 1} workers (cores - 1)", py + ["--data-workers", str(cores - 1)]),
+        ("native loader", ["--native-loader", "on"]),
+        ("device augment", ["--device-augment", "--data-workers", "0"]),
+        ("packed", py + ["--data-format", "packed", "--data-dir", packed,
+                         "--data-workers", "0"]),
+        ("packed + cache, cold", py + ["--data-format", "packed", "--data-dir", packed,
+                                       "--data-workers", "0", "--data-cache", ns]),
+        ("packed + cache, warm", py + ["--data-format", "packed", "--data-dir", packed,
+                                       "--data-workers", "0", "--data-cache", ns]),
+    ]
+    resident = TRAIN_BATCH / resident_ms * 1e3 if resident_ms else None
+    totals = [0, 0, 0]
+    rows = []
+    os.environ["SPARKNET_CACHE_MB"] = "4096"  # every batch of the run fits
+    try:
+        for label, extra in paths:
+            argv = ["--arch", "alexnet", "--synthetic", "--synthetic-n", str(FEED_N),
+                    "--solver", _feed_solver_file(tmp), "--device", "cuda", *extra]
+            log(f"  [{label}] nproc {cores}; df /dev/shm: {_df_shm()[-1]}")
+            lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                imagenet_app.main(argv)
+            counts = (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches)
+            out = buf.getvalue()
+            chunks = FEED_ITERS // FEED_CHUNK
+            want = (2 * (chunks + 1), 2 * FEED_ITERS, 2 * FEED_ITERS)  # a test a chunk
+            if counts != want:
+                raise AssertionError(f"{label}: LRN launches {counts}, want {want}")
+            totals = [a + b for a, b in zip(totals, counts)]
+            speeds = re.findall(r"speed: steps/s=\S+ images/s=(\d+)", out)
+            losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+)", out)]
+            if len(speeds) != chunks or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{label}: speed lines {speeds}, losses {losses}")
+            pipe = cache = None
+            for line in out.splitlines():
+                if line.startswith("input pipeline: "):
+                    pipe = json.loads(line[len("input pipeline: "):])
+                elif line.startswith("data cache: "):
+                    cache = json.loads(line[len("data cache: "):])
+                elif line.startswith(("data loader:", "data pipeline:", "native loader:")):
+                    log(f"  [{label}] {line}")
+            if pipe is not None and pipe["shm_fallbacks"]:
+                raise AssertionError(f"{label}: {pipe['shm_fallbacks']} pickle fallbacks")
+            ips = int(speeds[-1])
+            rows.append((label, [int(v) for v in speeds], pipe, cache))
+            share = f" = {100 * ips / resident:.1f}% of the resident" if resident else ""
+            log(f"  [{label}] {ips} images/s over iterations {FEED_ITERS - FEED_CHUNK}-"
+                f"{FEED_ITERS} (speed: lines of the chunks {speeds}; the first chunk "
+                f"starts the feed cold){share}; last loss {losses[-1]:.5f}; {smi}")
+            if pipe is not None:
+                log(f"  [{label}] input pipeline: {json.dumps(pipe)}")
+                cw = pipe["consumer_wait"]
+                pf = pipe["prefetch"]
+                bound = "host-bound" if pf["misses"] > pf["hits"] else "device-bound"
+                log(f"  [{label}] the step's wait for a staged batch: mean "
+                    f"{pf['wait']['mean_ms']} ms, {pf['hits']} hits, {pf['misses']} misses "
+                    f"({bound}); the staging thread's wait on the workers: mean "
+                    f"{cw['mean_ms']} ms over {cw['count']} batches; pickle fallbacks "
+                    f"{pipe['shm_fallbacks']}")
+            if cache is not None:
+                log(f"  [{label}] data cache: {json.dumps(cache)}")
+    finally:
+        os.environ.pop("SPARKNET_CACHE_MB", None)
+        ShmBatchCache(ns).clear()
+    warm = rows[-1][3]
+    if not warm or warm["hits"] < FEED_ITERS:
+        raise AssertionError(f"the warm cached run read {warm}: want every batch of its "
+                             f"{FEED_ITERS} iterations a hit")
+    res = f"{resident:.1f}" if resident else "not measured"
+    log(f"  feed table, images/s by chunk of {FEED_CHUNK} iterations (resident step "
+        f"{res} images/s, train-profile; {smi}):")
+    for label, speeds, _, _ in rows:
+        log(f"    {label:32s} {' '.join(f'{v:6d}' for v in speeds)}")
+    log(f"  LRN launches in this phase: inference {totals[0]}, training forward "
+        f"{totals[1]}, backward {totals[2]} ({len(paths)} runs)")
+    return {"launches": tuple(totals), "images_per_s": {r[0]: r[1] for r in rows}}
+
+
 # ------------------------------------------------------------------ ab
 AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
           (BERT_BATCH, BERT_SEQ, "bfloat16"))
@@ -2478,7 +2798,7 @@ def main(argv=None) -> int:
     built = phases.run("build", phase_build)
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
-    serving = train = bert = local = None
+    serving = train = bert = local = feed = resident = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -2487,7 +2807,7 @@ def main(argv=None) -> int:
         phases.run("grads", phase_grads)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             train = phases.run("train", phase_train, tmp)
-            phases.run("train-profile", phase_train_profile, tmp)
+            resident = phases.run("train-profile", phase_train_profile, tmp)
         phases.run("bert-grads", phase_bert_grads)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
             bert = phases.run("bert-train", phase_bert_train, tmp)
@@ -2497,14 +2817,17 @@ def main(argv=None) -> int:
         phases.run("local-sgd", phase_local_sgd)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_local_") as tmp:
             local = phases.run("alexnet-local", phase_alexnet_local, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_feed_") as tmp:
+            feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
     timing.update(flash)
     launches = {
-        "lrn_fwd": serving["launches"] + train["launches"][0] + local["launches"][0],
-        "lrn_fwd_train": train["launches"][1] + local["launches"][1],
-        "lrn_bwd": train["launches"][2] + local["launches"][2],
+        "lrn_fwd": (serving["launches"] + train["launches"][0] + local["launches"][0]
+                    + feed["launches"][0]),
+        "lrn_fwd_train": train["launches"][1] + local["launches"][1] + feed["launches"][1],
+        "lrn_bwd": train["launches"][2] + local["launches"][2] + feed["launches"][2],
         **bert,
     }
     replaces = {

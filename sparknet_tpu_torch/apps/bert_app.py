@@ -200,7 +200,7 @@ def main(argv=None) -> Dict[str, float]:
     if args.restore:
         solver.restore(args.restore, feed)
     # wrap AFTER restore, so the feed is aligned before staging starts
-    feed = maybe_prefetch(feed, args, args.parallel, solver._put_batch)
+    feed = maybe_prefetch(feed, args, args.parallel, solver.device)
     if args.restore:
         print(f"Restoring previous solver status from {args.restore} "
               f"(iter {solver.iter})")

@@ -5,12 +5,25 @@ Counterpart of ``sparknet_tpu/apps/cifar_app.py``
 (``python -m sparknet_tpu_torch.apps.cifar_app``): reads a Caffe solver
 prototxt (default: the port's ``cifar10_quick_solver.prototxt``), loads
 CIFAR-10 (binary, pickle or tarball layout under ``--data-dir``, or the
-deterministic synthetic set with ``--synthetic`` or when none is there),
-applies the net's ``transform_param`` (a ``mean_file`` .binaryproto, or
-the full dataset's mean when that file is absent) in a serial host
-feed, and trains on one device (``--parallel none``) or over the
-workers of :mod:`..parallel` (``--parallel sync|local``, ``--tau``,
-``--grad-compress``) with Caffe's loop, :func:`train_loop`:
+deterministic synthetic set with ``--synthetic`` or when none is there;
+or a packed split from ``tools/pack_records.py`` with ``--data-format
+packed``), applies the net's ``transform_param`` (a ``mean_file``
+.binaryproto, or the full dataset's mean when that file is absent) in
+the train feed, and trains on one device (``--parallel none``) or over
+the workers of :mod:`..parallel` (``--parallel sync|local``, ``--tau``,
+``--grad-compress``) with Caffe's loop, :func:`train_loop`.
+
+The train feed, as in the JAX app: the C++ loader (``--native-loader
+auto``, the default, when its library builds; ``on`` raises when it does
+not), else the Python feed in ``--data-workers`` forked processes (auto:
+up to 4) or serial (0), the packed readers (``--data-format packed``,
+with the cross-job decoded-batch cache under ``--data-cache NS``); then
+``--prefetch N`` batches (default 2) staged on the card through pinned
+memory and a side stream. Every Python path gives the serial feed's
+batches, bit for bit; the C++ loader's stream is its own. The run ends
+with an ``input pipeline:`` JSON line (the consumer's wait, the
+host-bound or device-bound answer) and, with a cache, a ``data cache:``
+line. The loop:
 
 - the pre-loop test gate (``test_initialization``, or a resume on a
   test boundary); each test is headed by Caffe's ``Iteration N,
@@ -44,7 +57,12 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .. import native
+from ..data import records
+from ..data.cache import cache_from_args
 from ..data.cifar import cifar10_dataset
+from ..data.pipeline import ParallelBatchPipeline, PipelineMetrics, resolve_data_workers
+from ..data.prefetch import maybe_prefetch
 from ..data.preprocess import Transformer
 from ..models import CIFAR_QUICK_SOLVER
 from ..nets import weights as W
@@ -56,14 +74,9 @@ from ..solver.trainer import Solver, resolve_model_path
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
-    "data_workers": (-1, 0),
-    "native_loader": ("auto", "off"),
-    "data_format": (None, "auto"),
-    "data_cache": (None,),
     "weights": (None,),
     "auto_resume": (False,),
     "snapshot_format": ("npz",),
-    "prefetch": (0,),
     "trace": (None,),
     "profile_dir": (None,),
     "chaos": (None,),
@@ -144,12 +157,13 @@ def make_transformer(layer, train: bool, solver_dir: str, fallback_mean=None):
     return t
 
 
-def make_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0
-              ) -> Iterator[Dict[str, np.ndarray]]:
-    """The serial host feed: batches of ``{"data": f32 NHWC, "label":
-    int32}`` as numpy, the solver moves them to the device. The stream
-    is the JAX package's serial ``make_feed``'s, bit for bit (its worker
-    feed, ``workers > 0``, is not ported)."""
+def make_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0,
+              workers: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """The Python host feed: batches of ``{"data": f32 NHWC, "label":
+    int32}`` as numpy, the solver moves them to the device. ``workers >
+    0``: assembled and transformed in that many forked processes
+    (:class:`~..data.pipeline.ParallelBatchPipeline`). Either way the
+    stream is the JAX package's serial ``make_feed``'s, bit for bit."""
 
     def transform(batch, rng):
         return {
@@ -157,7 +171,153 @@ def make_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0
             "label": np.asarray(batch["label"], np.int32),
         }
 
+    if workers > 0:
+        print(f"data pipeline: {workers} preprocessing workers")
+        return ParallelBatchPipeline(ds, batch_size, workers=workers, shuffle=True,
+                                     seed=seed, transform=transform)
     return ds.batches(batch_size, shuffle=True, seed=seed, transform=transform)
+
+
+def make_native_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0,
+                     workers: int = 0, required: bool = False):
+    """The C++ prefetching loader (:class:`~..native.NativeLoader`) over
+    the whole dataset in memory: shuffle, crop/mirror/mean/scale and
+    batch assembly in native threads. Falls back to :func:`make_feed`
+    (with ``workers``), saying so, when the library does not build or
+    the dataset exceeds ``SPARKNET_NATIVE_CACHE_MB`` (default 2048), as
+    the JAX app does; with ``required`` (``--native-loader on``) either
+    raises instead, so no run measures the Python feed under the native
+    loader's name."""
+    try:
+        native.load()
+    except RuntimeError as e:
+        if required:
+            raise RuntimeError(f"--native-loader on: {e}") from e
+        print(f"native loader: unavailable, using the Python feed "
+              f"({str(e).splitlines()[0]})")
+        return make_feed(ds, transformer, batch_size, seed, workers=workers)
+    cap = float(os.environ.get("SPARKNET_NATIVE_CACHE_MB", "2048")) * 1e6
+    parts, total = [], 0
+    for i in range(ds.num_partitions):
+        p = ds.collect_partition(i)
+        total += sum(np.asarray(v).nbytes for v in p.values())
+        if total > cap:
+            msg = (f"the dataset exceeds SPARKNET_NATIVE_CACHE_MB={cap / 1e6:.0f}, "
+                   f"which bounds the native loader's copy of it")
+            if required:
+                raise RuntimeError(f"--native-loader on: {msg}")
+            print(f"native loader: {msg}; using the Python feed")
+            return make_feed(ds, transformer, batch_size, seed, workers=workers)
+        parts.append(p)
+    return native.NativeLoader(
+        np.concatenate([p["data"] for p in parts]),
+        np.concatenate([p["label"] for p in parts]),
+        batch_size,
+        crop=transformer.crop_size,
+        train=transformer.train,
+        mirror=transformer.mirror,
+        mean_image=transformer.mean_image,
+        mean_channel=transformer.mean_values,
+        scale=transformer.scale,
+        seed=seed,
+    )
+
+
+def train_feed_for(args, ds, transformer: Transformer, batch_size: int):
+    """The app's train feed for ``--native-loader`` and ``--data-workers``:
+    off -> :func:`make_feed`, auto/on -> :func:`make_native_feed`; the
+    worker count from ``--data-workers`` / ``SPARKNET_DATA_WORKERS`` /
+    auto (one core left, at most 4)."""
+    workers = resolve_data_workers(args.data_workers)
+    if args.native_loader == "off":
+        return make_feed(ds, transformer, batch_size, args.seed, workers=workers)
+    return make_native_feed(ds, transformer, batch_size, args.seed, workers=workers,
+                            required=args.native_loader == "on")
+
+
+def record_loader_meta(solver, train_feed) -> str:
+    """Record, and print, the loader that feeds training
+    (``--native-loader auto`` may have fallen back): the solverstate
+    keeps it, so a resume elsewhere can tell a changed stream."""
+    loader = "native" if isinstance(train_feed, native.NativeLoader) else "python"
+    solver.env_meta["loader"] = loader
+    print(f"data loader: {loader}")
+    return loader
+
+
+def resolve_packed(args):
+    """``--data-format`` -> (use_packed, packed_dir). ``packed`` needs a
+    ``--data-dir`` holding a ``tools/pack_records.py`` output; ``auto``
+    (the default) takes the packed path exactly when the data dir holds a
+    packed manifest."""
+    fmt = getattr(args, "data_format", None) or "auto"
+    ddir = getattr(args, "data_dir", None)
+    if fmt == "packed":
+        if not ddir:
+            raise ValueError("--data-format packed requires --data-dir pointing at a "
+                             "tools/pack_records.py output directory")
+        return True, ddir
+    if fmt == "auto" and ddir and not getattr(args, "synthetic", False):
+        if records.is_packed(ddir):
+            return True, ddir
+    return False, None
+
+
+def build_packed(args):
+    """(train_ds, test_ds or None, mean or None) of a packed data dir:
+    the streaming readers, the train split with the decoded-batch cache
+    when ``--data-cache`` names a namespace (the test split never: eval
+    must not evict training batches)."""
+    _, packed_dir = resolve_packed(args)
+    train_ds = records.packed_dataset(packed_dir, train=True, cache=cache_from_args(args))
+    test_ds = None
+    if records.has_packed_split(packed_dir, "test"):
+        test_ds = records.packed_dataset(packed_dir, train=False)
+    return train_ds, test_ds, train_ds.mean()
+
+
+def print_data_cache_line(cache, log=print) -> None:
+    """One ``data cache:`` JSON line (hit/miss/evict/torn) of ``cache``
+    (a ``ShmBatchCache``, or None: no line)."""
+    if cache is not None:
+        log(f"data cache: {cache.metrics.json_line()}")
+
+
+def _num_rows(ds) -> int:
+    n = getattr(ds, "num_records", None)
+    if n is not None:
+        return int(n)
+    return sum(len(ds.collect_partition(i)["label"]) for i in range(ds.num_partitions))
+
+
+def run_training(args, solver, train_feed, test_feed, log=print):
+    """The apps' shared run: restore (``--restore``), staging on the
+    card (``--prefetch``), :func:`train_loop`; then, even when the loop
+    raises, the ``input pipeline:`` and ``data cache:`` lines and the
+    feeds closed (worker processes, shared memory, native threads). The
+    ``data cache:`` line is the packed train reader's cache's; behind
+    worker processes the reads are the workers' and no line is
+    printed."""
+    if args.restore:
+        solver.restore(args.restore, train_feed)
+        log(f"Restoring previous solver status from {args.restore} "
+            f"(iter {solver.iter})")
+    # wrap after the restore: the feed's skip stays on the host
+    raw = train_feed
+    pm = getattr(raw, "metrics", None)
+    if pm is None and args.prefetch and args.parallel == "none":
+        pm = PipelineMetrics()  # the staging's own waits
+    train_feed = maybe_prefetch(raw, args, args.parallel, solver.device, metrics=pm)
+    try:
+        return train_loop(solver, train_feed, test_feed, log=log)
+    finally:
+        close = getattr(train_feed, "close", None)
+        if close is not None and train_feed is not raw:
+            close()  # the staging thread stops before its source closes
+        if pm is not None:
+            log(f"input pipeline: {pm.json_line()}")
+        print_data_cache_line(getattr(raw, "cache", None), log)
+        getattr(raw, "close", lambda: None)()
 
 
 def comm_config_from(args) -> comm.CommConfig:
@@ -166,8 +326,9 @@ def comm_config_from(args) -> comm.CommConfig:
     return comm.resolve_config(compress=getattr(args, "grad_compress", None) or None)
 
 
-def make_solver(args, sp, shapes, workers=None, **kw) -> Solver:
-    """The app's solver: ``Solver`` for ``--parallel none``, else
+def make_solver(args, sp, shapes, workers=None, batch_transform=None, **kw) -> Solver:
+    """The app's solver: ``Solver`` for ``--parallel none`` (with
+    ``batch_transform``, device-side augmentation), else
     ``ParallelSolver`` in mode ``--parallel`` with ``--tau`` over
     ``workers`` (default: one worker per visible device of
     ``--device``)."""
@@ -175,7 +336,11 @@ def make_solver(args, sp, shapes, workers=None, **kw) -> Solver:
         if getattr(args, "grad_compress", None):
             # one device has no gradient communication to compress
             raise ValueError("--grad-compress requires --parallel sync|local")
-        return Solver(sp, shapes, device=args.device, **kw)
+        return Solver(sp, shapes, device=args.device, batch_transform=batch_transform,
+                      **kw)
+    if batch_transform is not None:
+        raise ValueError("--device-augment currently requires --parallel none (the "
+                         "parallel solvers build their own train steps)")
     return ParallelSolver(sp, shapes, workers=workers, mode=args.parallel, tau=args.tau,
                           comm_config=comm_config_from(args), device=args.device, **kw)
 
@@ -320,7 +485,12 @@ def build(args, workers=None):
     train_bs = args.batch_size or _batch_size(train_layer, 100)
     test_bs = _batch_size(test_layer, train_bs)
 
-    if not args.synthetic:
+    # packed shard dirs win first, as in the JAX app
+    use_packed, _ = resolve_packed(args)
+    train_ds = test_ds = mean = None
+    if use_packed:
+        train_ds, test_ds, mean = build_packed(args)
+    elif not args.synthetic:
         # the JAX app reads a Caffe-native source (LMDB, ImageData,
         # HDF5) that the prototxt names and the disk holds; the port does
         # not, and must not quietly train on something else instead
@@ -331,11 +501,12 @@ def build(args, workers=None):
                     f"{layer.type} layer {layer.name!r} source {src}: reading Caffe's "
                     f"native sources (LMDB, ImageData, HDF5) is not ported to "
                     f"sparknet_tpu_torch yet; pass --synthetic or --data-dir")
-    data_dir = None if args.synthetic else args.data_dir
-    train_ds, mean = cifar10_dataset(data_dir, train=True, synthetic_n=args.synthetic_n)
-    test_ds, _ = cifar10_dataset(data_dir, train=False, synthetic_n=args.synthetic_n)
-    test_rows = sum(len(test_ds.collect_partition(i)["label"])
-                    for i in range(test_ds.num_partitions))
+    data_dir = None if args.synthetic or use_packed else args.data_dir
+    if train_ds is None:
+        train_ds, mean = cifar10_dataset(data_dir, train=True, synthetic_n=args.synthetic_n)
+    if test_ds is None:  # a pack without a test split: the loader's
+        test_ds, _ = cifar10_dataset(data_dir, train=False, synthetic_n=args.synthetic_n)
+    test_rows = _num_rows(test_ds)
     if test_rows < test_bs:
         # the feed drops an epoch's remainder, so a test set smaller than
         # one batch would yield none (the JAX app raises here)
@@ -354,21 +525,46 @@ def build(args, workers=None):
             return False
         return not os.path.exists(resolve_model_path(str(tp.get("mean_file")), solver_dir))
 
-    if needs_regenerated_mean(train_layer) or needs_regenerated_mean(test_layer):
-        mean = _dataset_mean(train_ds)
+    if not (use_packed and mean is not None) and (
+            needs_regenerated_mean(train_layer) or needs_regenerated_mean(test_layer)):
+        mean = _dataset_mean(train_ds)  # a pack's stored mean wins
     train_tf = make_transformer(train_layer, True, solver_dir, lambda: mean)
     test_tf = make_transformer(test_layer, False, solver_dir, lambda: mean)
 
-    th, tw, tc = source_data_shape(train_ds, train_tf.crop_size, False, (32, 32))
-    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, False, (32, 32))
+    th, tw, tc = source_data_shape(train_ds, train_tf.crop_size, use_packed, (32, 32))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, use_packed, (32, 32))
     shapes = {"data": (train_bs, th, tw, tc), "label": (train_bs,)}
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
     solver = make_solver(args, sp, shapes, workers, test_input_shapes=test_shapes,
                          net_param=net_param, solver_dir=solver_dir, seed=args.seed)
-    train_feed = make_feed(train_ds, train_tf, train_bs, seed=args.seed)
+    train_feed = train_feed_for(args, train_ds, train_tf, train_bs)
+    # the test feed stays serial: eval runs at test_interval cadence
     test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
-    solver.env_meta["loader"] = "python"
+    record_loader_meta(solver, train_feed)
     return solver, train_feed, test_feed
+
+
+def add_feed_flags(ap: argparse.ArgumentParser) -> None:
+    """The image apps' train-feed flags, the JAX apps' own."""
+    ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="C++ prefetching data loader: auto (default: when its "
+                         "library builds, else the Python feed, said so), on (raises "
+                         "when it does not build), or off")
+    ap.add_argument("--data-workers", type=int, default=-1,
+                    help="preprocessing worker processes for the Python train feed "
+                         "(-1 auto: SPARKNET_DATA_WORKERS, or one core left, at most "
+                         "4; 0 serial). The batch stream is the same for any count")
+    ap.add_argument("--data-format", choices=("auto", "packed"), default=None,
+                    help="packed: stream tools/pack_records.py shard files under "
+                         "--data-dir; auto (default) detects a packed manifest there")
+    ap.add_argument("--data-cache", nargs="?", const="default", default=None,
+                    metavar="NS",
+                    help="cross-job decoded-batch cache namespace for the packed "
+                         "train feed, on named shared memory (budget SPARKNET_CACHE_MB)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches staged ahead on the device, through pinned memory "
+                         "and a side stream on a card (default 2; 0 disables)")
 
 
 def arg_parser() -> argparse.ArgumentParser:
@@ -385,17 +581,7 @@ def arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic-n", type=int, default=10000)
     ap.add_argument("--max-iter", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=0)
-    ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
-                    choices=("auto", "on", "off"),
-                    help="auto (default) and off mean the serial Python feed here; "
-                         "the C++ loader is not ported, so on raises")
-    ap.add_argument("--data-workers", type=int, default=-1,
-                    help="-1 (default) and 0 mean the serial feed here; worker "
-                         "processes are not ported")
-    ap.add_argument("--data-format", choices=("auto", "packed"), default=None,
-                    help="packed is not ported")
-    ap.add_argument("--data-cache", nargs="?", const="default", default=None,
-                    metavar="NS", help="not ported")
+    add_feed_flags(ap)
     ap.add_argument("--parallel", choices=("none", "sync", "local"), default="none",
                     help="sync: gradients averaged every step; local: SparkNet's "
                          "tau-local SGD; over one worker per visible device")
@@ -414,10 +600,6 @@ def arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
     ap.add_argument("--profile-dir", default=None, help="not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
-    ap.add_argument("--prefetch", type=int, default=0,
-                    help="batches staged ahead on the device; the port stages none "
-                         "(0, default; the JAX app's is 2): prefetching moves no "
-                         "result, other values are not ported")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
@@ -429,13 +611,9 @@ def arg_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = arg_parser().parse_args(argv)
     solver, train_feed, test_feed = build(args)
-    if args.restore:
-        solver.restore(args.restore, train_feed)
-        print(f"Restoring previous solver status from {args.restore} "
-              f"(iter {solver.iter})")
     print(f"CifarApp: net={solver.net_param.name} params={W.num_params(solver.params)} "
           f"max_iter={solver.sp.max_iter} device={solver.device}")
-    return train_loop(solver, train_feed, test_feed)
+    return run_training(args, solver, train_feed, test_feed)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,15 @@ device, or over the workers of ``..parallel`` (``--parallel sync|local``,
 ``--tau``, ``--grad-compress``), with test-interval evaluation and
 snapshots.
 
+The train feed is CifarApp's (:func:`..cifar_app.train_feed_for`: the C++
+loader, the worker pipeline, the packed readers and their cache, the
+staging on the card), plus ``--device-augment``: the host ships the raw
+uint8 batch and its augmentation plan (:func:`make_device_feed`), and
+crop, mean, scale and mirror run on the device inside the step
+(``Solver(batch_transform=)``), with the Python feed's f32 bits. As in
+the JAX app it refuses ``--native-loader on`` and ``--parallel`` other
+than none.
+
 The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). ``--arch
 alexnet`` is the one architecture whose prototxts the port ships. Each
@@ -20,10 +29,13 @@ from __future__ import annotations
 
 import argparse
 import os
+from typing import Dict, Iterator
 
+import numpy as np
 import torch
 
 from ..data.imagenet import BGR_MEAN, imagenet_dataset
+from ..data.preprocess import Transformer
 from ..models import PROTOTXT_DIR
 from ..nets import weights as W
 from ..proto import caffe_pb
@@ -31,12 +43,17 @@ from ..solver.trainer import resolve_model_path
 from .cifar_app import (
     _batch_size,
     _data_layer,
+    add_feed_flags,
+    build_packed,
     check_ported,
     make_feed,
     make_solver,
     make_transformer,
+    record_loader_meta,
+    resolve_packed,
+    run_training,
     source_data_shape,
-    train_loop,
+    train_feed_for,
 )
 
 ZOO = PROTOTXT_DIR
@@ -58,21 +75,33 @@ _ARCH_MISSING = {
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
-    "device_augment": (False,),
-    "native_loader": ("auto",),
-    "data_workers": (-1,),
-    "data_format": (None,),
-    "data_cache": (None,),
     "remat": (False,),
     "auto_resume": (False,),
     "weights": (None,),
     "profile_dir": (None,),
     "trace": (None,),
-    "prefetch": (0,),
     "snapshot_format": ("npz",),
     "chaos": (None,),
     "supervise": (False,),
 }
+
+
+def make_device_feed(ds, transformer: Transformer, batch_size: int, seed: int = 0
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """The feed of ``--device-augment``: the raw uint8 source batch and
+    its augmentation plan (crop offsets, flip bits, drawn from the same
+    per-batch rng as :func:`make_feed`'s); the pixel work runs in the
+    step (``Solver(batch_transform=transformer.device_fn())``). The host
+    work is the shuffle and a copy, and the upload a third of the f32
+    crops' bytes."""
+
+    def transform(batch, rng):
+        data = np.ascontiguousarray(batch["data"])
+        out = {"data": data, "label": np.asarray(batch["label"], np.int32)}
+        out.update(transformer.plan(len(data), data.shape[1:3], rng))
+        return out
+
+    return ds.batches(batch_size, shuffle=True, seed=seed, transform=transform)
 
 
 def make_args(**overrides) -> argparse.Namespace:
@@ -115,19 +144,33 @@ def build(args, workers=None):
     train_bs = args.batch_size or _batch_size(train_layer, 32)
     test_bs = args.batch_size or _batch_size(test_layer, train_bs)
 
-    data_dir = None if args.synthetic else args.data_dir
+    if args.device_augment and args.native_loader == "on":
+        # refuse the pair rather than drop the explicitly asked-for loader
+        raise ValueError("--device-augment and --native-loader on are exclusive: "
+                         "device augmentation replaces the loader's host-side pixel "
+                         "work (leave --native-loader at auto/off)")
+    # packed shard dirs first, as in the JAX app
+    use_packed, _ = resolve_packed(args)
+    train_ds = test_ds = packed_mean = None
+    if use_packed:
+        train_ds, test_ds, packed_mean = build_packed(args)
+    data_dir = None if args.synthetic or use_packed else args.data_dir
     classes = args.synthetic_classes
-    train_ds = imagenet_dataset(data_dir, train=True, synthetic_n=args.synthetic_n,
-                                synthetic_classes=classes)
-    test_ds = imagenet_dataset(data_dir, train=False, synthetic_n=args.synthetic_n,
-                               synthetic_classes=classes)
+    if train_ds is None:
+        train_ds = imagenet_dataset(data_dir, train=True, synthetic_n=args.synthetic_n,
+                                    synthetic_classes=classes)
+    if test_ds is None:
+        test_ds = imagenet_dataset(data_dir, train=False, synthetic_n=args.synthetic_n,
+                                   synthetic_classes=classes)
 
-    # a missing mean .binaryproto -> the Caffe zoo's BGR channel means
-    train_tf = make_transformer(train_layer, True, solver_dir, lambda: BGR_MEAN)
-    test_tf = make_transformer(test_layer, False, solver_dir, lambda: BGR_MEAN)
+    # a missing mean .binaryproto -> the pack's mean, else the Caffe
+    # zoo's BGR channel means
+    fallback_mean = (lambda: packed_mean) if packed_mean is not None else lambda: BGR_MEAN
+    train_tf = make_transformer(train_layer, True, solver_dir, fallback_mean)
+    test_tf = make_transformer(test_layer, False, solver_dir, fallback_mean)
     # the loaders resize to 256 -> a crop wins H/W, else 224
-    ch, cw, cc = source_data_shape(train_ds, train_tf.crop_size, False, (224, 224))
-    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, False, (ch, cw))
+    ch, cw, cc = source_data_shape(train_ds, train_tf.crop_size, use_packed, (224, 224))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, use_packed, (ch, cw))
     shapes = {"data": (train_bs, ch, cw, cc), "label": (train_bs,)}
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
 
@@ -135,10 +178,15 @@ def build(args, workers=None):
         args, sp, shapes, workers, test_input_shapes=test_shapes, net_param=net_param,
         solver_dir=solver_dir, seed=args.seed,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        batch_transform=train_tf.device_fn() if args.device_augment else None,
     )
-    train_feed = make_feed(train_ds, train_tf, train_bs, seed=args.seed)
+    if args.device_augment:
+        # the host work is already a shuffle and a copy: no workers
+        train_feed = make_device_feed(train_ds, train_tf, train_bs, seed=args.seed)
+    else:
+        train_feed = train_feed_for(args, train_ds, train_tf, train_bs)
     test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
-    solver.env_meta["loader"] = "python"
+    record_loader_meta(solver, train_feed)
     return solver, train_feed, test_feed
 
 
@@ -169,18 +217,11 @@ def parser() -> argparse.ArgumentParser:
                          "error-feedback residuals (requires --parallel sync|local)")
     ap.add_argument("--tau", default="10",
                     help="local-SGD sync period: an integer, or 'auto'")
-    ap.add_argument("--device-augment", action="store_true", help="not ported")
-    ap.add_argument("--native-loader", nargs="?", const="on", default="auto",
-                    choices=("auto", "on", "off"),
-                    help="auto (default) means the serial Python feed here; the "
-                         "C++ loader is not ported, so on/off raise")
-    ap.add_argument("--data-workers", type=int, default=-1,
-                    help="-1 (default) means the serial feed here; worker "
-                         "processes are not ported")
-    ap.add_argument("--data-format", choices=("auto", "packed"), default=None,
-                    help="not ported")
-    ap.add_argument("--data-cache", nargs="?", const="default", default=None,
-                    metavar="NS", help="not ported")
+    ap.add_argument("--device-augment", action="store_true",
+                    help="crop/mirror/mean/scale on the device inside the step (the "
+                         "host ships uint8 and the augmentation plan); the same "
+                         "batches as the Python feed. Needs --parallel none")
+    add_feed_flags(ap)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     ap.add_argument("--remat", action="store_true", help="not ported")
     ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
@@ -189,9 +230,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
     ap.add_argument("--profile-dir", default=None, help="not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
-    ap.add_argument("--prefetch", type=int, default=0,
-                    help="batches staged ahead on the device; the port stages "
-                         "none (0), other values are not ported")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
@@ -203,14 +241,10 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = parser().parse_args(argv)
     solver, train_feed, test_feed = build(args)
-    if args.restore:
-        solver.restore(args.restore, train_feed)
-        print(f"Restoring previous solver status from {args.restore} "
-              f"(iter {solver.iter})")
     print(f"ImageNetApp: net={solver.net_param.name} "
           f"params={W.num_params(solver.params)} max_iter={solver.sp.max_iter} "
           f"device={solver.device}")
-    return train_loop(solver, train_feed, test_feed)
+    return run_training(args, solver, train_feed, test_feed)
 
 
 if __name__ == "__main__":

@@ -10,58 +10,11 @@ shape as the JAX package's (without its decode block), and
 
 from __future__ import annotations
 
-import bisect
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
-# ~1.47x geometric ladder of bin upper bounds: 10 us -> ~300 s
-_BOUNDS_US: List[float] = []
-_b = 10.0
-while _b < 300e6:
-    _BOUNDS_US.append(round(_b, 1))
-    _b *= 1.468
-
-
-class LatencyHistogram:
-    """Log-binned latency histogram with percentile readout. Not locked:
-    its owner (``ServeMetrics``) serialises access."""
-
-    def __init__(self):
-        self.counts = [0] * (len(_BOUNDS_US) + 1)
-        self.n = 0
-        self.total_us = 0.0
-
-    def observe(self, seconds: float) -> None:
-        us = max(seconds, 0.0) * 1e6
-        self.counts[bisect.bisect_left(_BOUNDS_US, us)] += 1
-        self.n += 1
-        self.total_us += us
-
-    def percentile(self, q: float) -> Optional[float]:
-        """Upper bound (us) of the bin holding the q-quantile, or None
-        when empty. q in [0, 1]."""
-        if not self.n:
-            return None
-        target = q * self.n
-        seen = 0
-        for i, c in enumerate(self.counts):
-            seen += c
-            if seen >= target and c:
-                return _BOUNDS_US[i] if i < len(_BOUNDS_US) else _BOUNDS_US[-1]
-        return _BOUNDS_US[-1]
-
-    def snapshot(self) -> dict:
-        def ms(v):
-            return None if v is None else round(v / 1000, 3)
-
-        return {
-            "count": self.n,
-            "mean_ms": ms(self.total_us / self.n) if self.n else None,
-            "p50_ms": ms(self.percentile(0.50)),
-            "p95_ms": ms(self.percentile(0.95)),
-            "p99_ms": ms(self.percentile(0.99)),
-        }
+from ..telemetry.registry import _BOUNDS_US, LatencyHistogram
 
 
 class ServeMetrics:

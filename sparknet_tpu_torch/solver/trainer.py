@@ -90,18 +90,26 @@ def accumulate_grads(grad_fn, params, state, micro_batches, generator):
     return grads, state, {k: v / n for k, v in metrics.items()}
 
 
-def make_train_step(net: TorchNet, sp: caffe_pb.SolverParameter) -> Callable:
+def make_train_step(net: TorchNet, sp: caffe_pb.SolverParameter,
+                    batch_transform: Optional[Callable] = None) -> Callable:
     """``train_step(params, state, opt_state, batch, it, generator) ->
     (params, state, opt_state, metrics)``.
 
     With ``sp.iter_size > 1``, ``batch`` is a list of that many
     micro-batches (the JAX package stacks them on a leading axis).
-    Params and slots are updated in place and returned."""
+    Params and slots are updated in place and returned.
+
+    ``batch_transform`` (e.g. ``Transformer.device_fn()``) runs on the
+    device batch before the net sees it, on each micro-batch in turn
+    where the JAX package vmaps it over the stack."""
     grad_fn = make_grad_fn(net)
     update = None
 
     def train_step(params, state, opt_state, batch, it, generator):
         nonlocal update
+        if batch_transform is not None:
+            batch = ([batch_transform(m) for m in batch] if sp.iter_size > 1
+                     else batch_transform(batch))
         if sp.iter_size > 1:
             grads, new_state, metrics = accumulate_grads(
                 grad_fn, params, state, batch, generator)
@@ -146,8 +154,13 @@ class Solver:
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
         model: Any = None,
+        batch_transform: Optional[Callable] = None,
     ):
-        """``model``: any object with the net protocol
+        """``batch_transform``: see :func:`make_train_step` (device-side
+        augmentation; the train feed then yields the raw batch and its
+        plan, which reach the device uncast).
+
+        ``model``: any object with the net protocol
         (``init/apply/loss_and_metrics/param_specs/input_names/
         blob_shapes`` and a ``device``), e.g.
         :class:`~sparknet_tpu_torch.models.bert.BertMLM`, used for both
@@ -157,6 +170,7 @@ class Solver:
         ``ValueError``, as does a model on another device."""
         self.sp = solver
         self.device = resolve_device(device)
+        self.batch_transform = batch_transform
         if model is not None:
             if net_param is not None or test_input_shapes is not None:
                 raise ValueError(
@@ -207,24 +221,27 @@ class Solver:
         self.stop_requested = False
         # average_loss display smoothing
         self._loss_window = deque(maxlen=max(1, solver.average_loss))
-        self._train_step = make_train_step(self.train_net, solver)
+        self._train_step = make_train_step(self.train_net, solver, self.batch_transform)
         self._eval_step = make_eval_step(self.test_net)
 
     # ------------------------------------------------------------------
-    def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One host batch on the solver's device. ``label`` stays int32 or
-        int64 (other dtypes become int64); any other int32 or int64 blob
-        (token ids, positions, masks) stays as it is; everything else
-        (NHWC data, weights) becomes f32. Idempotent on device tensors."""
+    def _put_batch(self, batch: Dict[str, Any], cast: bool = True) -> Dict[str, torch.Tensor]:
+        """One host batch on the solver's device, uploaded in its own
+        dtypes and cast there (``cast``): ``label`` stays int32 or int64
+        (other dtypes become int64); any other int32 or int64 blob (token
+        ids, positions, masks) stays as it is; everything else (NHWC
+        data, weights) becomes f32. ``cast=False`` leaves every dtype (a
+        ``batch_transform``'s raw batch and plan). Idempotent on device
+        tensors."""
         out = {}
         for name, v in batch.items():
-            t = torch.as_tensor(v)
-            if name == "label":
+            t = torch.as_tensor(v).contiguous().to(self.device)
+            if cast and name == "label":
                 if t.dtype not in (torch.int32, torch.int64):
                     t = t.to(torch.int64)
-            elif t.dtype not in (torch.int32, torch.int64, torch.float32):
+            elif cast and t.dtype not in (torch.int32, torch.int64, torch.float32):
                 t = t.to(torch.float32)
-            out[name] = t.contiguous().to(self.device)
+            out[name] = t
         return out
 
     def sync(self) -> None:
@@ -242,10 +259,12 @@ class Solver:
         for _ in range(n):
             if self.stop_requested:
                 break
+            cast = self.batch_transform is None
             if self.sp.iter_size > 1:
-                batch = [self._put_batch(next(batches)) for _ in range(self.sp.iter_size)]
+                batch = [self._put_batch(next(batches), cast)
+                         for _ in range(self.sp.iter_size)]
             else:
-                batch = self._put_batch(next(batches))
+                batch = self._put_batch(next(batches), cast)
             self.params, self.state, self.opt_state, metrics = self._train_step(
                 self.params, self.state, self.opt_state, batch, self.iter, self.rng)
             self.iter += 1

@@ -123,13 +123,13 @@ def test_prefetch_preserves_order_and_relays_errors():
         raise KeyError("boom")
 
     got = []
-    it = prefetch_to_device(source(), size=2, put=lambda x: x * 10)
+    it = prefetch_to_device(source(), size=2)
     with pytest.raises(KeyError, match="boom"):
         for x in it:
             got.append(x)
-    assert got == [0, 10, 20, 30, 40]
-    assert list(prefetch_to_device(iter(range(3)), size=0, put=lambda x: -x)) == [0, -1, -2]
-    closed = prefetch_to_device(iter(range(100)), size=2, put=lambda x: x)
+    assert got == [0, 1, 2, 3, 4]
+    assert list(prefetch_to_device(iter(range(3)), size=0)) == [0, 1, 2]
+    closed = prefetch_to_device(iter(range(100)), size=2)
     assert next(closed) == 0
     closed.close()  # stops the worker
 

@@ -72,7 +72,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
                  "ops.attention", "data.text", "data.prefetch", "data.cifar",
                  "proto.wire", "proto.caffemodel", "parallel.mesh", "parallel.comm",
                  "parallel.local_sgd", "parallel.data_parallel",
-                 "parallel.tau_controller", "parallel.trainer"):
+                 "parallel.tau_controller", "parallel.trainer", "data.pipeline",
+                 "data.records", "data.cache", "native", "utils.safeio",
+                 "telemetry.registry", "tools.pack_records"):
         assert f"sparknet_tpu_torch.{name}" in out["modules"], name
     leaked = [m for m in out["loaded"] if _of_jax(m)]
     assert not leaked, leaked

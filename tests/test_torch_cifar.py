@@ -219,9 +219,10 @@ def _jax_args(solver, **over):
 
 
 def _port_args(solver, *extra):
+    # the serial Python feed, as _jax_args asks of the JAX app
     return cifar_app.arg_parser().parse_args(
         ["--solver", solver, "--synthetic", "--synthetic-n", "1000", "--device", "cpu",
-         *extra])
+         "--native-loader", "off", "--data-workers", "0", *extra])
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -331,14 +332,9 @@ def test_a_shrunk_test_batch_must_divide_by_the_workers(capsys):
 
 UNPORTED_ARGV = {
     "layout": ["--layout", "dp=2"],
-    "data-workers": ["--data-workers", "2"],
-    "native-loader": ["--native-loader", "on"],
-    "data-format": ["--data-format", "packed"],
-    "data-cache": ["--data-cache"],
     "weights": ["--weights", "w.caffemodel"],
     "auto-resume": ["--auto-resume"],
     "snapshot-format": ["--snapshot-format", "orbax"],
-    "prefetch": ["--prefetch", "2"],
     "trace": ["--trace", "t.json"],
     "profile-dir": ["--profile-dir", "p"],
     "chaos": ["--chaos", "x@batch=1"],

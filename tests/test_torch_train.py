@@ -308,12 +308,10 @@ def test_imagenet_app_trains_full_width_alexnet_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--parallel", "sync", "--layout", "dp=1"], "--layout"),
-    (["--native-loader", "on"], "--native-loader"),
-    (["--data-workers", "2"], "--data-workers"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
     (["--arch", "resnet50"], "BatchNorm"),
     (["--arch", "googlenet"], "Concat"),
-], ids=["parallel", "native-loader", "data-workers", "orbax", "resnet50", "googlenet"])
+], ids=["parallel", "orbax", "resnet50", "googlenet"])
 def test_imagenet_app_refuses_what_it_does_not_port(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         imagenet_app.main(argv + ["--device", "cpu", "--synthetic"])
