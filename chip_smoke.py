@@ -32,7 +32,11 @@ own lines:
    the same inputs and timed by single calls, back to back and by
    ``torch.profiler``, beside its memory/compute bound (its share by
    single calls and by device time), the plain version and a one-call
-   PyTorch yardstick;
+   PyTorch yardstick; and all three at GoogLeNet's shapes (norm1 56x56
+   x 64, norm2 56x56 x 192, its train batch of 32 and test batch of 50,
+   f32 and bf16), held against their plain versions on the quad route
+   (in the cases above) and timed by single calls and by the profiler's
+   device time beside their byte bounds;
 4. flash-kernels: each of the three flash-attention kernels (forward:
    o and lse; dq; dk/dv) held against its plain PyTorch version on the
    card over 15 cases, f32 and bf16 (one at the BertApp run's shapes,
@@ -75,6 +79,14 @@ own lines:
    and every gradient tensor, held with cuDNN off on a batch where both
    take the same max-pool and ReLU branches everywhere (tolerances
    below). The card runs the two training kernels inside autograd;
+8a. googlenet-grads, resnet50-grads: one training step of full-width
+   GoogLeNet and ResNet-50 (the port's fillers from seed 0, ResNet-50's
+   residual branches' last Scale at 0.2; no Dropout) at batch 8 on the
+   card (cuDNN on, the path the app trains on) against the same step on
+   the CPU: every blob, the loss, the new BatchNorm state and every
+   gradient (tolerances below); the ReLU units and max-pool windows that
+   took another branch are counted; GoogLeNet's card step launches each
+   training LRN kernel twice;
 9. train: ``ImageNetApp`` through ``main([...])``: ``--arch alexnet
    --synthetic`` at the prototxt's batch of 256, 227 crop, 1000 classes,
    f32, 20 iterations (test_iter 2 at test_interval 20, display 5; the
@@ -86,6 +98,19 @@ own lines:
    ms per step by CUDA events, images/s, peak device memory, then
    ``torch.profiler`` over 3 steps: device time by kernel, the LRN
    kernels' share and the device's idle share;
+10a. googlenet, resnet50, vgg16: ``ImageNetApp`` through ``main([...])``
+   with ``--arch`` each at its prototxt's batch (32, 32, 64; test 50,
+   25, 50), f32, 20 iterations of its zoo solver (cut from 2.4 M, 450 k
+   and 370 k; test_iter 2, display 5, a snapshot at the end) on the
+   512-image synthetic set through the app's default feed. The test
+   outputs' loss heads must be finite (the display line reads a top
+   named ``loss``, as the JAX app's does, and these nets have none);
+   images/s from the last ``speed:`` line; GoogLeNet launches each
+   training LRN kernel twice an iteration and the inference kernel twice
+   a test batch, the others none; the solverstate reloads with finite
+   params and, for ResNet-50, 53 finite BatchNorm states with var >= 0.
+   Then the resident step, f32 and ``--bf16``: ms by CUDA events, images/s,
+   peak device memory, and ``torch.profiler``'s idle share and launches;
 11. bert-grads: one training step of full-width BERT-base (random
    weights from seed 0, no hidden dropout, attention dropout 0.1 with
    the same seeds on both devices) at batch 2 x 128 on the card against
@@ -171,8 +196,8 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving, train, alexnet-local and feed
-for LRN, bert-train for flash).
+counts the main paths' runs (serving, train, alexnet-local, feed and
+googlenet for LRN, bert-train for flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
@@ -212,6 +237,14 @@ indices must be equal, except that two classes whose CPU probabilities
 differ by less than 1e-5 relative may trade places (f32 convolutions
 sum in another order on the card; TF32 is switched off for both convs
 and matmuls, so those differences stay near f32 rounding).
+
+GoogLeNet and ResNet-50 card vs CPU (batch 8, cuDNN on): every blob and
+the BatchNorm state within 1e-4 relative L2 and the loss within 1e-5,
+AlexNet's limits; a branch that flips leaves forward values as they
+were. No batch takes the same branch at every unit of 57-61 full-width
+ReLU layers on both devices, so each flip sends a gradient elsewhere,
+and the gradients are held per tensor within 1e-2 relative L2
+(ZOO_GRAD_TOL; the measured worst on an H100 is in PERF.md).
 
 The parallel phases: f32 convolutions reduce in another order on the
 card than on the CPU, and on a batch of 25 than of 100, and cuDNN's
@@ -255,7 +288,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -275,6 +310,19 @@ ALEXNET_LRN = (("norm1", 55 * 55, 96), ("norm2", 27 * 27, 256))
 LRN_GEOM = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)
 TRAIN_BATCH, TEST_BATCH = 256, 50  # the train_val prototxt's data layers
 TRAIN_ITERS = 20
+
+# ImageNetApp's other three nets, each at its train_val prototxt's batch
+# (GoogLeNet 32 / test 50, ResNet-50 32 / 25, VGG-16 64 / 50), ZOO_ITERS
+# iterations cut from its solver's 2.4 M, 450 k and 370 k; GoogLeNet's
+# LRN layers per row of the batch (pool1/norm1, conv2/norm2)
+ZOO_ARCHS = ("googlenet", "resnet50", "vgg16")
+ZOO_ITERS = 20
+GOOGLENET_LRN = (("norm1", 56 * 56, 64), ("norm2", 56 * 56, 192))
+GOOGLENET_BATCHES = (32, 50)  # train, test
+# the card-vs-CPU step of full-width GoogLeNet and ResNet-50 (beside
+# AlexNet's phase_grads); their limits are in the module docstring
+ZOO_GRADS_BATCH = 8
+ZOO_LOSS_TOL, ZOO_BLOB_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4, 1e-2
 
 # the parallel phases: CifarApp's run, tau-local SGD on cifar10_quick,
 # and AlexNet's local rounds
@@ -571,6 +619,11 @@ def lrn_cases():
         for b in (1, 8, 32, 128):
             for name, hw, c in ALEXNET_LRN:
                 cases.append((f"{name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt, "", QUAD))
+        # GoogLeNet's: its train and test batches
+        for b in GOOGLENET_BATCHES:
+            for name, hw, c in GOOGLENET_LRN:
+                cases.append((f"googlenet {name} B={b}", b * hw, c, 5, 1e-4, 0.75, 1.0, dt,
+                              "", QUAD))
         cases += [
             ("ragged M=1003", 1003, 96, 5, 0.5, 0.75, 2.0, dt, "", QUAD),
             ("even size 4", 4096, 96, 4, 0.5, 0.75, 1.0, dt, "", QUAD),
@@ -676,7 +729,54 @@ def phase_kernels():
     timing["lrn_fwd_train"], timing["lrn_bwd"] = _time_training(gen)
     for n in names:
         timing[n]["max_abs_err"] = max(worst[(n, "float32")], timing[n]["err"])
+    _time_googlenet_lrn(gen)
     return timing
+
+
+def _time_googlenet_lrn(gen):
+    """The three LRN kernels at GoogLeNet's shapes (norm1 56x56 x 64,
+    norm2 56x56 x 192, batches 32 and 50, f32 and bf16), each by single
+    calls and by the profiler's device time beside its byte bound; each
+    must take the quad route (the plain-version checks are lrn_cases')."""
+    import torch
+
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+
+    p = LRN_GEOM
+    for dt in (torch.float32, torch.bfloat16):
+        e = torch.tensor([], dtype=dt).element_size()
+        for n in GOOGLENET_BATCHES:
+            for name, hw, c in GOOGLENET_LRN:
+                m = n * hw
+                x = torch.relu(10 * torch.randn(m, c, generator=gen, device="cuda")).to(dt)
+                g = torch.randn(m, c, generator=gen, device="cuda").to(dt)
+                _, d = lrn_rows_train(x, p["size"], p["alpha"], p["beta"], p["k"])
+                calls = (
+                    # (kernel, wrapper, call, bytes: x/g/y/dx in dt, d in f32, ops)
+                    ("lrn_fwd", lrn_rows, lambda: lrn_rows(
+                        x, p["size"], p["alpha"], p["beta"], p["k"]), 2 * e, 2 * p["size"] + 6),
+                    ("lrn_fwd_train", lrn_rows_train, lambda: lrn_rows_train(
+                        x, p["size"], p["alpha"], p["beta"], p["k"]), 2 * e + 4,
+                     2 * p["size"] + 6),
+                    ("lrn_bwd", lrn_rows_bwd, lambda: lrn_rows_bwd(
+                        g, x, d, p["size"], p["alpha"], p["beta"]), 3 * e + 4,
+                     p["size"] + 10),
+                )
+                for kname, wrapper, call, per_elem, ops in calls:
+                    ms = _time_ms(call)
+                    dev = _device_ms(call, LRN_TAGS[kname])
+                    b = _bound(per_elem * m * c, ops * m * c)
+                    if wrapper.last_route != "quad":
+                        raise AssertionError(f"{kname} googlenet {name} B={n} "
+                                             f"{str(dt)[6:]}: route {wrapper.last_route}")
+                    log(f"  time {kname} googlenet {name} B={n} ({m}, {c}) {str(dt)[6:]}, "
+                        f"quad route: single calls {ms:.4f} ms, device time "
+                        f"(torch.profiler) {_fmt_ms(dev)}; bound {b['bound_ms']:.4f} ms "
+                        f"({'bytes' if b['bytes_ms'] >= b['ops_ms'] else 'operations'}: "
+                        f"{per_elem * m * c / 1e6:.1f} MB); share of bound "
+                        f"{100 * b['bound_ms'] / ms:.1f}% by single calls"
+                        + ("" if dev is None else
+                           f", {100 * b['bound_ms'] / dev:.1f}% by device time"))
 
 
 def _totals(rows):
@@ -1058,6 +1158,30 @@ def _alexnet_train_val(dropout: bool = True) -> str:
     return text if dropout else text.replace("dropout_ratio: 0.5", "dropout_ratio: 0")
 
 
+def _branch_flips(net, got, want):
+    """{layer: count} of the ReLU units and max-pool windows where two runs
+    of ``net`` took another branch, from their blobs (NHWC tensors by
+    name, on the CPU): a ReLU's top is its own bottom in the zoo nets, so
+    its sign tells the branch; a MAX pool's argmax is taken over its
+    bottom padded as ``layers.Pooling.apply`` pads it."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu_torch.nets import layers as L
+
+    out = {}
+    for lp in net.layers:
+        if lp.type == "ReLU":
+            k = lp.top[0]
+            out[lp.name] = int(((got[k] > 0) != (want[k] > 0)).sum())
+        elif lp.type == "Pooling" and str(lp.pooling_param.get("pool", "MAX")) == "MAX":
+            k, stride, pads, _ = L.Pooling.window(lp, want[lp.bottom[0]].shape)
+            idx = [F.max_pool2d(F.pad(blobs[lp.bottom[0]].permute(0, 3, 1, 2), pads,
+                                      value=float("-inf")), k, stride,
+                                return_indices=True)[1] for blobs in (got, want)]
+            out[lp.name] = int((idx[0] != idx[1]).sum())
+    return {k: v for k, v in out.items() if v}
+
+
 def phase_grads():
     """One training step at batch 8: the card's loss and gradients against
     the CPU's, same weights and batch, no Dropout.
@@ -1074,7 +1198,6 @@ def phase_grads():
     a run-dependent order."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from sparknet_tpu_torch.nets.torchnet import TorchNet
     from sparknet_tpu_torch.ops.lrn import lrn_rows_bwd, lrn_rows_train
@@ -1083,11 +1206,10 @@ def phase_grads():
     net_param = caffe_pb.load_net(_alexnet_train_val(dropout=False), is_path=False)
     n = 8
     shapes = {"data": (n, 227, 227, 3), "label": (n,)}
-    pools = ("norm1", "norm2", "conv5")  # the bottoms of pool1, pool2, pool5
-    relus = ("conv1", "conv2", "conv3", "conv4", "conv5", "fc6", "fc7")  # in place
+    net = TorchNet(net_param, "TRAIN", shapes, device="cpu")
 
     def step(dev, batch):
-        """(loss, grads, pool bottoms) of one step on ``dev``, on the CPU."""
+        """(loss, grads, blobs) of one step on ``dev``, on the CPU."""
         net = TorchNet(net_param, "TRAIN", shapes, device=dev)
         params, state = net.init(torch.Generator().manual_seed(0))
         leaves = {l: {k: t.detach().requires_grad_(True) for k, t in e.items()}
@@ -1100,18 +1222,7 @@ def phase_grads():
         grads = torch.autograd.grad(loss, [t for _, _, t in flat])
         return (float(loss.detach()),
                 {(l, k): g.cpu() for (l, k, _), g in zip(flat, grads)},
-                {b: blobs[b].detach().cpu() for b in set(pools) | set(relus)})
-
-    def flips(got, want):
-        """Windows and units where the two runs took another branch."""
-        out = {}
-        for blob in pools:
-            idx = [F.max_pool2d(r[2][blob].permute(0, 3, 1, 2), 3, 2,
-                                return_indices=True)[1] for r in (got, want)]
-            out[f"pool@{blob}"] = int((idx[0] != idx[1]).sum())
-        for blob in relus:
-            out[f"relu@{blob}"] = int(((got[2][blob] > 0) != (want[2][blob] > 0)).sum())
-        return {k: v for k, v in out.items() if v}
+                {k: v.detach().cpu() for k, v in blobs.items()})
 
     def compare(tag, got, want):
         rel_loss = abs(got[0] - want[0]) / abs(want[0])
@@ -1133,7 +1244,7 @@ def phase_grads():
         with torch.backends.cudnn.flags(enabled=False):
             card_gemm = step("cuda", batch)
         card_steps += 1
-        differ = flips(card_gemm, cpu)
+        differ = _branch_flips(net, card_gemm[2], cpu[2])
         log(f"  batch seed {seed}: max-pool windows and ReLU units on another branch, "
             f"card (cuDNN off) vs CPU: {differ or 'none'}")
         if not differ:
@@ -1227,23 +1338,177 @@ def _alexnet_resident(tmp):
 
 def phase_train_profile(tmp):
     """Solver.step on one device-resident batch of 256."""
+    solver, feed = _alexnet_resident(tmp)
+    return _profile_steps(solver, feed, f"batch {TRAIN_BATCH}, f32, resident batch",
+                          TRAIN_BATCH, "images",
+                          (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"]))
+
+
+# ---------------------------------------------- the other zoo nets
+def _zoo_train_val(arch):
+    from sparknet_tpu_torch import models
+
+    return {"googlenet": models.GOOGLENET_TRAIN_VAL, "resnet50": models.RESNET50_TRAIN_VAL,
+            "vgg16": models.VGG16_TRAIN_VAL}[arch]
+
+
+def _zoo_weights(net):
+    """The port's filler weights from seed 0, with the last Scale of each
+    ResNet-50 residual branch at 0.2 of its filler's 1 (the zero-gamma
+    init of Goyal et al. 2017): at 1, a random BatchNorm net amplifies a
+    rounding difference ~1.2x a layer, which no tolerance between two
+    devices survives (tests/test_torch_zoo_nets.py)."""
+    import torch
+
+    params, state = net.init(torch.Generator().manual_seed(0))
+    for layer, entry in params.items():
+        if layer.startswith("scale_") and layer.endswith("_branch2c"):
+            entry["weight"].mul_(0.2)
+    return params, state
+
+
+def _rel(got, want):
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double()
+    return float(torch.linalg.vector_norm(got - want) /
+                 torch.linalg.vector_norm(want).clamp(min=1e-30))
+
+
+def phase_zoo_grads(arch):
+    """One training step of full-width ``arch`` at batch 8, card against
+    CPU: the same weights (``_zoo_weights``), batch and initial state, no
+    Dropout, cuDNN on (the path the app trains on). Every blob, the
+    loss, the new BatchNorm state and every gradient, by relative L2.
+
+    Unlike AlexNet's phase_grads, no batch is sought on which both
+    devices take the same branches: with 57-61 ReLU layers at full width,
+    some unit lies within rounding of 0 on every batch, so some gradients
+    move by a flipped unit's share; the ReLU units and max-pool windows
+    on another branch are counted and printed. A flip leaves the forward
+    values as they were, so blobs, loss and state are held at AlexNet's
+    limits (relative L2 1e-4, loss 1e-5); gradients at ZOO_GRAD_TOL."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.nets.torchnet import TorchNet
+    from sparknet_tpu_torch.ops.lrn import lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    text = open(_zoo_train_val(arch)).read()
+    net_param = caffe_pb.load_net(re.sub(r"dropout_ratio: [\d.]+", "dropout_ratio: 0", text),
+                                  is_path=False)
+    n = ZOO_GRADS_BATCH
+    shapes = {"data": (n, 224, 224, 3), "label": (n,)}
+    params, state = _zoo_weights(TorchNet(net_param, "TRAIN", shapes, device="cpu"))
+    rng = np.random.default_rng(0)
+    batch = {"data": torch.from_numpy(rng.normal(0, 50, shapes["data"]).astype(np.float32)),
+             "label": torch.from_numpy(rng.integers(0, 1000, n).astype(np.int32))}
+
+    def step(dev):
+        net = TorchNet(net_param, "TRAIN", shapes, device=dev)
+        leaves = {l: {k: t.to(dev).requires_grad_(True) for k, t in e.items()}
+                  for l, e in params.items()}
+        st = {l: {k: t.to(dev) for k, t in e.items()} for l, e in state.items()}
+        blobs, new_state = net.apply(leaves, st, {k: v.to(dev) for k, v in batch.items()},
+                                     train=True)
+        loss, _ = net.loss_and_metrics(blobs)
+        flat = [(l, k, t) for l, e in leaves.items() for k, t in e.items()]
+        grads = torch.autograd.grad(loss, [t for *_, t in flat])
+        return (net, float(loss.detach()), {k: v.detach().cpu() for k, v in blobs.items()},
+                {l: {k: t.cpu() for k, t in e.items()} for l, e in new_state.items()},
+                {(l, k): g.cpu() for (l, k, _), g in zip(flat, grads)})
+
+    t0 = time.perf_counter()
+    net, loss_cpu, blobs_cpu, state_cpu, grads_cpu = step("cpu")
+    t1 = time.perf_counter()
+    before = (lrn_rows_train.launches, lrn_rows_bwd.launches)
+    _, loss_gpu, blobs_gpu, state_gpu, grads_gpu = step("cuda")
+    torch.cuda.synchronize()
+    launched = (lrn_rows_train.launches - before[0], lrn_rows_bwd.launches - before[1])
+    log(f"  {arch} batch {n}: CPU step {t1 - t0:.1f} s; card step "
+        f"{time.perf_counter() - t1:.1f} s (first call)")
+
+    flipped = _branch_flips(net, blobs_gpu, blobs_cpu)
+    checked = sum(lp.type in ("ReLU", "Pooling") for lp in net.layers)
+    log(f"  ReLU units and max-pool windows on another branch, card vs CPU: "
+        f"{sum(flipped.values())} in {len(flipped)} of {checked} ReLU and pooling layers "
+        f"{dict(list(flipped.items())[:8])}{' ...' if len(flipped) > 8 else ''}")
+
+    rel_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    blob_errs = {k: _rel(blobs_gpu[k], v) for k, v in blobs_cpu.items() if v.dim()}
+    state_errs = {(l, k): _rel(state_gpu[l][k], t) for l, e in state_cpu.items()
+                  for k, t in e.items()}
+    grad_errs = {key: _rel(grads_gpu[key], g) for key, g in grads_cpu.items()}
+
+    def worst(errs):
+        key = max(errs, key=errs.get)
+        return errs[key], key
+
+    wb, wg = worst(blob_errs), worst(grad_errs)
+    ws = worst(state_errs) if state_errs else (0.0, None)
+    grad_sorted = sorted(grad_errs.values())
+    log(f"  loss {loss_gpu:.7f} card vs {loss_cpu:.7f} CPU: relative error {rel_loss:.2e} "
+        f"[<= {ZOO_LOSS_TOL:g}]")
+    log(f"  blobs: worst relative L2 {wb[0]:.2e} ({wb[1]}) over {len(blob_errs)} "
+        f"[<= {ZOO_BLOB_TOL:g}]; BatchNorm state: worst {ws[0]:.2e} ({ws[1]}) over "
+        f"{len(state_errs)} [<= {ZOO_BLOB_TOL:g}]")
+    log(f"  gradients: relative L2 median {grad_sorted[len(grad_sorted) // 2]:.2e}, 90th "
+        f"percentile {grad_sorted[int(0.9 * len(grad_sorted))]:.2e}, worst {wg[0]:.2e} "
+        f"({wg[1][0]}.{wg[1][1]}) over {len(grad_errs)} tensors [<= {ZOO_GRAD_TOL:g}]")
+    for (l, k), e in sorted(grad_errs.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {l}.{k} {e:.2e}")
+    if arch == "googlenet":
+        log(f"  training LRN kernels launched by the card step: forward {launched[0]}, "
+            f"backward {launched[1]} (want 2 each)")
+        if launched != (2, 2):
+            raise AssertionError(f"training LRN launches {launched}")
+    bad = [f"{k}: {e:.2e}" for k, e in blob_errs.items() if e > ZOO_BLOB_TOL]
+    bad += [f"state {k}: {e:.2e}" for k, e in state_errs.items() if e > ZOO_BLOB_TOL]
+    bad += [f"grad {k}: {e:.2e}" for k, e in grad_errs.items() if e > ZOO_GRAD_TOL]
+    if rel_loss > ZOO_LOSS_TOL or bad:
+        raise AssertionError(f"{arch} card vs CPU step: loss rel {rel_loss:.2e}; {bad[:20]}")
+    return {"loss": rel_loss, "blob": wb[0], "state": ws[0], "grad": wg[0],
+            "flips": sum(flipped.values())}
+
+
+def _zoo_solver_file(tmp, arch):
+    """``arch``'s zoo solver (its rate, policy, momentum and decay) cut to
+    ZOO_ITERS iterations, test_iter 2 at the end (and before the loop
+    unless the solver says ``test_initialization: false``), display 5, a
+    snapshot at the end under ``tmp``; its net the port's train_val."""
+    from sparknet_tpu_torch.apps.imagenet_app import ARCH_SOLVERS, ZOO
+
+    text = open(os.path.join(ZOO, ARCH_SOLVERS[arch])).read()
+    text = re.sub(r"(?m)^\s*test_iter:.*$", "", text)  # repeated: would accumulate
+    path = os.path.join(tmp, f"{arch}_smoke_solver.prototxt")
+    with open(path, "w") as f:
+        # singular fields: the last one wins
+        f.write(text + f'\nnet: "{_zoo_train_val(arch)}"\ntest_iter: 2\n'
+                f"test_interval: {ZOO_ITERS}\ndisplay: 5\nmax_iter: {ZOO_ITERS}\n"
+                f'snapshot: {ZOO_ITERS}\nsnapshot_prefix: "{os.path.join(tmp, arch)}"\n')
+    return path
+
+
+def _profile_steps(solver, feed, label, items, unit, tags=()):
+    """Solver.step on a device-resident batch of ``items`` ``unit`` (images
+    or tokens): ms per step by CUDA events (10 steps after 3 to warm:
+    library algorithm choice, allocator), peak device memory, then 3
+    steps under ``torch.profiler``: the card's busy time against the wall
+    time (its idle share), the launches, and the device time of the
+    kernels whose names hold ``tags``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    solver, feed = _alexnet_resident(tmp)
-    solver.step(feed, 3)  # warm: cuDNN algorithm choice, allocator
+    solver.step(feed, 3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reps = 10
-    ms, wall_ms = _step_ms(solver, feed, reps)
+    ms, wall_ms = _step_ms(solver, feed, 10)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  batch {TRAIN_BATCH}, f32, resident batch: {ms:.3f} ms per step (CUDA events, "
-        f"{reps} steps; host clock {wall_ms:.3f} ms), {TRAIN_BATCH / ms * 1e3:.1f} images/s, "
-        f"peak device memory {peak:.2f} GiB")
     steps = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.step(feed, steps)
+        metrics = solver.step(feed, steps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
     kernels = [e for e in prof.key_averages()
@@ -1253,21 +1518,106 @@ def phase_train_profile(tmp):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
-    total = sum(dev_us(e) for e in kernels) / steps
-    if not total:
+    busy = sum(dev_us(e) for e in kernels) / steps
+    out = {"ms": ms, "rate": items / ms * 1e3, "peak_gib": peak,
+           "idle": None if not busy else 1 - busy / wall,
+           "launches": sum(e.count for e in kernels) // steps}
+    log(f"  {label}: {ms:.3f} ms per step (CUDA events, 10 steps; host clock {wall_ms:.3f} "
+        f"ms), {out['rate']:.1f} {unit}/s, peak device memory {peak:.2f} GiB")
+    bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+    if not busy:
         log("  device time by kernel: not measured (the profiler saw no device events)")
-        return {"ms": ms}
-    lrn = {tag: sum(dev_us(e) for e in kernels if tag in e.key) / steps
-           for tag in (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"])}
-    lrn_all = sum(lrn.values())
-    log(f"  profiled: device busy {total / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms "
-        f"wall (idle share {100 * (1 - total / wall):.1f}%); LRN kernels "
-        f"{lrn_all / 1e3:.4f} ms = {100 * lrn_all / total:.2f}% of device time "
-        f"(forward {lrn[LRN_TAGS['lrn_fwd_train']] / 1e3:.4f} ms, backward "
-        f"{lrn[LRN_TAGS['lrn_bwd']] / 1e3:.4f} ms)")
+        return out
+    tagged = {t: sum(dev_us(e) for e in kernels if t in e.key) / steps for t in tags}
+    log(f"  profiled: device busy {busy / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms wall "
+        f"(idle share {100 * out['idle']:.1f}%), {out['launches']} kernel launches a step"
+        + "".join(f"; {t} {v / 1e3:.4f} ms = {100 * v / busy:.2f}%" for t, v in tagged.items()))
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
-        log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:3d}x  {e.key[:90]}")
-    return {"ms": ms}
+        log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:4d}x  {e.key[:90]}")
+    return out
+
+
+def phase_zoo_train(arch, tmp):
+    """ImageNetApp ``main`` on ``arch`` at its prototxt's batch on the card
+    (ZOO_ITERS iterations, the app's default feed), the solverstate
+    reloaded; then the resident step, f32 and ``--bf16``."""
+    import contextlib
+    import io
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.proto import caffe_pb
+    from sparknet_tpu_torch.solver import snapshot
+
+    solver_file = _zoo_solver_file(tmp, arch)
+    argv = ["--arch", arch, "--synthetic", "--synthetic-n", "512", "--solver", solver_file,
+            "--device", "cuda"]
+    log(f"  imagenet_app.main({argv})")
+    buf = io.StringIO()
+    lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+    with contextlib.redirect_stdout(buf):
+        imagenet_app.main(argv)
+    counts = (lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    # the display line reads a top named "loss", as the JAX app's does;
+    # these nets name theirs loss1/loss ... or loss/loss, so it prints nan
+    # (ROADMAP C): the loss heads are read from the test outputs
+    tests = re.findall(r"Test net output: (\S+) = (\S+)", out)
+    heads = 3 if arch == "googlenet" else 1
+    sp = caffe_pb.load_solver(solver_file)
+    passes = 1 + int(sp.test_initialization)
+    losses = [float(v) for k, v in tests if k.endswith("/loss")]
+    if len(losses) != heads * passes or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"test losses {losses}, want {heads * passes} finite")
+    speed = re.findall(r"speed: steps/s=(\S+) images/s=(\S+)", out)
+    log(f"  test loss heads {losses}; last speed: line {speed[-1][1]} images/s "
+        f"({speed[-1][0]} steps/s)")
+    want = ((2 * 2 * passes, 2 * ZOO_ITERS, 2 * ZOO_ITERS) if arch == "googlenet"
+            else (0, 0, 0))
+    log(f"  LRN launches: inference {counts[0]}, training forward {counts[1]}, backward "
+        f"{counts[2]} (want {want}: 2 a test batch, 2 and 2 an iteration)")
+    if counts != want:
+        raise AssertionError(f"LRN launches {counts}, want {want}")
+    st = snapshot.load_state(os.path.join(tmp, f"{arch}_iter_{ZOO_ITERS}.solverstate.npz"))
+    bad = [f"{l}.{k}" for l, e in st["params"].items() for k, a in e.items()
+           if not np.all(np.isfinite(a))]
+    bad += [f"state {l}.{k}" for l, e in st["state"].items() for k, a in e.items()
+            if not np.all(np.isfinite(a)) or (k == "var" and np.any(a < 0))]
+    n_bn = 53 if arch == "resnet50" else 0
+    if st["it"] != ZOO_ITERS or len(st["state"]) != n_bn or bad:
+        raise AssertionError(f"solverstate: iter {st['it']}, {len(st['state'])} states "
+                             f"(want {n_bn}), not finite or var < 0: {bad[:10]}")
+    log(f"  solverstate reloaded at iter {st['it']}: params finite, {n_bn} BatchNorm states "
+        f"finite with var >= 0")
+    for name in os.listdir(tmp):
+        if name.startswith(f"{arch}_iter_"):
+            os.unlink(os.path.join(tmp, name))
+
+    result = {"launches": counts, "app_images_s": float(speed[-1][1])}
+    tags = (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"]) if arch == "googlenet" else ()
+    for bf16 in (False, True):
+        torch.cuda.empty_cache()
+        args = imagenet_app.make_args(arch=arch, synthetic=True, synthetic_n=512,
+                                      solver=solver_file, device="cuda", bf16=bf16)
+        solver, train_feed, _ = imagenet_app.build(args)
+        feed = itertools.repeat(solver._put_batch(next(train_feed)))
+        bs = solver.train_net.blob_shapes["data"][0]
+        label = f"{arch} batch {bs}, {'bf16' if bf16 else 'f32'}, resident batch"
+        result["bf16" if bf16 else "f32"] = _profile_steps(solver, feed, label, bs, "images",
+                                                           tags)
+        close = getattr(train_feed, "close", None)
+        if close is not None:
+            close()
+        del solver, feed, train_feed
+    return result
 
 
 # ------------------------------------------------------- flash kernels
@@ -1799,49 +2149,10 @@ def _step_ms(solver, feed, reps=10):
 
 def phase_bert_profile():
     """Solver.step of BERT-base on one device-resident batch of 32 x 128."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     solver, feed = _bert_resident()
-    solver.step(feed, 3)  # warm: allocator, library handles
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reps = 10
-    ms, wall_ms = _step_ms(solver, feed, reps)
-    tokens = BERT_BATCH * BERT_SEQ
-    log(f"  BERT-base batch {BERT_BATCH} x {BERT_SEQ}, f32, resident batch: {ms:.3f} ms per "
-        f"step (CUDA events, {reps} steps; host clock {wall_ms:.3f} ms), "
-        f"{tokens / ms * 1e3:.0f} tokens/s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    steps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.step(feed, steps)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    total = sum(dev_us(e) for e in kernels) / steps
-    if not total:
-        log("  device time by kernel: not measured (the profiler saw no device events)")
-        return {"ms": ms}
-    flash = {tag: sum(dev_us(e) for e in kernels if tag in e.key) / steps
-             for tag in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-    flash_all = sum(flash.values())
-    log(f"  profiled: device busy {total / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms wall "
-        f"(idle share {100 * (1 - total / wall):.1f}%); flash kernels "
-        f"{flash_all / 1e3:.3f} ms = {100 * flash_all / total:.2f}% of device time "
-        f"(forward {flash['flash_fwd_kernel'] / 1e3:.3f}, dq "
-        f"{flash['flash_bwd_dq_kernel'] / 1e3:.3f}, dk/dv "
-        f"{flash['flash_bwd_dkv_kernel'] / 1e3:.3f} ms)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
-        log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:4d}x  {e.key[:90]}")
-    return {"ms": ms}
+    return _profile_steps(solver, feed, f"BERT-base batch {BERT_BATCH} x {BERT_SEQ}, f32, "
+                          f"resident batch", BERT_BATCH * BERT_SEQ, "tokens",
+                          tuple(FLASH_TAGS.values()))
 
 
 # ------------------------------------------------- parallel training
@@ -2798,16 +3109,20 @@ def main(argv=None) -> int:
     built = phases.run("build", phase_build)
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
-    serving = train = bert = local = feed = resident = None
+    serving = train = bert = local = feed = resident = zoo = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
             phases.run("profile", phase_profile, serving)
             phases.run("load", phase_load, serving)
         phases.run("grads", phase_grads)
+        for arch in ("googlenet", "resnet50"):
+            phases.run(f"{arch}-grads", phase_zoo_grads, arch)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             train = phases.run("train", phase_train, tmp)
             resident = phases.run("train-profile", phase_train_profile, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+            zoo = {arch: phases.run(arch, phase_zoo_train, arch, tmp) for arch in ZOO_ARCHS}
         phases.run("bert-grads", phase_bert_grads)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
             bert = phases.run("bert-train", phase_bert_train, tmp)
@@ -2823,11 +3138,11 @@ def main(argv=None) -> int:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
     timing.update(flash)
+    paths = (train, local, feed, zoo["googlenet"])
     launches = {
-        "lrn_fwd": (serving["launches"] + train["launches"][0] + local["launches"][0]
-                    + feed["launches"][0]),
-        "lrn_fwd_train": train["launches"][1] + local["launches"][1] + feed["launches"][1],
-        "lrn_bwd": train["launches"][2] + local["launches"][2] + feed["launches"][2],
+        "lrn_fwd": serving["launches"] + sum(p["launches"][0] for p in paths),
+        "lrn_fwd_train": sum(p["launches"][1] for p in paths),
+        "lrn_bwd": sum(p["launches"][2] for p in paths),
         **bert,
     }
     replaces = {

@@ -19,10 +19,13 @@ the JAX app it refuses ``--native-loader on`` and ``--parallel`` other
 than none.
 
 The command line is the JAX app's, plus ``--device`` (default ``cuda``;
-without a card it raises unless given ``--device cpu``). ``--arch
-alexnet`` is the one architecture whose prototxts the port ships. Each
-flag this port does not take yet raises ``NotImplementedError`` naming
-it when set to a value the port does not take (``_UNPORTED``).
+without a card it raises unless given ``--device cpu``). ``--arch``
+takes the JAX app's four zoo nets, each from the port's own copies of
+its train_val and solver prototxts: alexnet, googlenet (three loss
+heads, LRN, Concat), resnet50 (BatchNorm with its running statistics as
+net state, Scale, Eltwise) and vgg16. Each flag this port does not take
+yet raises ``NotImplementedError`` naming it when set to a value the
+port does not take (``_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -63,13 +66,6 @@ ARCH_SOLVERS = {
     "googlenet": "bvlc_googlenet_quick_solver.prototxt",
     "resnet50": "resnet50_solver.prototxt",
     "vgg16": "vgg16_solver.prototxt",
-}
-
-# what each other architecture's train_val net needs beyond the port
-_ARCH_MISSING = {
-    "googlenet": "its prototxts and the layer type Concat",
-    "resnet50": "its prototxts and the layer types BatchNorm, Scale, Eltwise",
-    "vgg16": "its prototxts (its layer types are all ported)",
 }
 
 # flag -> the values the port takes; any other raises
@@ -114,20 +110,11 @@ def make_args(**overrides) -> argparse.Namespace:
     return args
 
 
-def _check_ported(args) -> None:
-    check_ported(args, _UNPORTED)
-    if args.solver is None and args.arch != "alexnet":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the port ships only bvlc_alexnet's prototxts; "
-            f"{args.arch} also needs {_ARCH_MISSING[args.arch]}"
-        )
-
-
 def build(args, workers=None):
     """(solver, train_feed, test_feed) for parsed ``args``; ``workers``
     (devices, may repeat) overrides the parallel solver's default of one
     worker per visible device."""
-    _check_ported(args)
+    check_ported(args, _UNPORTED)
     solver_path = args.solver or os.path.join(ZOO, ARCH_SOLVERS[args.arch])
     sp = caffe_pb.load_solver(solver_path)
     solver_dir = os.path.dirname(os.path.abspath(solver_path))
@@ -195,7 +182,7 @@ def parser() -> argparse.ArgumentParser:
         description="ImageNet training (ImageNetApp), PyTorch/CUDA port. Flags "
                     "marked 'not ported' raise when set to a non-default value.")
     ap.add_argument("--arch", choices=sorted(ARCH_SOLVERS), default="alexnet",
-                    help="zoo architecture; the port ships alexnet's prototxts only")
+                    help="zoo architecture (its solver and train_val prototxts)")
     ap.add_argument("--solver", default=None,
                     help="explicit solver prototxt (overrides --arch)")
     ap.add_argument("--device", default="cuda",

@@ -1,10 +1,11 @@
 """Caffe layer semantics in PyTorch — the port's layer library.
 
-Counterpart of ``sparknet_tpu/nets/layers.py`` for the layers the
-AlexNet deploy and train_val nets use: Input/Data, Convolution, Pooling,
-ReLU, LRN, InnerProduct, Dropout, Softmax, SoftmaxWithLoss and
-Accuracy, plus Caffe's weight fillers. Any other type raises
-``NotImplementedError`` naming the layer (:func:`impl_for`).
+Counterpart of ``sparknet_tpu/nets/layers.py`` for the layers the zoo's
+image nets (AlexNet, GoogLeNet, ResNet-50, VGG-16) use: Input/Data,
+Convolution, Pooling, ReLU, LRN, InnerProduct, Dropout, Softmax,
+SoftmaxWithLoss, Accuracy, Concat, Eltwise, Scale and BatchNorm, plus
+Caffe's weight fillers. Any other type raises ``NotImplementedError``
+naming the layer (:func:`impl_for`).
 
 The contract is the JAX package's, so blobs compare one to one:
 
@@ -24,7 +25,11 @@ The contract is the JAX package's, so blobs compare one to one:
 
 Each layer type is a namespace of three functions: ``infer`` (shape
 inference on NHWC shapes), ``init`` (fillers, drawn from a
-``torch.Generator``) and ``apply``.
+``torch.Generator``) and ``apply(lp, params, inputs, ctx) -> outputs``.
+A layer with net state (BatchNorm's running mean and variance) also has
+``init_state(lp, in_shapes)``, and its ``apply`` takes the layer's state
+after ``ctx`` and returns ``(outputs, new_state)``; the new state holds
+no autograd history.
 """
 
 from __future__ import annotations
@@ -235,16 +240,23 @@ class Pooling:
         return {}
 
     @staticmethod
+    def window(lp, in_shape):
+        """(kernel, stride, ``F.pad`` pads of the NCHW view, output (H, W)):
+        Caffe's ceil-mode size may need extra high-side padding."""
+        (kh, kw), (sh, sw), (ph, pw), _ = Pooling._geom(lp, in_shape)
+        n, h, w, c = in_shape
+        oh = _pool_out(h, kh, sh, ph)
+        ow = _pool_out(w, kw, sw, pw)
+        extra_h = max(0, (oh - 1) * sh + kh - (h + 2 * ph))
+        extra_w = max(0, (ow - 1) * sw + kw - (w + 2 * pw))
+        return (kh, kw), (sh, sw), (pw, pw + extra_w, ph, ph + extra_h), (oh, ow)
+
+    @staticmethod
     def apply(lp, params, inputs, ctx):
         x = inputs[0]
         n, h, w, c = x.shape
-        (kh, kw), (sh, sw), (ph, pw), mode = Pooling._geom(lp, x.shape)
-        oh = _pool_out(h, kh, sh, ph)
-        ow = _pool_out(w, kw, sw, pw)
-        # ceil mode may need extra high-side padding
-        extra_h = max(0, (oh - 1) * sh + kh - (h + 2 * ph))
-        extra_w = max(0, (ow - 1) * sw + kw - (w + 2 * pw))
-        pads = (pw, pw + extra_w, ph, ph + extra_h)
+        _, _, (ph, pw), mode = Pooling._geom(lp, x.shape)
+        (kh, kw), (sh, sw), pads, (oh, ow) = Pooling.window(lp, x.shape)
         xc = _nchw(x)
         if mode == "MAX":
             if any(pads):
@@ -491,6 +503,168 @@ class Accuracy:
         return [acc] * max(1, len(lp.top))
 
 
+class BatchNorm:
+    """Caffe BatchNorm: normalization only (Scale supplies the affine).
+
+    The JAX package's semantics, which are neither Caffe's stored sums
+    nor ``torch.nn.BatchNorm2d``'s: the state is the normalized running
+    ``{"mean", "var"}``, zeros and ones at init; ``use_global_stats``
+    unset means global stats unless training; training normalizes by the
+    batch mean and the biased variance over every axis but the channel,
+    and the new state is the EMA ``mavf * old + (1 - mavf) * batch`` of
+    that same biased variance. The arithmetic is f32, cast back to the
+    input's dtype. Training normalizes through ``torch.native_batch_norm``
+    without running stats (its own running update would use the
+    unbiased variance) and takes the new state from the batch mean and
+    inverse standard deviation that its one reduction saved
+    (``var = invstd**-2 - eps``), outside autograd; the EMA is a
+    ``lerp``."""
+
+    @staticmethod
+    def _geom(lp):
+        p = lp.batch_norm_param
+        use_global = p.get("use_global_stats") if p else None
+        mavf = float(p.get("moving_average_fraction", 0.999)) if p else 0.999
+        eps = float(p.get("eps", 1e-5)) if p else 1e-5
+        return use_global, mavf, eps
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [in_shapes[0]]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def init_state(lp, in_shapes):
+        c = in_shapes[0][-1]
+        return {"mean": torch.zeros(c), "var": torch.ones(c)}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx, state):
+        use_global, mavf, eps = BatchNorm._geom(lp)
+        x = inputs[0]
+        # channels on axis 1 for the batch-norm ops: a view, channels_last in
+        # memory for a contiguous NHWC blob
+        xc = x.to(torch.float32).movedim(-1, 1)
+        if use_global is None:
+            use_global = not ctx.train
+        if use_global:
+            y = F.batch_norm(xc, state["mean"], state["var"], training=False, eps=eps)
+            new_state = state
+        else:
+            y, mean, invstd = torch.native_batch_norm(xc, None, None, None, None,
+                                                      True, 0.0, eps)
+            with torch.no_grad():
+                # the biased variance, never below 0 after the rounding
+                var = invstd.pow(-2).sub_(eps).clamp_min_(0)
+                # mavf * old + (1 - mavf) * batch, one launch a statistic
+                new_state = {"mean": state["mean"].lerp(mean, 1 - mavf),
+                             "var": state["var"].lerp(var, 1 - mavf)}
+        return [y.movedim(1, -1).to(x.dtype)], new_state
+
+
+class Scale:
+    """Per-channel scale, with a bias when ``bias_term``: the affine half
+    of BatchNorm. One bottom: the scale is the learned ``weight``
+    (``filler``, default constant 1); two bottoms: the second is the
+    scale."""
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [in_shapes[0]]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        if len(in_shapes) == 2:
+            return {}
+        p = lp.scale_param
+        bias = bool(p.get("bias_term", False)) if p else False
+        c = in_shapes[0][-1]
+        wf = (Filler.from_message(p.get("filler")) if p and p.get("filler")
+              else Filler(type="constant", value=1.0))
+        params = {"weight": fill(wf, gen, (c,), c, c)}
+        if bias:
+            bf = (Filler.from_message(p.get("bias_filler")) if p and p.get("bias_filler")
+                  else Filler(type="constant", value=0.0))
+            params["bias"] = fill(bf, gen, (c,), c, c)
+        return params
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        y = inputs[0] * (inputs[1] if len(inputs) == 2 else params["weight"])
+        if "bias" in params:
+            y = y + params["bias"]
+        return [y]
+
+
+class Eltwise:
+    """SUM (with optional ``coeff``s), PROD or MAX of the bottoms, taken
+    left to right as the JAX package does."""
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [in_shapes[0]]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        p = lp.eltwise_param
+        op = str(p.get("operation", "SUM")) if p else "SUM"
+        if op == "SUM":
+            coeffs = [float(c) for c in p.get_all("coeff")] if p else []
+            if coeffs:
+                if len(coeffs) != len(inputs):
+                    raise ValueError(
+                        f"layer {lp.name!r}: {len(coeffs)} eltwise coeffs "
+                        f"for {len(inputs)} bottoms"
+                    )
+                y = sum(c * x for c, x in zip(coeffs, inputs))
+            else:
+                y = sum(inputs[1:], inputs[0])
+        elif op == "PROD":
+            y = inputs[0]
+            for x in inputs[1:]:
+                y = y * x
+        elif op == "MAX":
+            y = inputs[0]
+            for x in inputs[1:]:
+                y = torch.maximum(y, x)
+        else:
+            raise NotImplementedError(f"layer {lp.name!r}: eltwise op {op}")
+        return [y]
+
+
+class Concat:
+    """Concatenation along Caffe's ``axis`` (or the older ``concat_dim``),
+    default 1: the channels, NHWC's last axis."""
+
+    @staticmethod
+    def _axis(lp, ndim):
+        p = lp.concat_param
+        ax = int(p.get("axis", p.get("concat_dim", 1))) if p else 1
+        return caffe_axis(ax, ndim)
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        ax = Concat._axis(lp, len(in_shapes[0]))
+        out = list(in_shapes[0])
+        out[ax] = sum(s[ax] for s in in_shapes)
+        return [tuple(out)]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        return [torch.cat(inputs, Concat._axis(lp, inputs[0].dim()))]
+
+
 LAYER_IMPLS = {
     "Convolution": Convolution,
     "Pooling": Pooling,
@@ -501,6 +675,10 @@ LAYER_IMPLS = {
     "Softmax": Softmax,
     "SoftmaxWithLoss": SoftmaxWithLoss,
     "Accuracy": Accuracy,
+    "Concat": Concat,
+    "Eltwise": Eltwise,
+    "Scale": Scale,
+    "BatchNorm": BatchNorm,
 }
 
 

@@ -4,8 +4,11 @@ Counterpart of ``sparknet_tpu/nets/xlanet.py`` (``XLANet``). It walks
 the layer DAG once at construction (static shape inference on NHWC
 shapes) and exposes
 
-- ``init(generator) -> (params, state)``: filler-initialised weights,
-- ``apply(params, state, batch, train=..., generator=...) -> (blobs, state)``,
+- ``init(generator) -> (params, state)``: filler-initialised weights and
+  each stateful layer's initial state (BatchNorm's running mean and
+  variance),
+- ``apply(params, state, batch, train=..., generator=...) -> (blobs,
+  new_state)``,
 - ``loss_and_metrics(blobs)``: weighted loss-layer sum + metric tops,
 - ``dummy_batch()``: zeros shaped like the declared inputs,
 - ``param_specs()``: per-parameter (lr_mult, decay_mult).
@@ -14,9 +17,10 @@ shapes) and exposes
 trains passes params that require grad; a caller that only infers wraps
 the call in ``torch.inference_mode()`` (the serving engine does).
 
-Blobs are NHWC, as in the JAX net, and the params tree has the same
-shape (layer name -> ``{"weight", "bias"}``), so one npz weight file
-loads into either package (``nets/weights.py``). PyTorch runs eagerly:
+Blobs are NHWC, as in the JAX net, and the params and state trees have
+the same shape (layer name -> ``{"weight", "bias"}`` or ``{"mean",
+"var"}``), so one npz weight file or solverstate loads into either
+package (``nets/weights.py``). PyTorch runs eagerly:
 there is no compile step, and each layer dispatches its own kernels.
 """
 
@@ -83,21 +87,26 @@ class TorchNet:
     def init(
         self, generator: Optional[torch.Generator] = None
     ) -> Tuple[WeightCollection, Dict[str, Any]]:
-        """Filler-initialised params on the net's device. Draws come from
-        ``generator`` (a CPU ``torch.Generator``; seed 0 when None) in
-        layer order, on the CPU, so a seed gives the same weights on
-        every device."""
+        """Filler-initialised params and each stateful layer's initial
+        state, on the net's device. Draws come from ``generator`` (a CPU
+        ``torch.Generator``; seed 0 when None) in layer order, on the
+        CPU, so a seed gives the same weights on every device."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         params: WeightCollection = {}
+        state: Dict[str, Any] = {}
         for lp in self.layers:
             if lp.type in DATA_LAYER_TYPES:
                 continue
+            impl = impl_for(lp)
             in_shapes = [self.blob_shapes[b] for b in lp.bottom]
-            p = impl_for(lp).init(lp, generator, in_shapes)
+            p = impl.init(lp, generator, in_shapes)
             if p:
                 params[lp.name] = {k: v.to(self.device) for k, v in p.items()}
-        return params, {}
+            if hasattr(impl, "init_state"):
+                state[lp.name] = {k: v.to(self.device)
+                                  for k, v in impl.init_state(lp, in_shapes).items()}
+        return params, state
 
     def apply(
         self,
@@ -110,21 +119,30 @@ class TorchNet:
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Forward over ``batch`` (blob name -> NHWC tensor on the net's
-        device); returns every blob and the (unchanged) state.
+        device); returns every blob and the new state (``state`` with
+        each stateful layer's entry replaced; a TRAIN-mode BatchNorm's
+        running statistics move, with no autograd history).
         ``compute_dtype`` overrides the net's for this call; ``generator``
         (on the net's device) draws the training-phase Dropout masks."""
         train = (self.phase == "TRAIN") if train is None else train
         ctx = ApplyCtx(train=train, compute_dtype=compute_dtype or self.compute_dtype,
                        generator=generator)
         blobs: Dict[str, torch.Tensor] = dict(batch)
+        new_state: Dict[str, Any] = dict(state)
         for lp in self.layers:
             if lp.type in DATA_LAYER_TYPES:
                 continue
+            impl = impl_for(lp)
             inputs = [blobs[b] for b in lp.bottom]
-            outputs = impl_for(lp).apply(lp, params.get(lp.name, {}), inputs, ctx)
+            p = params.get(lp.name, {})
+            if hasattr(impl, "init_state"):
+                outputs, new_state[lp.name] = impl.apply(lp, p, inputs, ctx,
+                                                         state[lp.name])
+            else:
+                outputs = impl.apply(lp, p, inputs, ctx)
             for top, out in zip(lp.top, outputs):
                 blobs[top] = out
-        return blobs, dict(state)
+        return blobs, new_state
 
     def loss_and_metrics(
         self, blobs: Dict[str, torch.Tensor]

@@ -13,6 +13,12 @@ follows, so the weights stay replicated without a weight average.
   per-worker residual (:data:`~.local_sgd.RESIDUAL_KEY` in the optimizer
   state, leading worker axis), both through :func:`comm.reduce_bucketed`.
 
+A BatchNorm layer normalizes by each worker's own rows and the
+workers' new states are averaged: the JAX package's bucketed sync step.
+Its monolithic step (the lossless default) lets XLA normalize over the
+global batch, which the port does not compute, so over more than one
+worker a net with BatchNorm takes the bucketed path or is refused.
+
 With ``iter_size > 1`` each worker accumulates its micro-batches before
 the reduction. Each worker draws its Dropout masks from its own
 generator.
@@ -40,6 +46,13 @@ def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
     global batch as tensors on that device (with ``iter_size > 1``, a
     list of that many micro-batches); ``generators``: one a worker."""
     config = config or comm.CommConfig()
+    if (len(nets) > 1 and config.for_sync() == "monolithic"
+            and any(lp.type == "BatchNorm" for lp in nets[0].layers)):
+        raise ValueError(
+            f"sync data parallel over {len(nets)} workers on a net with BatchNorm: "
+            "the monolithic comm path normalizes over the global batch, which is "
+            f"not ported; {comm.COMM_ENV}=bucketed (or --grad-compress) normalizes "
+            "by each worker's rows")
     grad_fns = [make_grad_fn(net) for net in nets]
     n = len(nets)
     update = None

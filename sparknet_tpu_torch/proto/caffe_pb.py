@@ -144,6 +144,22 @@ class LayerParameter:
         return self.sub("dropout_param")
 
     @property
+    def batch_norm_param(self) -> Optional[Message]:
+        return self.sub("batch_norm_param")
+
+    @property
+    def scale_param(self) -> Optional[Message]:
+        return self.sub("scale_param")
+
+    @property
+    def eltwise_param(self) -> Optional[Message]:
+        return self.sub("eltwise_param")
+
+    @property
+    def concat_param(self) -> Optional[Message]:
+        return self.sub("concat_param")
+
+    @property
     def transform_param(self) -> Optional[Message]:
         return self.sub("transform_param")
 

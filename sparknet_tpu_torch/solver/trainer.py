@@ -47,7 +47,8 @@ def resolve_model_path(path: str, base_dir: str) -> str:
 def make_grad_fn(net: TorchNet) -> Callable:
     """``grad_fn(params, state, batch, generator) -> (grads, new_state,
     metrics)``: gradients of ``net.loss_and_metrics``'s weighted loss
-    with respect to every param; metrics are detached."""
+    with respect to every param; the new net state (BatchNorm's running
+    statistics) and the metrics hold no autograd graph."""
 
     def grad_fn(params, state, batch, generator):
         leaves = {layer: {n: t.detach().requires_grad_(True) for n, t in e.items()}

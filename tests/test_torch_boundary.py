@@ -179,7 +179,10 @@ def test_package_sources_ship_with_the_package():
             "apps", "parallel"} <= names
     for name in ("bvlc_alexnet_train_val.prototxt", "bvlc_alexnet_solver.prototxt",
                  "cifar10_quick_train_test.prototxt", "cifar10_quick_solver.prototxt",
-                 "cifar10_quick_deploy.prototxt"):
+                 "cifar10_quick_deploy.prototxt", "bvlc_googlenet_train_val.prototxt",
+                 "bvlc_googlenet_quick_solver.prototxt", "resnet50_train_val.prototxt",
+                 "resnet50_solver.prototxt", "vgg16_train_val.prototxt",
+                 "vgg16_solver.prototxt"):
         assert os.path.isfile(os.path.join(PORT_DIR, "models", "prototxt", name))
 
 

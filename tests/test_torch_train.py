@@ -309,9 +309,9 @@ def test_imagenet_app_trains_full_width_alexnet_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--parallel", "sync", "--layout", "dp=1"], "--layout"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
-    (["--arch", "resnet50"], "BatchNorm"),
-    (["--arch", "googlenet"], "Concat"),
-], ids=["parallel", "orbax", "resnet50", "googlenet"])
+    (["--remat"], "--remat"),
+    (["--weights", "x.caffemodel"], "--weights"),
+], ids=["parallel", "orbax", "remat", "weights"])
 def test_imagenet_app_refuses_what_it_does_not_port(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         imagenet_app.main(argv + ["--device", "cpu", "--synthetic"])
