@@ -161,6 +161,36 @@ own lines:
    each), the inference kernel twice per test batch, and the final
    solverstate's slots carrying the worker axis (2, 11, 11, 3, 96) and
    restoring equal;
+16a. multiprocess: SparkNet one worker a process, each rank a process of
+   this script (``--rank-job``) started through ``SPARKNET_COORDINATOR``,
+   ``SPARKNET_NUM_PROCESSES`` and ``SPARKNET_PROCESS_ID``, with a hard
+   timeout (MP_TIMEOUT; a rank that fails or outlives it fails the
+   phase, and every rank left is killed). First 2 ranks on cuda:0 with
+   their collectives over gloo (``initialize(backend="gloo")``, the
+   one-card rehearsal): which collectives gloo runs on card tensors (SUM
+   and MAX in f32, SUM in int32, all_gather; each must); ResNet-50
+   ``--parallel sync`` built by ImageNetApp's ``build`` at the global
+   batch of 32 (16 rows a rank, lossless: each BatchNorm over the global
+   batch), 5 steps, held against one ``Solver`` on the whole batch
+   (``_zoo_weights``): the step-1 loss and BatchNorm state within 1e-4
+   relative L2, the weights after 5 steps within 1e-2, the ranks'
+   weights identical by hash; AlexNet ``--parallel local --tau 2`` at
+   batch 256 (128 rows a rank), 4 iterations and one test batch on each
+   rank's rows, held against alexnet-local's one-process 2-worker
+   solver on the same global batches (the same Dropout seeds: the first
+   round's loss within 1e-4, the weights within 1e-2 relative L2), each
+   rank launching the LRN kernels 2 / 8 / 8 times (counted from 0 in
+   each rank, summed into the kernels line), the round's average timed.
+   Then one NCCL rank at world size 1 and one all-reduce. With two or
+   more cards: ``nvidia-smi topo -m``; the same two runs over NCCL, one
+   process a card; cifar10_quick ``--parallel local`` tau 10 at 4 NCCL
+   processes (25 rows each), 20 rounds for each wire format: ms a round,
+   the average's ms and share, each card's idle share over one profiled
+   round, beside the same rounds of the one-process ParallelSolver over
+   the same cards; and CifarApp ``main`` launched as 2 NCCL processes:
+   only rank 0 prints its ``Iteration`` lines, its snapshot restores a
+   one-process solver. With one card, one line says the NCCL part did
+   not run;
 17. feed: the 2,048-image synthetic set packed by
    ``tools/pack_records.py``; the first 8 batches (256 227x227 f32
    crops) of 4 worker processes, of the pinned side-stream prefetch
@@ -196,11 +226,17 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving, train, alexnet-local, feed and
-googlenet for LRN, bert-train for flash).
+counts the main paths' runs (serving, train, alexnet-local, feed,
+googlenet and every rank of the multiprocess phase's AlexNet runs for
+LRN, bert-train for flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
+
+    python3 chip_smoke.py --phase multiprocess
+
+runs the card, build and multiprocess phases alone (the NCCL runs on a
+machine with several cards) and prints no result line.
 
     python3 chip_smoke.py --ab OTHER_ROOT
 
@@ -342,6 +378,10 @@ SYNC_STEPS = 10
 LOCAL_STEP_TOL = 1e-4
 LOCAL_CARD_TOL = 1e-2
 ALEXNET_LOCAL_ITERS = 4
+# the multiprocess phase: ResNet-50 sync at the prototxt's global batch,
+# and the seconds a launch of ranks may take
+MP_RESNET_BATCH, MP_RESNET_STEPS = 32, 5
+MP_TIMEOUT = 300
 
 # the feed phase: ImageNetApp's AlexNet at its batch of 256 on the
 # 2,048-image synthetic set, FEED_ITERS iterations a path in chunks of
@@ -2639,6 +2679,548 @@ def phase_alexnet_local(tmp):
     return {"launches": counts}
 
 
+# -------------------------------------------------------- multiprocess
+def _launch_ranks(jobs, world, tmp, backend, timeout=MP_TIMEOUT, cmd=None, env=None):
+    """Start ``world`` ranks through the launch variables
+    (``SPARKNET_COORDINATOR``, ``SPARKNET_NUM_PROCESSES``,
+    ``SPARKNET_PROCESS_ID``): by default ``python3 chip_smoke.py
+    --rank-job SPEC``, each rank running ``jobs`` in order over
+    ``backend``. Each rank runs in its own session with its output in
+    ``tmp``; all must exit 0 within ``timeout`` seconds, else every one
+    left is killed and the phase fails with their logs. Returns each
+    rank's results (the jobs' JSON) and its log."""
+    import signal
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    spec = os.path.join(tmp, f"spec_{len(os.listdir(tmp))}.json")
+    with open(spec, "w") as f:
+        # gloo rehearses on one card; NCCL takes one card a rank
+        json.dump({"jobs": jobs, "backend": backend, "out": tmp,
+                   "device": "cuda:0" if backend == "gloo" else "cuda"}, f)
+    env = dict(os.environ, **(env or {}), SPARKNET_COORDINATOR=f"127.0.0.1:{free_port()}",
+               SPARKNET_NUM_PROCESSES=str(world), SPARKNET_HEARTBEAT_PORT=str(free_port()),
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                                          if p))
+    cmd = cmd or [sys.executable, os.path.abspath(__file__), "--rank-job", spec]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(tmp, f"rank{r}_{os.path.basename(spec)}.log"),
+                             "w+"))
+            procs.append(subprocess.Popen(cmd, env=dict(env, SPARKNET_PROCESS_ID=str(r)),
+                                          cwd=tmp, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT, start_new_session=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        texts = []
+        for log_file in logs:
+            log_file.seek(0)
+            texts.append(log_file.read())
+            log_file.close()
+    codes = [p.returncode for p in procs]
+    log(f"  {world} rank(s) over {backend}: exit codes {codes} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(codes):
+        for r, text in enumerate(texts):
+            log(f"  --- rank {r} (exit {codes[r]}), last lines:")
+            for line in text.splitlines()[-40:]:
+                log(f"  | {line}")
+        raise AssertionError(f"ranks exited {codes}")
+    results = []
+    for r in range(world):
+        path = f"{spec}.r{r}.json"
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+        else:
+            results.append(None)  # a command other than --rank-job
+    return results, texts
+
+
+def rank_main(spec_path):
+    """One rank of a multiprocess launch (``--rank-job``): join the job
+    over the spec's backend on this process's card, run its jobs, write
+    their results beside the spec."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from sparknet_tpu_torch.parallel import multihost
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    multihost.initialize(backend=spec["backend"], device=spec["device"])
+    rank, world = multihost.process_index(), multihost.process_count()
+    print(f"rank {rank}/{world} on {multihost.process_device()} over {spec['backend']}",
+          flush=True)
+    out = {}
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        out[job["name"]] = RANK_JOBS[job["kind"]](job, rank, world, spec["out"])
+        print(f"rank {rank}: {job['name']} done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    with open(f"{spec_path}.r{rank}.json", "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+    return 0
+
+
+def _rank_rows(batch, rank, world):
+    """Worker ``rank``'s rows of a global batch, as ``local_sgd.worker_rows``
+    gives them to worker ``rank`` of a one-process run."""
+    per = len(batch["label"]) // world
+    return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+
+
+def _mp_batch(tag, i, n, hw, classes):
+    """Global batch ``i`` of stream ``tag``: ``n`` f32 rows of ``hw`` x ``hw``
+    x 3 at std 50 and their labels, the same in every process."""
+    import numpy as np
+
+    rng = np.random.default_rng((tag, i))
+    return {"data": rng.standard_normal((n, hw, hw, 3), dtype=np.float32) * 50,
+            "label": rng.integers(0, classes, n).astype(np.int32)}
+
+
+def _params_hash(params):
+    import hashlib
+
+    from sparknet_tpu_torch.parallel import comm
+
+    h = hashlib.sha256()
+    for x in comm.tree_leaves(params):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mp_resnet_solver(workers=None, parallel="sync"):
+    """ImageNetApp's ``build`` for ``--arch resnet50`` (the zoo solver) at
+    the prototxt's train batch of 32, for the test net too (its 25 does
+    not divide by 2 processes), its feeds closed; weights
+    ``_zoo_weights``'s. Over processes the solver is one worker a
+    process."""
+    from sparknet_tpu_torch.apps import imagenet_app
+
+    args = imagenet_app.make_args(arch="resnet50", synthetic=True, synthetic_n=64,
+                                  batch_size=MP_RESNET_BATCH, parallel=parallel,
+                                  device="cuda", native_loader="off", data_workers=0)
+    solver, train_feed, test_feed = imagenet_app.build(args, workers=workers)
+    for feed in (train_feed, test_feed):
+        getattr(feed, "close", lambda: None)()
+    solver.params, solver.state = _zoo_weights(solver.train_net)
+    return solver
+
+
+def _rank_probe(job, rank, world, tmp):
+    """Which collectives the backend runs on card tensors: SUM and MAX in
+    f32, SUM in int32, all_gather."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, t, op, want in (
+            ("all_reduce SUM f32", torch.full((4,), rank + 1.0, device=dev),
+             dist.ReduceOp.SUM, world * (world + 1) / 2),
+            ("all_reduce MAX f32", torch.full((4,), rank + 1.0, device=dev),
+             dist.ReduceOp.MAX, float(world)),
+            ("all_reduce SUM int32", torch.full((4,), rank + 1, dtype=torch.int32,
+                                                device=dev),
+             dist.ReduceOp.SUM, world * (world + 1) / 2)):
+        try:
+            dist.all_reduce(t, op=op)
+            out[name] = "ok" if bool((t == want).all()) else f"wrong: {t.tolist()}"
+        except RuntimeError as e:
+            out[name] = f"not run: {str(e).splitlines()[0]}"
+    try:
+        rows = [torch.empty(2, device=dev) for _ in range(world)]
+        dist.all_gather(rows, torch.full((2,), float(rank), device=dev))
+        out["all_gather f32"] = ("ok" if all(bool((x == r).all()) for r, x in enumerate(rows))
+                                 else "wrong")
+    except RuntimeError as e:
+        out["all_gather f32"] = f"not run: {str(e).splitlines()[0]}"
+    return out
+
+
+def _rank_resnet_sync(job, rank, world, tmp):
+    """ResNet-50 ``--parallel sync``, lossless (each BatchNorm over the
+    global batch), MP_RESNET_STEPS steps on this rank's rows."""
+    import torch
+
+    solver = _mp_resnet_solver()
+    res = {"workers": [str(d) for d in solver.workers], "losses": []}
+    for i in range(MP_RESNET_STEPS):
+        m = solver.step(iter([_rank_rows(_mp_batch(1, i, MP_RESNET_BATCH, 224, 1000),
+                                         rank, world)]), 1)
+        res["losses"].append(float(m["loss/loss"]))
+        if i == 0:
+            torch.save({l: {k: t.cpu() for k, t in e.items()} for l, e in
+                        solver.state.items()}, os.path.join(tmp, f"{job['name']}_state1.r{rank}.pt"))
+    torch.save({l: {k: t.cpu() for k, t in e.items()} for l, e in solver.params.items()},
+               os.path.join(tmp, f"{job['name']}_params.r{rank}.pt"))
+    res["hash"] = _params_hash(solver.params)
+    del solver
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_alexnet_solver(solver_path, workers=None):
+    """ImageNetApp's ``build`` with alexnet-local's solver file,
+    ``--parallel local --tau 2`` at batch 256, its feeds closed."""
+    from sparknet_tpu_torch.apps import imagenet_app
+
+    args = imagenet_app.make_args(synthetic=True, synthetic_n=64, device="cuda",
+                                  solver=solver_path, parallel="local", tau="2",
+                                  native_loader="off", data_workers=0)
+    solver, train_feed, test_feed = imagenet_app.build(args, workers=workers)
+    for feed in (train_feed, test_feed):
+        getattr(feed, "close", lambda: None)()
+    return solver
+
+
+def _timed_reduce(solver, times):
+    """Wrap ``solver``'s round average to record its ms (host clock,
+    synchronized before and after; over processes after a barrier, so
+    that a rank's wait for a later one is not counted as the average)."""
+    import torch
+    import torch.distributed as dist
+
+    fn = solver._reduce_fn
+
+    def timed(*args):
+        if solver.group is not None:
+            dist.barrier(group=solver.group)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    solver._reduce_fn = timed
+
+
+def _rank_alexnet_local(job, rank, world, tmp):
+    """AlexNet ``--parallel local --tau 2``, ALEXNET_LOCAL_ITERS
+    iterations on this rank's rows of batch-256 global batches, then one
+    test batch of 50 on its rows; the LRN kernels' launches counted from
+    0 around the run; the rounds' average timed."""
+    import torch
+
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+
+    solver = _mp_alexnet_solver(job["solver"])
+    batches = [_rank_rows(_mp_batch(2, i, TRAIN_BATCH, 227, 1000), rank, world)
+               for i in range(ALEXNET_LOCAL_ITERS)]
+    test = _rank_rows(_mp_batch(3, 0, TEST_BATCH, 227, 1000), rank, world)
+    reduce_ms = []
+    _timed_reduce(solver, reduce_ms)
+    torch.cuda.synchronize()
+    lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+    losses = [float(solver.step(iter(batches[i:i + 2]), 2)["loss"])
+              for i in range(0, ALEXNET_LOCAL_ITERS, 2)]
+    tested = solver.test(iter([test]), 1)
+    torch.cuda.synchronize()
+    counts = [lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches]
+    torch.save({l: {k: t.cpu() for k, t in e.items()} for l, e in solver.params.items()},
+               os.path.join(tmp, f"{job['name']}_params.r{rank}.pt"))
+    res = {"losses": losses, "test": tested, "launches": counts, "reduce_ms": reduce_ms,
+           "hash": _params_hash(solver.params),
+           "reduce_bytes": sum(x.numel() * x.element_size() for e in solver.params.values()
+                               for x in e.values())}
+    del solver
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rank_nccl1(job, rank, world, tmp):
+    import torch
+    import torch.distributed as dist
+
+    t = torch.arange(4, dtype=torch.float32, device="cuda") + 1
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "sum": t.tolist()}
+
+
+def _profile_idle(fn):
+    """``fn()`` under ``torch.profiler``: the card's busy ms, the wall ms
+    and the kernel launches (busy None when no device time was seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", None)
+               or getattr(e, "self_cuda_time_total", 0.0) for e in kernels) / 1e3
+    return {"busy_ms": busy or None, "wall_ms": wall,
+            "launches": sum(e.count for e in kernels)}
+
+
+def _cifar_rounds(solver, feed, rank, world):
+    """One warm round, LOCAL_ROUNDS - 1 timed rounds (host clock,
+    synchronized; the average timed apart), one profiled round."""
+    import torch
+
+    def next_rows():
+        return [_rank_rows(next(feed), rank, world) for _ in range(LOCAL_TAU)]
+
+    first = float(solver.step(iter(next_rows()), LOCAL_TAU)["loss"])
+    reduce_ms, round_ms = [], []
+    _timed_reduce(solver, reduce_ms)
+    for _ in range(LOCAL_ROUNDS - 1):
+        rows = next_rows()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = solver.step(iter(rows), LOCAL_TAU)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+    rows = next_rows()
+    prof = _profile_idle(lambda: solver.step(iter(rows), LOCAL_TAU))
+    return {"first_loss": first, "last_loss": float(m["loss"]),
+            "round_ms": statistics.median(round_ms),
+            "reduce_ms": statistics.median(reduce_ms[:len(round_ms)]), "profile": prof}
+
+
+def _rank_cifar_local(job, rank, world, tmp):
+    """cifar10_quick ``--parallel local``, tau LOCAL_TAU, LOCAL_ROUNDS
+    rounds for each wire format, one worker a process."""
+    out = {}
+    for compress in ("none", "bf16", "int8"):
+        solver = _cifar_parallel(None, "local", LOCAL_TAU, compress)
+        out[compress] = _cifar_rounds(solver, _cifar_feed(), rank, world)
+    return out
+
+
+RANK_JOBS = {"probe": _rank_probe, "resnet_sync": _rank_resnet_sync,
+             "alexnet_local": _rank_alexnet_local, "nccl1": _rank_nccl1,
+             "cifar_local": _rank_cifar_local}
+
+
+def _load_ranks(tmp, name, what, world):
+    import torch
+
+    return [torch.load(os.path.join(tmp, f"{name}_{what}.r{r}.pt")) for r in range(world)]
+
+
+def _mp_references(tmp):
+    """The one-process runs the multiprocess ones are held against, on
+    cuda:0: ResNet-50 on one Solver over the whole global batch of 32
+    (global BatchNorm statistics are one device's on the whole batch),
+    and alexnet-local's 2-worker solver over the same global batches."""
+    import torch
+
+    one = _mp_resnet_solver(parallel="none")
+    losses = []
+    for i in range(MP_RESNET_STEPS):
+        losses.append(float(one.step(iter([_mp_batch(1, i, MP_RESNET_BATCH, 224, 1000)]),
+                                     1)["loss/loss"]))
+        if i == 0:
+            state1 = {l: {k: t.cpu() for k, t in e.items()} for l, e in one.state.items()}
+    resnet = {"losses": losses, "state1": state1,
+              "params": {l: {k: t.cpu() for k, t in e.items()} for l, e in one.params.items()}}
+    del one
+    alex = _mp_alexnet_solver(_alexnet_local_solver(tmp), workers=["cuda:0"] * 2)
+    batches = [_mp_batch(2, i, TRAIN_BATCH, 227, 1000) for i in range(ALEXNET_LOCAL_ITERS)]
+    a_losses = [float(alex.step(iter(batches[i:i + 2]), 2)["loss"])
+                for i in range(0, ALEXNET_LOCAL_ITERS, 2)]
+    tested = alex.test(iter([_mp_batch(3, 0, TEST_BATCH, 227, 1000)]), 1)
+    alexnet = {"losses": a_losses, "test": tested,
+               "params": {l: {k: t.cpu() for k, t in e.items()}
+                          for l, e in alex.params.items()}}
+    del alex
+    torch.cuda.empty_cache()
+    return resnet, alexnet
+
+
+def _mp_check(label, results, tmp, world, ref_resnet, ref_alexnet):
+    """The ResNet-50 sync and AlexNet local runs of ``world`` ranks held
+    against their one-process references; returns the LRN launches of
+    every rank, summed."""
+    from sparknet_tpu_torch.parallel import comm
+
+    rs = [r[f"resnet_{label}"] for r in results]
+    al = [r[f"alexnet_{label}"] for r in results]
+    if len({r["hash"] for r in rs}) != 1 or len({r["hash"] for r in al}) != 1:
+        raise AssertionError(f"{label}: the ranks' weights differ: "
+                             f"{[r['hash'][:12] for r in rs + al]}")
+    loss1 = abs(rs[0]["losses"][0] - ref_resnet["losses"][0]) / abs(ref_resnet["losses"][0])
+    state1 = _load_ranks(tmp, f"resnet_{label}", "state1", world)[0]
+    state_err = max(_rel(state1[l][k], t) for l, e in ref_resnet["state1"].items()
+                    for k, t in e.items())
+    params = _load_ranks(tmp, f"resnet_{label}", "params", world)[0]
+    w_err, w_at = _worst_tensor(params, ref_resnet["params"])
+    log(f"  {label}: ResNet-50 sync over {world} ranks ({MP_RESNET_BATCH // world} rows "
+        f"each; workers {[r['workers'] for r in rs]}) vs one Solver on the batch of "
+        f"{MP_RESNET_BATCH}: step-1 loss {loss1:.2e}, step-1 BatchNorm state worst "
+        f"{state_err:.2e} relative L2 [<= {LOCAL_STEP_TOL:g}]; weights after "
+        f"{MP_RESNET_STEPS} steps worst {w_err:.2e} ({w_at}) [<= {LOCAL_CARD_TOL:g}]; "
+        f"losses "
+        f"{[round(x, 5) for x in rs[0]['losses']]} vs "
+        f"{[round(x, 5) for x in ref_resnet['losses']]}; the ranks' weights identical "
+        f"by hash")
+    if loss1 > LOCAL_STEP_TOL or state_err > LOCAL_STEP_TOL or w_err > LOCAL_CARD_TOL:
+        raise AssertionError(f"{label}: ResNet-50 sync: loss {loss1}, state {state_err}, "
+                             f"weights {w_err}")
+    params = _load_ranks(tmp, f"alexnet_{label}", "params", world)[0]
+    a_err, a_at = _worst_tensor(params, ref_alexnet["params"])
+    a_loss = abs(al[0]["losses"][0] - ref_alexnet["losses"][0]) / abs(
+        ref_alexnet["losses"][0])
+    counts = [sum(r["launches"][i] for r in al) for i in range(3)]
+    want = [2, 2 * ALEXNET_LOCAL_ITERS, 2 * ALEXNET_LOCAL_ITERS]
+    mb = al[0]["reduce_bytes"] / 1e6
+    log(f"  {label}: AlexNet local tau 2 over {world} ranks ({TRAIN_BATCH // world} rows "
+        f"each) vs alexnet-local's one-process 2-worker solver on the same batches: "
+        f"first round's loss {a_loss:.2e} [<= {LOCAL_STEP_TOL:g}], weights after "
+        f"{ALEXNET_LOCAL_ITERS} iterations worst {a_err:.2e} relative L2 ({a_at}) "
+        f"[<= {LOCAL_CARD_TOL:g}]; test {al[0]['test']} vs {ref_alexnet['test']}")
+    log(f"  {label}: the average of {mb:.1f} MB of f32 weights a round: "
+        f"{[[round(x, 3) for x in r['reduce_ms']] for r in al]} ms (each rank's rounds, "
+        f"host clock, synchronized, after a barrier)")
+    log(f"  {label}: LRN launches per rank (inference, training forward, backward): "
+        f"{[r['launches'] for r in al]} (want {want} each: 2 per worker step, 2 per test "
+        f"batch)")
+    if a_loss > LOCAL_STEP_TOL or a_err > LOCAL_CARD_TOL:
+        raise AssertionError(f"{label}: AlexNet local: loss {a_loss}, weights {a_err}")
+    if any(r["launches"] != want for r in al):
+        raise AssertionError(f"{label}: LRN launches {[r['launches'] for r in al]}")
+    return counts
+
+
+def _worst_tensor(got, want):
+    """The largest relative L2 error over the tensors of two param trees,
+    and its tensor's name."""
+    errs = {f"{l}.{k}": _rel(got[l][k], t) for l, e in want.items() for k, t in e.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _mp_jobs(label, tmp):
+    return [{"kind": "resnet_sync", "name": f"resnet_{label}"},
+            {"kind": "alexnet_local", "name": f"alexnet_{label}",
+             "solver": _alexnet_local_solver(tmp)}]
+
+
+def phase_multiprocess(tmp):
+    """SparkNet across processes: 2 ranks on cuda:0 over gloo (the
+    one-card rehearsal), one NCCL rank; with two or more cards, the same
+    runs over NCCL one process a card, cifar10_quick's rounds over 4 (or
+    every) cards against the one-process solver over the same cards, and
+    CifarApp launched as 2 processes."""
+    import torch
+
+    log(f"  card: {_smi()}")
+    counts = torch.cuda.device_count()
+    ref_resnet, ref_alexnet = _mp_references(tmp)
+    results, _ = _launch_ranks([{"kind": "probe", "name": "probe"}] + _mp_jobs("gloo", tmp),
+                               2, tmp, "gloo")
+    log(f"  gloo on card tensors (2 ranks on cuda:0): {results[0]['probe']}")
+    if any(v != "ok" for v in results[0]["probe"].values()):
+        raise AssertionError(f"gloo on card tensors: {results[0]['probe']}")
+    launches = _mp_check("gloo", results, tmp, 2, ref_resnet, ref_alexnet)
+    nccl1, _ = _launch_ranks([{"kind": "nccl1", "name": "nccl1"}], 1, tmp, "nccl")
+    log(f"  NCCL at world size 1: {nccl1[0]['nccl1']}")
+    if nccl1[0]["nccl1"]["sum"] != [1.0, 2.0, 3.0, 4.0]:
+        raise AssertionError(f"NCCL world 1: {nccl1[0]}")
+    out = {"launches": launches}
+    if counts < 2:
+        log(f"  NCCL across cards: not run: {counts} card visible, and NCCL needs one "
+            f"card a rank (run on a host with two or more cards)")
+        return out
+    for label, cmd in (("cards", ["--query-gpu=name,power.limit", "--format=csv,noheader"]),
+                       ("topo -m", ["topo", "-m"]), ("nvlink", ["nvlink", "--status"])):
+        p = subprocess.run(["nvidia-smi"] + cmd, capture_output=True, text=True, timeout=60)
+        for line in (p.stdout + p.stderr).splitlines()[:24]:
+            log(f"  {label} | {line}")
+    # NCCL names the transport of each of its channels ("via P2P/...",
+    # "NVLS"): the link the collectives took
+    results, texts = _launch_ranks(_mp_jobs("nccl", tmp), 2, tmp, "nccl",
+                                   env={"NCCL_DEBUG": "INFO"})
+    links = sorted({m.group(0) for m in re.finditer(r"via \S+|NVLS\b[^\n]{0,40}", texts[0])})
+    log(f"  NCCL transports (rank 0's log, NCCL_DEBUG=INFO): {links[:8]}")
+    nccl = _mp_check("nccl", results, tmp, 2, ref_resnet, ref_alexnet)
+    out["launches"] = [a + b for a, b in zip(launches, nccl)]
+    world = min(counts, LOCAL_WORKERS)
+    results, _ = _launch_ranks([{"kind": "cifar_local", "name": "cifar"}], world, tmp,
+                               "nccl")
+    one = {c: _cifar_rounds(_cifar_parallel([torch.device("cuda", i) for i in range(world)],
+                                            "local", LOCAL_TAU, c), _cifar_feed(), 0, 1)
+           for c in ("none", "bf16", "int8")}
+    for c in ("none", "bf16", "int8"):
+        ranks = [r["cifar"][c] for r in results]
+        idle = [None if r["profile"]["busy_ms"] is None else
+                round(100 * (1 - r["profile"]["busy_ms"] / r["profile"]["wall_ms"]), 1)
+                for r in ranks]
+        r0 = ranks[0]
+        log(f"  cifar10_quick local tau {LOCAL_TAU}, {c}: {world} NCCL ranks (25 rows "
+            f"each): round {[round(r['round_ms'], 3) for r in ranks]} ms, average "
+            f"{[round(r['reduce_ms'], 3) for r in ranks]} ms "
+            f"({100 * r0['reduce_ms'] / r0['round_ms']:.1f}% on rank 0), each card idle "
+            f"{idle}% over one profiled round; one process over the same {world} cards: "
+            f"round {one[c]['round_ms']:.3f} ms, average {one[c]['reduce_ms']:.3f} ms "
+            f"({100 * one[c]['reduce_ms'] / one[c]['round_ms']:.1f}%); round loss "
+            f"{r0['first_loss']:.4f} -> {r0['last_loss']:.3e} (one process "
+            f"{one[c]['first_loss']:.4f} -> {one[c]['last_loss']:.3e})")
+        if not all(r["last_loss"] < 0.5 * r["first_loss"] for r in ranks + [one[c]]):
+            raise AssertionError(f"cifar local {c}: the round loss did not fall")
+        out[f"cifar_{c}"] = {"ranks": ranks, "one_process": one[c]}
+    _mp_cifar_app(tmp)
+    return out
+
+
+def _mp_cifar_app(tmp):
+    """CifarApp ``--parallel local`` as 2 processes through the launch
+    variables over NCCL: one voice, one snapshot, which restores a
+    one-process solver."""
+    from sparknet_tpu_torch.models import CIFAR_QUICK_TRAIN_TEST
+    from sparknet_tpu_torch.parallel import ParallelSolver
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    solver = os.path.join(tmp, "mp_cifar_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{CIFAR_QUICK_TRAIN_TEST}"\ntest_iter: 2\ntest_interval: 40\n'
+                'base_lr: 0.001\nlr_policy: "fixed"\nmomentum: 0.9\nweight_decay: 0.004\n'
+                f'display: 10\nmax_iter: 40\nsnapshot: 40\n'
+                f'snapshot_prefix: "{os.path.join(tmp, "mp_cifar")}"\n')
+    _, texts = _launch_ranks(None, 2, tmp, "nccl", cmd=[
+        sys.executable, "-m", "sparknet_tpu_torch.apps.cifar_app", "--solver", solver,
+        "--synthetic", "--synthetic-n", "2000", "--parallel", "local", "--tau", "10"])
+    lines = [len(re.findall(r"Iteration \d+, loss", t)) for t in texts]
+    log(f"  CifarApp --parallel local as 2 NCCL processes: Iteration lines by rank {lines}")
+    for line in texts[0].splitlines():
+        if re.search(r"Iteration|speed:|comm:|Snapshotting|Optimization", line):
+            log(f"  | {line}")
+    path = os.path.join(tmp, "mp_cifar_iter_40.solverstate.npz")
+    one = ParallelSolver(caffe_pb.load_solver(solver),
+                         {"data": (100, 32, 32, 3), "label": (100,)},
+                         workers=["cuda:0"] * 2, mode="local", tau=10)
+    one.restore(path)
+    log(f"  its snapshot restores a one-process 2-worker solver at iteration {one.iter}")
+    if lines[0] != 4 or lines[1] != 0 or one.iter != 40:
+        raise AssertionError(f"CifarApp over processes: lines {lines}, iter {one.iter}")
+
+
 # ---------------------------------------------------------------- feed
 def _feed_solver_file(tmp: str) -> str:
     """The zoo's rate and schedule; a test batch every FEED_CHUNK
@@ -3081,6 +3663,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ab", metavar="OTHER_ROOT",
                     help="compare with another checkout of the port on this card")
     ap.add_argument("--ab-side", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--phase", choices=("multiprocess",),
+                    help="run only the card and build phases and this one (e.g. the "
+                         "NCCL runs on several cards); prints no result line")
+    ap.add_argument("--rank-job", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3101,15 +3687,24 @@ def main(argv=None) -> int:
         ab_side(args.ab_side)
         return 0
     sys.path.insert(0, ROOT)
+    if args.rank_job:
+        return rank_main(args.rank_job)
     if args.ab:
         return ab(args.ab)
 
     phases = Phases()
     card = phases.run("card", phase_card)
     built = phases.run("build", phase_build)
+    if args.phase:
+        if built:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+                phases.run(args.phase, phase_multiprocess, tmp)
+        log(f"chip_smoke --phase {args.phase}: "
+            + (f"FAILED phases: {phases.failed}" if phases.failed else "ok"))
+        return 1 if phases.failed else 0
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
-    serving = train = bert = local = feed = resident = zoo = None
+    serving = train = bert = local = feed = resident = zoo = multiprocess = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -3132,6 +3727,8 @@ def main(argv=None) -> int:
         phases.run("local-sgd", phase_local_sgd)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_local_") as tmp:
             local = phases.run("alexnet-local", phase_alexnet_local, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+            multiprocess = phases.run("multiprocess", phase_multiprocess, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_feed_") as tmp:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
     if phases.failed:
@@ -3139,6 +3736,7 @@ def main(argv=None) -> int:
         return 1
     timing.update(flash)
     paths = (train, local, feed, zoo["googlenet"])
+    paths += (multiprocess,)  # every rank's launches
     launches = {
         "lrn_fwd": serving["launches"] + sum(p["launches"][0] for p in paths),
         "lrn_fwd_train": sum(p["launches"][1] for p in paths),

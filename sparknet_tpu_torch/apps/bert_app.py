@@ -30,6 +30,7 @@ import torch
 from ..data.prefetch import maybe_prefetch
 from ..data.text import mlm_dataset, mlm_feed
 from ..models.bert import BertConfig, BertMLM
+from ..parallel import multihost
 from ..proto import caffe_pb
 from ..solver.trainer import Solver
 from .cifar_app import _ChunkTimer
@@ -196,6 +197,11 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Dict[str, float]:
     args = parser().parse_args(argv)
+    if os.environ.get(multihost.COORDINATOR_ENV):
+        # the JAX app's refusal of --parallel none over processes: the
+        # port's BertApp takes no other, and must not run N copies
+        raise ValueError("multi-host launch requires --parallel sync|local, which the "
+                         "port's BertApp does not take yet")
     solver, feed, cfg = build(args)
     if args.restore:
         solver.restore(args.restore, feed)

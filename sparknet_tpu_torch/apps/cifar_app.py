@@ -42,8 +42,13 @@ The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). Each flag the
 port does not take yet raises ``NotImplementedError`` naming it when
 set to a value the port does not take (``_UNPORTED``). The parallel
-apps run one worker per visible card; the chaos, reshard,
-flight-recorder and telemetry hooks of the JAX loop are not ported.
+apps run one worker per visible card; launched as several processes
+(``SPARKNET_COORDINATOR``, ``SPARKNET_NUM_PROCESSES``,
+``SPARKNET_PROCESS_ID``, as the JAX apps), one worker a process
+(:mod:`..parallel.multihost`): each feeds its own partitions at the
+global batch over the process count, and only process 0 logs and
+writes snapshots. The chaos, reshard, flight-recorder and telemetry
+hooks of the JAX loop are not ported.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from ..data.prefetch import maybe_prefetch
 from ..data.preprocess import Transformer
 from ..models import CIFAR_QUICK_SOLVER
 from ..nets import weights as W
-from ..parallel import ParallelSolver, comm
+from ..parallel import ParallelSolver, comm, multihost
 from ..proto import caffe_pb
 from ..proto.caffemodel import load_binaryproto_mean
 from ..solver.trainer import Solver, resolve_model_path
@@ -241,8 +246,27 @@ def record_loader_meta(solver, train_feed) -> str:
     keeps it, so a resume elsewhere can tell a changed stream."""
     loader = "native" if isinstance(train_feed, native.NativeLoader) else "python"
     solver.env_meta["loader"] = loader
-    print(f"data loader: {loader}")
+    if multihost.is_primary():
+        print(f"data loader: {loader}")
     return loader
+
+
+def shard_for_processes(args, train_ds, test_ds, train_bs: int, test_bs: int):
+    """``(train_ds, test_ds, train_feed_bs, test_feed_bs)`` of this
+    process: over several processes (:mod:`..parallel.multihost`) each
+    feeds its own partitions (``host_shard``) at the global batch
+    divided by the process count, while the solver's batch stays the
+    global one (the prototxt's); the JAX apps' checks and messages."""
+    nproc = multihost.process_count()
+    if nproc == 1:
+        return train_ds, test_ds, train_bs, test_bs
+    if args.parallel == "none":
+        raise ValueError("multi-host launch requires --parallel sync|local")
+    if train_bs % nproc or test_bs % nproc:
+        raise ValueError(f"batch sizes ({train_bs}/{test_bs}) must divide across "
+                         f"{nproc} processes")
+    return (multihost.host_shard(train_ds), multihost.host_shard(test_ds),
+            train_bs // nproc, test_bs // nproc)
 
 
 def resolve_packed(args):
@@ -297,7 +321,9 @@ def run_training(args, solver, train_feed, test_feed, log=print):
     feeds closed (worker processes, shared memory, native threads). The
     ``data cache:`` line is the packed train reader's cache's; behind
     worker processes the reads are the workers' and no line is
-    printed."""
+    printed. Over several processes only process 0 logs."""
+    if not multihost.is_primary():
+        log = _quiet
     if args.restore:
         solver.restore(args.restore, train_feed)
         log(f"Restoring previous solver status from {args.restore} "
@@ -382,9 +408,18 @@ class _ChunkTimer:
                 f"{self.unit}/s={self.steps_per_sec * self.items_per_step:.0f}")
 
 
+def _quiet(*args, **kw) -> None:
+    """The log of a process other than process 0, which stays silent."""
+
+
 def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, float]:
     """Train to ``max_iter`` with Caffe's test/snapshot cadence; returns
-    the last test's metrics."""
+    the last test's metrics. Over several processes every process
+    computes and takes part in the snapshot's gather; process 0 alone
+    logs and writes the files."""
+    primary = multihost.is_primary()
+    if not primary:
+        log = _quiet
     sp = solver.sp
     shapes = solver.train_net.blob_shapes
     data_name = "data" if "data" in shapes else next(iter(shapes), None)
@@ -403,7 +438,8 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
         path = f"{sp.snapshot_prefix}_iter_{solver.iter}.npz"
         state_path = f"{sp.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
         solver.save(state_path)
-        W.save_npz(path, solver.params, solver.train_net)
+        if primary:
+            W.save_npz(path, solver.params, solver.train_net)
         log(f"Snapshotting to {path}")
         log(f"Snapshotting solver state to {state_path}")
 
@@ -528,6 +564,9 @@ def build(args, workers=None):
     if not (use_packed and mean is not None) and (
             needs_regenerated_mean(train_layer) or needs_regenerated_mean(test_layer)):
         mean = _dataset_mean(train_ds)  # a pack's stored mean wins
+    # the mean above is the whole set's on every process
+    train_ds, test_ds, feed_train_bs, feed_test_bs = shard_for_processes(
+        args, train_ds, test_ds, train_bs, test_bs)
     train_tf = make_transformer(train_layer, True, solver_dir, lambda: mean)
     test_tf = make_transformer(test_layer, False, solver_dir, lambda: mean)
 
@@ -537,9 +576,9 @@ def build(args, workers=None):
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
     solver = make_solver(args, sp, shapes, workers, test_input_shapes=test_shapes,
                          net_param=net_param, solver_dir=solver_dir, seed=args.seed)
-    train_feed = train_feed_for(args, train_ds, train_tf, train_bs)
+    train_feed = train_feed_for(args, train_ds, train_tf, feed_train_bs)
     # the test feed stays serial: eval runs at test_interval cadence
-    test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
+    test_feed = make_feed(test_ds, test_tf, feed_test_bs, seed=args.seed + 1)
     record_loader_meta(solver, train_feed)
     return solver, train_feed, test_feed
 
@@ -610,10 +649,15 @@ def arg_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = arg_parser().parse_args(argv)
+    multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)
-    print(f"CifarApp: net={solver.net_param.name} params={W.num_params(solver.params)} "
-          f"max_iter={solver.sp.max_iter} device={solver.device}")
-    return run_training(args, solver, train_feed, test_feed)
+    if multihost.is_primary():
+        print(f"CifarApp: net={solver.net_param.name} "
+              f"params={W.num_params(solver.params)} max_iter={solver.sp.max_iter} "
+              f"device={solver.device}")
+    result = run_training(args, solver, train_feed, test_feed)
+    multihost.shutdown()  # the heartbeat's graceful leave
+    return result
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ and train_val prototxts, loads ImageNet (npz shards, or the synthetic
 stand-in with ``--synthetic``), applies the net's ``transform_param``
 (crop, mirror, channel means) in a serial host feed, and trains on one
 device, or over the workers of ``..parallel`` (``--parallel sync|local``,
-``--tau``, ``--grad-compress``), with test-interval evaluation and
-snapshots.
+``--tau``, ``--grad-compress``; over several processes, one worker
+each, when launched as the JAX app is: :mod:`..parallel.multihost`),
+with test-interval evaluation and snapshots.
 
 The train feed is CifarApp's (:func:`..cifar_app.train_feed_for`: the C++
 loader, the worker pipeline, the packed readers and their cache, the
@@ -41,6 +42,7 @@ from ..data.imagenet import BGR_MEAN, imagenet_dataset
 from ..data.preprocess import Transformer
 from ..models import PROTOTXT_DIR
 from ..nets import weights as W
+from ..parallel import multihost
 from ..proto import caffe_pb
 from ..solver.trainer import resolve_model_path
 from .cifar_app import (
@@ -55,6 +57,7 @@ from .cifar_app import (
     record_loader_meta,
     resolve_packed,
     run_training,
+    shard_for_processes,
     source_data_shape,
     train_feed_for,
 )
@@ -150,6 +153,9 @@ def build(args, workers=None):
         test_ds = imagenet_dataset(data_dir, train=False, synthetic_n=args.synthetic_n,
                                    synthetic_classes=classes)
 
+    train_ds, test_ds, feed_train_bs, feed_test_bs = shard_for_processes(
+        args, train_ds, test_ds, train_bs, test_bs)
+
     # a missing mean .binaryproto -> the pack's mean, else the Caffe
     # zoo's BGR channel means
     fallback_mean = (lambda: packed_mean) if packed_mean is not None else lambda: BGR_MEAN
@@ -169,10 +175,10 @@ def build(args, workers=None):
     )
     if args.device_augment:
         # the host work is already a shuffle and a copy: no workers
-        train_feed = make_device_feed(train_ds, train_tf, train_bs, seed=args.seed)
+        train_feed = make_device_feed(train_ds, train_tf, feed_train_bs, seed=args.seed)
     else:
-        train_feed = train_feed_for(args, train_ds, train_tf, train_bs)
-    test_feed = make_feed(test_ds, test_tf, test_bs, seed=args.seed + 1)
+        train_feed = train_feed_for(args, train_ds, train_tf, feed_train_bs)
+    test_feed = make_feed(test_ds, test_tf, feed_test_bs, seed=args.seed + 1)
     record_loader_meta(solver, train_feed)
     return solver, train_feed, test_feed
 
@@ -227,11 +233,15 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)
-    print(f"ImageNetApp: net={solver.net_param.name} "
-          f"params={W.num_params(solver.params)} max_iter={solver.sp.max_iter} "
-          f"device={solver.device}")
-    return run_training(args, solver, train_feed, test_feed)
+    if multihost.is_primary():
+        print(f"ImageNetApp: net={solver.net_param.name} "
+              f"params={W.num_params(solver.params)} max_iter={solver.sp.max_iter} "
+              f"device={solver.device}")
+    result = run_training(args, solver, train_feed, test_feed)
+    multihost.shutdown()  # the heartbeat's graceful leave
+    return result
 
 
 if __name__ == "__main__":

@@ -70,6 +70,15 @@ class ShardedDataset:
     def collect_partition(self, i: int) -> Any:
         return self._fns[i]()
 
+    def shard(self, host_id: int, num_hosts: int) -> "ShardedDataset":
+        """Deterministic host shard: partition i goes to host
+        ``i % num_hosts`` (a host gets none when there are fewer
+        partitions than hosts)."""
+        return ShardedDataset(
+            [f for i, f in enumerate(self._fns) if i % num_hosts == host_id],
+            sample_shape_fn=self._sample_shape_fn,
+        )
+
     def batches(
         self,
         batch_size: int,

@@ -36,10 +36,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.lrn import lrn_nhwc
@@ -78,6 +79,10 @@ class ApplyCtx:
     compute_dtype: torch.dtype = torch.float32
     # draws of the training-phase Dropout masks; on the net's device
     generator: Optional[torch.Generator] = None
+    # a torch.distributed process group: a training BatchNorm takes its
+    # statistics over every rank's rows (the lossless sync step across
+    # processes); None: over this worker's rows
+    group: Optional[Any] = None
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +508,52 @@ class Accuracy:
         return [acc] * max(1, len(lp.top))
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the rows of every rank of a process group:
+    ``(x, eps, group) -> (y, mean, var)`` for ``x`` of shape (N, C, ...),
+    f32, channels on axis 1.
+
+    Forward: one ``all_reduce`` of the per-channel sum and the row
+    count gives the global mean, a second of the per-channel sum of
+    squared deviations the biased variance: two passes, as ``jnp.var``,
+    not E[x^2] - mean^2. Backward: one ``all_reduce`` of the per-channel
+    sums of dy and of dy x-hat, then ``dx = invstd (dy - mean(dy) - x-hat
+    mean(dy x-hat))`` with the global means: the gradient of the global
+    normalization, the same function the JAX package differentiates.
+    Every rank issues the same three collectives in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, eps, group):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        sums = torch.cat([x.sum(dims), x.new_full((1,), float(x.numel() // c))])
+        dist.all_reduce(sums, group=group)
+        count = sums[c]
+        mean = sums[:c] / count
+        dev = x - mean.view(shape)
+        sq = (dev * dev).sum(dims)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        y = dev * invstd.view(shape)
+        ctx.save_for_backward(y, invstd, count)
+        ctx.group, ctx.dims, ctx.shape = group, dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean_grad, _var_grad):
+        y, invstd, count = ctx.saved_tensors
+        c = invstd.numel()
+        sums = torch.cat([dy.sum(ctx.dims), (dy * y).sum(ctx.dims)])
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy = (sums[:c] / count).view(ctx.shape)
+        mean_dy_y = (sums[c:] / count).view(ctx.shape)
+        dx = (dy - mean_dy - y * mean_dy_y) * invstd.view(ctx.shape)
+        return dx, None, None
+
+
 class BatchNorm:
     """Caffe BatchNorm: normalization only (Scale supplies the affine).
 
@@ -518,7 +569,12 @@ class BatchNorm:
     unbiased variance) and takes the new state from the batch mean and
     inverse standard deviation that its one reduction saved
     (``var = invstd**-2 - eps``), outside autograd; the EMA is a
-    ``lerp``."""
+    ``lerp``.
+
+    Under ``ctx.group`` (the lossless sync step across processes) the
+    training statistics are the global batch's, as the JAX package's
+    monolithic step normalizes (:class:`_GlobalBatchNorm`); every rank
+    then moves its state by the same statistics."""
 
     @staticmethod
     def _geom(lp):
@@ -554,11 +610,15 @@ class BatchNorm:
             y = F.batch_norm(xc, state["mean"], state["var"], training=False, eps=eps)
             new_state = state
         else:
-            y, mean, invstd = torch.native_batch_norm(xc, None, None, None, None,
-                                                      True, 0.0, eps)
+            if ctx.group is not None:
+                y, mean, var = _GlobalBatchNorm.apply(xc, eps, ctx.group)
+            else:
+                y, mean, invstd = torch.native_batch_norm(xc, None, None, None, None,
+                                                          True, 0.0, eps)
+                with torch.no_grad():
+                    # the biased variance, never below 0 after the rounding
+                    var = invstd.pow(-2).sub_(eps).clamp_min_(0)
             with torch.no_grad():
-                # the biased variance, never below 0 after the rounding
-                var = invstd.pow(-2).sub_(eps).clamp_min_(0)
                 # mavf * old + (1 - mavf) * batch, one launch a statistic
                 new_state = {"mean": state["mean"].lerp(mean, 1 - mavf),
                              "var": state["var"].lerp(var, 1 - mavf)}

@@ -117,16 +117,19 @@ class TorchNet:
         train: Optional[bool] = None,
         compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
+        group: Optional[Any] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         """Forward over ``batch`` (blob name -> NHWC tensor on the net's
         device); returns every blob and the new state (``state`` with
         each stateful layer's entry replaced; a TRAIN-mode BatchNorm's
         running statistics move, with no autograd history).
         ``compute_dtype`` overrides the net's for this call; ``generator``
-        (on the net's device) draws the training-phase Dropout masks."""
+        (on the net's device) draws the training-phase Dropout masks;
+        ``group`` (a ``torch.distributed`` process group) makes a training
+        BatchNorm normalize over every rank's rows."""
         train = (self.phase == "TRAIN") if train is None else train
         ctx = ApplyCtx(train=train, compute_dtype=compute_dtype or self.compute_dtype,
-                       generator=generator)
+                       generator=generator, group=group)
         blobs: Dict[str, torch.Tensor] = dict(batch)
         new_state: Dict[str, Any] = dict(state)
         for lp in self.layers:

@@ -4,8 +4,9 @@ and SparkNet's τ-local SGD, with the communication layer under both.
 Counterpart of the dp part of ``sparknet_tpu/parallel``: the JAX
 package's device mesh is an explicit list of worker devices here
 (:func:`make_workers`), and its collectives are functions over that
-worker axis (:mod:`.comm`). Tensor, sequence, pipeline and expert
-parallelism, the rule-table layouts, resharding and multi-host runs
+worker axis (:mod:`.comm`), or ``all_reduce`` over a process group when
+each worker is a process (:mod:`.multihost`). Tensor, sequence,
+pipeline and expert parallelism, the rule-table layouts and resharding
 are not ported.
 """
 

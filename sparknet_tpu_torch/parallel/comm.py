@@ -26,6 +26,18 @@ to :func:`wire_bytes`). Trees are nested dicts of tensors; they flatten
 in sorted key order at every level, the JAX package's order, so both
 packages plan the same buckets for the same net.
 
+**Over processes.** Given a ``torch.distributed`` process group
+(``group=``), a reduction takes this process's one tree and reduces it
+across the group with the JAX package's ``_reduce_payload`` numerics:
+lossless is an ``all_reduce`` SUM divided by the world size; ``bf16``
+rounds to bf16 and all-reduces those values in f32 (JAX's
+``pmean(q.astype(f32))``); ``int8`` all-reduces the MAX of ``|x|`` for
+the shared scale, then the SUM of the rounded values in **int32** (NCCL
+has no int16 reduction; for up to 256 workers the integers are the
+int16 sums). An ``all_reduce`` sums in its own order, not in rank
+order, so a lossless f32 mean agrees with the one-process one to about
+1e-6 relative; every rank receives the same result.
+
 The knobs are the JAX package's: ``SPARKNET_COMM`` (``bucketed`` /
 ``monolithic``, recorded and reported), ``SPARKNET_GRAD_COMPRESS``
 (``none`` / ``bf16`` / ``int8``, also the apps' ``--grad-compress``)
@@ -38,9 +50,10 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 COMM_ENV = "SPARKNET_COMM"
 COMPRESS_ENV = "SPARKNET_GRAD_COMPRESS"
@@ -51,8 +64,10 @@ COMPRESS_MODES = ("none", "bf16", "int8")
 
 # int8 payloads are accumulated in int16: with the shared per-bucket
 # scale each element is in [-127, 127], so up to 256 workers sum
-# without overflow
+# without overflow. Over processes in int32, which NCCL reduces; the
+# cap stays the JAX package's
 _INT8_ACC_DTYPE = torch.int16
+_INT8_GROUP_ACC_DTYPE = torch.int32
 _INT8_MAX_WORKERS = 256
 
 
@@ -205,22 +220,32 @@ def bucket_histogram(plan: Sequence[Sequence[int]], leaves: Sequence[torch.Tenso
     }
 
 
+def wire_dtype(compress: str, processes: bool = False) -> Optional[torch.dtype]:
+    """The dtype a payload crosses the wire in (None: each leaf's own):
+    ``bf16`` bf16 in one process, f32 over processes (the rounded values
+    are all-reduced in f32); ``int8`` the int16 accumulation type in one
+    process, int32 over processes."""
+    if compress == "bf16":
+        return torch.float32 if processes else torch.bfloat16
+    if compress == "int8":
+        return _INT8_GROUP_ACC_DTYPE if processes else _INT8_ACC_DTYPE
+    return None
+
+
 def wire_bytes(plan: Sequence[Sequence[int]], leaves: Sequence[torch.Tensor],
-               compress: str = "none") -> int:
-    """Payload bytes ONE worker contributes to one reduction: ``none``
-    moves the native dtype, ``bf16`` two bytes an element, ``int8`` the
-    int16 accumulation type plus an f32 scale a bucket. An estimate of
-    the algorithm's traffic, not a measurement."""
+               compress: str = "none", processes: bool = False) -> int:
+    """Payload bytes ONE worker contributes to one reduction: the leaves
+    in :func:`wire_dtype`, plus an f32 scale a bucket under ``int8``. An
+    estimate of the algorithm's traffic, not a measurement."""
     total = 0
-    acc_size = torch.empty((), dtype=_INT8_ACC_DTYPE).element_size()
+    dtype = wire_dtype(compress, processes)
+    size = None if dtype is None else torch.empty((), dtype=dtype).element_size()
     for bucket in plan:
         n = sum(leaves[i].numel() for i in bucket)
-        if compress == "bf16":
-            total += 2 * n
-        elif compress == "int8":
-            total += acc_size * n + 4
-        else:
+        if size is None:
             total += sum(_nbytes(leaves[i]) for i in bucket)
+        else:
+            total += size * n + (4 if compress == "int8" else 0)
     return total
 
 
@@ -247,6 +272,24 @@ def _split_bucket(flat: torch.Tensor, leaves: Sequence[torch.Tensor],
 # the reduction over the worker axis
 # --------------------------------------------------------------------------
 
+def _one_worker(xs: Sequence[Any]) -> None:
+    if len(xs) != 1:
+        raise ValueError(f"a reduction over a process group takes this process's one "
+                         f"worker, got {len(xs)}")
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _group_mean(xs: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """This process's one value all-reduced over ``group``, divided by
+    its size."""
+    _one_worker(xs)
+    return _all_reduce(xs[0].clone(), group) / float(dist.get_world_size(group))
+
+
 def _mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The workers' values summed in rank order, divided by the count,
     on the first worker's device."""
@@ -257,12 +300,22 @@ def _mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc / float(len(xs))
 
 
-def _reduce_payload(flats: Sequence[torch.Tensor], compress: str
+def _check_int8_workers(n: int) -> None:
+    if n > _INT8_MAX_WORKERS:
+        raise ValueError(
+            f"int8 gradient compression accumulates in int16 and supports at most "
+            f"{_INT8_MAX_WORKERS} workers, got {n}")
+
+
+def _reduce_payload(flats: Sequence[torch.Tensor], compress: str, group=None
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One bucket's mean over the workers (one flat buffer each) in the
     configured wire format. Returns the reduced buffer on the first
     worker's device and, per worker, what its peers received from it
-    (the error-feedback reference; the buffer itself when lossless)."""
+    (the error-feedback reference; the buffer itself when lossless).
+    With ``group``: this process's one buffer, reduced over the group."""
+    if group is not None:
+        return _reduce_group_payload(flats, compress, group)
     n = len(flats)
     if compress == "bf16":
         # bf16 on the wire, f32 accumulation: summing IN bf16 would add
@@ -270,10 +323,7 @@ def _reduce_payload(flats: Sequence[torch.Tensor], compress: str
         sent = [f.to(torch.bfloat16).to(f.dtype) for f in flats]
         return _mean(sent), sent
     if compress == "int8":
-        if n > _INT8_MAX_WORKERS:
-            raise ValueError(
-                f"int8 gradient compression accumulates in int16 and supports at "
-                f"most {_INT8_MAX_WORKERS} workers, got {n}")
+        _check_int8_workers(n)
         home = flats[0].device
         # one scale for every worker, so the summed ints dequantize with
         # one multiply
@@ -289,8 +339,28 @@ def _reduce_payload(flats: Sequence[torch.Tensor], compress: str
     return _mean(flats), list(flats)
 
 
+def _reduce_group_payload(flats, compress, group):
+    """:func:`_reduce_payload` over a process group, as the JAX
+    package's ``_reduce_payload`` over its ``dp`` axis."""
+    _one_worker(flats)
+    flat = flats[0]
+    n = dist.get_world_size(group)
+    if compress == "bf16":
+        sent = flat.to(torch.bfloat16).to(flat.dtype)
+        return _all_reduce(sent.clone(), group) / float(n), [sent]
+    if compress == "int8":
+        _check_int8_workers(n)
+        absmax = _all_reduce(flat.abs().max().reshape(1), group, dist.ReduceOp.MAX)[0]
+        scale = torch.clamp(absmax, min=1e-30) / 127.0
+        q = torch.clamp(torch.round(flat / scale), -127.0, 127.0)
+        acc = _all_reduce(q.to(_INT8_GROUP_ACC_DTYPE), group)
+        return (acc.to(flat.dtype) * scale) / float(n), [q * scale]
+    return _all_reduce(flat.clone(), group) / float(n), [flat]
+
+
 def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
-                    residual: Optional[Any] = None) -> Tuple[Any, Optional[Any]]:
+                    residual: Optional[Any] = None, group=None
+                    ) -> Tuple[Any, Optional[Any]]:
     """Mean of the workers' trees (one a worker, each on its worker's
     device), bucket by bucket, in the configured wire format.
 
@@ -301,9 +371,14 @@ def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
     value plus its residual row, and the new residual is what
     quantization dropped, f32, with the same layout on the first
     worker's device. With ``compress="none"`` the residual passes
-    through untouched and the result is :func:`reduce_per_leaf`'s."""
+    through untouched and the result is :func:`reduce_per_leaf`'s.
+
+    With ``group`` (a ``torch.distributed`` process group), ``trees``
+    is this process's one tree and its residual has a worker axis of 1:
+    each rank keeps its own; the reduced tree is the same on every
+    rank."""
     if not config.wants_residual:
-        return reduce_per_leaf(trees), residual
+        return reduce_per_leaf(trees, group), residual
     n = len(trees)
     leaves_w = [tree_leaves(t) for t in trees]
     leaves = leaves_w[0]
@@ -327,7 +402,7 @@ def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
             flat = _concat_bucket(lw, bucket)
             res = _concat_bucket([r[w] for r in res_leaves], bucket)
             payloads.append(flat + res.to(flat.device, flat.dtype))
-        red, sent = _reduce_payload(payloads, config.compress)
+        red, sent = _reduce_payload(payloads, config.compress, group)
         _split_bucket(red, leaves, bucket, out)
         # residuals stay f32 whatever the payload dtype
         stacked = torch.stack([(p - s).to(home, torch.float32)
@@ -340,9 +415,27 @@ def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
     return tree_unflatten(trees[0], out), tree_unflatten(trees[0], new_res)
 
 
-def reduce_per_leaf(trees: Sequence[Any]) -> Any:
-    """The lossless mean, leaf by leaf."""
-    return tree_unflatten(trees[0], [_mean(xs) for xs in zip(*map(tree_leaves, trees))])
+def reduce_per_leaf(trees: Sequence[Any], group=None) -> Any:
+    """The lossless mean, leaf by leaf (with ``group``: this process's
+    one tree, one ``all_reduce`` a leaf)."""
+    return tree_unflatten(trees[0], [_mean(xs) if group is None else _group_mean(xs, group)
+                                     for xs in zip(*map(tree_leaves, trees))])
+
+
+def reduce_metrics(metrics: Sequence[Dict[str, torch.Tensor]], home: torch.device,
+                   group=None) -> Dict[str, torch.Tensor]:
+    """The workers' mean of each scalar metric, on ``home``; with
+    ``group``, this process's metrics averaged over the group in one
+    ``all_reduce``."""
+    if group is None:
+        return {k: _mean([m[k].to(home) for m in metrics]) for k in metrics[0]}
+    _one_worker(metrics)
+    keys = list(metrics[0])
+    if not keys:
+        return {}
+    vals = torch.stack([metrics[0][k].to(home, torch.float32).reshape(()) for k in keys])
+    vals = _all_reduce(vals, group) / float(dist.get_world_size(group))
+    return dict(zip(keys, vals.unbind()))
 
 
 def init_residual(tree: Any, num_workers: int) -> Any:

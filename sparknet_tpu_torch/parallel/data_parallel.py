@@ -13,11 +13,23 @@ follows, so the weights stay replicated without a weight average.
   per-worker residual (:data:`~.local_sgd.RESIDUAL_KEY` in the optimizer
   state, leading worker axis), both through :func:`comm.reduce_bucketed`.
 
-A BatchNorm layer normalizes by each worker's own rows and the
-workers' new states are averaged: the JAX package's bucketed sync step.
-Its monolithic step (the lossless default) lets XLA normalize over the
-global batch, which the port does not compute, so over more than one
-worker a net with BatchNorm takes the bucketed path or is refused.
+Over a process group (one worker a process, ``group=``), each rank
+computes the gradient of its own rows, the mean goes through
+:mod:`.comm`'s process-group form (an ``all_reduce``), and every rank
+applies the same update to the same weights: NCCL and gloo hand every
+rank the same reduced values, so the weights stay replicated bit for
+bit.
+
+BatchNorm: on the lossless monolithic path (the JAX package's default,
+where XLA normalizes over the global batch) across processes, each
+BatchNorm takes its training statistics over the global batch
+(``nets/layers.py`` ``_GlobalBatchNorm``), and every rank's new state is
+the same. On the bucketed path (``SPARKNET_COMM=bucketed`` and every
+compressed run) a BatchNorm normalizes by each worker's own rows and the
+workers' new states are averaged, as the JAX package's bucketed sync
+step. Several workers in one process run one after another, not in
+lock-step layer by layer, so they cannot share statistics: there a net
+with BatchNorm takes the bucketed path or is refused.
 
 With ``iter_size > 1`` each worker accumulates its micro-batches before
 the reduction. Each worker draws its Dropout masks from its own
@@ -36,7 +48,7 @@ from .local_sgd import RESIDUAL_KEY, worker_rows
 
 
 def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
-                       config: Optional[comm.CommConfig] = None) -> Callable:
+                       config: Optional[comm.CommConfig] = None, group=None) -> Callable:
     """``train_step(params, state, opt_state, batch, it, generators) ->
     (params, state, opt_state, metrics)``.
 
@@ -44,16 +56,24 @@ def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
     net's); ``params``, ``state`` and ``opt_state`` live on the first
     worker's device and are updated there in place. ``batch``: the
     global batch as tensors on that device (with ``iter_size > 1``, a
-    list of that many micro-batches); ``generators``: one a worker."""
+    list of that many micro-batches); ``generators``: one a worker.
+    With ``group`` (a ``torch.distributed`` process group): this
+    process's one net, and ``batch`` its own rows."""
     config = config or comm.CommConfig()
-    if (len(nets) > 1 and config.for_sync() == "monolithic"
+    monolithic = config.for_sync() == "monolithic"
+    if (len(nets) > 1 and monolithic
             and any(lp.type == "BatchNorm" for lp in nets[0].layers)):
         raise ValueError(
-            f"sync data parallel over {len(nets)} workers on a net with BatchNorm: "
-            "the monolithic comm path normalizes over the global batch, which is "
-            f"not ported; {comm.COMM_ENV}=bucketed (or --grad-compress) normalizes "
-            "by each worker's rows")
-    grad_fns = [make_grad_fn(net) for net in nets]
+            f"sync data parallel over {len(nets)} workers in one process on a net with "
+            "BatchNorm: the monolithic comm path normalizes over the global batch, "
+            "which needs one worker a process (SPARKNET_COORDINATOR, "
+            "SPARKNET_NUM_PROCESSES, SPARKNET_PROCESS_ID); "
+            f"{comm.COMM_ENV}=bucketed (or --grad-compress) normalizes by each "
+            "worker's rows")
+    # the global batch's BatchNorm statistics: every rank's state the same
+    global_bn = group is not None and monolithic
+    grad_fns = [make_grad_fn(net, group if global_bn else None) for net in nets]
+    over = {} if group is None else {"group": group}  # the reductions' process group
     n = len(nets)
     update = None
 
@@ -79,12 +99,11 @@ def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
             metrics.append(m)
         opt_solver = {k: v for k, v in opt_state.items() if k != RESIDUAL_KEY}
         residual = opt_state.get(RESIDUAL_KEY)
-        g, residual = comm.reduce_bucketed(grads, config, residual=residual)
+        g, residual = comm.reduce_bucketed(grads, config, residual=residual, **over)
         # one update of the one set of weights and slots
         params, opt_solver = update(params, g, opt_solver, it)
-        state = comm.reduce_per_leaf(states)
-        home = nets[0].device
-        metrics = {k: comm._mean([m[k].to(home) for m in metrics]) for k in metrics[0]}
+        state = states[0] if global_bn else comm.reduce_per_leaf(states, **over)
+        metrics = comm.reduce_metrics(metrics, nets[0].device, **over)
         if residual is not None:
             opt_solver = {**opt_solver, RESIDUAL_KEY: residual}
         return params, state, opt_solver, metrics

@@ -18,6 +18,11 @@ or two compiled programs under ``shard_map``; here a round is
   the lossless average in the same program as the steps; here it would
   be these two calls over again, so it has no counterpart.
 
+Over a process group (one worker a process) the body runs this
+process's one worker on its own rows, and the average is an
+``all_reduce`` through :mod:`.comm`'s process-group form; each rank
+keeps its own slots and residual.
+
 Worker slots persist across rounds without averaging, as each Spark
 executor keeps its own Caffe solver between syncs in the reference.
 Batches arrive stacked ``[tau, global_bs, ...]`` (``[tau, iter_size,
@@ -147,7 +152,7 @@ def make_local_scan(nets: Sequence[Any], sp: SolverParameter, tau: int) -> Calla
     return scan
 
 
-def make_round_reduce(config: comm.CommConfig) -> Callable:
+def make_round_reduce(config: comm.CommConfig, group=None) -> Callable:
     """SparkNet's weight average through the comm layer:
 
     ``reduce(p_start, p_list, st_list, residual) -> (params, state,
@@ -157,15 +162,17 @@ def make_round_reduce(config: comm.CommConfig) -> Callable:
     (bf16/int8): each worker reduces its round delta ``p_end - p_start``
     plus its residual row, and the new residual carries this round's
     quantization error into the next. Net state is averaged lossless
-    either way. Works for any τ."""
+    either way. Works for any τ. With ``group``: this process's one
+    worker, averaged over the group."""
 
     def reduce(p_start, p_list, st_list, residual):
-        st = comm.reduce_per_leaf(st_list)
+        st = comm.reduce_per_leaf(st_list, group)
         if not config.wants_residual:
-            return comm.reduce_per_leaf(p_list), st, residual
+            return comm.reduce_per_leaf(p_list, group), st, residual
         deltas = [comm.tree_map(lambda e, s: e - s.to(e.device), p_end, p_start)
                   for p_end in p_list]
-        red, new_res = comm.reduce_bucketed(deltas, config, residual=residual)
+        red, new_res = comm.reduce_bucketed(deltas, config, residual=residual,
+                                            group=group)
         p = comm.tree_map(lambda s, d: s + d, p_start, red)
         return p, st, new_res
 

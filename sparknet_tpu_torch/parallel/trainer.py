@@ -23,12 +23,29 @@ a file written by either package restores the other's solver.
 
 Each worker draws Dropout masks from its own ``torch.Generator``, seeded
 from (the solver's seed, the round's or step's first iteration, the
-worker's rank): a resumed run draws the masks of the uninterrupted one.
-The JAX package folds the worker index into its PRNG key instead, so
-masks match it only in distribution.
+worker's global rank): a resumed run draws the masks of the
+uninterrupted one, and a run over processes those of the one-process
+run over as many workers. The JAX package folds the worker index into
+its PRNG key instead, so masks match it only in distribution.
+
+**Over processes** (after :func:`.multihost.initialize`, more than one
+process): one worker a process, on this process's device, whose rank is
+the process index. ``step()`` takes this process's rows: the solver's
+input shapes stay the global batch (the prototxt's), which is the
+process count times the rows each process feeds, as the JAX package's
+``put_global`` contract. Reductions are ``all_reduce`` over the process
+group (:mod:`.comm`); in sync mode every rank holds the same weights,
+slots and net state; in local mode each keeps its own slots and
+residual. Test metrics are the mean over ranks. A snapshot gathers local
+mode's slots and every residual into the leading worker axis, so the
+file is a one-process run's; only process 0 writes it; a restore hands
+each rank its row. ``tau='auto'`` is refused over processes: each
+rank's controller would observe its own round time, and a τ that
+differs between ranks leaves the next round's all-reduce waiting
+forever.
 
 Not ported: ``layout=`` (the rule-table sharding path) and live
-``reshard``, which raise; multi-process training over hosts.
+``reshard``, which raise.
 """
 
 from __future__ import annotations
@@ -40,6 +57,7 @@ from collections import deque
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..nets.torchnet import TorchNet
@@ -57,6 +75,7 @@ from .local_sgd import (
     make_round_reduce,
     stack_round_batches,
 )
+from . import multihost
 from .mesh import make_workers
 from .tau_controller import TauController, parse_tau
 
@@ -80,9 +99,11 @@ class ParallelSolver(Solver):
         **kw: Any,
     ):
         """``workers``: the worker devices (default: :func:`make_workers`
-        on ``device``, one worker per visible card for ``"cuda"``). The
-        solver's own ``device`` is the first worker's. Every train and
-        test input's batch must divide by the worker count."""
+        on ``device``, one worker per visible card for ``"cuda"``; over
+        processes, this process's device, one worker). The solver's own
+        ``device`` is the first worker's. Every train and test input's
+        batch must divide by the worker count (over processes: the
+        process count)."""
         if kw.get("batch_transform") is not None:
             raise ValueError("batch_transform (device-side augmentation) is not "
                              "supported by ParallelSolver; use the base Solver")
@@ -93,6 +114,23 @@ class ParallelSolver(Solver):
         if mode not in ("sync", "local"):
             raise ValueError(f"mode {mode!r} (want 'sync' or 'local')")
         device = kw.pop("device", None)
+        nproc = multihost.process_count()
+        # the process group every reduction runs over (None: the workers
+        # of this one process)
+        self.group = dist.group.WORLD if nproc > 1 else None
+        if nproc > 1:
+            if workers is None:
+                workers = [multihost.process_device()
+                           or resolve_device("cuda" if device is None else device)]
+            if len(workers) != 1:
+                raise ValueError(f"over {nproc} processes a ParallelSolver runs one "
+                                 f"worker a process, got {len(workers)}")
+            if parse_tau(tau)[1]:
+                raise ValueError(
+                    f"tau='auto' over {nproc} processes: each rank's controller would "
+                    "observe its own round time, and a tau that differs between ranks "
+                    "leaves the next round's all-reduce waiting forever; pass a fixed "
+                    "--tau")
         if workers is None:
             workers = make_workers(device="cuda" if device is None else device)
         else:
@@ -102,6 +140,10 @@ class ParallelSolver(Solver):
                                  f"worker is on {workers[0]}")
         super().__init__(solver, input_shapes, device=workers[0], **kw)
         self.workers: List[torch.device] = list(workers)
+        # the global rank of this process's first worker, and the workers
+        # of every process
+        self.rank = multihost.process_index()
+        self.num_workers = len(self.workers) * nproc
         self.mode = mode
         self.comm = comm_config if comm_config is not None else comm_mod.resolve_config()
         # recorded into the solverstate's env
@@ -124,15 +166,15 @@ class ParallelSolver(Solver):
         for which, net in (("train", self.train_net), ("test", self.test_net)):
             for name in net.input_names:
                 bs = net.blob_shapes[name][0]
-                if bs % n:
+                if bs % self.num_workers:
                     raise ValueError(f"{which} input {name!r}: batch {bs} not divisible "
-                                     f"by {n} workers")
+                                     f"by {self.num_workers} workers")
         self._nets = self._worker_nets(input_shapes)
         self._generators = [torch.Generator(device=d) for d in self.workers]
         if mode == "sync":
             if self.comm.wants_residual:
                 self.opt_state[RESIDUAL_KEY] = init_local_residual(self.params, n)
-            step = make_dp_train_step(self._nets, solver, self.comm)
+            step = make_dp_train_step(self._nets, solver, self.comm, self.group)
             self._train_step = (lambda p, s, o, b, it, _rng:
                                 step(p, s, o, b, it, self._worker_generators(it)))
         else:
@@ -142,7 +184,7 @@ class ParallelSolver(Solver):
             # round functions by τ: the last round of a step(n) with
             # n % tau != 0 runs a shorter one rather than overshooting n
             self._rounds: Dict[int, Any] = {}
-            self._reduce_fn = make_round_reduce(self.comm)
+            self._reduce_fn = make_round_reduce(self.comm, self.group)
             self._round_buffer = RoundBuffer()
         self._eval_step = make_dp_eval_step(self.test_net)
 
@@ -164,7 +206,7 @@ class ParallelSolver(Solver):
 
     def _worker_generators(self, it: int) -> List[torch.Generator]:
         for w, g in enumerate(self._generators):
-            g.manual_seed(_worker_seed(self.seed, it, w))
+            g.manual_seed(_worker_seed(self.seed, it, self.rank + w))
         return self._generators
 
     def _reinit_opt_state(self):
@@ -177,6 +219,10 @@ class ParallelSolver(Solver):
             opt[RESIDUAL_KEY] = init_local_residual(self.params, n)
         return opt
 
+    def _has_worker_axis(self, key: str) -> bool:
+        """Local mode's slots and every residual lead with the worker axis."""
+        return self.mode == "local" or key == RESIDUAL_KEY
+
     def _reconcile_residual(self, opt_state):
         """Snapshot against config: a snapshot without residuals restored
         into a lossy run gets zero residuals; a lossy snapshot restored
@@ -187,7 +233,7 @@ class ParallelSolver(Solver):
                   "without --grad-compress?): starting compression from zero "
                   "residuals", file=sys.stderr, flush=True)
             opt_state = dict(opt_state)
-            opt_state[RESIDUAL_KEY] = init_local_residual(self.params, len(self.workers))
+            opt_state[RESIDUAL_KEY] = init_local_residual(self.params, self.num_workers)
         elif has and not wants:
             print("WARNING: dropping the snapshot's error-feedback residuals "
                   "(--grad-compress is off in this run)", file=sys.stderr, flush=True)
@@ -195,11 +241,13 @@ class ParallelSolver(Solver):
         return opt_state
 
     def _place_opt_state(self, opt_state):
+        """The file's slots, checked against this solver; over processes
+        each rank keeps its row of the worker axis."""
         opt_state = self._reconcile_residual(super()._place_opt_state(opt_state))
-        n = len(self.workers)
+        n = self.num_workers
         shapes = [tuple(p.shape) for p in comm_mod.tree_leaves(self.params)]
         for key, tree in opt_state.items():
-            lead = (n,) if (self.mode == "local" or key == RESIDUAL_KEY) else ()
+            lead = (n,) if self._has_worker_axis(key) else ()
             got = [tuple(x.shape) for x in comm_mod.tree_leaves(tree)]
             if got != [lead + s for s in shapes]:
                 raise ValueError(
@@ -207,7 +255,35 @@ class ParallelSolver(Solver):
                     f"over {n} workers (a leading worker axis of {n} on "
                     f"{'every slot' if lead else 'the residual only'}); restore with "
                     f"weights_only=True to start the slots afresh")
+        if self.group is not None:
+            r = self.rank
+            opt_state = {key: comm_mod.tree_map(lambda x: x[r:r + 1].clone(), tree)
+                         if self._has_worker_axis(key) else tree
+                         for key, tree in opt_state.items()}
         return opt_state
+
+    def save(self, path: str) -> None:
+        """The solverstate of every worker. Over processes each rank's
+        row of the worker axis is gathered (a collective: every rank
+        calls ``save``) and process 0 alone writes the file, the one a
+        one-process run over as many workers writes."""
+        if self.group is None:
+            return super().save(path)
+        opt_state = {key: comm_mod.tree_map(self._gather_rows, tree)
+                     if self._has_worker_axis(key) else tree
+                     for key, tree in self.opt_state.items()}
+        if multihost.is_primary():
+            self._write_state(path, opt_state)
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        rows = [torch.empty_like(x) for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(rows, x.contiguous(), group=self.group)
+        return torch.cat(rows)
+
+    def _reduce_test(self, sums):
+        if self.group is None:
+            return sums
+        return comm_mod.reduce_metrics([sums], self.device, self.group)
 
     def reshard(self, new_layout, *, reason: str = "explicit"):
         raise NotImplementedError("ParallelSolver.reshard: live resharding is not "
@@ -225,14 +301,18 @@ class ParallelSolver(Solver):
         leaves = comm_mod.tree_leaves(self.params)
         plan = comm_mod.plan_buckets(leaves, self.comm.bucket_bytes)
         mode = self.comm.for_local() if self.mode == "local" else self.comm.for_sync()
+        processes = self.group is not None
+        wire = comm_mod.wire_dtype(self.comm.compress, processes)
         out = {
             "mode": mode,
             "compress": self.comm.compress,
             "bucket_mb": self.comm.bucket_mb,
             "workers": [str(d) for d in self.workers],
+            "processes": self.num_workers // len(self.workers),
             "buckets": comm_mod.bucket_histogram(plan, leaves),
+            "wire_dtype": "native" if wire is None else str(wire).replace("torch.", ""),
             "wire_bytes_per_reduction": comm_mod.wire_bytes(plan, leaves,
-                                                            self.comm.compress),
+                                                            self.comm.compress, processes),
         }
         if self.tau_controller is not None:
             out["tau_controller"] = self.tau_controller.snapshot()
@@ -277,6 +357,8 @@ class ParallelSolver(Solver):
                 self.sync()
             t1 = time.perf_counter()
             self.params, self.state, resid = self._reduce_fn(p_start, ps, sts, resid)
+            if self.group is not None:
+                metrics = comm_mod.reduce_metrics([metrics], self.device, self.group)
             self.opt_state = ({**opt_out, RESIDUAL_KEY: resid}
                               if self.comm.wants_residual else opt_out)
             self.iter += tau

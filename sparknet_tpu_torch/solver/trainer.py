@@ -44,17 +44,20 @@ def resolve_model_path(path: str, base_dir: str) -> str:
     return path
 
 
-def make_grad_fn(net: TorchNet) -> Callable:
+def make_grad_fn(net: TorchNet, group: Optional[Any] = None) -> Callable:
     """``grad_fn(params, state, batch, generator) -> (grads, new_state,
     metrics)``: gradients of ``net.loss_and_metrics``'s weighted loss
     with respect to every param; the new net state (BatchNorm's running
-    statistics) and the metrics hold no autograd graph."""
+    statistics) and the metrics hold no autograd graph. ``group``: a
+    process group over which training BatchNorm takes its statistics
+    (``TorchNet.apply``'s)."""
+    kw = {} if group is None else {"group": group}
 
     def grad_fn(params, state, batch, generator):
         leaves = {layer: {n: t.detach().requires_grad_(True) for n, t in e.items()}
                   for layer, e in params.items()}
         blobs, new_state = net.apply(leaves, state, batch, train=True,
-                                     generator=generator)
+                                     generator=generator, **kw)
         loss, metrics = net.loss_and_metrics(blobs)
         flat = [t for e in leaves.values() for t in e.values()]
         got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
@@ -298,18 +301,26 @@ class Solver:
             m = self._eval_step(self.params, self.state, self._put_batch(next(batches)))
             for k, v in m.items():
                 acc[k] = v if k not in acc else acc[k] + v
-        return {k: float(v) / n for k, v in acc.items()}
+        return {k: float(v) / n for k, v in self._reduce_test(acc).items()}
+
+    def _reduce_test(self, sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The test sums as they are; the parallel solver averages them
+        over its processes."""
+        return sums
 
     # -- snapshot / restore ----------------------------------------------
     def save(self, path: str) -> None:
         """Full solver state in the JAX package's layout: params, net
         state, optimizer slots, iteration, and this package's generator
         state as the rng leaf."""
+        self._write_state(path, self.opt_state)
+
+    def _write_state(self, path: str, opt_state) -> None:
         snapshot.save_state(
             path,
             params=W.to_jax_params(self.params, self.train_net),
             state=self.state,
-            opt_state=W.to_jax_slots(self.opt_state, self.train_net),
+            opt_state=W.to_jax_slots(opt_state, self.train_net),
             it=self.iter,
             rng=self.rng.get_state().numpy(),
             env=dict(self.env_meta),
