@@ -39,8 +39,9 @@ own lines:
    device time beside their byte bounds;
 4. flash-kernels: each of the three flash-attention kernels (forward:
    o and lse; dq; dk/dv) held against its plain PyTorch version on the
-   card over 15 cases, f32 and bf16 (one at the BertApp run's shapes,
-   32 x 12 heads x 128 x 64): causal or not, offsets, a kv mask with a
+   card over 17 cases, f32 and bf16 (one at the BertApp run's shapes,
+   32 x 12 heads x 128 x 64, and two at one bert-processes rank's, 16 x
+   12 x 128 x 64 from strided QKV views, dropout 0 and 0.1): causal or not, offsets, a kv mask with a
    fully padded row (whose o, dq, dk and dv must be exactly 0), ragged
    (100, 77) lengths, head dims 16, 32, 64 and 256, dropout 0.1 and
    0.5, and q, k, v as BERT's strided views of one (b, s, 3, h, d) QKV
@@ -189,8 +190,33 @@ own lines:
    round, beside the same rounds of the one-process ParallelSolver over
    the same cards; and CifarApp ``main`` launched as 2 NCCL processes:
    only rank 0 prints its ``Iteration`` lines, its snapshot restores a
-   one-process solver. With one card, one line says the NCCL part did
-   not run;
+   one-process solver. ResNet-50 sync over 2 workers in one process
+   (each BatchNorm over the global batch: one forward over both
+   workers' rows on cuda:0; with two cards, lock-step threads on cuda:0
+   and cuda:1) is held against the 2 processes' first step: the loss
+   and the BatchNorm state within 1e-4 relative L2. With one card, one
+   line says the NCCL part did not run;
+16b. bert-processes: BertApp's ``build`` for ``--config base`` at the
+   global batch of 32 x 128, f32, as 2 ranks on cuda:0 over gloo (16
+   rows a rank, the rows of global batches of BertApp's one-process
+   feed): ``--parallel sync`` with dropout off, 3 steps, held against
+   one ``Solver`` on each whole batch (the first loss within 1e-4
+   relative, the weights after 3 steps within 1e-2 relative L2, the key
+   biases, whose gradient is 0 but for rounding, below 1e-6 on both
+   sides), then the sync step timed three ways (each 4 MB bucket
+   started inside the backward, the default; the same buckets started
+   after it; one all-reduce a leaf after it, the reduction before the
+   buckets), in the order A B C C B A, and each reduction alone;
+   ``--parallel local --tau 2``, 4
+   iterations, held the same way against the one-process 2-worker
+   ``ParallelSolver`` with the same dropout seeds; the ranks' weights
+   identical by hash; the flash kernels counted from 0 in each rank
+   (forward, dq and dk/dv, 12 an iteration, 660 each) and summed
+   into the kernels line. Then cifar10_quick ``--parallel local --tau
+   auto`` over 2 ranks, 20 rounds: every rank the same τ every round.
+   With two or more cards the BERT runs over NCCL (one process a card)
+   and ResNet-50 sync at the global batch of 32 timed the same three
+   ways;
 17. feed: the 2,048-image synthetic set packed by
    ``tools/pack_records.py``; the first 8 batches (256 227x227 f32
    crops) of 4 worker processes, of the pinned side-stream prefetch
@@ -228,15 +254,16 @@ TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 three TF32 terms: that design's bound is printed beside it); "launches"
 counts the main paths' runs (serving, train, alexnet-local, feed,
 googlenet and every rank of the multiprocess phase's AlexNet runs for
-LRN, bert-train for flash).
+LRN, bert-train and every rank of the bert-processes phase for flash).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess
+    python3 chip_smoke.py --phase multiprocess bert-processes
 
-runs the card, build and multiprocess phases alone (the NCCL runs on a
-machine with several cards) and prints no result line.
+runs the card and build phases and the phases named (either or both)
+alone (the NCCL runs on a machine with several cards) and prints no
+result line.
 
     python3 chip_smoke.py --ab OTHER_ROOT
 
@@ -382,6 +409,12 @@ ALEXNET_LOCAL_ITERS = 4
 # and the seconds a launch of ranks may take
 MP_RESNET_BATCH, MP_RESNET_STEPS = 32, 5
 MP_TIMEOUT = 300
+# the bert-processes phase: BertApp's BERT-base at the global batch of
+# 32 x 128 over 2 processes: sync steps and local iterations held, sync
+# steps timed with the overlap on and off; --tau auto's rounds
+BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 8
+BP_ITERS = max(BP_SYNC_STEPS, BP_LOCAL_ITERS)
+TAU_AUTO_ROUNDS = 20
 
 # the feed phase: ImageNetApp's AlexNet at its batch of 256 on the
 # 2,048-image synthetic set, FEED_ITERS iterations a path in chunks of
@@ -417,6 +450,12 @@ FLASH_CASES = (
     # q, k, v as BERT's strided views of one (b, s, 3, h, d) QKV product
     ("strided QKV", 2, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM, False, 0, 0, True,
      FLASH_DROPOUT, "qkv"),
+    # one rank's layer in the bert-processes phase: 16 rows of the batch of
+    # 32, strided QKV views, dropout off (--parallel sync) and on (local)
+    ("BERT-base rank sync", BERT_BATCH // 2, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM,
+     False, 0, 0, True, 0.0, "qkv"),
+    ("BERT-base rank local", BERT_BATCH // 2, BERT_HEADS, BERT_SEQ, BERT_SEQ, BERT_HEAD_DIM,
+     False, 0, 0, True, FLASH_DROPOUT, "qkv"),
 )
 # the forward's TF32 terms per product (s = q k^T, o += p v): split
 # operands, f32 3 + 3, bf16 (exact in TF32) 1 + 2
@@ -2783,7 +2822,7 @@ def rank_main(spec_path):
 def _rank_rows(batch, rank, world):
     """Worker ``rank``'s rows of a global batch, as ``local_sgd.worker_rows``
     gives them to worker ``rank`` of a one-process run."""
-    per = len(batch["label"]) // world
+    per = len(next(iter(batch.values()))) // world
     return {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
 
 
@@ -3108,6 +3147,33 @@ def _mp_check(label, results, tmp, world, ref_resnet, ref_alexnet):
     return counts
 
 
+def _mp_one_process_bn(label, results, tmp, workers):
+    """ResNet-50 sync over ``workers`` in one process on the monolithic
+    path (each BatchNorm over the global batch: one forward over the
+    rows of workers that share a card, lock-step threads across cards),
+    one step on the global batch, against the same step over the
+    processes of ``results``: the loss and the BatchNorm state."""
+    import torch
+
+    solver = _mp_resnet_solver(workers=workers)
+    loss = float(solver.step(iter([_mp_batch(1, 0, MP_RESNET_BATCH, 224, 1000)]),
+                             1)["loss/loss"])
+    ranks = _load_ranks(tmp, f"resnet_{label}", "state1", len(results))[0]
+    state_err = max(_rel(solver.state[l][k].cpu(), t) for l, e in ranks.items()
+                    for k, t in e.items())
+    want = results[0][f"resnet_{label}"]["losses"][0]
+    loss_err = abs(loss - want) / abs(want)
+    log(f"  {label}: ResNet-50 sync over {len(workers)} workers in one process "
+        f"({workers}, global BatchNorm) vs the {len(results)} processes' step: loss "
+        f"{loss_err:.2e}, BatchNorm state worst {state_err:.2e} relative L2 "
+        f"[<= {LOCAL_STEP_TOL:g}]")
+    del solver
+    torch.cuda.empty_cache()
+    if loss_err > LOCAL_STEP_TOL or state_err > LOCAL_STEP_TOL:
+        raise AssertionError(f"{label}: one-process global BatchNorm: loss {loss_err}, "
+                             f"state {state_err}")
+
+
 def _worst_tensor(got, want):
     """The largest relative L2 error over the tensors of two param trees,
     and its tensor's name."""
@@ -3139,6 +3205,7 @@ def phase_multiprocess(tmp):
     if any(v != "ok" for v in results[0]["probe"].values()):
         raise AssertionError(f"gloo on card tensors: {results[0]['probe']}")
     launches = _mp_check("gloo", results, tmp, 2, ref_resnet, ref_alexnet)
+    _mp_one_process_bn("gloo", results, tmp, ["cuda:0"] * 2)
     nccl1, _ = _launch_ranks([{"kind": "nccl1", "name": "nccl1"}], 1, tmp, "nccl")
     log(f"  NCCL at world size 1: {nccl1[0]['nccl1']}")
     if nccl1[0]["nccl1"]["sum"] != [1.0, 2.0, 3.0, 4.0]:
@@ -3160,6 +3227,7 @@ def phase_multiprocess(tmp):
     links = sorted({m.group(0) for m in re.finditer(r"via \S+|NVLS\b[^\n]{0,40}", texts[0])})
     log(f"  NCCL transports (rank 0's log, NCCL_DEBUG=INFO): {links[:8]}")
     nccl = _mp_check("nccl", results, tmp, 2, ref_resnet, ref_alexnet)
+    _mp_one_process_bn("nccl", results, tmp, ["cuda:0", "cuda:1"])
     out["launches"] = [a + b for a, b in zip(launches, nccl)]
     world = min(counts, LOCAL_WORKERS)
     results, _ = _launch_ranks([{"kind": "cifar_local", "name": "cifar"}], world, tmp,
@@ -3219,6 +3287,311 @@ def _mp_cifar_app(tmp):
     log(f"  its snapshot restores a one-process 2-worker solver at iteration {one.iter}")
     if lines[0] != 4 or lines[1] != 0 or one.iter != 40:
         raise AssertionError(f"CifarApp over processes: lines {lines}, iter {one.iter}")
+
+
+# ------------------------------------------------------ bert-processes
+def _bp_solver(parallel, dropout=True, workers=None):
+    """BertApp's ``build`` for ``--config base`` at 32 x 128 with
+    ``--parallel`` (``--tau 2`` for local), f32, its feed dropped (over
+    processes its host-sharded feed; the held runs feed
+    ``_bp_batches``'s rows instead); dropout off when asked (the model's
+    own rates, read at every step)."""
+    from sparknet_tpu_torch.apps import bert_app
+
+    args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                              max_iter=1000, device="cuda", parallel=parallel, tau="2")
+    solver = bert_app.build(args, workers=workers)[0]
+    if not dropout:
+        solver.train_net.cfg.hidden_dropout = solver.train_net.cfg.attention_dropout = 0.0
+    return solver
+
+
+def _bp_batches(tmp):
+    """BP_ITERS global batches of BertApp's one-process feed (32 x 128 on
+    its synthetic corpus), in ``bp_batches.npz`` for the ranks."""
+    import numpy as np
+
+    from sparknet_tpu_torch.apps import bert_app
+
+    args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                              device="cuda")
+    _, feed, _ = bert_app.build(args)
+    batches = [next(feed) for _ in range(BP_ITERS)]
+    np.savez(os.path.join(tmp, "bp_batches.npz"),
+             **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+    return batches
+
+
+def _bp_load(tmp):
+    import numpy as np
+
+    with np.load(os.path.join(tmp, "bp_batches.npz")) as z:
+        out = [{} for _ in range(BP_ITERS)]
+        for key in z.files:
+            i, k = key.split("/")
+            out[int(i)][k] = z[key]
+    return out
+
+
+def _cpu_params(solver):
+    return {l: {k: t.detach().cpu() for k, t in e.items()} for l, e in solver.params.items()}
+
+
+def _bp_references(tmp):
+    """On cuda:0 in this process: one Solver on each whole global batch
+    (dropout off) for BP_SYNC_STEPS steps, and the one-process 2-worker
+    ``ParallelSolver`` local tau 2 (dropout on: its workers' generators
+    are seeded as the ranks') for BP_LOCAL_ITERS iterations."""
+    import torch
+
+    batches = _bp_batches(tmp)
+    one = _bp_solver("none", dropout=False)
+    sync = [float(one.step(iter([b]), 1)["loss"]) for b in batches[:BP_SYNC_STEPS]]
+    ref = {"sync": {"losses": sync, "params": _cpu_params(one)}}
+    del one
+    two = _bp_solver("local", workers=["cuda:0"] * 2)
+    local = [float(two.step(iter(batches[i:i + 2]), 2)["loss"])
+             for i in range(0, BP_LOCAL_ITERS, 2)]
+    ref["local"] = {"losses": local, "params": _cpu_params(two)}
+    del two
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _timed_ms(fn, solver, n):
+    """ms a call of ``fn`` over ``n`` calls, host clock, after a barrier
+    of the solver's group, synchronized."""
+    import torch
+    import torch.distributed as dist
+
+    dist.barrier(group=solver.group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / n
+
+
+def _sync_timing(solver, rows):
+    """A sync solver over processes stepped on ``rows`` BP_TIMED times a
+    run, three ways: each bucket started inside the backward (the
+    default), the same buckets started after the backward, and one
+    all-reduce a leaf after it; in the order A B C C B A, each way's
+    mean over its two runs. Then each reduction alone on a
+    gradient-shaped tree. Returns ms each; the bucketed reduction's
+    share of the step that starts its buckets after the backward; the
+    share of the bucketed reduction the overlap hid (the two steps'
+    difference over the reduction alone)."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch.parallel import comm, data_parallel, make_dp_train_step
+
+    feed = itertools.repeat(rows)
+    cfg = solver.comm
+    data_parallel._REDUCE_IN_BACKWARD = False
+    try:
+        after = make_dp_train_step(solver._nets, solver.sp, cfg, solver.group)
+    finally:
+        data_parallel._REDUCE_IN_BACKWARD = True
+    steps = {"overlap": solver._train_step,
+             "after": (lambda p, s, o, b, it, _rng:
+                       after(p, s, o, b, it, solver._worker_generators(it)))}
+    steps["leaf"] = steps["after"]
+    bucketed = comm.reduce_bucketed
+
+    def per_leaf(trees, config, residual=None, group=None):
+        return comm.reduce_per_leaf(trees, group), residual
+
+    runs = {k: [] for k in steps}
+    for way in ("overlap", "after", "leaf", "leaf", "after", "overlap"):
+        solver._train_step = steps[way]
+        comm.reduce_bucketed = per_leaf if way == "leaf" else bucketed
+        try:
+            runs[way].append(_timed_ms(lambda: solver.step(feed, 1), solver, BP_TIMED))
+        finally:
+            comm.reduce_bucketed = bucketed
+    solver._train_step = steps["overlap"]
+    out = {f"{k}_ms": sum(v) / len(v) for k, v in runs.items()}
+    out["runs"] = runs
+    grads = comm.tree_map(torch.ones_like, solver.params)
+    leaves = comm.tree_leaves(grads)
+    plan = comm.plan_buckets(leaves, cfg.bucket_bytes)
+
+    def buckets():
+        works = [dist.all_reduce(torch.cat([leaves[i].reshape(-1) for i in b]),
+                                 group=solver.group, async_op=True) for b in plan]
+        for w in works:
+            w.wait()
+
+    out["bucketed_reduce_ms"] = _timed_ms(buckets, solver, BP_TIMED)
+    out["leaf_reduce_ms"] = _timed_ms(lambda: comm.reduce_per_leaf([grads], solver.group),
+                                      solver, BP_TIMED)
+    out["buckets"] = len(plan)
+    out["reduce_share"] = out["bucketed_reduce_ms"] / out["after_ms"]
+    out["hidden"] = (out["after_ms"] - out["overlap_ms"]) / out["bucketed_reduce_ms"]
+    return out
+
+
+def _timing_line(t):
+    """``_sync_timing``'s numbers, one line's worth."""
+    runs = {k: ", ".join(f"{x:.3f}" for x in v) for k, v in t["runs"].items()}
+    return (f"buckets started inside the backward {t['overlap_ms']:.3f} ({runs['overlap']}), "
+            f"after it {t['after_ms']:.3f} ({runs['after']}), one all-reduce a leaf after it "
+            f"{t['leaf_ms']:.3f} ({runs['leaf']}); the "
+            f"reduction alone: {t['buckets']} buckets {t['bucketed_reduce_ms']:.3f}, one a "
+            f"leaf {t['leaf_reduce_ms']:.3f} (the buckets {100 * t['reduce_share']:.1f}% of "
+            f"the step that starts them after the backward); the overlap hid "
+            f"{100 * t['hidden']:.1f}% of the bucketed reduction")
+
+
+def _rank_bert(job, rank, world, tmp):
+    """BERT-base over the processes, f32: ``--parallel sync`` (dropout off)
+    BP_SYNC_STEPS steps then its timings with the overlap on and off, and
+    ``--parallel local --tau 2`` BP_LOCAL_ITERS iterations, each on this
+    rank's rows of ``_bp_batches``'s global batches; the flash kernels'
+    launches counted from 0 around all of it."""
+    import torch
+
+    from sparknet_tpu_torch.ops import attention as TA
+
+    wrappers = (TA.flash_fwd, TA.flash_bwd_dq, TA.flash_bwd_dkv)
+    batches = [_rank_rows(b, rank, world) for b in _bp_load(tmp)]
+    for fn in wrappers:
+        fn.launches = 0
+    res = {}
+    solver = _bp_solver("sync", dropout=False)
+    res["sync_losses"] = [float(solver.step(iter([b]), 1)["loss"])
+                          for b in batches[:BP_SYNC_STEPS]]
+    res["sync_hash"] = _params_hash(solver.params)
+    torch.save(_cpu_params(solver), os.path.join(tmp, f"{job['name']}_sync.r{rank}.pt"))
+    res["comm"] = solver.comm_report()["overlap"]
+    res["timing"] = _sync_timing(solver, solver._put_batch(batches[0]))
+    del solver
+    solver = _bp_solver("local")
+    res["local_losses"] = [float(solver.step(iter(batches[i:i + 2]), 2)["loss"])
+                           for i in range(0, BP_LOCAL_ITERS, 2)]
+    res["local_hash"] = _params_hash(solver.params)
+    torch.save(_cpu_params(solver), os.path.join(tmp, f"{job['name']}_local.r{rank}.pt"))
+    torch.cuda.synchronize()
+    res["launches"] = [fn.launches for fn in wrappers]
+    del solver
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rank_resnet_timing(job, rank, world, tmp):
+    """ResNet-50 ``--parallel sync`` at the global batch of 32: the step
+    with the overlap on and off (``_sync_timing``)."""
+    import torch
+
+    solver = _mp_resnet_solver()
+    rows = solver._put_batch(_rank_rows(_mp_batch(1, 0, MP_RESNET_BATCH, 224, 1000), rank,
+                                        world))
+    solver.step(iter([rows]), 1)  # warm
+    out = _sync_timing(solver, rows)
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tau_auto(job, rank, world, tmp):
+    """cifar10_quick ``--parallel local --tau auto`` at batch 100, one
+    worker a process, TAU_AUTO_ROUNDS rounds: the τ of every round."""
+    solver = _cifar_parallel(None, "local", "auto")
+    feed = _cifar_feed()
+    taus = []
+    for _ in range(TAU_AUTO_ROUNDS):
+        tau = solver.tau
+        solver.step(iter([_rank_rows(next(feed), rank, world) for _ in range(tau)]), tau)
+        taus.append(tau)
+    taus.append(solver.tau)
+    print(f"rank {rank}: tau by round {taus}", flush=True)
+    return {"taus": taus, "iter": solver.iter,
+            "decisions": solver.tau_controller.snapshot()["widened"] if rank == 0 else None}
+
+
+RANK_JOBS.update(bert=_rank_bert, resnet_timing=_rank_resnet_timing, tau_auto=_rank_tau_auto)
+
+
+def _bp_check(label, results, tmp, world, ref):
+    """Each rank's BERT runs held against the one-process references;
+    returns every rank's flash launches, summed."""
+    rs = [r["bert"] for r in results]
+    for mode in ("sync", "local"):
+        if len({r[f"{mode}_hash"] for r in rs}) != 1:
+            raise AssertionError(f"{label}: BERT {mode}: the ranks' weights differ")
+        got = _load_ranks(tmp, "bert", mode, world)[0]
+        want = ref[mode]["params"]
+        # the key biases' gradient is 0 but for rounding (the softmax cancels
+        # a shift of a query's logits): no relative error to hold; Adam
+        # moves them by noise, held below 1e-6 on both sides instead
+        k_b = max(float(t[l]["k_b"].abs().max()) for t in (got, want) for l in want
+                  if "k_b" in want[l])
+        err, at = _worst_tensor(got, {l: {k: t for k, t in e.items() if k != "k_b"}
+                                      for l, e in want.items()})
+        loss = abs(rs[0][f"{mode}_losses"][0] - ref[mode]["losses"][0]) / abs(
+            ref[mode]["losses"][0])
+        what = ("one Solver on each batch of 32, dropout off" if mode == "sync" else
+                "the one-process 2-worker ParallelSolver, the same dropout seeds")
+        log(f"  {label}: BERT-base {mode} over {world} ranks ({BERT_BATCH // world} rows "
+            f"each) vs {what}: first loss {loss:.2e} [<= {LOCAL_STEP_TOL:g}]; weights "
+            f"after {len(rs[0][f'{mode}_losses']) * (1 if mode == 'sync' else 2)} "
+            f"iterations worst {err:.2e} relative L2 ({at}) [<= {LOCAL_CARD_TOL:g}]; "
+            f"losses {[round(x, 5) for x in rs[0][f'{mode}_losses']]} vs "
+            f"{[round(x, 5) for x in ref[mode]['losses']]}; the key biases at most "
+            f"{k_b:.2e} [< 1e-6]; the ranks' weights identical by hash")
+        if loss > LOCAL_STEP_TOL or err > LOCAL_CARD_TOL or k_b >= 1e-6:
+            raise AssertionError(f"{label}: BERT {mode}: loss {loss}, weights {err}, "
+                                 f"key biases {k_b}")
+    t = rs[0]["timing"]
+    log(f"  {label}: BERT-base sync, ms a step (host clock, synchronized, after a "
+        f"barrier; rank 0): {_timing_line(t)}; comm overlap {rs[0]['comm']}")
+    want = [BERT_LAYERS * (BP_SYNC_STEPS + 6 * BP_TIMED + BP_LOCAL_ITERS)] * 3
+    log(f"  {label}: flash launches per rank (forward, dq, dk/dv): "
+        f"{[r['launches'] for r in rs]} (want {want} each: {BERT_LAYERS} per iteration)")
+    if any(r["launches"] != want for r in rs) or not rs[0]["comm"]:
+        raise AssertionError(f"{label}: flash launches {[r['launches'] for r in rs]}, "
+                             f"overlap {rs[0]['comm']}")
+    return [sum(r["launches"][i] for r in rs) for i in range(3)]
+
+
+def phase_bert_processes(tmp):
+    """BERT-base over processes: BertApp's solver with ``--parallel sync``
+    and ``--parallel local --tau 2`` as 2 ranks on cuda:0 over gloo
+    against its one-process references, the flash kernels launched in
+    every rank; cifar10_quick ``--tau auto`` over 2 ranks; with two or
+    more cards the BERT runs over NCCL, one process a card, and
+    ResNet-50's sync step with the overlap on and off."""
+    import torch
+
+    log(f"  card: {_smi()}")
+    ref = _bp_references(tmp)
+    results, _ = _launch_ranks([{"kind": "bert", "name": "bert"}], 2, tmp, "gloo")
+    launches = _bp_check("gloo", results, tmp, 2, ref)
+    results, texts = _launch_ranks([{"kind": "tau_auto", "name": "tau"}], 2, tmp, "gloo")
+    taus = [r["tau"]["taus"] for r in results]
+    log(f"  cifar10_quick --tau auto over 2 ranks (gloo, cuda:0), {TAU_AUTO_ROUNDS} "
+        f"rounds: tau by round {taus[0]}; rank 1's the same: {taus[0] == taus[1]}; "
+        f"iterations {[r['tau']['iter'] for r in results]}; widened "
+        f"{results[0]['tau']['decisions']} times")
+    if taus[0] != taus[1] or len(taus[0]) != TAU_AUTO_ROUNDS + 1:
+        raise AssertionError(f"tau auto over processes: {taus}")
+    counts = torch.cuda.device_count()
+    if counts < 2:
+        log(f"  NCCL across cards: not run: {counts} card visible, and NCCL needs one "
+            f"card a rank (run on a host with two or more cards)")
+        return dict(zip(FLASH_NAMES, launches))
+    results, _ = _launch_ranks([{"kind": "bert", "name": "bert"},
+                                {"kind": "resnet_timing", "name": "resnet"}], 2, tmp, "nccl")
+    launches = [a + b for a, b in zip(launches, _bp_check("nccl", results, tmp, 2, ref))]
+    t = results[0]["resnet"]
+    log(f"  nccl: ResNet-50 sync at the global batch of {MP_RESNET_BATCH} over 2 cards, ms "
+        f"a step (rank 0): {_timing_line(t)}")
+    return dict(zip(FLASH_NAMES, launches))
 
 
 # ---------------------------------------------------------------- feed
@@ -3658,13 +4031,17 @@ def ab(other):
 
 
 # ---------------------------------------------------------------- main
+# the phases ``--phase`` runs alone
+ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="OTHER_ROOT",
                     help="compare with another checkout of the port on this card")
     ap.add_argument("--ab-side", metavar="ROOT", help=argparse.SUPPRESS)
-    ap.add_argument("--phase", choices=("multiprocess",),
-                    help="run only the card and build phases and this one (e.g. the "
+    ap.add_argument("--phase", choices=tuple(ONLY_PHASES), nargs="+",
+                    help="run only the card and build phases and these (e.g. the "
                          "NCCL runs on several cards); prints no result line")
     ap.add_argument("--rank-job", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3696,15 +4073,16 @@ def main(argv=None) -> int:
     card = phases.run("card", phase_card)
     built = phases.run("build", phase_build)
     if args.phase:
-        if built:
+        for name in args.phase if built else ():
             with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
-                phases.run(args.phase, phase_multiprocess, tmp)
-        log(f"chip_smoke --phase {args.phase}: "
+                phases.run(name, ONLY_PHASES[name], tmp)
+        log(f"chip_smoke --phase {' '.join(args.phase)}: "
             + (f"FAILED phases: {phases.failed}" if phases.failed else "ok"))
         return 1 if phases.failed else 0
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
+    bert_mp = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -3729,6 +4107,8 @@ def main(argv=None) -> int:
             local = phases.run("alexnet-local", phase_alexnet_local, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
             multiprocess = phases.run("multiprocess", phase_multiprocess, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bp_") as tmp:
+            bert_mp = phases.run("bert-processes", phase_bert_processes, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_feed_") as tmp:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
     if phases.failed:
@@ -3741,7 +4121,8 @@ def main(argv=None) -> int:
         "lrn_fwd": serving["launches"] + sum(p["launches"][0] for p in paths),
         "lrn_fwd_train": sum(p["launches"][1] for p in paths),
         "lrn_bwd": sum(p["launches"][2] for p in paths),
-        **bert,
+        # bert-train's, and every rank's of the bert-processes phase
+        **{name: bert[name] + bert_mp[name] for name in FLASH_NAMES},
     }
     replaces = {
         "lrn_fwd": "sparknet_tpu/ops/lrn.py:85",

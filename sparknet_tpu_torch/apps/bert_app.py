@@ -3,17 +3,28 @@
 Counterpart of ``sparknet_tpu/apps/bert_app.py``
 (``python -m sparknet_tpu_torch.apps.bert_app``): pick a config, build
 the MLM feed (a synthetic Markov corpus or text files), and drive the
-Solver on one device with AdamW, linear warmup and poly decay, with
-display-cadence logs and full-state snapshots. Attention takes the flash
-path: the hand-written CUDA kernels on the card.
+Solver, or with ``--parallel sync|local`` the ``ParallelSolver``
+(SparkNet's sync data parallel or τ-local SGD, ``--tau N|auto``,
+``--grad-compress bf16|int8``), with AdamW, linear warmup and poly
+decay, display-cadence logs and full-state snapshots. Attention takes
+the flash path: the hand-written CUDA kernels on the card.
+
+Over processes (``SPARKNET_COORDINATOR``, ``SPARKNET_NUM_PROCESSES``,
+``SPARKNET_PROCESS_ID``; :mod:`..parallel.multihost`), as the JAX app:
+each process feeds its own partitions of the corpus (``host_shard``)
+at the global batch divided by the process count, one worker a process
+on its card (gloo on the CPU); ``--parallel none`` and a batch the
+process count does not divide are refused; process 0 alone logs, prints
+the ``comm:`` and ``tau:`` lines and writes the files. In one process
+the parallel solver runs one worker on the model's device.
 
 The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). Each flag this
 port does not take yet raises ``NotImplementedError`` naming it when set
-to anything but its default: the parallel modes and meshes, gradient
-compression, MoE, remat, the orbax format, auto-resume, tracing and
-profiling. The flags that only tune those modes (``--tau``,
-``--pp-microbatches``, ``--moe-top-k``, ``--moe-dispatch``,
+to anything but its default: the model-parallel modes (``--parallel
+tp|sp|pp|ep``), ``--mesh`` and ``--layout``, MoE, remat, the orbax
+format, auto-resume, tracing and profiling. The flags that only tune
+those modes (``--pp-microbatches``, ``--moe-top-k``, ``--moe-dispatch``,
 ``--moe-capacity``) are not taken.
 """
 
@@ -21,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 from typing import Dict
@@ -30,10 +42,10 @@ import torch
 from ..data.prefetch import maybe_prefetch
 from ..data.text import mlm_dataset, mlm_feed
 from ..models.bert import BertConfig, BertMLM
-from ..parallel import multihost
+from ..parallel import ParallelSolver, make_workers, multihost
 from ..proto import caffe_pb
 from ..solver.trainer import Solver
-from .cifar_app import _ChunkTimer
+from .cifar_app import _ChunkTimer, _quiet, comm_config_from
 
 CONFIGS = {
     "base": BertConfig.bert_base,
@@ -43,10 +55,8 @@ CONFIGS = {
 
 # flag -> the default the port takes; any other value raises
 _UNPORTED = {
-    "parallel": "none",
     "mesh": "",
     "layout": None,
-    "grad_compress": None,
     "moe_experts": 0,
     "remat": False,
     "snapshot_format": "npz",
@@ -113,9 +123,15 @@ def make_config(args):
     return cfg, seq
 
 
-def build(args):
-    """(solver, feed, cfg) for parsed ``args``."""
+def build(args, workers=None):
+    """(solver, feed, cfg) for parsed ``args``; ``workers`` (devices, may
+    repeat) overrides the parallel solver's one worker on the model's
+    device in one process."""
     _check_ported(args)
+    if args.parallel in ("tp", "sp", "pp", "ep"):
+        raise NotImplementedError(
+            f"--parallel {args.parallel}: the model-parallel modes are not ported to "
+            f"sparknet_tpu_torch yet (the port takes none, sync and local)")
     cfg, seq = make_config(args)
     if args.attention in ("ring", "ulysses"):
         raise ValueError(
@@ -133,16 +149,38 @@ def build(args):
     )
     if vsize != cfg.vocab_size:  # a corpus-built vocab may be smaller
         cfg = dataclasses.replace(cfg, vocab_size=vsize)
+    # over processes: host-sharded data, local feed rows, global solver batch
+    nproc = multihost.process_count()
+    feed_bs = bs
+    if nproc > 1:
+        if args.parallel == "none":
+            raise ValueError("multi-host launch requires --parallel sync|local")
+        if bs % nproc:
+            raise ValueError(f"batch ({bs}) must divide across {nproc} processes")
+        ds = multihost.host_shard(ds)
+        feed_bs = bs // nproc
+    if args.parallel == "none" and args.grad_compress:
+        raise ValueError("--grad-compress requires --parallel sync|local")
+    device = multihost.process_device()
+    if device is None:
+        device = (workers or make_workers(devices=[args.device]))[0]
     shapes = {"input_ids": (bs, seq), "mlm_positions": (bs, max_preds)}
     model = BertMLM(
         cfg, shapes,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         attention_impl=args.attention or None,
-        device=args.device,
+        device=device,
     )
-    solver = Solver(make_solver_param(args), shapes, model=model, seed=args.seed,
-                    device=args.device)
-    feed = mlm_feed(ds, bs, cfg.vocab_size, max_preds, seed=args.seed)
+    sp = make_solver_param(args)
+    if args.parallel == "none":
+        solver = Solver(sp, shapes, model=model, seed=args.seed, device=device)
+    else:
+        if workers is None and nproc == 1:
+            workers = [device]
+        solver = ParallelSolver(sp, shapes, model=model, seed=args.seed, workers=workers,
+                                mode=args.parallel, tau=args.tau,
+                                comm_config=comm_config_from(args))
+    feed = mlm_feed(ds, feed_bs, cfg.vocab_size, max_preds, seed=args.seed)
     return solver, feed, cfg
 
 
@@ -166,11 +204,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic-tokens", type=int, default=1 << 16)
     ap.add_argument("--parallel",
                     choices=("none", "sync", "local", "tp", "sp", "pp", "ep"),
-                    default="none", help="only none is ported (one device)")
+                    default="none",
+                    help="none (one device), sync (data parallel) or local (SparkNet's "
+                         "tau-local SGD); tp/sp/pp/ep are not ported")
+    ap.add_argument("--tau", default="10",
+                    help="local-SGD sync period: an integer, or 'auto' for the "
+                         "closed-loop controller")
     ap.add_argument("--mesh", default="", help="not ported")
     ap.add_argument("--layout", default=None, metavar="AXES", help="not ported")
     ap.add_argument("--grad-compress", choices=("none", "bf16", "int8"), default=None,
-                    help="not ported")
+                    help="gradient/weight-delta compression on the parallel wire "
+                         "(needs --parallel sync|local)")
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     ap.add_argument("--attention", choices=("flash", "reference", "ring", "ulysses"),
                     default=None,
@@ -197,38 +241,55 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Dict[str, float]:
     args = parser().parse_args(argv)
-    if os.environ.get(multihost.COORDINATOR_ENV):
-        # the JAX app's refusal of --parallel none over processes: the
-        # port's BertApp takes no other, and must not run N copies
-        raise ValueError("multi-host launch requires --parallel sync|local, which the "
-                         "port's BertApp does not take yet")
+    multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
+    try:
+        return _run(args)
+    finally:
+        multihost.shutdown()  # the heartbeat's graceful leave
+
+
+def _run(args) -> Dict[str, float]:
+    log = print if multihost.is_primary() else _quiet
     solver, feed, cfg = build(args)
     if args.restore:
         solver.restore(args.restore, feed)
     # wrap AFTER restore, so the feed is aligned before staging starts
     feed = maybe_prefetch(feed, args, args.parallel, solver.device)
     if args.restore:
-        print(f"Restoring previous solver status from {args.restore} "
-              f"(iter {solver.iter})")
+        log(f"Restoring previous solver status from {args.restore} "
+            f"(iter {solver.iter})")
     n_params = solver.train_net.num_params(solver.params)
-    print(f"BertApp: config={args.config} vocab={cfg.vocab_size} "
-          f"layers={cfg.num_layers} hidden={cfg.hidden_size} params={n_params} "
-          f"device={solver.device}")
+    log(f"BertApp: config={args.config} vocab={cfg.vocab_size} "
+        f"layers={cfg.num_layers} hidden={cfg.hidden_size} params={n_params} "
+        f"device={solver.device}")
     timer = _ChunkTimer(args.batch_size * solver.train_net.seq_len, unit="tokens")
     t0 = time.time()
     try:
-        metrics = _fit_loop(solver, feed, args, timer)
+        metrics = _fit_loop(solver, feed, args, timer, log)
     finally:
         close = getattr(feed, "close", None)
         if close is not None:
             close()  # stops the staging thread
     dt = time.time() - t0
-    print(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
-          f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
+    log(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
+        f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
+    if hasattr(solver, "comm_report"):
+        # the JAX app's record lines: `tau:` (and its file) under --tau
+        # auto, then `comm:`
+        report = solver.comm_report()
+        tc = solver.tau_controller
+        if tc is not None:
+            report.pop("tau_controller", None)
+            log(f"tau: {tc.json_line()}")
+            if args.snapshot_prefix and multihost.is_primary():
+                path = tc.write_report(args.snapshot_prefix)
+                if path:
+                    log(f"tau controller report written to {path}")
+        log(f"comm: {json.dumps(report)}")
     return metrics
 
 
-def _fit_loop(solver, feed, args, timer) -> Dict[str, float]:
+def _fit_loop(solver, feed, args, timer, log=print) -> Dict[str, float]:
     """Step to ``max_iter`` in chunks that end at the nearest display or
     snapshot boundary, so neither cadence skips the other's."""
     metrics: Dict[str, float] = {}
@@ -241,14 +302,15 @@ def _fit_loop(solver, feed, args, timer) -> Dict[str, float]:
         timer.update(0)  # reset: exclude snapshot and feed set-up time
 
         def _log_iter(it, mm):
-            print(f"Iteration {it}, loss = {mm['loss']:.5f}, "
-                  f"mlm_acc = {mm['mlm_acc']:.4f}")
+            log(f"Iteration {it}, loss = {mm['loss']:.5f}, "
+                f"mlm_acc = {mm['mlm_acc']:.4f}")
 
         m = solver.step(feed, min(targets) - solver.iter, log_fn=_log_iter)
         if m:
             metrics = {k: float(v) for k, v in m.items()}  # host sync
         if args.display:
-            print(f"    speed: {timer.update(solver.iter - prev_iter).format()}")
+            solver.sync()  # the window measures completed device work
+            log(f"    speed: {timer.update(solver.iter - prev_iter).format()}")
         preempted = solver.stop_requested
         if preempted:
             solver.stop_requested = False  # consumed: the solver is reusable
@@ -256,10 +318,10 @@ def _fit_loop(solver, feed, args, timer) -> Dict[str, float]:
         if (args.snapshot and (solver.iter % args.snapshot == 0 or at_end)) or (
                 preempted and args.snapshot_prefix):
             path = f"{args.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
-            solver.save(path)
-            print(f"Snapshotting solver state to {path}")
+            solver.save(path)  # over processes a collective; process 0 writes
+            log(f"Snapshotting solver state to {path}")
         if preempted:
-            print(f"Stopped at iteration {solver.iter}")
+            log(f"Stopped at iteration {solver.iter}")
             break
     return metrics
 

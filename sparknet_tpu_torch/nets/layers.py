@@ -79,9 +79,11 @@ class ApplyCtx:
     compute_dtype: torch.dtype = torch.float32
     # draws of the training-phase Dropout masks; on the net's device
     generator: Optional[torch.Generator] = None
-    # a torch.distributed process group: a training BatchNorm takes its
-    # statistics over every rank's rows (the lossless sync step across
-    # processes); None: over this worker's rows
+    # a torch.distributed process group, or a member of the workers of
+    # one process in lock-step (parallel/comm.py LockstepGroup): a
+    # training BatchNorm takes its statistics over every rank's or
+    # worker's rows (the lossless sync step); None: over this worker's
+    # rows
     group: Optional[Any] = None
 
 
@@ -508,10 +510,19 @@ class Accuracy:
         return [acc] * max(1, len(lp.top))
 
 
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed in place over ``group``: a process group's
+    ``all_reduce``, or a lock-step member's ``sum_``."""
+    if hasattr(group, "sum_"):
+        return group.sum_(t)
+    dist.all_reduce(t, group=group)
+    return t
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
-    """Training BatchNorm over the rows of every rank of a process group:
-    ``(x, eps, group) -> (y, mean, var)`` for ``x`` of shape (N, C, ...),
-    f32, channels on axis 1.
+    """Training BatchNorm over the rows of every rank of a process group
+    (or every worker of a lock-step group): ``(x, eps, group) -> (y,
+    mean, var)`` for ``x`` of shape (N, C, ...), f32, channels on axis 1.
 
     Forward: one ``all_reduce`` of the per-channel sum and the row
     count gives the global mean, a second of the per-channel sum of
@@ -528,12 +539,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
         dims = [0] + list(range(2, x.dim()))
         shape = [1, c] + [1] * (x.dim() - 2)
         sums = torch.cat([x.sum(dims), x.new_full((1,), float(x.numel() // c))])
-        dist.all_reduce(sums, group=group)
+        _group_sum(sums, group)
         count = sums[c]
         mean = sums[:c] / count
         dev = x - mean.view(shape)
         sq = (dev * dev).sum(dims)
-        dist.all_reduce(sq, group=group)
+        _group_sum(sq, group)
         var = sq / count
         invstd = torch.rsqrt(var + eps)
         y = dev * invstd.view(shape)
@@ -547,7 +558,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         y, invstd, count = ctx.saved_tensors
         c = invstd.numel()
         sums = torch.cat([dy.sum(ctx.dims), (dy * y).sum(ctx.dims)])
-        dist.all_reduce(sums, group=ctx.group)
+        _group_sum(sums, ctx.group)
         mean_dy = (sums[:c] / count).view(ctx.shape)
         mean_dy_y = (sums[c:] / count).view(ctx.shape)
         dx = (dy - mean_dy - y * mean_dy_y) * invstd.view(ctx.shape)
@@ -571,10 +582,11 @@ class BatchNorm:
     (``var = invstd**-2 - eps``), outside autograd; the EMA is a
     ``lerp``.
 
-    Under ``ctx.group`` (the lossless sync step across processes) the
-    training statistics are the global batch's, as the JAX package's
-    monolithic step normalizes (:class:`_GlobalBatchNorm`); every rank
-    then moves its state by the same statistics."""
+    Under ``ctx.group`` (the lossless sync step across processes, or
+    across the workers of one process on several cards) the training
+    statistics are the global batch's, as the JAX package's monolithic
+    step normalizes (:class:`_GlobalBatchNorm`); every rank then moves
+    its state by the same statistics."""
 
     @staticmethod
     def _geom(lp):

@@ -19,10 +19,10 @@ Workers that share a device (``["cuda:0"] * 4``) reduce with no copy.
   dropped comes back as an f32 **residual**, re-injected next round.
 
 The mean is the workers' values added one after another in rank order,
-then divided by the count. A lossless mean is taken leaf by leaf
-whatever the mode: in one process a bucket's concatenation would change
-no bit of it, so the plan matters only to the lossy wire formats (and
-to :func:`wire_bytes`). Trees are nested dicts of tensors; they flatten
+then divided by the count. In one process a lossless mean is taken leaf
+by leaf whatever the mode: a bucket's concatenation would change no bit
+of it, so the plan matters only to the lossy wire formats (and to
+:func:`wire_bytes`). Trees are nested dicts of tensors; they flatten
 in sorted key order at every level, the JAX package's order, so both
 packages plan the same buckets for the same net.
 
@@ -38,18 +38,36 @@ int16 sums). An ``all_reduce`` sums in its own order, not in rank
 order, so a lossless f32 mean agrees with the one-process one to about
 1e-6 relative; every rank receives the same result.
 
+**Buckets over processes.** Over a process group a lossless mean of
+gradients is one ``all_reduce`` a bucket of :func:`plan_buckets`
+(:class:`BackwardReducer`) under every mode, the ``monolithic`` sync
+default too, where the JAX package leaves the reduction to XLA's
+implicit all-reduces: here a collective a leaf would cost its own
+launch and rendezvous (BERT-base has 202 leaves). The sync step without accumulation starts each bucket
+while the backward still runs, the counterpart of the JAX package's
+``overlap_reduce_on_backward``: a hook on each param leaf counts its
+bucket's gradients, and the bucket's last one starts the bucket's
+asynchronous ``all_reduce``; the update waits on every bucket. With
+accumulation the same buckets start after the backward. The lossy wire
+formats (whose residual needs every gradient first) reduce after the
+backward, and one process has no collective to hide.
+
+Several workers in one process that take BatchNorm statistics over the
+global batch, each on its own card in a thread of its own, sum them
+through a :class:`LockstepGroup`.
+
 The knobs are the JAX package's: ``SPARKNET_COMM`` (``bucketed`` /
 ``monolithic``, recorded and reported), ``SPARKNET_GRAD_COMPRESS``
 (``none`` / ``bf16`` / ``int8``, also the apps' ``--grad-compress``)
-and ``SPARKNET_COMM_BUCKET_MB``. The JAX package's in-backward overlap
-(``overlap_reduce_on_backward``) has no counterpart: the port reduces
-after the workers' backward passes.
+and ``SPARKNET_COMM_BUCKET_MB``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -153,6 +171,12 @@ class CommConfig:
         """Lossy compression carries an error-feedback residual in the
         optimizer state; ``none`` leaves its layout untouched."""
         return self.compress in ("bf16", "int8")
+
+    def overlaps(self, iter_size: int) -> bool:
+        """Whether a sync step over a process group reduces inside the
+        backward: lossless and one micro-batch (the JAX package's rule:
+        accumulation would reduce once a micro-batch)."""
+        return self.compress == "none" and iter_size == 1
 
 
 def resolve_config(compress: Optional[str] = None, mode: Optional[str] = None,
@@ -285,9 +309,11 @@ def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 def _group_mean(xs: Sequence[torch.Tensor], group) -> torch.Tensor:
     """This process's one value all-reduced over ``group``, divided by
-    its size."""
+    its size. The copy is contiguous whatever the value's strides (a
+    gradient may be a transpose's): NCCL refuses any other."""
     _one_worker(xs)
-    return _all_reduce(xs[0].clone(), group) / float(dist.get_world_size(group))
+    return (_all_reduce(xs[0].clone(memory_format=torch.contiguous_format), group)
+            / float(dist.get_world_size(group)))
 
 
 def _mean(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -376,9 +402,13 @@ def reduce_bucketed(trees: Sequence[Any], config: CommConfig,
     With ``group`` (a ``torch.distributed`` process group), ``trees``
     is this process's one tree and its residual has a worker axis of 1:
     each rank keeps its own; the reduced tree is the same on every
-    rank."""
+    rank. A lossless mean over a group is one ``all_reduce`` a bucket
+    (:meth:`BackwardReducer.reduce`), whatever the mode."""
     if not config.wants_residual:
-        return reduce_per_leaf(trees, group), residual
+        if group is None:
+            return reduce_per_leaf(trees), residual
+        _one_worker(trees)
+        return BackwardReducer(group, config.bucket_bytes).reduce(trees[0]), residual
     n = len(trees)
     leaves_w = [tree_leaves(t) for t in trees]
     leaves = leaves_w[0]
@@ -444,3 +474,129 @@ def init_residual(tree: Any, num_workers: int) -> Any:
     without itself rounding away), on each leaf's device."""
     return tree_map(lambda x: torch.zeros((num_workers,) + tuple(x.shape),
                                           dtype=torch.float32, device=x.device), tree)
+
+
+# --------------------------------------------------------------------------
+# the reduction inside the backward (sync data parallel over processes)
+# --------------------------------------------------------------------------
+
+class BackwardReducer:
+    """The lossless mean of each bucket's gradients over a process
+    group, started inside the backward: the counterpart of the JAX
+    package's ``overlap_reduce_on_backward``, whose custom VJP emits a
+    bucket's ``pmean`` the moment its last cotangent exists.
+
+    :meth:`watch` takes the step's param leaves (a tree of tensors that
+    require grad, before the forward) and hooks each one; when the last
+    gradient of a bucket (:func:`plan_buckets`) has arrived, one
+    ``all_reduce`` of the bucket's concatenation starts with
+    ``async_op=True``, and the backward goes on. :meth:`finish`, after
+    the backward, starts the buckets still waiting (leaves that got no
+    gradient, as zeros) in plan order, waits on every bucket in the order
+    they started, and returns the mean tree. Every rank builds the same
+    graph and the autograd engine runs it in the same order, so the
+    ranks start the same collectives in the same order, among them
+    those a global BatchNorm issues in its own backward. :meth:`reduce`
+    is the same buckets' mean of a finished gradient tree, every bucket
+    started after the backward."""
+
+    def __init__(self, group, bucket_bytes: int):
+        self.group = group
+        self.bucket_bytes = bucket_bytes
+        self._plan: Optional[Tuple[Tuple[int, ...], ...]] = None
+
+    def _begin(self, tree: Any) -> None:
+        leaves = tree_leaves(tree)
+        if self._plan is None:
+            self._plan = plan_buckets(leaves, self.bucket_bytes)
+            self._bucket_of = {i: b for b, bucket in enumerate(self._plan) for i in bucket}
+        self._tree, self._leaves = tree, leaves
+        self._grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        self._left = [len(bucket) for bucket in self._plan]
+        self._started: List[Tuple[int, torch.Tensor, Any]] = []
+        self._hooks: List[Any] = []
+
+    def watch(self, tree: Any) -> None:
+        self._begin(tree)
+        self._hooks = [leaf.register_hook(functools.partial(self._ready, i))
+                       for i, leaf in enumerate(self._leaves)]
+
+    def reduce(self, tree: Any) -> Any:
+        self._begin(tree)
+        self._grads = list(self._leaves)
+        return self.finish()
+
+    def _ready(self, i: int, grad: torch.Tensor) -> None:
+        self._grads[i] = grad
+        b = self._bucket_of[i]
+        self._left[b] -= 1
+        if self._left[b] == 0:
+            self._start(b)
+
+    def _start(self, b: int) -> None:
+        bucket = self._plan[b]
+        # a contiguous copy: the all-reduce writes its result in place
+        flat = torch.cat([self._grads[i].reshape(-1) for i in bucket])
+        self._started.append(
+            (b, flat, dist.all_reduce(flat, group=self.group, async_op=True)))
+        self._left[b] = -1
+
+    def finish(self) -> Any:
+        for hook in self._hooks:
+            hook.remove()
+        for b, bucket in enumerate(self._plan):
+            if self._left[b] >= 0:  # not started: after the backward
+                for i in bucket:
+                    if self._grads[i] is None:  # a leaf with no gradient
+                        self._grads[i] = torch.zeros_like(self._leaves[i])
+                self._start(b)
+        n = float(dist.get_world_size(self.group))
+        out: List[Any] = [None] * len(self._leaves)
+        for b, flat, work in self._started:
+            work.wait()
+            _split_bucket(flat / n, self._leaves, self._plan[b], out)
+        tree = tree_unflatten(self._tree, out)
+        self._tree = self._leaves = self._grads = self._started = self._hooks = None
+        return tree
+
+
+# --------------------------------------------------------------------------
+# several workers of one process in lock-step
+# --------------------------------------------------------------------------
+
+class LockstepGroup:
+    """Sums over workers that run at once, one thread each, in one
+    process: the in-process stand-in for a process group where the
+    workers' training BatchNorm takes the global batch's statistics.
+    Each worker holds a :meth:`member`; ``member.sum_(t)`` waits until
+    every member has offered its tensor, then writes into ``t`` the
+    members' tensors added in rank order on ``t``'s device, so every
+    member gets the same value. Every member must call it the same
+    number of times in the same order; :meth:`abort` breaks the waits
+    of the others when one worker fails."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._slots: List[Optional[torch.Tensor]] = [None] * n
+        self._barrier = threading.Barrier(n)
+
+    def member(self, rank: int) -> "_LockstepMember":
+        return _LockstepMember(self, rank)
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+class _LockstepMember:
+    def __init__(self, group: LockstepGroup, rank: int):
+        self.group, self.rank = group, rank
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        g = self.group
+        g._slots[self.rank] = t
+        g._barrier.wait()
+        acc = g._slots[0].to(t.device, copy=True)
+        for x in g._slots[1:]:
+            acc += x.to(t.device)
+        g._barrier.wait()  # every member has read every slot
+        return t.copy_(acc)

@@ -7,8 +7,8 @@ from the shared weights on its own device; the gradients are averaged
 through :mod:`.comm` and one update with the one set of solver slots
 follows, so the weights stay replicated without a weight average.
 
-- lossless: the mean of the workers' gradients, leaf by leaf, the
-  gradient of the mean loss over the global batch;
+- lossless: the mean of the workers' gradients (in one process leaf by
+  leaf), the gradient of the mean loss over the global batch;
 - under ``--grad-compress bf16|int8``: bucketed and compressed with a
   per-worker residual (:data:`~.local_sgd.RESIDUAL_KEY` in the optimizer
   state, leading worker axis), both through :func:`comm.reduce_bucketed`.
@@ -20,16 +20,32 @@ applies the same update to the same weights: NCCL and gloo hand every
 rank the same reduced values, so the weights stay replicated bit for
 bit.
 
+Over a process group a lossless mean is one ``all_reduce`` a bucket of
+gradients, on the monolithic path too (:mod:`.comm`). Without
+accumulation each bucket starts inside the backward, as soon as its
+last gradient exists (:class:`.comm.BackwardReducer`, the JAX package's
+bucketed sync step's ``overlap_reduce_on_backward``); ``iter_size > 1``
+starts the buckets after the backward, and a lossy wire format reduces
+after it.
+
 BatchNorm: on the lossless monolithic path (the JAX package's default,
-where XLA normalizes over the global batch) across processes, each
-BatchNorm takes its training statistics over the global batch
-(``nets/layers.py`` ``_GlobalBatchNorm``), and every rank's new state is
-the same. On the bucketed path (``SPARKNET_COMM=bucketed`` and every
-compressed run) a BatchNorm normalizes by each worker's own rows and the
-workers' new states are averaged, as the JAX package's bucketed sync
-step. Several workers in one process run one after another, not in
-lock-step layer by layer, so they cannot share statistics: there a net
-with BatchNorm takes the bucketed path or is refused.
+where XLA normalizes over the global batch) each BatchNorm takes its
+training statistics over the global batch, and every worker's new state
+is the same:
+
+- across processes, through the process group
+  (``nets/layers.py`` ``_GlobalBatchNorm``);
+- workers of one process that share a device: one forward and backward
+  over their rows together, which is the same step (the Dropout masks
+  then come from the first worker's generator);
+- workers of one process on several devices: one thread a device,
+  over the rows of that device's workers, in lock-step: each BatchNorm
+  sums its statistics forward and backward through a
+  :class:`.comm.LockstepGroup`. Every device must hold as many workers.
+
+On the bucketed path (``SPARKNET_COMM=bucketed`` and every compressed
+run) a BatchNorm normalizes by each worker's own rows and the workers'
+new states are averaged, as the JAX package's bucketed sync step.
 
 With ``iter_size > 1`` each worker accumulates its micro-batches before
 the reduction. Each worker draws its Dropout masks from its own
@@ -38,13 +54,39 @@ generator.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
 
 from ..proto.caffe_pb import SolverParameter
 from ..solver.caffe_solver import make_update_fn, mults_for_params
 from ..solver.trainer import accumulate_grads, make_eval_step, make_grad_fn
 from . import comm
 from .local_sgd import RESIDUAL_KEY, worker_rows
+
+
+def _device_groups(nets: Sequence[Any]) -> List[List[int]]:
+    """The workers by device, in the order their devices first appear."""
+    by_dev: Dict[Any, List[int]] = {}
+    for w, net in enumerate(nets):
+        by_dev.setdefault(net.device, []).append(w)
+    return list(by_dev.values())
+
+
+def _has_batchnorm(net: Any) -> bool:
+    return any(lp.type == "BatchNorm" for lp in getattr(net, "layers", ()))
+
+
+# Seams for the tests and the card's measurements, read when a step is
+# built. False: the lossless sync step over processes starts its buckets
+# after the backward, not inside it.
+_REDUCE_IN_BACKWARD = True
+# True: global-batch BatchNorm over the workers of one process takes one
+# thread a worker even where workers share a device, which only a device
+# whose backward runs in the calling thread (the CPU) allows. False: one
+# thread a device.
+_THREAD_PER_WORKER = False
 
 
 def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
@@ -60,46 +102,95 @@ def make_dp_train_step(nets: Sequence[Any], sp: SolverParameter,
     With ``group`` (a ``torch.distributed`` process group): this
     process's one net, and ``batch`` its own rows."""
     config = config or comm.CommConfig()
-    monolithic = config.for_sync() == "monolithic"
-    if (len(nets) > 1 and monolithic
-            and any(lp.type == "BatchNorm" for lp in nets[0].layers)):
-        raise ValueError(
-            f"sync data parallel over {len(nets)} workers in one process on a net with "
-            "BatchNorm: the monolithic comm path normalizes over the global batch, "
-            "which needs one worker a process (SPARKNET_COORDINATOR, "
-            "SPARKNET_NUM_PROCESSES, SPARKNET_PROCESS_ID); "
-            f"{comm.COMM_ENV}=bucketed (or --grad-compress) normalizes by each "
-            "worker's rows")
-    # the global batch's BatchNorm statistics: every rank's state the same
-    global_bn = group is not None and monolithic
-    grad_fns = [make_grad_fn(net, group if global_bn else None) for net in nets]
-    over = {} if group is None else {"group": group}  # the reductions' process group
     n = len(nets)
+    global_bn = (config.for_sync() == "monolithic" and _has_batchnorm(nets[0])
+                 and (group is not None or n > 1))
+    over = {} if group is None else {"group": group}  # the reductions' process group
+    reducer = None
+    if group is not None and _REDUCE_IN_BACKWARD and config.overlaps(sp.iter_size):
+        reducer = comm.BackwardReducer(group, config.bucket_bytes)
+    units = [[w] for w in range(n)]  # the workers each gradient is taken over
+    lock = None
+    if global_bn and group is None:
+        per_worker = _THREAD_PER_WORKER
+        units = [[w] for w in range(n)] if per_worker else _device_groups(nets)
+        if len(units) > 1:
+            if len({len(u) for u in units}) > 1:
+                raise ValueError(
+                    f"global-batch BatchNorm over workers on several devices needs as "
+                    f"many workers on each device, got {[len(u) for u in units]}")
+            cards = [nets[u[0]].device for u in units if nets[u[0]].device.type == "cuda"]
+            if per_worker and len(set(cards)) < len(cards):
+                raise ValueError("a thread a worker with workers that share a card: the "
+                                 "card's backward thread would wait on itself")
+            lock = comm.LockstepGroup(len(units))
+    if global_bn and group is not None:
+        members = [group]
+    elif lock is not None:
+        members = [lock.member(i) for i in range(len(units))]
+    else:
+        members = [None] * len(units)
+    grad_fns = [make_grad_fn(nets[u[0]], m, watch=None if reducer is None else reducer.watch)
+                for u, m in zip(units, members)]
     update = None
+
+    def unit_grads(i, p, st, batch, generators):
+        """The gradient of unit ``i``'s mean loss over its workers' rows."""
+        u = units[i]
+        dev = nets[u[0]].device
+        if dev != nets[0].device:
+            p = comm.tree_map(lambda x: x.to(dev), p)
+        st = comm.tree_map(lambda x: x.to(dev), st)
+
+        def rows(b):
+            parts = [worker_rows(b, w, n, 0, dev) for w in u]
+            return parts[0] if len(parts) == 1 else {
+                k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+
+        if sp.iter_size > 1:
+            return accumulate_grads(grad_fns[i], p, st, [rows(mb) for mb in batch],
+                                    generators[u[0]])
+        return grad_fns[i](p, st, rows(batch), generators[u[0]])
+
+    def lockstep_grads(params, state, batch, generators):
+        out: List[Any] = [None] * len(units)
+        errors: List[BaseException] = []
+
+        def run(i):
+            try:
+                out[i] = unit_grads(i, params, state, batch, generators)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+                lock.abort()
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(units))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            real = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)]
+            raise (real or errors)[0]
+        return out
 
     def train_step(params, state, opt_state, batch, it, generators):
         nonlocal update
         if update is None:
             lr_m, dec_m = mults_for_params(params, nets[0].param_specs())
             update = make_update_fn(sp, lr_m, dec_m)
-        grads, states, metrics = [], [], []
-        for w, net in enumerate(nets):
-            dev = net.device
-            p = params if dev == nets[0].device else comm.tree_map(
-                lambda x: x.to(dev), params)
-            st = comm.tree_map(lambda x: x.to(dev), state)
-            if sp.iter_size > 1:
-                micros = [worker_rows(mb, w, n, 0, dev) for mb in batch]
-                g, st, m = accumulate_grads(grad_fns[w], p, st, micros, generators[w])
-            else:
-                g, st, m = grad_fns[w](p, st, worker_rows(batch, w, n, 0, dev),
-                                       generators[w])
-            grads.append(g)
-            states.append(st)
-            metrics.append(m)
+        if lock is not None:
+            results = lockstep_grads(params, state, batch, generators)
+        else:
+            results = [unit_grads(i, params, state, batch, generators)
+                       for i in range(len(units))]
+        grads, states, metrics = (list(x) for x in zip(*results))
         opt_solver = {k: v for k, v in opt_state.items() if k != RESIDUAL_KEY}
         residual = opt_state.get(RESIDUAL_KEY)
-        g, residual = comm.reduce_bucketed(grads, config, residual=residual, **over)
+        if reducer is not None:
+            g = reducer.finish()
+        else:
+            g, residual = comm.reduce_bucketed(grads, config, residual=residual, **over)
         # one update of the one set of weights and slots
         params, opt_solver = update(params, g, opt_solver, it)
         state = states[0] if global_bn else comm.reduce_per_leaf(states, **over)

@@ -35,6 +35,7 @@ solver.
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 import struct
@@ -51,6 +52,9 @@ from ..device import resolve_device
 COORDINATOR_ENV = "SPARKNET_COORDINATOR"
 NUM_PROCESSES_ENV = "SPARKNET_NUM_PROCESSES"
 PROCESS_ID_ENV = "SPARKNET_PROCESS_ID"
+# seconds a rank waits for the others, in the rendezvous and in every
+# collective after it (torch.distributed's own default when unset)
+INIT_TIMEOUT_ENV = "SPARKNET_INIT_TIMEOUT"
 
 # Exit code for "a peer process stopped responding": a launcher treats
 # any non-zero exit as restart-the-job; this one is distinct from an
@@ -369,7 +373,8 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                backend: Optional[str] = None,
-               device: Union[str, torch.device] = "cuda") -> bool:
+               device: Union[str, torch.device] = "cuda",
+               timeout: Optional[float] = None) -> bool:
     """Join the job's process group; True when one was started.
 
     The arguments fall back to ``SPARKNET_COORDINATOR`` (``host:port``),
@@ -384,7 +389,13 @@ def initialize(coordinator_address: Optional[str] = None,
     card (the one-card rehearsal). The process group starts through a
     TCP rendezvous at the coordinator (``init_process_group`` with this
     rank and world size), then the heartbeat fabric
-    (:func:`start_heartbeat`)."""
+    (:func:`start_heartbeat`).
+
+    ``timeout`` (seconds; default ``SPARKNET_INIT_TIMEOUT``, else
+    ``torch.distributed``'s own) bounds the rendezvous store's waits, so
+    a rank whose peers never join raises instead of hanging, and every
+    collective of the process group after it. The JAX package's
+    ``initialize`` takes none."""
     global _device
     coordinator_address = coordinator_address or os.environ.get(COORDINATOR_ENV)
     if num_processes is None and NUM_PROCESSES_ENV in os.environ:
@@ -409,13 +420,16 @@ def initialize(coordinator_address: Optional[str] = None,
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("backend 'nccl' needs a card: pass device='cuda', or use gloo "
                          "on the CPU")
+    if timeout is None and os.environ.get(INIT_TIMEOUT_ENV, "").strip():
+        timeout = float(os.environ[INIT_TIMEOUT_ENV])
+    limit = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     host, _, port = coordinator_address.rpartition(":")
     store = dist.TCPStore(host or "127.0.0.1", int(port), num_processes,
-                          is_master=process_id == 0)
+                          is_master=process_id == 0, **limit)
     if backend == "nccl":
         _claim_card(store, process_id, num_processes, dev)
     dist.init_process_group(backend, store=store, rank=process_id,
-                            world_size=num_processes)
+                            world_size=num_processes, **limit)
     _device = dev
     start_heartbeat(coordinator_address, num_processes, process_id)
     return True

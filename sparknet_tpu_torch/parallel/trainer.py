@@ -39,9 +39,11 @@ slots and net state; in local mode each keeps its own slots and
 residual. Test metrics are the mean over ranks. A snapshot gathers local
 mode's slots and every residual into the leading worker axis, so the
 file is a one-process run's; only process 0 writes it; a restore hands
-each rank its row. ``tau='auto'`` is refused over processes: each
-rank's controller would observe its own round time, and a τ that
-differs between ranks leaves the next round's all-reduce waiting
+each rank its row. Under ``tau='auto'`` only process 0's controller
+observes a round (its wall time after the average, and the average's
+seconds, with no advisories, as the JAX package does over processes),
+and one broadcast of an int64 hands its next τ to every rank: a τ that
+differed between ranks would leave a round's all-reduce waiting
 forever.
 
 Not ported: ``layout=`` (the rule-table sharding path) and live
@@ -125,12 +127,6 @@ class ParallelSolver(Solver):
             if len(workers) != 1:
                 raise ValueError(f"over {nproc} processes a ParallelSolver runs one "
                                  f"worker a process, got {len(workers)}")
-            if parse_tau(tau)[1]:
-                raise ValueError(
-                    f"tau='auto' over {nproc} processes: each rank's controller would "
-                    "observe its own round time, and a tau that differs between ranks "
-                    "leaves the next round's all-reduce waiting forever; pass a fixed "
-                    "--tau")
         if workers is None:
             workers = make_workers(device="cuda" if device is None else device)
         else:
@@ -313,6 +309,14 @@ class ParallelSolver(Solver):
             "wire_dtype": "native" if wire is None else str(wire).replace("torch.", ""),
             "wire_bytes_per_reduction": comm_mod.wire_bytes(plan, leaves,
                                                             self.comm.compress, processes),
+            # how a mean crosses: one collective a leaf, or a bucket (every
+            # lossy wire; over processes the lossless sync mean, whatever
+            # the mode says); "overlap": each bucket started inside the
+            # backward
+            "reduction": ("bucket" if self.comm.compress != "none"
+                          or (self.mode == "sync" and processes) else "leaf"),
+            "overlap": (self.mode == "sync" and processes
+                        and self.comm.overlaps(self.sp.iter_size)),
         }
         if self.tau_controller is not None:
             out["tau_controller"] = self.tau_controller.snapshot()
@@ -332,6 +336,24 @@ class ParallelSolver(Solver):
         if self.sp.iter_size > 1:
             return stack_round_batches([next(batches) for _ in range(self.sp.iter_size)])
         return next(batches)
+
+    def _next_tau(self, controller: TauController, round_s: float, sync_s: float,
+                  metrics: Dict[str, Any]) -> int:
+        """The next round's τ: the controller's, over processes process
+        0's, broadcast to every rank (the loss is already each rank's
+        same mean over the ranks)."""
+        if self.rank == 0:
+            tau = controller.observe_round(round_s=max(round_s, 1e-9), sync_s=sync_s,
+                                           loss=float(metrics.get("loss", 0.0)),
+                                           advisories=None)
+        if self.group is None:
+            return tau
+        out = torch.tensor([tau if self.rank == 0 else 0], dtype=torch.int64,
+                           device=self.device)
+        dist.broadcast(out, src=0, group=self.group)
+        tau = int(out.item())
+        controller.tau = tau
+        return tau
 
     def step(self, batches: Iterator[Dict[str, Any]], n: int = 1, log_fn=None):
         if self.mode == "sync":
@@ -367,9 +389,7 @@ class ParallelSolver(Solver):
                 # under --tau auto
                 self.sync()
                 t2 = time.perf_counter()
-                self.tau = controller.observe_round(
-                    round_s=max(t2 - t0, 1e-9), sync_s=t2 - t1,
-                    loss=float(metrics.get("loss", 0.0)), advisories=None)
+                self.tau = self._next_tau(controller, t2 - t0, t2 - t1, metrics)
             d = self.sp.display
             if log_fn and d:
                 # round metrics are τ-means; the window holds

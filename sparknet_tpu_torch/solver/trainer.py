@@ -44,18 +44,23 @@ def resolve_model_path(path: str, base_dir: str) -> str:
     return path
 
 
-def make_grad_fn(net: TorchNet, group: Optional[Any] = None) -> Callable:
+def make_grad_fn(net: TorchNet, group: Optional[Any] = None,
+                 watch: Optional[Callable] = None) -> Callable:
     """``grad_fn(params, state, batch, generator) -> (grads, new_state,
     metrics)``: gradients of ``net.loss_and_metrics``'s weighted loss
     with respect to every param; the new net state (BatchNorm's running
     statistics) and the metrics hold no autograd graph. ``group``: a
     process group over which training BatchNorm takes its statistics
-    (``TorchNet.apply``'s)."""
+    (``TorchNet.apply``'s). ``watch`` is handed the tree of param leaves
+    the backward differentiates, before the forward (hooks on them see
+    each gradient as the backward makes it)."""
     kw = {} if group is None else {"group": group}
 
     def grad_fn(params, state, batch, generator):
         leaves = {layer: {n: t.detach().requires_grad_(True) for n, t in e.items()}
                   for layer, e in params.items()}
+        if watch is not None:
+            watch(leaves)
         blobs, new_state = net.apply(leaves, state, batch, train=True,
                                      generator=generator, **kw)
         loss, metrics = net.loss_and_metrics(blobs)

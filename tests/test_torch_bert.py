@@ -347,21 +347,42 @@ def test_bert_app_trains_tiny_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--parallel", "sync"], "--parallel"),
+    (["--parallel", "sp"], "--parallel sp"),
+    (["--parallel", "tp"], "--parallel tp"),
+    (["--parallel", "pp"], "--parallel pp"),
+    (["--parallel", "ep"], "--parallel ep"),
     (["--mesh", "dp=2"], "--mesh"),
     (["--layout", "dp=2"], "--layout"),
-    (["--grad-compress", "int8"], "--grad-compress"),
     (["--moe-experts", "4"], "--moe-experts"),
     (["--remat"], "--remat"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
     (["--auto-resume"], "--auto-resume"),
     (["--trace", "t.json"], "--trace"),
     (["--profile-dir", "p"], "--profile-dir"),
-], ids=["parallel", "mesh", "layout", "grad-compress", "moe", "remat", "orbax",
-        "auto-resume", "trace", "profile-dir"])
+], ids=["parallel", "parallel-tp", "parallel-pp", "parallel-ep", "mesh", "layout", "moe",
+        "remat", "orbax", "auto-resume", "trace", "profile-dir"])
 def test_bert_app_refuses_what_it_does_not_port(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         bert_app.main(["--config", "tiny", "--device", "cpu", *argv])
+
+
+def test_bert_app_grad_compress_needs_a_parallel_mode():
+    with pytest.raises(ValueError, match="--grad-compress requires --parallel sync|local"):
+        bert_app.main(["--config", "tiny", "--device", "cpu", "--grad-compress", "int8"])
+
+
+def test_bert_app_parallel_runs_one_worker_in_one_process(tmp_path, capsys):
+    """``--parallel sync`` in one process: the parallel solver, one worker
+    on the model's device, its ``comm:`` line; ``--grad-compress`` with
+    it."""
+    metrics = bert_app.main(_app_argv(tmp_path, "--parallel", "sync", "--grad-compress",
+                                      "bf16"))
+    out = capsys.readouterr().out
+    assert np.isfinite(metrics["loss"])
+    comm = re.search(r"comm: (.*)", out).group(1)
+    assert '"compress": "bf16"' in comm and '"workers": ["cpu"]' in comm, comm
+    assert '"processes": 1' in comm and '"overlap": false' in comm, comm
+    assert '"reduction": "bucket"' in comm, comm  # a lossy wire is bucketed
 
 
 def test_bert_app_refuses_sequence_parallel_attention():

@@ -522,3 +522,97 @@ def test_round_buffer_bit_identical_and_counted():
     assert (buf.allocs, buf.reuses) == (6, 4)  # 2 keys x depth 3, then reuse
     assert buf.stack([batch(0), {"data": np.zeros((2, 8), np.float32),
                                  "label": np.zeros(2, np.int32)}]) is None
+
+
+class _Doubling:
+    """A stand-in collective over 2 ranks of equal values: ``all_reduce``
+    doubles its tensor in place (a SUM), records the tensor's size and
+    whether it was contiguous, and returns a handle when asked for one."""
+
+    class Work:
+        def wait(self):
+            return True
+
+    def __init__(self, monkeypatch):
+        self.sizes, self.contiguous = [], []
+        monkeypatch.setattr(comm.dist, "all_reduce", self)
+        monkeypatch.setattr(comm.dist, "get_world_size", lambda group=None: 2)
+
+    def __call__(self, t, op=None, group=None, async_op=False):
+        self.sizes.append(t.numel())
+        self.contiguous.append(t.is_contiguous())
+        t.mul_(2)
+        return self.Work() if async_op else None
+
+
+def test_group_reductions_hand_the_collective_contiguous_tensors(monkeypatch):
+    """Over a process group every reduction passes a contiguous tensor to
+    ``all_reduce`` (NCCL refuses any other), whatever the strides of the
+    gradient it reduces (a transpose's, as BERT's); the mean is
+    unchanged. The collective is a stand-in that doubles its tensor, as a
+    SUM over 2 ranks of equal values."""
+    fake = _Doubling(monkeypatch)
+    g = torch.arange(12, dtype=torch.float32).reshape(3, 4).t()  # (4, 3), not contiguous
+    tree = {"ip": {"weight": g, "bias": torch.ones(3)}}
+    for cfg in (CommConfig(), CommConfig(mode="bucketed", compress="bf16")):
+        res = None if not cfg.wants_residual else comm.init_residual(tree, 1)
+        out, _ = comm.reduce_bucketed([tree], cfg, residual=res, group="g")
+        torch.testing.assert_close(out["ip"]["weight"], g)
+        torch.testing.assert_close(out["ip"]["bias"], torch.ones(3))
+    assert fake.contiguous and all(fake.contiguous), fake.contiguous
+
+
+def _grad_tree(seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {f"l{i}": {"weight": torch.randn((40, 25), generator=gen),
+                      "bias": torch.randn((40,), generator=gen)} for i in range(4)}
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "bucketed"])
+def test_lossless_group_mean_is_one_all_reduce_a_bucket(monkeypatch, mode):
+    """A lossless mean over a process group reduces one concatenated
+    bucket of ``plan_buckets`` a collective, in plan order, under either
+    mode (the monolithic sync default too), and equals the per-leaf
+    mean."""
+    fake = _Doubling(monkeypatch)
+    tree = _grad_tree(0)
+    cfg = CommConfig(mode=mode, bucket_mb=0.005)
+    leaves = comm.tree_leaves(tree)
+    plan = comm.plan_buckets(leaves, cfg.bucket_bytes)
+    out, res = comm.reduce_bucketed([tree], cfg, group="g")
+    assert res is None and len(plan) > 1
+    assert fake.sizes == [sum(leaves[i].numel() for i in b) for b in plan]
+    for got, want in zip(comm.tree_leaves(out), leaves):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_backward_reducer_starts_each_bucket_inside_the_backward(monkeypatch):
+    """:class:`comm.BackwardReducer` on a real backward: every bucket has
+    started when ``backward`` returns, each once, and the mean tree
+    equals the gradients (2 equal ranks), bit for bit; a param the loss
+    does not reach reduces as zeros."""
+    fake = _Doubling(monkeypatch)
+    params = {l: {n: t.requires_grad_(True) for n, t in e.items()}
+              for l, e in _grad_tree(1).items()}
+    reducer = comm.BackwardReducer("g", 5000)
+    x = torch.randn((3, 25), generator=torch.Generator().manual_seed(2))
+    for _ in range(2):  # a reducer serves step after step
+        fake.sizes.clear()
+        reducer.watch(params)
+        h = x
+        for l in ("l0", "l1", "l2"):  # l3 gets no gradient
+            h = torch.tanh(h @ params[l]["weight"][:25].t()[:, :25] + params[l]["bias"][:25])
+        h.square().sum().backward()
+        started = len(fake.sizes)
+        out = reducer.finish()
+        leaves = comm.tree_leaves(params)
+        plan = comm.plan_buckets(leaves, 5000)
+        assert sorted(fake.sizes) == sorted(sum(leaves[i].numel() for i in b) for b in plan)
+        l3 = {i for i, p in enumerate(leaves) if p.grad is None}
+        # every bucket without l3's leaves started in the backward
+        assert started == sum(1 for b in plan if not l3 & set(b))
+        for p, got in zip(leaves, comm.tree_leaves(out)):
+            want = torch.zeros_like(p) if p.grad is None else p.grad
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        for p in leaves:
+            p.grad = None

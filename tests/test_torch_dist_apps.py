@@ -15,11 +15,12 @@ is ``python -m sparknet_tpu_torch.apps.<app>`` with
   batch 4, the lossless path: each BatchNorm normalizes over both
   processes' rows; one set of lines, one snapshot with 53 finite
   BatchNorm states, which restores a one-process solver.
-- Over processes both apps refuse ``--parallel none`` and a batch the
-  process count does not divide, with the JAX apps' messages, and
-  ``--tau auto`` (the process count patched to 2: each check runs
-  before any collective). BertApp, which takes only ``--parallel none``
-  in the port, refuses a multi-process launch.
+- Over processes the three apps refuse ``--parallel none`` and a batch
+  the process count does not divide, with the JAX apps' messages (the
+  process count patched to 2: each check runs before any collective);
+  the image apps build a ``--tau auto`` solver (process 0's controller
+  decides each round's τ for every rank: ``tests/test_torch_dist_overlap.py``
+  runs it). BertApp's parallel runs are ``tests/test_torch_dist_bert.py``'s.
 
 A run's results are checked for behaviour, not against another run: the
 feed of each process is ``host_shard``'s, which no one-process run
@@ -40,7 +41,7 @@ from sparknet_tpu_torch.parallel import ParallelSolver, multihost
 from sparknet_tpu_torch.proto import caffe_pb
 from sparknet_tpu_torch.solver import snapshot
 from sparknet_tpu_torch.solver.trainer import Solver
-from tests._torch_dist_worker import launch
+from tests._torch_dist_worker import LAUNCH_TIMEOUT, launch
 from tests.test_torch_zoo_nets import narrow_text
 
 FEED = ["--native-loader", "off", "--data-workers", "0", "--prefetch", "0",
@@ -57,7 +58,7 @@ def _solver(tmp, name, net, test_iter=1):
 
 
 def _run(tmp, module, argv, world=2):
-    res = launch([sys.executable, "-m", module] + argv, world, str(tmp), 600)
+    res = launch([sys.executable, "-m", module] + argv, world, str(tmp), LAUNCH_TIMEOUT)
     assert all(rc == 0 for rc, _ in res), "\n".join(log[-3000:] for _, log in res)
     return [log for _, log in res]
 
@@ -132,12 +133,20 @@ def test_apps_refuse_what_processes_cannot_run(app, monkeypatch, tmp_path):
         mod.build(parse(argv))
     with pytest.raises(ValueError, match=re.escape("must divide across 2 processes")):
         mod.build(parse(argv + ["--parallel", "sync", "--batch-size", "3"]))
-    with pytest.raises(ValueError, match="tau='auto' over 2 processes"):
-        mod.build(parse(argv + ["--parallel", "local", "--tau", "auto", "--batch-size", "4"]))
+    solver = mod.build(parse(argv + ["--parallel", "local", "--tau", "auto",
+                                     "--batch-size", "4"]))[0]
+    assert solver.tau_controller is not None and solver.num_workers == 2
 
 
 def test_bert_app_refuses_a_multi_process_launch(monkeypatch):
-    monkeypatch.setenv("SPARKNET_COORDINATOR", "127.0.0.1:1")
+    """``--parallel none`` over processes, as the JAX app, and a batch the
+    process count does not divide."""
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    parse = bert_app.parser().parse_args
+    argv = ["--config", "tiny", "--seq-len", "32", "--synthetic-tokens", "4096",
+            "--device", "cpu"]
     with pytest.raises(ValueError, match=re.escape(
             "multi-host launch requires --parallel sync|local")):
-        bert_app.main(["--config", "tiny", "--device", "cpu"])
+        bert_app.build(parse(argv))
+    with pytest.raises(ValueError, match=re.escape("must divide across 2 processes")):
+        bert_app.build(parse(argv + ["--parallel", "sync", "--batch-size", "3"]))

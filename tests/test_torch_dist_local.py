@@ -59,7 +59,7 @@ from sparknet_tpu_torch.parallel import CommConfig, ParallelSolver, comm
 from sparknet_tpu_torch.parallel.local_sgd import RESIDUAL_KEY
 from sparknet_tpu_torch.proto import caffe_pb as tpb
 from sparknet_tpu_torch.solver.trainer import Solver as TSolver
-from tests._torch_dist_worker import load_tree, run_spec, save_tree
+from tests._torch_dist_worker import LAUNCH_TIMEOUT, load_tree, run_spec, save_tree
 from tests.test_torch_parallel import CIFAR_SOLVER, CONV_TOL, SOLVER_TXT, batches
 from tests.test_torch_zoo_nets import NET_TOL
 from tests.test_torch_zoo_solver import SOLVER, Narrow, assert_trees_close, draw
@@ -236,7 +236,7 @@ def runs(tmp_path_factory):
              {**common, "name": "dropout", "net": str(tmp / "dropout.prototxt"),
               "solver": SOLVER_TXT, "batches": str(tmp / "dropout_b.npz"),
               "weights": str(tmp / "dropout_w.npz"), "steps": TAU}]
-    run_spec({"out": str(tmp), "jobs": jobs}, str(tmp), WORLD, timeout=600)
+    run_spec({"out": str(tmp), "jobs": jobs}, str(tmp), WORLD, timeout=LAUNCH_TIMEOUT)
     got = {job["name"]: [load_tree(tmp / f"{job['name']}.r{r}.npz") for r in range(WORLD)]
            for job in jobs}
     return tmp, got, cifar, resnet, dropout

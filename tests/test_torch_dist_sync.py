@@ -65,10 +65,11 @@ from sparknet_tpu.solver.trainer import Solver as JSolver
 from sparknet_tpu_torch.models import CIFAR_QUICK_TRAIN_TEST
 from sparknet_tpu_torch.nets import layers as TL
 from sparknet_tpu_torch.nets import weights as tweights
-from sparknet_tpu_torch.parallel import CommConfig, ParallelSolver, comm
+from sparknet_tpu_torch.parallel import (CommConfig, ParallelSolver, comm, data_parallel,
+                                         make_dp_train_step)
 from sparknet_tpu_torch.proto import caffe_pb as tpb
 from sparknet_tpu_torch.solver.trainer import Solver as TSolver
-from tests._torch_dist_worker import load_tree, run_spec, save_tree
+from tests._torch_dist_worker import LAUNCH_TIMEOUT, load_tree, run_spec, save_tree
 from tests.test_torch_parallel import CIFAR_SOLVER, CONV_TOL, batches
 from tests.test_torch_zoo_nets import NET_TOL
 from tests.test_torch_zoo_solver import LOSS, SOLVER, Narrow, assert_trees_close, draw
@@ -161,7 +162,7 @@ def _resnet_oracles(tmp):
         loss = float(j1.step(iter([b]), 1)[LOSS]), float(t.step(iter([b]), 1)[LOSS])
         chosen.append(b)
     np.savez(tmp / "resnet_b.npz", **_stack(chosen))
-    return j4, j1, t, loss
+    return j4, j1, t, loss, chosen, narrow
 
 
 def _cifar_oracles(tmp):
@@ -226,7 +227,7 @@ def runs(tmp_path_factory):
                      "batches": str(tmp / "cifar_b.npz"), "weights": str(tmp / "cifar_w.npz"),
                      "test_batches": str(tmp / "cifar_t.npz"), "mode": "sync",
                      "compress": compress, "steps": STEPS})
-    run_spec({"out": str(tmp), "jobs": jobs}, str(tmp), WORLD, timeout=600)
+    run_spec({"out": str(tmp), "jobs": jobs}, str(tmp), WORLD, timeout=LAUNCH_TIMEOUT)
     got = {name: [load_tree(tmp / f"{name}.r{r}.npz") for r in range(WORLD)]
            for name in [job["name"] for job in jobs] + ["resnet_step1"]}
     return got, bn, resnet, cifar
@@ -253,7 +254,7 @@ def _assert_solver(got, params, state, momentum, tol):
 
 
 def test_resnet50_sync_over_processes_matches_jax_and_one_device(runs):
-    got, _, (j4, j1, t, losses), _ = runs
+    got, _, (j4, j1, t, losses, _, _), _ = runs
     for name in ("resnet", "resnet_step1"):
         ranks = got[name]
         assert len({str(g["hash"]) for g in ranks}) == 1  # replicated bit for bit
@@ -303,3 +304,53 @@ def test_cifar_sync_over_processes_matches_jax_and_one_process(runs, compress):
         res = [r["slots"]["comm_residual"]["conv1"]["weight"] for r in ranks]
         assert all(x.shape[0] == 1 for x in res)
         assert quanta > 0
+
+
+def _port_solver_trees(s):
+    net = s.train_net
+    return jax.tree_util.tree_map(
+        lambda x: np.array(x, copy=True),
+        {"params": tweights.to_jax_params(s.params, net),
+         "state": {l: {n: a.numpy() for n, a in e.items()} for l, e in s.state.items()},
+         "slots": tweights.to_jax_slots(s.opt_state, net)})
+
+
+@pytest.mark.parametrize("lockstep", [False, True], ids=["one-forward", "lockstep"])
+def test_resnet50_sync_over_four_workers_in_one_process(runs, lockstep, monkeypatch):
+    """Global-batch BatchNorm over the workers of one process, on the
+    monolithic path, over the same 3 batches: the first step against the
+    JAX monolithic solver over 4 devices (``NET_TOL``, as the processes);
+    then one forward over the 4 workers' rows is the one-device solver's
+    step bit for bit, and the lock-step threads (each worker's row
+    apart, the sums in rank order; the path of workers on separate
+    devices, here on the CPU) the 4 processes' within rtol 1e-5, atol
+    1e-6, as each rank on one thread."""
+    got, _, (j4, _, t, _, chosen, narrow), _ = runs
+    s = ParallelSolver(tpb.load_solver(SOLVER, is_path=False), RESNET_SHAPES,
+                       net_param=tpb.load_net(narrow.text, is_path=False),
+                       workers=["cpu"] * WORLD, mode="sync")
+    s.params = tweights.from_jax_params(narrow.params, {}, s.train_net)[0]
+    threads = torch.get_num_threads()
+    if lockstep:
+        monkeypatch.setattr(data_parallel, "_THREAD_PER_WORKER", True)
+        step = make_dp_train_step(s._nets, s.sp, s.comm)
+        s._train_step = (lambda p, st, o, b, it, _rng:
+                         step(p, st, o, b, it, s._worker_generators(it)))
+        torch.set_num_threads(1)
+    try:
+        s.step(iter(chosen[:1]), 1)
+        first = _port_solver_trees(s)
+        m = s.step(iter(chosen[1:]), STEPS - 1)
+    finally:
+        torch.set_num_threads(threads)
+    _assert_solver(first, jax.device_get(j4.params), jax.device_get(j4.state),
+                   jax.device_get(j4.opt_state["momentum"]), NET_TOL)
+    mine = _port_solver_trees(s)
+    if lockstep:
+        g = got["resnet"][0]
+        np.testing.assert_allclose(float(m[LOSS]), float(g["loss"]), rtol=1e-5)
+        _assert_solver(mine, g["params"], g["state"], g["slots"]["momentum"], TIGHT)
+    else:
+        want = _port_solver_trees(t)
+        _assert_solver(mine, want["params"], want["state"], want["slots"]["momentum"],
+                       None)

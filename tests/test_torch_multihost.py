@@ -33,7 +33,7 @@ from sparknet_tpu_torch.data.imagenet import imagenet_dataset
 from sparknet_tpu_torch.data.rdd import ShardedDataset
 from sparknet_tpu_torch.parallel import multihost
 from sparknet_tpu_torch.parallel.multihost import EXIT_PEER_FAILURE, _Heartbeat, _recv_exactly
-from tests._torch_dist_worker import free_port, launch
+from tests._torch_dist_worker import LAUNCH_TIMEOUT, free_port, launch
 from tests.test_torch_parallel import SOLVER_TXT, TINY_NET
 
 
@@ -58,6 +58,21 @@ def test_initialize_needs_the_whole_launch(monkeypatch):
         multihost.initialize(process_id=2, device="cpu")
     with pytest.raises(ValueError, match="needs a card"):
         multihost.initialize(process_id=0, device="cpu", backend="nccl")
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_a_rank_whose_peers_never_join_fails_in_its_timeout(monkeypatch, rank):
+    """Rank 0 waits for a rank 1 that never starts, rank 1 for a rank 0
+    that never starts: each raises after ``SPARKNET_INIT_TIMEOUT``
+    seconds, not torch.distributed's default minutes."""
+    monkeypatch.setenv(multihost.INIT_TIMEOUT_ENV, "2")
+    monkeypatch.setenv("SPARKNET_HEARTBEAT", "0")
+    t0 = time.monotonic()
+    with pytest.raises(Exception) as err:
+        multihost.initialize(f"127.0.0.1:{free_port()}", 2, rank, device="cpu")
+    assert time.monotonic() - t0 < 30, err.value
+    assert not torch.distributed.is_initialized()
+    assert multihost.process_device() is None
 
 
 @pytest.mark.parametrize("hosts", [2, 3, 4])
@@ -155,8 +170,9 @@ def test_wedged_peer_fails_the_job_fast(tmp_path):
     spec.write_text(json.dumps({"out": str(tmp_path), "jobs": [
         {"kind": "stall", "name": "stall", "net": TINY_NET, "solver": SOLVER_TXT}]}))
     t0 = time.monotonic()
-    res = launch([sys.executable, worker.__file__, str(spec)], 2, str(tmp_path), 120,
-                 extra_env={"SPARKNET_HEARTBEAT_TIMEOUT": "3"}, wait_for=[0])
+    res = launch([sys.executable, worker.__file__, str(spec)], 2, str(tmp_path),
+                 LAUNCH_TIMEOUT, extra_env={"SPARKNET_HEARTBEAT_TIMEOUT": "3"},
+                 wait_for=[0])
     elapsed = time.monotonic() - t0
     (rc0, log0), (rc1, log1) = res
     assert "rank 1: stepped" in log1, log1

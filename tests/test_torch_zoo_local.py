@@ -19,20 +19,22 @@ it takes the same ReLU and max-pooling branches in both packages,
 checked on the replayed workers' params before that step (the JAX side
 replayed by its own single-device Solver).
 
-Sync data parallel on a BatchNorm net: each of the port's workers
-normalizes by its own rows' statistics, and the new states are
-averaged, as the JAX package's bucketed sync step does
-(``CommConfig(mode="bucketed")``, and every compressed run). The JAX
-package's lossless default (``monolithic``, XLA's implicit all-reduce)
-normalizes over the global batch instead, as one device would, and the
-port refuses that path over more than one worker. The port is held
-against the bucketed path over 8 workers of 8 rows, 3 steps, rtol 1e-5,
-atol 1e-6, on a small BatchNorm net whose rows differ in mean from
-worker to worker, and the JAX default is shown to give another loss
-there; the port's one worker over the whole batch is held against the
-JAX default at the same tolerance. (At 2 rows a worker a channel's
-variance is so ill-conditioned that rounding alone moves the weights by
-8e-4 in 3 steps.)
+Sync data parallel on a BatchNorm net, on a small net whose rows differ
+in mean from worker to worker, 8 workers of 8 rows, 3 steps, rtol 1e-5,
+atol 1e-6. On the bucketed path (``CommConfig(mode="bucketed")``, and
+every compressed run) each of the port's workers normalizes by its own
+rows' statistics and the new states are averaged, as the JAX package's
+bucketed sync step does; the JAX default is shown to give another loss
+there. The JAX package's lossless default (``monolithic``, XLA's
+implicit all-reduce) normalizes over the global batch, as one device
+would, and so does the port's monolithic path over the workers of one
+process: by one forward over their rows (workers that share a device),
+and by one thread a worker in lock-step (``data_parallel._THREAD_PER_WORKER``,
+the path of workers on separate devices, here on the CPU); each is held against the
+JAX default over 8 devices, and the port's one worker over the whole
+batch too. (At 2 rows a worker a channel's variance is so
+ill-conditioned that rounding alone moves the weights by 8e-4 in 3
+steps.)
 """
 
 import numpy as np
@@ -47,7 +49,8 @@ from sparknet_tpu.parallel import make_mesh
 from sparknet_tpu.proto import caffe_pb as jpb
 from sparknet_tpu.solver.trainer import Solver as JSolver
 from sparknet_tpu_torch.nets import weights as tweights
-from sparknet_tpu_torch.parallel import CommConfig, ParallelSolver
+from sparknet_tpu_torch.parallel import (CommConfig, ParallelSolver, data_parallel,
+                                         make_dp_train_step)
 from sparknet_tpu_torch.proto import caffe_pb as tpb
 from sparknet_tpu_torch.solver.trainer import Solver as TSolver
 from tests.test_torch_zoo_nets import NET_TOL
@@ -208,10 +211,13 @@ def test_sync_batchnorm_is_per_worker_as_the_jax_bucketed_path():
     assert abs(global_batch - per_worker) > 1e-3 * abs(per_worker)
 
 
-def test_sync_batchnorm_over_workers_refuses_the_monolithic_path():
+@pytest.mark.parametrize("path", ["one-forward", "lockstep", "one-worker"])
+def test_sync_batchnorm_takes_the_global_batch_on_the_monolithic_path(path, monkeypatch):
     j = _jax_sync("monolithic")
-    for mode in ("auto", "monolithic"):
-        with pytest.raises(ValueError, match="BatchNorm"):
-            _port_sync(mode, 8, j)
-    # one worker's rows are the global batch: the JAX default's statistics
-    _assert_sync_matches(_port_sync("auto", 1, j), j, 3)
+    t = _port_sync("auto", 1 if path == "one-worker" else 8, j)
+    if path == "lockstep":
+        monkeypatch.setattr(data_parallel, "_THREAD_PER_WORKER", True)
+        step = make_dp_train_step(t._nets, t.sp, t.comm)
+        t._train_step = (lambda p, s, o, b, it, _rng:
+                         step(p, s, o, b, it, t._worker_generators(it)))
+    _assert_sync_matches(t, j, 3)
