@@ -95,10 +95,20 @@ own lines:
    the final solverstate reloaded. Each training kernel must launch
    exactly twice per iteration, the inference kernel twice per test
    batch;
-10. train-profile: ``Solver.step`` on one device-resident batch of 256:
-   ms per step by CUDA events, images/s, peak device memory, then
-   ``torch.profiler`` over 3 steps: device time by kernel, the LRN
-   kernels' share and the device's idle share;
+10. train-profile: ``Solver.step`` on one device-resident batch of 256,
+   f32 and ``--bf16``, each both ways: eager (the same step function
+   without a graph, ``SPARKNET_FUSED_STEP=0``) and one captured CUDA
+   graph an iteration (the default): ms per step by CUDA events,
+   images/s, peak device memory allocated and the memory held (the
+   graph's private pool included), then ``torch.profiler`` over 3 steps:
+   device time by kernel, the LRN kernels' share, the device's idle
+   share (against the profiled window and against the unprofiled step),
+   the device operations a step, the host's launches a step by kind
+   (kernels, graph replays, copies, fills), and the LRN and flash
+   kernels the profiler saw against the launch counters' increase over
+   the same steps (equal, or the phase fails: a replay adds its
+   capture's count to the counters, and this shows that the graph ran
+   those kernels);
 10a. googlenet, resnet50, vgg16: ``ImageNetApp`` through ``main([...])``
    with ``--arch`` each at its prototxt's batch (32, 32, 64; test 50,
    25, 50), f32, 20 iterations of its zoo solver (cut from 2.4 M, 450 k
@@ -110,8 +120,8 @@ own lines:
    training LRN kernel twice an iteration and the inference kernel twice
    a test batch, the others none; the solverstate reloads with finite
    params and, for ResNet-50, 53 finite BatchNorm states with var >= 0.
-   Then the resident step, f32 and ``--bf16``: ms by CUDA events, images/s,
-   peak device memory, and ``torch.profiler``'s idle share and launches;
+   Then the resident step, f32 and ``--bf16``, eager and through the
+   graph, as train-profile;
 11. bert-grads: one training step of full-width BERT-base (random
    weights from seed 0, no hidden dropout, attention dropout 0.1 with
    the same seeds on both devices) at batch 2 x 128 on the card against
@@ -124,9 +134,28 @@ own lines:
    reloaded and ``Solver.test`` runs 2 batches: 12 forward launches
    each, no backward;
 13. bert-profile: ``Solver.step`` of BERT-base on one device-resident
-   batch of 32 x 128: ms per step by CUDA events, tokens/s, peak device
-   memory, then ``torch.profiler`` over 3 steps: device time by kernel,
-   the flash kernels' share and the device's idle share;
+   batch of 32 x 128, f32 and ``--bf16``, eager and through the graph,
+   as train-profile (the flash kernels' share);
+13a. fused-step: the train step as one captured CUDA graph against the
+   eager step, on cifar10_quick (batch 100), AlexNet (256, the LRN
+   kernels, Dropout, device augmentation: the raw uint8 batch and its
+   plan are the graph's inputs), ResNet-50 (32, BatchNorm state through
+   the graph) and BERT-base (32 x 128: the three flash kernels, hidden
+   and attention dropout, AdamW, poly with warmup), each built as its app
+   builds it, f32, with cuDNN's and PyTorch's deterministic algorithms.
+   From one snapshot of the fresh solver and 12 host batches of its
+   app's feed: 12 eager iterations twice (their spread: 0 when they agree
+   bit for bit), 12 through the graph with a save at iteration 6. Params,
+   net state, optimizer slots and the generator's state: the graph's
+   against the eager run's bit for bit (within the spread, and 1e-2
+   relative L2, where two eager runs differ); each iteration's rate the
+   eager run's bit for bit and ``learning_rate`` on the host within 1e-6;
+   each step's metrics the eager run's and unchanged after the next
+   step; the kernel launches equal, and the graph run's replays after
+   its capture traced by ``torch.profiler``: the LRN and flash kernels
+   it saw equal to the counters' increase over those steps. The save restored into a fresh solver
+   and 6 more iterations through a new graph: the straight run's.
+   ``scan_steps`` of the first batch against 12 eager steps on it;
 14. cifar-app: ``CifarApp`` through ``main([...])``: the port's
    cifar10_quick solver at its full net and batch of 100, the 5,000-image
    synthetic set (mean file absent: the full set's mean), 300
@@ -134,14 +163,15 @@ own lines:
    50). The test loss must fall below half its first value, the last
    display loss below the first test loss, and the last test accuracy
    reach chance (0.1) plus 0.5; the last ``speed:`` line's steps/s and
-   images/s are printed;
+   images/s are printed; then the app's resident step eager and through
+   the graph, as train-profile;
 15. local-sgd: ``ParallelSolver(mode="local", tau=10)`` on cifar10_quick
    at batch 100 over 4 workers on cuda:0, once for each wire format
    (``--grad-compress`` none, bf16, int8): one round on the card held
    against the same round on the CPU from the same weights and batches
    (each worker's weights, then the average within what the wire
    format's flipped roundings can move it);
-   19 more rounds, ms per round and the average's share (host clock,
+   9 more rounds, ms per round and the average's share (host clock,
    synchronized), the round loss must fall below half its first value
    and the weights stay finite. With none, one round under
    ``torch.profiler`` (the card's busy time against the round's wall
@@ -185,7 +215,7 @@ own lines:
    Then one NCCL rank at world size 1 and one all-reduce. With two or
    more cards: ``nvidia-smi topo -m``; the same two runs over NCCL, one
    process a card; cifar10_quick ``--parallel local`` tau 10 at 4 NCCL
-   processes (25 rows each), 20 rounds for each wire format: ms a round,
+   processes (25 rows each), 10 rounds for each wire format: ms a round,
    the average's ms and share, each card's idle share over one profiled
    round, beside the same rounds of the one-process ParallelSolver over
    the same cards; and CifarApp ``main`` launched as 2 NCCL processes:
@@ -211,9 +241,9 @@ own lines:
    iterations, held the same way against the one-process 2-worker
    ``ParallelSolver`` with the same dropout seeds; the ranks' weights
    identical by hash; the flash kernels counted from 0 in each rank
-   (forward, dq and dk/dv, 12 an iteration, 660 each) and summed
+   (forward, dq and dk/dv, 12 an iteration, 444 each) and summed
    into the kernels line. Then cifar10_quick ``--parallel local --tau
-   auto`` over 2 ranks, 20 rounds: every rank the same τ every round.
+   auto`` over 2 ranks, 12 rounds: every rank the same τ every round.
    With two or more cards the BERT runs over NCCL (one process a card)
    and ResNet-50 sync at the global batch of 32 timed the same three
    ways;
@@ -228,7 +258,7 @@ own lines:
    event; a pinned buffer refilled before its upload left it), each of
    which it must catch; two constructions of the C++ loader against
    each other; ``nproc`` and ``df /dev/shm``. Then ``ImageNetApp`` through
-   ``main([...])`` at batch 256, 30 iterations in chunks of 10 (a test
+   ``main([...])`` at batch 256, 16 iterations in chunks of 8 (a test
    batch between), through each train feed path: serial with
    ``--prefetch 0`` and 2, ``--data-workers 4`` and cores - 1,
    ``--native-loader on``, ``--device-augment``, ``--data-format
@@ -236,7 +266,7 @@ own lines:
    every batch a hit). Each prints its chunks' images/s beside the
    resident step's, its ``input pipeline:`` / ``data cache:`` lines and
    whether the step waited on the host; each must launch the LRN kernels
-   8 / 60 / 60 times, and read 0 pickle fallbacks.
+   6 / 32 / 32 times, and read 0 pickle fallbacks.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -253,15 +283,18 @@ TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
 counts the main paths' runs (serving, train, alexnet-local, feed,
-googlenet and every rank of the multiprocess phase's AlexNet runs for
-LRN, bert-train and every rank of the bert-processes phase for flash).
+googlenet, fused-step's AlexNet graph run and every rank of the
+multiprocess phase's AlexNet runs for LRN; bert-train, fused-step's
+BERT graph run and every rank of the bert-processes phase for flash).
+A kernel inside a captured step is counted at each replay (the graph
+adds what its capture counted).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step
 
-runs the card and build phases and the phases named (either or both)
+runs the card and build phases and the phases named (any of the three)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -276,7 +309,8 @@ three flash kernels at B 32 x S 128 and B 8 x S 512 in f32 and at B 32 x
 S 128 in bf16 (each by single calls, back-to-back calls, the profiler's
 device time and the host's time to make one call; SDPA's forward or
 backward beside each flash kernel), then ``Solver.step`` of AlexNet on
-one device-resident batch of 256, the bucket-32 serving forward
+one device-resident batch of 256, of GoogLeNet and ResNet-50 on one of
+32 (f32 and ``--bf16``), the bucket-32 serving forward
 (``engine.infer`` by the host clock, and the net's forward by CUDA
 events), and ``Solver.step`` of BERT-base on one device-resident batch
 of 32 x 128, f32 and ``--bf16`` (ms per step by CUDA events).
@@ -350,6 +384,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -391,7 +426,7 @@ ZOO_LOSS_TOL, ZOO_BLOB_TOL, ZOO_GRAD_TOL = 1e-5, 1e-4, 1e-2
 # and AlexNet's local rounds
 CIFAR_ITERS = 300
 CIFAR_ACC_MARGIN = 0.5  # the last test accuracy must reach chance (0.1) + this
-LOCAL_WORKERS, LOCAL_TAU, LOCAL_ROUNDS = 4, 10, 20
+LOCAL_WORKERS, LOCAL_TAU, LOCAL_ROUNDS = 4, 10, 10
 SYNC_STEPS = 10
 # relative L2 per tensor: one step's weights, and each step's loss, on
 # another device or batch split; 10 steps' weights: a max-pool or ReLU
@@ -412,16 +447,16 @@ MP_TIMEOUT = 300
 # the bert-processes phase: BertApp's BERT-base at the global batch of
 # 32 x 128 over 2 processes: sync steps and local iterations held, sync
 # steps timed with the overlap on and off; --tau auto's rounds
-BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 8
+BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 5
 BP_ITERS = max(BP_SYNC_STEPS, BP_LOCAL_ITERS)
-TAU_AUTO_ROUNDS = 20
+TAU_AUTO_ROUNDS = 12
 
 # the feed phase: ImageNetApp's AlexNet at its batch of 256 on the
 # 2,048-image synthetic set, FEED_ITERS iterations a path in chunks of
 # FEED_CHUNK (a test batch between chunks; each chunk's speed: line
 # read), and the first FEED_CHECK batches of each Python path held bit
 # for bit
-FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 30, 10, 8
+FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 16, 8, 8
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -1401,26 +1436,35 @@ def phase_train(tmp):
     return {"launches": counts, "losses": losses}
 
 
-def _alexnet_resident(tmp):
+def _alexnet_resident(tmp, bf16=False):
     """ImageNetApp's AlexNet solver at batch 256 (the train phase's
-    solver file under ``tmp``) and a feed that repeats one
-    device-resident batch."""
+    solver file under ``tmp``; ``--bf16`` or f32) and a feed that repeats
+    one device-resident batch."""
     import itertools
 
     from sparknet_tpu_torch.apps import imagenet_app
 
     args = imagenet_app.make_args(synthetic=True, synthetic_n=512,
-                                  solver=_solver_file(tmp), device="cuda")
+                                  solver=_solver_file(tmp), device="cuda", bf16=bf16)
     solver, train_feed, _ = imagenet_app.build(args)
     return solver, itertools.repeat(solver._put_batch(next(train_feed)))
 
 
 def phase_train_profile(tmp):
-    """Solver.step on one device-resident batch of 256."""
-    solver, feed = _alexnet_resident(tmp)
-    return _profile_steps(solver, feed, f"batch {TRAIN_BATCH}, f32, resident batch",
-                          TRAIN_BATCH, "images",
-                          (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"]))
+    """Solver.step on one device-resident batch of 256, f32 then bf16,
+    each eager and through the graph."""
+    import torch
+
+    out = {}
+    for bf16 in (False, True):
+        solver, feed = _alexnet_resident(tmp, bf16)
+        dt = "bf16" if bf16 else "f32"
+        out[dt] = _profile_steps(solver, feed, f"batch {TRAIN_BATCH}, {dt}, resident batch",
+                                 TRAIN_BATCH, "images",
+                                 (LRN_TAGS["lrn_fwd_train"], LRN_TAGS["lrn_bwd"]))
+        del solver, feed
+        torch.cuda.empty_cache()
+    return out["f32"]
 
 
 # ---------------------------------------------- the other zoo nets
@@ -1569,13 +1613,98 @@ def _zoo_solver_file(tmp, arch):
     return path
 
 
+# the host's CUDA runtime calls that start work on the card, by kind
+HOST_LAUNCH_APIS = {
+    "kernels": ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx"),
+    "graph replays": ("cudaGraphLaunch",),
+    "copies": ("cudaMemcpyAsync", "cudaMemcpy"),
+    "fills": ("cudaMemsetAsync",),
+}
+
+
 def _profile_steps(solver, feed, label, items, unit, tags=()):
+    """The resident step both ways, eager (``_fuse_host`` off: the step
+    function without a graph, ``SPARKNET_FUSED_STEP=0``) then the
+    captured graph (the default), each by :func:`_profile_way`; the
+    graph's numbers, with the eager ones under ``"eager"``."""
+    import torch
+
+    ways = {}
+    slack0 = _slack_gib(torch)
+    for fused in (False, True):
+        solver._fuse_host = fused
+        ways[fused] = _profile_way(solver, feed, f"{label}, {'graph' if fused else 'eager'}",
+                                   items, unit, tags, slack0)
+    out = dict(ways[True])
+    out["eager"] = ways[False]
+    log(f"  {label}: graph {out['ms']:.3f} ms a step against eager {ways[False]['ms']:.3f} "
+        f"({ways[False]['ms'] / out['ms']:.2f}x)")
+    return out
+
+
+# each launch counter's kernels, by a part of the names torch.profiler
+# gives them: (the wrappers, the part); the inference and the training
+# LRN forward are one kernel template
+TRACE_KERNELS = ((("lrn_rows", "lrn_rows_train"), "lrn_fwd_rows"),
+                 (("lrn_rows_bwd",), "lrn_bwd_rows"),
+                 (("flash_fwd",), "flash_fwd_"),
+                 (("flash_bwd_dq",), "flash_bwd_dq_"),
+                 (("flash_bwd_dkv",), "flash_bwd_dkv_"))
+
+
+def _counts():
+    """Every launch counter now, by wrapper name."""
+    from sparknet_tpu_torch.ops import launch_counters
+
+    return {fn.__name__: fn.launches for fn in launch_counters()}
+
+
+def _traced_launches(label, events, before):
+    """The LRN and flash kernels ``torch.profiler`` saw run (``events``,
+    its ``key_averages()``) against the launch counters' increase since
+    ``before`` (:func:`_counts`): a graph replay adds its capture's
+    count without calling a wrapper, so this is what shows that the
+    replays ran those kernels. Raises where they differ; the kernels
+    seen, by TRACE_KERNELS part."""
+    import torch
+
+    now = _counts()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for wrappers, part in TRACE_KERNELS:
+        seen = sum(e.count for e in kernels if part in e.key)
+        moved = sum(now[w] - before[w] for w in wrappers)
+        if seen != moved:
+            raise AssertionError(f"{label}: torch.profiler saw {seen} {part}* kernels, the "
+                                 f"launch counters {'+'.join(wrappers)} moved by {moved}")
+        out[part] = seen
+    return out
+
+
+def _slack_gib(torch):
+    """GiB reserved by the allocator and not allocated once the cache is
+    emptied: what a graph's private pool holds for its intermediates (the
+    allocator counts them in no allocation), plus what earlier phases
+    left there."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
+
+
+def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
     """Solver.step on a device-resident batch of ``items`` ``unit`` (images
     or tokens): ms per step by CUDA events (10 steps after 3 to warm:
-    library algorithm choice, allocator), peak device memory, then 3
-    steps under ``torch.profiler``: the card's busy time against the wall
-    time (its idle share), the launches, and the device time of the
-    kernels whose names hold ``tags``."""
+    library algorithm choice, allocator, and for the graph its warm-up and
+    capture), peak device memory allocated over those steps and the pool
+    memory beyond it (:func:`_slack_gib` over ``slack0``, its value before
+    the solver's first profiled step: the graph's private pool), then 3
+    steps under ``torch.profiler``: the card's busy
+    time against the wall time (its idle share), the device operations a
+    step, the host's launches a step by kind (HOST_LAUNCH_APIS), the
+    device time of the kernels whose names hold ``tags``, and the LRN and
+    flash kernels it saw held to the launch counters' increase
+    (:func:`_traced_launches`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1584,25 +1713,39 @@ def _profile_steps(solver, feed, label, items, unit, tags=()):
     torch.cuda.reset_peak_memory_stats()
     ms, wall_ms = _step_ms(solver, feed, 10)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    pool = _slack_gib(torch) - slack0
     steps = 3
+    before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         metrics = solver.step(feed, steps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    traced = _traced_launches(label, events, before)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = {what: sum(e.count for e in events if e.key in names) // steps
+            for what, names in HOST_LAUNCH_APIS.items()}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
     busy = sum(dev_us(e) for e in kernels) / steps
-    out = {"ms": ms, "rate": items / ms * 1e3, "peak_gib": peak,
+    # idle: against the profiled window's wall time (the profiler slows the
+    # host, so an eager step reads idler than it runs); idle_step: against
+    # the unprofiled step's CUDA-event time
+    out = {"ms": ms, "rate": items / ms * 1e3, "peak_gib": peak, "pool_gib": pool,
            "idle": None if not busy else 1 - busy / wall,
-           "launches": sum(e.count for e in kernels) // steps}
+           "idle_step": None if not busy else 1 - busy / (ms * 1e3),
+           "busy_ms": busy / 1e3,
+           "launches": sum(e.count for e in kernels) // steps, "host": host}
     log(f"  {label}: {ms:.3f} ms per step (CUDA events, 10 steps; host clock {wall_ms:.3f} "
-        f"ms), {out['rate']:.1f} {unit}/s, peak device memory {peak:.2f} GiB")
+        f"ms), {out['rate']:.1f} {unit}/s, peak device memory allocated {peak:.2f} GiB, "
+        f"the graph pool beyond it {pool:.2f} GiB; host launches a step: "
+        + ", ".join(f"{n} {what}" for what, n in host.items())
+        + "; traced kernels a step = the launch counters': "
+        + (", ".join(f"{n // steps} {part}" for part, n in traced.items() if n) or "none"))
     bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
     if bad:
         raise AssertionError(f"{label}: non-finite metrics {bad}")
@@ -1611,10 +1754,16 @@ def _profile_steps(solver, feed, label, items, unit, tags=()):
         return out
     tagged = {t: sum(dev_us(e) for e in kernels if t in e.key) / steps for t in tags}
     log(f"  profiled: device busy {busy / 1e3:.3f} ms per step of {wall / 1e3:.3f} ms wall "
-        f"(idle share {100 * out['idle']:.1f}%), {out['launches']} kernel launches a step"
+        f"(idle share {100 * out['idle']:.1f}%; of the unprofiled step's {ms:.3f} ms "
+        f"{100 * out['idle_step']:.1f}%), {out['launches']} device operations a step"
         + "".join(f"; {t} {v / 1e3:.4f} ms = {100 * v / busy:.2f}%" for t, v in tagged.items()))
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         log(f"    {dev_us(e) / steps / 1e3:8.4f} ms  {e.count // steps:4d}x  {e.key[:90]}")
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    log("  host: " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / steps / 1e3:.3f} ms {e.count // steps}x"
+        for e in sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]))
     return out
 
 
@@ -2227,11 +2376,337 @@ def _step_ms(solver, feed, reps=10):
 
 
 def phase_bert_profile():
-    """Solver.step of BERT-base on one device-resident batch of 32 x 128."""
-    solver, feed = _bert_resident()
-    return _profile_steps(solver, feed, f"BERT-base batch {BERT_BATCH} x {BERT_SEQ}, f32, "
-                          f"resident batch", BERT_BATCH * BERT_SEQ, "tokens",
-                          tuple(FLASH_TAGS.values()))
+    """Solver.step of BERT-base on one device-resident batch of 32 x 128,
+    f32 then bf16, each eager and through the graph."""
+    import torch
+
+    out = {}
+    for bf16 in (False, True):
+        solver, feed = _bert_resident(bf16)
+        dt = "bf16" if bf16 else "f32"
+        out[dt] = _profile_steps(solver, feed, f"BERT-base batch {BERT_BATCH} x {BERT_SEQ}, "
+                                 f"{dt}, resident batch", BERT_BATCH * BERT_SEQ, "tokens",
+                                 tuple(FLASH_TAGS.values()))
+        del solver, feed
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- fused step
+FUSED_ITERS = 12
+FUSED_SAVE_AT = 6
+FUSED_NETS = ("cifar10_quick", "alexnet", "resnet50", "bert-base")
+FUSED_OUTER = 1e-2  # relative L2, the branch-flip bound (_held_round's)
+
+
+def _host(batch):
+    """A feed's batch as host numpy arrays."""
+    import numpy as np
+    import torch
+
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in batch.items()}
+
+
+def _fused_alexnet_solver(tmp):
+    """AlexNet's train_val at the zoo's rate, the rate halved every 4
+    iterations (the counter matters within the 12)."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    path = os.path.join(tmp, "alexnet_fused_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{ALEXNET_TRAIN_VAL}"\ntest_iter: 1\ntest_interval: 1000\n'
+                'base_lr: 0.01\nlr_policy: "step"\ngamma: 0.5\nstepsize: 4\n'
+                f"max_iter: {FUSED_ITERS}\nmomentum: 0.9\nweight_decay: 0.0005\n")
+    return path
+
+
+def _fused_case(name, tmp):
+    """(solver, make, batches): a solver of ``name`` on the card built as
+    its app builds it (seed 0), ``make()`` building another, and
+    FUSED_ITERS host batches of its app's train feed."""
+    from sparknet_tpu_torch.apps import bert_app, imagenet_app
+
+    if name == "cifar10_quick":
+        from sparknet_tpu_torch.models import CIFAR_QUICK_SOLVER, CIFAR_QUICK_TRAIN_TEST
+        from sparknet_tpu_torch.proto import caffe_pb
+        from sparknet_tpu_torch.solver.trainer import Solver
+
+        def make():
+            return Solver(caffe_pb.load_solver(CIFAR_QUICK_SOLVER),
+                          {"data": (100, 32, 32, 3), "label": (100,)},
+                          net_param=caffe_pb.load_net(CIFAR_QUICK_TRAIN_TEST), seed=0,
+                          device="cuda")
+
+        feed, solver = _cifar_feed(), make()
+    else:
+        if name == "bert-base":
+            app = bert_app
+            args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                                      max_iter=1000, device="cuda", prefetch=0)
+        else:
+            app = imagenet_app
+            kw = (dict(solver=_fused_alexnet_solver(tmp), synthetic_n=TRAIN_BATCH,
+                       device_augment=True) if name == "alexnet" else
+                  dict(arch="resnet50", solver=_zoo_solver_file(tmp, "resnet50"),
+                       synthetic_n=64))
+            args = imagenet_app.make_args(synthetic=True, device="cuda", native_loader="off",
+                                          data_workers=0, prefetch=0, **kw)
+
+        def make():
+            solver, train, test = app.build(args)
+            _close(train, test)
+            return solver
+
+        solver, feed, test = app.build(args)
+        _close(test)
+    batches = [_host(next(feed)) for _ in range(FUSED_ITERS * solver.sp.iter_size)]
+    _close(feed)
+    return solver, make, batches
+
+
+def _leaf_items(solver):
+    """(name, tensor) of every param, net state and optimizer slot."""
+    out = []
+    for kind, tree in (("param", solver.params), ("state", solver.state),
+                       *((f"slot {k}", v) for k, v in solver.opt_state.items())):
+        for layer, e in tree.items():
+            for n, t in e.items():
+                out.append((f"{kind} {layer}.{n}", t))
+    return out
+
+
+def _snapshot(solver):
+    return ([(k, t.clone()) for k, t in _leaf_items(solver)], solver.rng.get_state())
+
+
+def _reset(solver, snap, fused):
+    """``solver`` back at iteration 0 from ``snap``: its resident tensors
+    assigned anew (which drops any captured step), the generator's state,
+    the counter dropped, ``_fuse_host`` set."""
+    import torch
+
+    leaves, rng = snap
+    clone = {k: t.clone() for k, t in leaves}
+
+    def tree(kind, like):
+        return {layer: {n: clone[f"{kind} {layer}.{n}"] for n in e} for layer, e in like.items()}
+
+    solver.params = tree("param", solver.params)
+    solver.state = tree("state", solver.state)
+    solver.opt_state = {k: tree(f"slot {k}", v) for k, v in solver.opt_state.items()}
+    solver.rng.set_state(rng)
+    solver.iter = 0
+    solver._it_dev = None
+    solver._fuse_host = fused
+    solver._loss_window.clear()
+    torch.cuda.synchronize()
+
+
+def _fused_run(solver, snap, batches, fused, save=None, scan=False):
+    """FUSED_ITERS iterations from ``snap``: eager (``fused`` False: no
+    graph) or through the graph, one ``step`` at a time (each step's
+    metrics, checked unchanged one step later, and the rate its update
+    used), or one ``scan_steps`` on ``batches[0]``; ``save`` writes the
+    solverstate at FUSED_SAVE_AT. Through the graph one step at a time,
+    the steps after the capture run under ``torch.profiler``
+    (:func:`_traced_launches`). The launches counted from 0, the final
+    leaves and generator state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.ops import launch_counters
+    from sparknet_tpu_torch.solver.trainer import WARMUP_STEPS
+
+    _reset(solver, snap, fused)
+    for fn in launch_counters():
+        fn.launches = 0
+    metrics, rates, traced = [], [], None
+    if scan:
+        m = solver.scan_steps(batches[0], FUSED_ITERS)
+        metrics.append({k: v.clone() for k, v in m.items()})
+    else:
+        feed = iter(batches)
+        held = prof = None
+        for i in range(FUSED_ITERS):
+            if save is not None and i == FUSED_SAVE_AT:
+                solver.save(save)
+            if fused and i == WARMUP_STEPS + 1:  # the replays after the capture's
+                before = _counts()
+                # the card's activity alone: the kernels are what is counted
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+            m = solver.step(feed, 1)
+            rates.append(solver._train_step.update.rate.clone())
+            if held is not None:
+                for k, v in held[1].items():
+                    if not torch.equal(held[0][k], v):
+                        raise AssertionError(f"step {i - 1}'s metric {k} changed at step {i}: "
+                                             f"{float(v)} -> {float(held[0][k])}")
+            held = (m, {k: v.clone() for k, v in m.items()})
+            metrics.append(held[1])
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.stop()
+            traced = _traced_launches(f"graph run, {FUSED_ITERS - WARMUP_STEPS - 1} "
+                                      f"replays", prof.key_averages(), before)
+    torch.cuda.synchronize()
+    if solver.iter != FUSED_ITERS:
+        raise AssertionError(f"iter {solver.iter} after {FUSED_ITERS} iterations")
+    return {"metrics": metrics, "rates": rates, "traced": traced,
+            "launches": [fn.launches for fn in launch_counters()],
+            "leaves": [(k, t.clone()) for k, t in _leaf_items(solver)],
+            "rng": solver.rng.get_state()}
+
+
+def _leaf_diffs(a, b):
+    """Per leaf: (name, max |a - b|, relative L2 of a against b)."""
+    import torch
+
+    out = []
+    for (name, x), (name_b, y) in zip(a, b):
+        if name != name_b:
+            raise AssertionError(f"leaf order {name} / {name_b}")
+        d = (x.double() - y.double())
+        rel = float(d.norm() / y.double().norm().clamp(min=1e-30))
+        out.append((name, float(d.abs().max()) if d.numel() else 0.0, rel))
+    return out
+
+
+def _held_to(label, got, want, spread):
+    """``got`` against ``want`` leaf by leaf: bit for bit where ``spread``
+    (two eager runs' per-leaf max |difference|) is 0, else within it, and
+    within FUSED_OUTER relative L2 everywhere. Returns the worst line."""
+    diffs = _leaf_diffs(got["leaves"], want["leaves"])
+    bad = [(n, d, r, s) for (n, d, r), (_, s, _) in zip(diffs, spread)
+           if d > s or r > FUSED_OUTER]
+    worst = max(diffs, key=lambda x: x[1])
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} leaves beyond the eager spread, e.g. "
+                             + "; ".join(f"{n} max|diff| {d:.3e} rel {r:.3e} (spread {s:.3e})"
+                                         for n, d, r, s in bad[:5]))
+    return f"{label}: worst max|diff| {worst[1]:.3e} ({worst[0]})"
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic kernels
+    (an accumulating ``index_put_`` by sorting, among others; a kernel
+    without one warns), so that two eager runs agree bit for bit where
+    the libraries allow it."""
+    import torch
+    import torch.utils.deterministic
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[4]
+
+
+def _fused_net(name, tmp):
+    """The fused-step checks of one net (phase_fused_step)."""
+    import torch
+
+    from sparknet_tpu_torch.ops import launch_counters
+    from sparknet_tpu_torch.solver.caffe_solver import learning_rate
+    from sparknet_tpu_torch.solver.trainer import WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    solver, make, batches = _fused_case(name, tmp)
+    snap = _snapshot(solver)
+    e1 = _fused_run(solver, snap, batches, False)
+    e2 = _fused_run(solver, snap, batches, False)
+    spread = _leaf_diffs(e2["leaves"], e1["leaves"])
+    exact = all(d == 0.0 for _, d, _ in spread) and torch.equal(e1["rng"], e2["rng"])
+    worst = max(spread, key=lambda x: x[1])
+    log(f"  {name}: two eager runs " + ("agree bit for bit" if exact else
+        f"differ: worst max|diff| {worst[1]:.3e} rel {worst[2]:.3e} ({worst[0]}); the graph "
+        f"is held to that spread"))
+    path = os.path.join(tmp, f"{name}_fused_iter_{FUSED_SAVE_AT}.solverstate.npz")
+    g = _fused_run(solver, snap, batches, True, save=path)
+    lines = [_held_to("graph vs eager", g, e1, spread)]
+    if not torch.equal(g["rng"], e1["rng"]):
+        raise AssertionError(f"{name}: the generator's state after the graph's run is not "
+                             f"the eager run's")
+    if g["launches"] != e1["launches"]:
+        raise AssertionError(f"{name}: kernel launches graph {g['launches']} != eager "
+                             f"{e1['launches']}")
+    for i, (mg, me, rg, re_) in enumerate(zip(g["metrics"], e1["metrics"], g["rates"],
+                                             e1["rates"])):
+        host = learning_rate(solver.sp, i)
+        if not torch.equal(rg, re_) or not math.isclose(float(rg), host, rel_tol=1e-6):
+            raise AssertionError(f"{name} iteration {i}: the graph's rate {float(rg)!r}, "
+                                 f"eager's {float(re_)!r}, the host's {host!r}")
+        for k in me:
+            if exact and not torch.equal(mg[k], me[k]):
+                raise AssertionError(f"{name} iteration {i}: metric {k} graph {float(mg[k])!r}"
+                                     f" eager {float(me[k])!r}")
+    rates = [float(r) for r in g["rates"]]
+    # a save at FUSED_SAVE_AT restored into a fresh solver: the rest of the run
+    fresh = make()
+    for fn in launch_counters():
+        fn.launches = 0
+    fresh.restore(path)
+    os.unlink(path)
+    if fresh._it_dev is not None or fresh.iter != FUSED_SAVE_AT:
+        raise AssertionError(f"{name}: restored iter {fresh.iter}, counter {fresh._it_dev}")
+    fresh.step(iter(batches[FUSED_SAVE_AT * solver.sp.iter_size:]),
+               FUSED_ITERS - FUSED_SAVE_AT)
+    torch.cuda.synchronize()
+    resumed = {"leaves": [(k, t.clone()) for k, t in _leaf_items(fresh)]}
+    lines.append(_held_to("resumed vs straight graph run", resumed, g, spread))
+    half = [fn.launches * FUSED_ITERS // (FUSED_ITERS - FUSED_SAVE_AT)
+            for fn in launch_counters()]
+    if half != g["launches"]:
+        raise AssertionError(f"{name}: the resumed run's launches scaled to "
+                             f"{FUSED_ITERS} iterations {half} != {g['launches']}")
+    del fresh
+    # scan_steps against the eager step over its one batch repeated
+    one = [batches[0]] * len(batches)
+    ref = _fused_run(solver, snap, one, False)
+    scan = _fused_run(solver, snap, one, True, scan=True)
+    lines.append(_held_to("scan_steps vs eager steps on one batch", scan, ref, spread))
+    if scan["launches"] != ref["launches"]:
+        raise AssertionError(f"{name}: scan_steps launches {scan['launches']} != eager "
+                             f"{ref['launches']}")
+    if exact and not all(torch.equal(scan["metrics"][-1][k], ref["metrics"][-1][k])
+                         for k in ref["metrics"][-1]):
+        raise AssertionError(f"{name}: scan_steps' last metrics differ from the eager step's")
+    loss = [float(m["loss"]) for m in g["metrics"] if "loss" in m]
+    log(f"  {name}: " + "; ".join(lines) + f"; rates {rates[0]:.6g} .. {rates[-1]:.6g} "
+        f"(host's within 1e-6); launches {g['launches']} both ways, the graph's "
+        f"{FUSED_ITERS - WARMUP_STEPS - 1} replays after its capture traced = the "
+        f"counters': {g['traced']}; losses {loss[:1]} .. "
+        f"{loss[-1:]}; {time.perf_counter() - t0:.1f} s")
+    launches = g["launches"]
+    del solver, snap, e1, e2, g, ref, scan, resumed
+    torch.cuda.empty_cache()
+    return {"exact": exact, "launches": launches}
+
+
+def phase_fused_step(tmp):
+    """The train step as one captured CUDA graph against the eager step
+    (module docstring, phase fused-step); the graph runs' kernel launches
+    by wrapper, for the kernels line."""
+    from sparknet_tpu_torch.ops import launch_counters
+
+    names = [fn.__name__ for fn in launch_counters()]
+    total = dict.fromkeys(names, 0)
+    with _deterministic():
+        for net in FUSED_NETS:
+            for name, n in zip(names, _fused_net(net, tmp)["launches"]):
+                total[name] += n
+    log(f"  kernel launches of the four graph runs: {total}")
+    return total
 
 
 # ------------------------------------------------- parallel training
@@ -2260,6 +2735,7 @@ def phase_cifar_app(tmp):
     log(f"  card: {_smi()}")
     import contextlib
     import io
+    import itertools
     import math
     import re
 
@@ -2291,7 +2767,24 @@ def phase_cifar_app(tmp):
         f"0.1, want >= {0.1 + CIFAR_ACC_MARGIN}); speed: {steps_s} steps/s, {images_s} "
         f"images/s at batch 100 through the app's default feed ({loader} loader, "
         f"--prefetch 2)")
-    return {"steps_per_s": steps_s, "images_per_s": images_s, "last_test": last_test}
+    # the app's resident step, eager and through the graph
+    args = cifar_app.arg_parser().parse_args(
+        ["--solver", _cifar_solver_file(tmp, CIFAR_ITERS, 10, 50), "--synthetic",
+         "--synthetic-n", "1000", "--device", "cuda", "--prefetch", "0"])
+    solver, train_feed, test_feed = cifar_app.build(args)
+    feed = itertools.repeat(solver._put_batch(next(train_feed)))
+    _close(train_feed, test_feed)
+    step = _profile_steps(solver, feed, "cifar10_quick batch 100, f32, resident batch", 100,
+                          "images")
+    return {"steps_per_s": steps_s, "images_per_s": images_s, "last_test": last_test,
+            "step": step}
+
+
+def _close(*feeds):
+    for feed in feeds:
+        close = getattr(feed, "close", None)
+        if close is not None:
+            close()
 
 
 def _cifar_parallel(workers, mode, tau=1, compress="none", bucket_mb=4.0):
@@ -3945,6 +4438,8 @@ def _ab_alexnet():
         solver.step(feed, 3)  # warm: cuDNN algorithm choice, allocator
         out["alexnet step f32 B256"] = dict(zip(("ms", "host_clock_ms"), _step_ms(solver, feed)))
         del solver, feed
+        torch.cuda.empty_cache()
+        out.update(_ab_zoo_steps(tmp))
     torch.cuda.empty_cache()
     eng = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=(32,))
     eng.warmup()
@@ -3960,6 +4455,34 @@ def _ab_alexnet():
         infer_ms=statistics.median(times[2:]),
         forward_ms=_time_ms(lambda: eng.net.apply(params, state, {"data": xd}, train=False),
                             reps=20))
+    return out
+
+
+def _ab_zoo_steps(tmp):
+    """``--ab``'s GoogLeNet and ResNet-50 steps: ms per ``Solver.step`` on
+    one device-resident batch of the prototxt's (32 each), f32 and
+    ``--bf16`` (CUDA events, and the host clock), after 3 to warm."""
+    import itertools
+
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+
+    out = {}
+    for arch in ("googlenet", "resnet50"):
+        for bf16 in (False, True):
+            args = imagenet_app.make_args(arch=arch, synthetic=True, synthetic_n=64,
+                                          solver=_zoo_solver_file(tmp, arch), device="cuda",
+                                          bf16=bf16)
+            solver, train_feed, test_feed = imagenet_app.build(args)
+            feed = itertools.repeat(solver._put_batch(next(train_feed)))
+            _close(train_feed, test_feed)
+            solver.step(feed, 3)
+            bs = solver.train_net.blob_shapes["data"][0]
+            out[f"{arch} step {'bf16' if bf16 else 'f32'} B{bs}"] = dict(
+                zip(("ms", "host_clock_ms"), _step_ms(solver, feed)))
+            del solver, feed
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4032,7 +4555,8 @@ def ab(other):
 
 # ---------------------------------------------------------------- main
 # the phases ``--phase`` runs alone
-ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes}
+ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
+               "fused-step": phase_fused_step}
 
 
 def main(argv=None) -> int:
@@ -4082,7 +4606,7 @@ def main(argv=None) -> int:
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
-    bert_mp = None
+    bert_mp = fused = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -4100,6 +4624,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_bert_") as tmp:
             bert = phases.run("bert-train", phase_bert_train, tmp)
         phases.run("bert-profile", phase_bert_profile)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fused_") as tmp:
+            fused = phases.run("fused-step", phase_fused_step, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar_") as tmp:
             phases.run("cifar-app", phase_cifar_app, tmp)
         phases.run("local-sgd", phase_local_sgd)
@@ -4124,6 +4650,10 @@ def main(argv=None) -> int:
         # bert-train's, and every rank's of the bert-processes phase
         **{name: bert[name] + bert_mp[name] for name in FLASH_NAMES},
     }
+    # and the fused-step phase's graph runs (by wrapper name)
+    for name, wrapper in zip(launches, ("lrn_rows", "lrn_rows_train", "lrn_rows_bwd",
+                                        *FLASH_NAMES)):
+        launches[name] += fused[wrapper]
     replaces = {
         "lrn_fwd": "sparknet_tpu/ops/lrn.py:85",
         "lrn_fwd_train": "sparknet_tpu/ops/lrn.py:77",

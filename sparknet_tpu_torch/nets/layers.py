@@ -276,15 +276,14 @@ class Pooling:
                 xf = F.pad(xf, pads)
             s = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)
             # Caffe divisor: window clipped to the *padded* region, so
-            # padding counts toward the denominator
-            hs = np.arange(oh) * sh - ph
-            he = np.minimum(hs + kh, h + ph)
-            hs = np.maximum(hs, -ph)
-            ws_ = np.arange(ow) * sw - pw
-            we = np.minimum(ws_ + kw, w + pw)
-            ws_ = np.maximum(ws_, -pw)
-            div = (he - hs)[:, None] * (we - ws_)[None, :]
-            div_t = torch.as_tensor(div, dtype=torch.float32, device=x.device)
+            # padding counts toward the denominator and the ceil mode's
+            # extra rows and columns do not: the window sums of ones over
+            # the padded region, made on the device (no host copy, so a
+            # captured step holds it)
+            ones = torch.ones((1, 1, h + 2 * ph, w + 2 * pw), dtype=torch.float32,
+                              device=x.device)
+            ones = F.pad(ones, (0, pads[1] - pads[0], 0, pads[3] - pads[2]))
+            div_t = F.avg_pool2d(ones, (kh, kw), (sh, sw), divisor_override=1)[0, 0]
             return [_nhwc(s / div_t).to(x.dtype)]
         raise NotImplementedError(f"layer {lp.name!r}: pool mode {mode}")
 

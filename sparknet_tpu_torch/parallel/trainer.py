@@ -46,6 +46,10 @@ and one broadcast of an int64 hands its next τ to every rank: a τ that
 differed between ranks would leave a round's all-reduce waiting
 forever.
 
+The sync step and the local rounds run eagerly: the base solver's fused
+step (one captured CUDA graph an iteration) is off, and ``scan_steps``
+raises, as in the JAX package.
+
 Not ported: ``layout=`` (the rule-table sharding path) and live
 ``reshard``, which raise.
 """
@@ -135,6 +139,10 @@ class ParallelSolver(Solver):
                 raise ValueError(f"ParallelSolver: device={device!r} but the first "
                                  f"worker is on {workers[0]}")
         super().__init__(solver, input_shapes, device=workers[0], **kw)
+        # the sync step and the local rounds own their dispatch (per-worker
+        # steps, collectives): the base solver's captured step never
+        # stands in for them, as in the JAX package
+        self._fuse_host = False
         self.workers: List[torch.device] = list(workers)
         # the global rank of this process's first worker, and the workers
         # of every process
@@ -280,6 +288,26 @@ class ParallelSolver(Solver):
         if self.group is None:
             return sums
         return comm_mod.reduce_metrics([sums], self.device, self.group)
+
+    def _iterate(self, host, load: bool = True):
+        """One sync iteration, eager: the batch cast as it is uploaded,
+        the host's iteration into the step (it seeds the workers'
+        generators), and what the step returns assigned (a compressed
+        run's residual is a new slot each iteration)."""
+        batch = ([self._put_batch(m) for m in host] if isinstance(host, list)
+                 else self._put_batch(host))
+        self.params, self.state, self.opt_state, metrics = self._train_step(
+            self.params, self.state, self.opt_state, batch, self.iter, self.rng)
+        self.iter += 1
+        return metrics
+
+    def scan_steps(self, batch, n: int):
+        """Not supported: the base method runs the single-device step,
+        which would bypass this solver's sync step or local rounds (and
+        local mode's per-worker slots)."""
+        raise NotImplementedError(
+            "ParallelSolver.scan_steps: use step(); the sync step and the "
+            "local-SGD rounds run eagerly, a round of tau iterations a call")
 
     def reshard(self, new_layout, *, reason: str = "explicit"):
         raise NotImplementedError("ParallelSolver.reshard: live resharding is not "

@@ -15,13 +15,19 @@ is ``v = mu v + lr lr_mult (g + lambda decay_mult w); w -= v``, with the
 learning rate inside the momentum buffer, while ``torch.optim.SGD``
 applies it after the buffer, which differs once the rate changes.
 
-The learning rate is computed on the host in f32, as the JAX package
-computes it on the device: one Python float per step.
+The iteration counter may live on the device: :func:`learning_rate`
+and Adam's bias correction take a 0-d int32 tensor and compute in f32
+on its device, as the JAX package computes them inside its compiled
+step, so a train step captured as a CUDA graph (``solver/trainer.py``)
+reads the counter it carries and needs no host value. The update is
+``torch._foreach_*`` chains, one for each group of leaves that share
+device, dtype, ``lr_mult`` and ``decay_mult``; the global gradient norm
+is one ``_foreach_norm``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,35 +47,48 @@ _SLOTS = {
 }
 
 
-def learning_rate(sp: SolverParameter, it: int) -> float:
-    """Caffe lr_policy closed forms at iteration ``it``, in f32."""
-    f32 = np.float32
-    itf = f32(it)
-    base = f32(sp.base_lr)
-    gamma = f32(sp.gamma)
+def learning_rate(sp: SolverParameter, it: Union[int, torch.Tensor]
+                  ) -> Union[float, torch.Tensor]:
+    """Caffe lr_policy closed forms at iteration ``it``, in f32.
+
+    ``it`` a 0-d int32 tensor: an f32 tensor on its device, computed
+    there with no host read (a captured train step reads its counter
+    from the card). ``it`` a host int: the same arithmetic on the CPU,
+    as a float. Each step of it is an f32 operation, as in the JAX
+    package; the divisions divide by a tensor, which divides exactly
+    where a scalar divisor on the card multiplies by its reciprocal."""
+    if not isinstance(it, torch.Tensor):
+        return float(learning_rate(sp, torch.tensor(it, dtype=torch.int32)))
+    dev = it.device
+
+    def const(x: float) -> torch.Tensor:
+        return torch.full((), x, dtype=torch.float32, device=dev)
+
+    itf = it.to(torch.float32)
     p = sp.lr_policy
     if p == "fixed":
-        lr = base
+        lr = const(sp.base_lr)
     elif p == "step":
-        lr = base * np.power(gamma, np.floor(itf / f32(sp.stepsize)))
+        lr = sp.base_lr * torch.pow(sp.gamma, torch.floor(itf / const(sp.stepsize)))
     elif p == "exp":
-        lr = base * np.power(gamma, itf)
+        lr = sp.base_lr * torch.pow(sp.gamma, itf)
     elif p == "inv":
-        lr = base * np.power(f32(1.0) + gamma * itf, -f32(sp.power))
+        lr = sp.base_lr * torch.pow(1.0 + sp.gamma * itf, -sp.power)
     elif p == "multistep":
         steps = sp.stepvalue or [np.iinfo(np.int32).max]
-        current = f32(sum(1 for s in steps if it >= s))
-        lr = base * np.power(gamma, current)
+        current = torch.stack([it >= s for s in steps]).sum(dtype=torch.float32)
+        lr = sp.base_lr * torch.pow(sp.gamma, current)
     elif p == "poly":
-        frac = np.clip(itf / f32(max(sp.max_iter, 1)), f32(0.0), f32(1.0))
-        lr = base * np.power(f32(1.0) - frac, f32(sp.power))
+        frac = torch.clamp(itf / const(max(sp.max_iter, 1)), 0.0, 1.0)
+        lr = sp.base_lr * torch.pow(1.0 - frac, sp.power)
     elif p == "sigmoid":
-        lr = base / (f32(1.0) + np.exp(-gamma * (itf - f32(sp.stepsize))))
+        lr = const(sp.base_lr) / (1.0 + torch.exp(-sp.gamma * (itf - sp.stepsize)))
     else:
         raise NotImplementedError(f"lr_policy {p!r}")
-    if sp.warmup_iter > 0 and it < sp.warmup_iter:
-        lr = lr * ((itf + f32(1.0)) / f32(sp.warmup_iter))
-    return float(f32(lr))
+    if sp.warmup_iter > 0:
+        lr = torch.where(it < sp.warmup_iter,
+                         lr * ((itf + 1.0) / const(sp.warmup_iter)), lr)
+    return lr
 
 
 def opt_state_keys(sp: SolverParameter) -> Tuple[str, ...]:
@@ -104,22 +123,30 @@ def mults_for_params(params: Tree, specs) -> Tuple[Dict, Dict]:
     return lr, dec
 
 
-def _regularize(sp: SolverParameter, g: torch.Tensor, w: torch.Tensor,
-                decay_mult: float) -> torch.Tensor:
-    local_decay = sp.weight_decay * decay_mult
-    if local_decay == 0.0:
-        return g
-    if sp.regularization_type == "L1":
-        return g + local_decay * torch.sign(w)
-    return g + local_decay * w
+def _adam_correction(sp: SolverParameter, it: torch.Tensor) -> torch.Tensor:
+    """Adam's bias correction sqrt(1 - b2^t) / (1 - b1^t) at t = it + 1,
+    an f32 tensor on ``it``'s device."""
+    step = it.to(torch.float32) + 1.0
+    return (torch.sqrt(1.0 - torch.pow(sp.momentum2, step))
+            / (1.0 - torch.pow(sp.momentum, step)))
 
 
-def _f32(*xs: float) -> float:
-    """The product of ``xs`` rounded as f32 arithmetic rounds it."""
-    out = np.float32(1.0)
-    for x in xs:
-        out = out * np.float32(x)
-    return float(out)
+class _Groups:
+    """The leaves of a tree, by key, cut into the groups one foreach chain
+    updates: those that share device, dtype, lr_mult and decay_mult."""
+
+    def __init__(self, params: Tree, lr_mults, decay_mults):
+        self.keys = [(layer, name) for layer, e in params.items() for name in e]
+        by = {}
+        for i, (layer, name) in enumerate(self.keys):
+            w = params[layer][name]
+            lm = lr_mults[layer][name] if lr_mults is not None else 1.0
+            dm = decay_mults[layer][name] if decay_mults is not None else 1.0
+            by.setdefault((w.device, w.dtype, float(lm), float(dm)), []).append(i)
+        self.groups = [(lm, dm, idx) for (_, _, lm, dm), idx in by.items()]
+
+    def flat(self, tree: Tree) -> List[torch.Tensor]:
+        return [tree[layer][name] for layer, name in self.keys]
 
 
 def make_update_fn(sp: SolverParameter, lr_mults: Optional[Any] = None,
@@ -129,70 +156,108 @@ def make_update_fn(sp: SolverParameter, lr_mults: Optional[Any] = None,
     ``params`` and the slots of ``opt_state`` are overwritten in place
     under ``torch.no_grad()`` and returned; ``grads`` is left as it was.
     ``lr_mults`` / ``decay_mults`` are trees of floats shaped like
-    ``params`` (:func:`mults_for_params`); None means all ones."""
+    ``params`` (:func:`mults_for_params`); None means all ones. ``it`` is
+    the iteration: a 0-d int32 tensor on the params' device (a captured
+    step's counter), or a host int, which becomes one there.
+
+    The leaves are cut into groups (:class:`_Groups`) at the first call
+    on a device, and each group is updated by one chain of
+    ``torch._foreach_*`` calls: a few launches a group and step, whatever
+    the number of leaves. ``update.rate`` holds the last call's learning
+    rate tensor (in a captured step, the rate of the last replay)."""
     t = sp.solver_type.upper()
     keys = opt_state_keys(sp)  # raises for a solver type it does not take
+    layouts: Dict[torch.device, _Groups] = {}
+    l1 = sp.regularization_type == "L1"
+
+    def regularize(g, w, dm):
+        decay = sp.weight_decay * dm
+        if decay == 0.0:
+            return g
+        return torch._foreach_add(g, torch._foreach_sign(w) if l1 else w, alpha=decay)
 
     @torch.no_grad()
-    def update(params: Tree, grads: Tree, opt_state: Dict[str, Tree], it: int):
-        rate = learning_rate(sp, it)
+    def update(params: Tree, grads: Tree, opt_state: Dict[str, Tree], it):
+        first = next(iter(next(iter(params.values())).values()))
+        layout = layouts.get(first.device)
+        if layout is None:
+            layout = layouts[first.device] = _Groups(params, lr_mults, decay_mults)
+        if not isinstance(it, torch.Tensor):
+            it = torch.full((), it, dtype=torch.int32, device=first.device)
+        rate = update.rate = learning_rate(sp, it)
+        ws, gs = layout.flat(params), layout.flat(grads)
+        slots = [layout.flat(opt_state[k]) for k in keys]
         scale = None
         if sp.clip_gradients > 0:
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for e in grads.values()
-                                   for g in e.values()))
-            scale = torch.clamp(sp.clip_gradients / torch.clamp(gnorm, min=1e-12),
-                                max=1.0)
+            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+            scale = torch.clamp(sp.clip_gradients / torch.clamp(gnorm, min=1e-12), max=1.0)
         if t in ("ADAM", "ADAMW"):
-            step = np.float32(it) + np.float32(1.0)
-            b1, b2 = np.float32(sp.momentum), np.float32(sp.momentum2)
-            corr = float(np.sqrt(np.float32(1.0) - np.power(b2, step))
-                         / (np.float32(1.0) - np.power(b1, step)))
-        for layer, entry in params.items():
-            for name, w in entry.items():
-                g = grads[layer][name]
-                if scale is not None:
-                    g = g * scale
-                lm = lr_mults[layer][name] if lr_mults is not None else 1.0
-                dm = decay_mults[layer][name] if decay_mults is not None else 1.0
-                slots = [opt_state[k][layer][name] for k in keys]
-                if t == "SGD":
-                    (v,) = slots
-                    g = _regularize(sp, g, w, dm)
-                    v.mul_(sp.momentum).add_(_f32(rate, lm) * g)
-                    w.sub_(v)
-                elif t == "NESTEROV":
-                    (v,) = slots
-                    g = _regularize(sp, g, w, dm)
-                    v2 = sp.momentum * v + _f32(rate, lm) * g
-                    w.sub_((1 + sp.momentum) * v2 - sp.momentum * v)
-                    v.copy_(v2)
-                elif t in ("ADAM", "ADAMW"):
-                    m, v = slots
-                    if t == "ADAM":
-                        g = _regularize(sp, g, w, dm)
-                    m.mul_(sp.momentum).add_((1 - sp.momentum) * g)
-                    v.mul_(sp.momentum2).add_((1 - sp.momentum2) * (g * g))
-                    delta_w = _f32(rate, lm, corr) * m / (torch.sqrt(v) + sp.delta)
-                    if t == "ADAMW":  # decoupled decay (BERT)
-                        delta_w = delta_w + _f32(rate, lm, sp.weight_decay, dm) * w
-                    w.sub_(delta_w)
-                elif t == "ADAGRAD":
-                    (h,) = slots
-                    g = _regularize(sp, g, w, dm)
-                    h.add_(g * g)
-                    w.sub_(_f32(rate, lm) * g / (torch.sqrt(h) + sp.delta))
-                elif t == "RMSPROP":
-                    (h,) = slots
-                    g = _regularize(sp, g, w, dm)
-                    h.mul_(sp.rms_decay).add_((1 - sp.rms_decay) * (g * g))
-                    w.sub_(_f32(rate, lm) * g / (torch.sqrt(h) + sp.delta))
-                else:  # ADADELTA
-                    h, dacc = slots
-                    g = _regularize(sp, g, w, dm)
-                    h.mul_(sp.momentum).add_((1 - sp.momentum) * (g * g))
-                    step_w = g * torch.sqrt(dacc + sp.delta) / torch.sqrt(h + sp.delta)
-                    dacc.mul_(sp.momentum).add_((1 - sp.momentum) * (step_w * step_w))
-                    w.sub_(_f32(rate, lm) * step_w)
+            corr = _adam_correction(sp, it)
+        for lm, dm, idx in layout.groups:
+            w = [ws[i] for i in idx]
+            g = [gs[i] for i in idx]
+            if scale is not None:
+                g = torch._foreach_mul(g, scale)
+            s = rate if lm == 1.0 else rate * lm  # lr * lr_mult, rounded in f32
+            ss = [[x[i] for i in idx] for x in slots]
+            if t == "SGD":
+                (v,) = ss
+                sg = torch._foreach_mul(regularize(g, w, dm), s)
+                torch._foreach_mul_(v, sp.momentum)
+                torch._foreach_add_(v, sg)
+                torch._foreach_sub_(w, v)
+            elif t == "NESTEROV":
+                (v,) = ss
+                sg = torch._foreach_mul(regularize(g, w, dm), s)
+                v2 = torch._foreach_mul(v, sp.momentum)
+                torch._foreach_add_(v2, sg)
+                step = torch._foreach_mul(v2, 1 + sp.momentum)
+                torch._foreach_sub_(step, v, alpha=sp.momentum)
+                torch._foreach_sub_(w, step)
+                torch._foreach_copy_(v, v2)
+            elif t in ("ADAM", "ADAMW"):
+                m, v = ss
+                if t == "ADAM":
+                    g = regularize(g, w, dm)
+                torch._foreach_mul_(m, sp.momentum)
+                torch._foreach_add_(m, g, alpha=1 - sp.momentum)
+                torch._foreach_mul_(v, sp.momentum2)
+                torch._foreach_addcmul_(v, g, g, value=1 - sp.momentum2)
+                denom = torch._foreach_sqrt(v)
+                torch._foreach_add_(denom, sp.delta)
+                step = torch._foreach_mul(m, s * corr)
+                torch._foreach_div_(step, denom)
+                if t == "ADAMW" and sp.weight_decay * dm != 0.0:  # decoupled decay (BERT)
+                    torch._foreach_add_(step, torch._foreach_mul(w, s * sp.weight_decay * dm))
+                torch._foreach_sub_(w, step)
+            elif t in ("ADAGRAD", "RMSPROP"):
+                (h,) = ss
+                g = regularize(g, w, dm)
+                if t == "RMSPROP":
+                    torch._foreach_mul_(h, sp.rms_decay)
+                    torch._foreach_addcmul_(h, g, g, value=1 - sp.rms_decay)
+                else:
+                    torch._foreach_addcmul_(h, g, g)
+                denom = torch._foreach_sqrt(h)
+                torch._foreach_add_(denom, sp.delta)
+                step = torch._foreach_mul(g, s)
+                torch._foreach_div_(step, denom)
+                torch._foreach_sub_(w, step)
+            else:  # ADADELTA
+                h, dacc = ss
+                g = regularize(g, w, dm)
+                torch._foreach_mul_(h, sp.momentum)
+                torch._foreach_addcmul_(h, g, g, value=1 - sp.momentum)
+                num = torch._foreach_add(dacc, sp.delta)
+                torch._foreach_sqrt_(num)
+                den = torch._foreach_add(h, sp.delta)
+                torch._foreach_sqrt_(den)
+                step = torch._foreach_mul(g, num)
+                torch._foreach_div_(step, den)
+                torch._foreach_mul_(dacc, sp.momentum)
+                torch._foreach_addcmul_(dacc, step, step, value=1 - sp.momentum)
+                torch._foreach_sub_(w, torch._foreach_mul(step, s))
         return params, opt_state
 
+    update.rate = None
     return update

@@ -5,11 +5,27 @@ forward of the TRAIN net with autograd recording, the gradients of the
 weighted loss (averaged over ``iter_size`` micro-batches), then the
 Caffe update (``caffe_solver.make_update_fn``) in place. Params, net
 state and optimizer slots live on the solver's device; batches arrive
-as host numpy (or tensors) and are moved there by :meth:`_put_batch`.
+as host numpy (or tensors) and are moved there in their own dtypes.
 
-PyTorch runs eagerly, so the JAX package's jit, fused-step and
-``scan_steps`` machinery has no counterpart here; CUDA graphs for the
-step are later work.
+The fused step (the JAX package's ``_fused_step``): one iteration is
+one function (:meth:`Solver._fused_iteration`) of the resident params,
+net state, optimizer slots, Dropout generator and an iteration counter
+on the device (``_it_dev``), which it updates in place: forward,
+``autograd.grad``, the ``iter_size`` accumulation, the device-side
+``batch_transform``, clipping and the Caffe update (its learning rate
+read from the counter), the new net state, and ``it + 1``. On a card it
+runs as one ``torch.cuda.CUDAGraph``: the first ``WARMUP_STEPS``
+iterations of a batch signature (keys, shapes, dtypes) run it eagerly,
+for real, on a side stream (library algorithm choice, the kernels'
+build and attributes, lazy constants), then it is captured once with
+the generator registered, and every later iteration is one copy of
+each batch key into the graph's static input buffers and one replay.
+On the CPU, or with ``SPARKNET_FUSED_STEP=0`` (or ``""``), the same
+function runs eagerly: that switch (the JAX package's A/B baseline) is
+the only way to run eagerly on a card, since a capture that fails
+raises. :meth:`Solver.scan_steps` runs ``n`` iterations on one resident
+batch (one copy, ``n`` replays). The parallel solvers opt out
+(``parallel/trainer.py``).
 """
 
 from __future__ import annotations
@@ -17,13 +33,14 @@ from __future__ import annotations
 import os
 import sys
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..nets import weights as W
+from ..ops import launch_counters
 from ..nets.torchnet import TorchNet
 from ..proto import caffe_pb
 from . import snapshot
@@ -102,7 +119,8 @@ def accumulate_grads(grad_fn, params, state, micro_batches, generator):
 def make_train_step(net: TorchNet, sp: caffe_pb.SolverParameter,
                     batch_transform: Optional[Callable] = None) -> Callable:
     """``train_step(params, state, opt_state, batch, it, generator) ->
-    (params, state, opt_state, metrics)``.
+    (params, state, opt_state, metrics)``; ``it`` is a host int or a 0-d
+    int32 counter on the device.
 
     With ``sp.iter_size > 1``, ``batch`` is a list of that many
     micro-batches (the JAX package stacks them on a leading axis).
@@ -112,10 +130,8 @@ def make_train_step(net: TorchNet, sp: caffe_pb.SolverParameter,
     device batch before the net sees it, on each micro-batch in turn
     where the JAX package vmaps it over the stack."""
     grad_fn = make_grad_fn(net)
-    update = None
 
     def train_step(params, state, opt_state, batch, it, generator):
-        nonlocal update
         if batch_transform is not None:
             batch = ([batch_transform(m) for m in batch] if sp.iter_size > 1
                      else batch_transform(batch))
@@ -124,12 +140,13 @@ def make_train_step(net: TorchNet, sp: caffe_pb.SolverParameter,
                 grad_fn, params, state, batch, generator)
         else:
             grads, new_state, metrics = grad_fn(params, state, batch, generator)
-        if update is None:
+        if train_step.update is None:
             lr_m, dec_m = mults_for_params(params, net.param_specs())
-            update = make_update_fn(sp, lr_m, dec_m)
-        params, opt_state = update(params, grads, opt_state, it)
+            train_step.update = make_update_fn(sp, lr_m, dec_m)
+        params, opt_state = train_step.update(params, grads, opt_state, it)
         return params, new_state, opt_state, metrics
 
+    train_step.update = None  # built at the first call (``update.rate``: its last rate)
     return train_step
 
 
@@ -143,6 +160,96 @@ def make_eval_step(net: TorchNet) -> Callable:
     return eval_step
 
 
+# eager iterations a batch signature runs, for real, before its capture
+WARMUP_STEPS = 2
+
+
+class _Resident:
+    """A solver attribute the captured step reads by address (params, net
+    state, optimizer slots, the device counter): assigning it drops the
+    graph, which is captured anew after its warm-up, as ``jax.jit``
+    retraces."""
+
+    def __set_name__(self, owner, name):
+        self.name, self.slot = name, "_resident_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        try:
+            return obj.__dict__[self.slot]
+        except KeyError:
+            raise AttributeError(self.name) from None
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.slot] = value
+        obj.__dict__["_graph"] = None
+
+
+def _micro(host) -> List[Dict[str, Any]]:
+    return host if isinstance(host, list) else [host]
+
+
+def _signature(host) -> Tuple:
+    """The batch's keys, shapes and dtypes: what a captured step is for."""
+    return tuple(tuple((k, tuple(v.shape), str(v.dtype)) for k, v in m.items())
+                 for m in _micro(host))
+
+
+class _StepGraph:
+    """One iteration captured as a CUDA graph for one batch signature: the
+    static input buffers the host fills, the graph once captured, its
+    packed metrics, and the kernel launches it adds to each counter at a
+    replay."""
+
+    def __init__(self, key: Tuple, host, device: torch.device):
+        self.key = key
+        self.buffers = [{k: torch.empty(tuple(v.shape), dtype=torch.as_tensor(v).dtype,
+                                        device=device) for k, v in m.items()}
+                        for m in _micro(host)]
+        self.inputs = self.buffers if isinstance(host, list) else self.buffers[0]
+        self.warm = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.packed: Optional[torch.Tensor] = None
+        self.names: List[str] = []
+        self.launches: List[Tuple[Callable, int]] = []
+
+    def load(self, host) -> None:
+        """One copy of each batch key into its buffer, on the current
+        stream; a host array is staged by the copy call, so the caller
+        may reuse it when it returns."""
+        for buf, m in zip(self.buffers, _micro(host)):
+            for k, t in buf.items():
+                t.copy_(torch.as_tensor(m[k]), non_blocking=True)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+
+    def metrics(self) -> Dict[str, torch.Tensor]:
+        """This replay's metrics, copied out of the graph's outputs (one
+        copy), so that the next replay leaves them as they are."""
+        if self.packed is None:
+            return {}
+        return dict(zip(self.names, self.packed.clone().unbind()))
+
+
+def _copy_state(state: Dict[str, Any], new_state: Dict[str, Any]) -> None:
+    """The net state's new values into its own tensors, in place."""
+    dst, src = [], []
+    for layer, entry in new_state.items():
+        old = state[layer]
+        if entry is old:
+            continue
+        for name, t in entry.items():
+            if t is not old[name]:
+                dst.append(old[name])
+                src.append(t)
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
 class Solver:
     """Owns params, state and optimizer slots on ``device`` and drives
     the train and eval steps of a prototxt net or of a ``model``.
@@ -150,7 +257,18 @@ class Solver:
     ``seed`` (or the solver's ``random_seed`` when set) seeds a CPU
     generator for the fillers, so a seed gives the same weights on
     every device, and a generator on ``device`` for the Dropout masks
-    (``self.rng``)."""
+    (``self.rng``).
+
+    On a card with ``SPARKNET_FUSED_STEP`` on (the default) an iteration
+    is one replay of a captured CUDA graph (the module docstring); the
+    graph reads ``params``, ``state``, ``opt_state`` and the counter by
+    address, so it is dropped when one of them is assigned (``restore``
+    does) and captured anew."""
+
+    params = _Resident()
+    state = _Resident()
+    opt_state = _Resident()
+    _it_dev = _Resident()
 
     def __init__(
         self,
@@ -232,26 +350,19 @@ class Solver:
         self._loss_window = deque(maxlen=max(1, solver.average_loss))
         self._train_step = make_train_step(self.train_net, solver, self.batch_transform)
         self._eval_step = make_eval_step(self.test_net)
+        # the fused step (module docstring); SPARKNET_FUSED_STEP=0 or ""
+        # runs it eagerly on a card too, the A/B baseline
+        self._fuse_host = os.environ.get("SPARKNET_FUSED_STEP", "1") not in ("", "0")
+        self._it_dev = None  # the device counter; created at the first fused step
+        self._it_host = 0  # the iteration the device counter holds
+        self._side_stream: Optional[torch.cuda.Stream] = None
 
     # ------------------------------------------------------------------
-    def _put_batch(self, batch: Dict[str, Any], cast: bool = True) -> Dict[str, torch.Tensor]:
+    def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One host batch on the solver's device, uploaded in its own
-        dtypes and cast there (``cast``): ``label`` stays int32 or int64
-        (other dtypes become int64); any other int32 or int64 blob (token
-        ids, positions, masks) stays as it is; everything else (NHWC
-        data, weights) becomes f32. ``cast=False`` leaves every dtype (a
-        ``batch_transform``'s raw batch and plan). Idempotent on device
+        dtypes and cast there (:func:`_cast_batch`). Idempotent on device
         tensors."""
-        out = {}
-        for name, v in batch.items():
-            t = torch.as_tensor(v).contiguous().to(self.device)
-            if cast and name == "label":
-                if t.dtype not in (torch.int32, torch.int64):
-                    t = t.to(torch.int64)
-            elif cast and t.dtype not in (torch.int32, torch.int64, torch.float32):
-                t = t.to(torch.float32)
-            out[name] = t
-        return out
+        return _cast_batch(_upload(batch, self.device))
 
     def sync(self) -> None:
         """Wait for the device's queued work (a no-op on the CPU)."""
@@ -263,25 +374,137 @@ class Solver:
 
         Displayed losses honour Caffe's ``average_loss``: ``log_fn`` gets
         the loss smoothed over the last N iterations (device scalars are
-        held and read only at display boundaries)."""
+        held and read only at display boundaries). Each iteration's
+        metrics are its own tensors: a later iteration leaves them as
+        they are."""
         metrics: Dict[str, torch.Tensor] = {}
         for _ in range(n):
             if self.stop_requested:
                 break
-            cast = self.batch_transform is None
             if self.sp.iter_size > 1:
-                batch = [self._put_batch(next(batches), cast)
-                         for _ in range(self.sp.iter_size)]
+                host = [next(batches) for _ in range(self.sp.iter_size)]
             else:
-                batch = self._put_batch(next(batches), cast)
-            self.params, self.state, self.opt_state, metrics = self._train_step(
-                self.params, self.state, self.opt_state, batch, self.iter, self.rng)
-            self.iter += 1
+                host = next(batches)
+            metrics = self._iterate(host)
             if log_fn and self.sp.display:
                 self._push_loss(metrics)
                 if self.iter % self.sp.display == 0:
                     log_fn(self.iter, self._smoothed(metrics))
         return metrics
+
+    def scan_steps(self, batch: Dict[str, Any], n: int) -> Dict[str, torch.Tensor]:
+        """Run ``n`` iterations on ONE resident batch (the JAX package's
+        benchmark primitive) and return the last one's metrics; ``iter``
+        advances by ``n``. With ``iter_size > 1`` the batch is each
+        micro-batch. On a card with the fused step: one copy of the batch
+        into the graph's buffers, then ``n`` replays (after the warm-up
+        and capture a new signature needs). Otherwise the eager step ``n``
+        times, which is :meth:`step` over that batch repeated, bit for
+        bit (the generator is the step's own)."""
+        host = [batch] * self.sp.iter_size if self.sp.iter_size > 1 else batch
+        metrics: Dict[str, torch.Tensor] = {}
+        for i in range(n):
+            metrics = self._iterate(host, load=i == 0)
+        return metrics
+
+    def _iterate(self, host, load: bool = True) -> Dict[str, torch.Tensor]:
+        """One iteration of the fused step on a host batch (a list of
+        micro-batches when ``iter_size > 1``); advances ``iter``.
+        ``load=False``: the graph's buffers already hold this batch."""
+        if self._it_dev is None:
+            self._it_dev = torch.full((), self.iter, dtype=torch.int32, device=self.device)
+        elif self._it_host != self.iter:  # ``iter`` was set from outside
+            self._it_dev.fill_(self.iter)
+        if self._fuse_host and self.device.type == "cuda":
+            metrics = self._graph_iteration(host, load)
+        else:
+            metrics = self._fused_iteration(
+                [_upload(m, self.device) for m in host] if isinstance(host, list)
+                else _upload(host, self.device))
+        self.iter += 1
+        self._it_host = self.iter
+        return metrics
+
+    def _fused_iteration(self, batch) -> Dict[str, torch.Tensor]:
+        """One whole iteration of the fused step on device tensors in
+        their upload dtypes: the cast (or the ``batch_transform``), the
+        train step at the device counter, the new net state written into
+        ``state``'s tensors, and ``it + 1``. This is what the graph
+        holds; it reads nothing back to the host."""
+        if self.batch_transform is None:
+            batch = ([_cast_batch(m) for m in batch] if isinstance(batch, list)
+                     else _cast_batch(batch))
+        _, new_state, _, metrics = self._train_step(
+            self.params, self.state, self.opt_state, batch, self._it_dev, self.rng)
+        _copy_state(self.state, new_state)
+        self._it_dev.add_(1)
+        return metrics
+
+    def _graph_iteration(self, host, load: bool) -> Dict[str, torch.Tensor]:
+        """The fused step on a card: the graph for this batch signature
+        (a new one after a change of signature or of a resident
+        attribute), its warm-up run eagerly on a side stream, its
+        capture, then one copy of each key (unless the buffers hold the
+        batch already) and one replay an iteration."""
+        key = _signature(host)
+        cap = self._graph
+        if cap is None or cap.key != key:
+            cap = self._graph = _StepGraph(key, host, self.device)
+            load = True
+        if load:
+            cap.load(host)
+        if cap.graph is None:
+            if cap.warm < WARMUP_STEPS:
+                cap.warm += 1
+                return self._warm_iteration(cap.inputs)
+            self._capture(cap)
+        cap.replay()
+        return cap.metrics()
+
+    def _side(self) -> torch.cuda.Stream:
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
+
+    def _warm_iteration(self, inputs) -> Dict[str, torch.Tensor]:
+        """A real iteration, eager, on the side stream the capture uses."""
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            metrics = self._fused_iteration(inputs)
+        cur.wait_stream(side)
+        return metrics
+
+    def _capture(self, cap: _StepGraph) -> None:
+        """Capture one iteration into ``cap.graph``, with ``self.rng``
+        registered so that each replay draws the next Dropout masks of the
+        eager stream. The capture runs no kernel: the counters it moved
+        are put back and added at each replay instead. Raises, naming the
+        cause, if the capture fails; nothing falls back to eager."""
+        counters = launch_counters()
+        before = [fn.launches for fn in counters]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.rng)
+        try:
+            # "thread_local": a feed's staging thread may keep uploading on
+            # its own stream meanwhile (events, pinned copies), which the
+            # default "global" mode counts as an error in the capture;
+            # this thread's own host reads still fail it
+            with torch.cuda.graph(graph, stream=self._side(),
+                                  capture_error_mode="thread_local"):
+                metrics = self._fused_iteration(cap.inputs)
+                packed = torch.stack(list(metrics.values())) if metrics else None
+        except Exception as e:
+            raise RuntimeError(
+                f"Solver.step: capturing the train step as a CUDA graph failed "
+                f"({type(e).__name__}: {e}); SPARKNET_FUSED_STEP=0 runs it eagerly") from e
+        finally:
+            moved = [fn.launches - b for fn, b in zip(counters, before)]
+            for fn, b in zip(counters, before):
+                fn.launches = b
+        cap.graph, cap.packed, cap.names = graph, packed, list(metrics)
+        cap.launches = [(fn, d) for fn, d in zip(counters, moved) if d]
 
     def _push_loss(self, metrics) -> None:
         if self._loss_window.maxlen > 1 and "loss" in metrics:
@@ -336,7 +559,9 @@ class Solver:
         ``feed`` given, also align the data stream (:meth:`align_feed`).
 
         ``weights_only`` restores params, net state, iteration and
-        generator but starts the optimizer slots afresh. The rng leaf is
+        generator but starts the optimizer slots afresh. The captured
+        step and the device counter are dropped (the fused step captures
+        anew). The rng leaf is
         each package's own: a generator state of this device's kind is
         restored; anything else (a JAX PRNG key) leaves the generator as
         it is, and the run says so on stderr."""
@@ -361,6 +586,7 @@ class Solver:
                 f"from this run's fresh generator",
                 file=sys.stderr, flush=True,
             )
+        self._it_dev = None  # the counter restarts from ``iter`` at the next step
         self._loss_window.clear()  # a restarted Caffe starts empty
         if feed is not None:
             self.align_feed(feed)
@@ -387,6 +613,28 @@ class Solver:
         else:
             for _ in range(n):
                 next(feed)
+
+
+def _cast_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The net's input dtypes, cast on the device: ``label`` stays int32
+    or int64 (other dtypes become int64); any other int32 or int64 blob
+    (token ids, positions, masks) stays as it is; everything else (NHWC
+    data, weights) becomes f32."""
+    out = {}
+    for name, t in batch.items():
+        if name == "label":
+            if t.dtype not in (torch.int32, torch.int64):
+                t = t.to(torch.int64)
+        elif t.dtype not in (torch.int32, torch.int64, torch.float32):
+            t = t.to(torch.float32)
+        out[name] = t
+    return out
+
+
+def _upload(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch on ``device`` in its own dtypes (a ``batch_transform``
+    takes the raw batch and its plan so; :func:`_cast_batch` casts)."""
+    return {name: torch.as_tensor(v).contiguous().to(device) for name, v in batch.items()}
 
 
 def _to(tree, device: torch.device):
