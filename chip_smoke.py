@@ -241,7 +241,7 @@ own lines:
    iterations, held the same way against the one-process 2-worker
    ``ParallelSolver`` with the same dropout seeds; the ranks' weights
    identical by hash; the flash kernels counted from 0 in each rank
-   (forward, dq and dk/dv, 12 an iteration, 444 each) and summed
+   (forward, dq and dk/dv, 12 an iteration, 300 each) and summed
    into the kernels line. Then cifar10_quick ``--parallel local --tau
    auto`` over 2 ranks, 12 rounds: every rank the same τ every round.
    With two or more cards the BERT runs over NCCL (one process a card)
@@ -258,7 +258,7 @@ own lines:
    event; a pinned buffer refilled before its upload left it), each of
    which it must catch; two constructions of the C++ loader against
    each other; ``nproc`` and ``df /dev/shm``. Then ``ImageNetApp`` through
-   ``main([...])`` at batch 256, 16 iterations in chunks of 8 (a test
+   ``main([...])`` at batch 256, 12 iterations in chunks of 6 (a test
    batch between), through each train feed path: serial with
    ``--prefetch 0`` and 2, ``--data-workers 4`` and cores - 1,
    ``--native-loader on``, ``--device-augment``, ``--data-format
@@ -266,7 +266,35 @@ own lines:
    every batch a hit). Each prints its chunks' images/s beside the
    resident step's, its ``input pipeline:`` / ``data cache:`` lines and
    whether the step waited on the host; each must launch the LRN kernels
-   6 / 32 / 32 times, and read 0 pickle fallbacks.
+   6 / 24 / 24 times, and read 0 pickle fallbacks;
+18. caffe-native: Caffe's own data and weights. An LMDB of 1,280 raw
+   Datums (256x256x3, ``synthetic_imagenet`` seed 0, ~252 MB) and a TEST
+   LMDB of 256 (seed 1) written by the port's ``write_lmdb`` (MB/s
+   printed); the seed-0 AlexNet weights exported by
+   ``Solver.export_weights`` (~244 MB) and read back by
+   ``load_caffemodel``, every blob equal, then loaded by
+   ``Solver.load_weights``, every param the exported one (seconds of
+   each). Then ``ImageNetApp`` at batch 256 as processes of this script
+   (``--app-job``: deterministic algorithms, the graph step, f32): its
+   train_val's Data layers name the two LMDBs, ``--weights`` the
+   .caffemodel, ``--seed 1``, 12 iterations, a snapshot every 4,
+   ``SPARKNET_SNAPSHOT_KEEP=2``, one test batch at 0 and at 12, 3 feed
+   workers. Run A runs uninterrupted (its LRN launches 4 / 24 / 24
+   asserted, its ``speed:`` images/s and the ms of each
+   ``save_or_skip`` printed, its chain pruned to 8 and 12); run B, beside
+   it on the card, gets SIGTERM once it displays iteration 5 and must
+   print ``SIGTERM: preempted at iteration N; snapshot written ...``,
+   keep the snapshots 4 and N and exit 0; its newest solverstate is then
+   cut in half, and run C (B relaunched with ``--auto-resume``) must
+   warn, fall back to 4 and run to 12: its params, net state, optimizer
+   slots, generator and iteration equal run A's bit for bit. Then
+   ``InferenceEngine.from_files`` on the AlexNet deploy net from the
+   .caffemodel and from the .npz of the same weights, and from run A's
+   final solverstate and its .npz twin: each pair's bucket-32 outputs
+   equal bit for bit (8 LRN launches). Last, with PIL and h5py made
+   unimportable, ImageData, an encoded-Datum LMDB, the ImageNet folder
+   and tar layouts and HDF5Data each raise naming the package when the
+   dataset is built.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -283,8 +311,9 @@ TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
 counts the main paths' runs (serving, train, alexnet-local, feed,
-googlenet, fused-step's AlexNet graph run and every rank of the
-multiprocess phase's AlexNet runs for LRN; bert-train, fused-step's
+googlenet, fused-step's AlexNet graph run, every rank of the
+multiprocess phase's AlexNet runs, and caffe-native's run A and engines
+for LRN; bert-train, fused-step's
 BERT graph run and every rank of the bert-processes phase for flash).
 A kernel inside a captured step is counted at each replay (the graph
 adds what its capture counted).
@@ -292,9 +321,9 @@ Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native
 
-runs the card and build phases and the phases named (any of the three)
+runs the card and build phases and the phases named (any of the four)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -447,7 +476,7 @@ MP_TIMEOUT = 300
 # the bert-processes phase: BertApp's BERT-base at the global batch of
 # 32 x 128 over 2 processes: sync steps and local iterations held, sync
 # steps timed with the overlap on and off; --tau auto's rounds
-BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 5
+BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 3
 BP_ITERS = max(BP_SYNC_STEPS, BP_LOCAL_ITERS)
 TAU_AUTO_ROUNDS = 12
 
@@ -456,7 +485,7 @@ TAU_AUTO_ROUNDS = 12
 # FEED_CHUNK (a test batch between chunks; each chunk's speed: line
 # read), and the first FEED_CHECK batches of each Python path held bit
 # for bit
-FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 16, 8, 8
+FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 12, 6, 8
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -4377,6 +4406,427 @@ def phase_feed(tmp, resident_ms):
     return {"launches": tuple(totals), "images_per_s": {r[0]: r[1] for r in rows}}
 
 
+# ---------------------------------------------------------- caffe-native
+CN_TRAIN, CN_TEST = 1280, 256  # the LMDBs' Datums, 256x256x3 uint8
+CN_ITERS, CN_SNAPSHOT, CN_KEEP = 12, 4, 2
+CN_BUCKET = 32
+CN_TIMEOUT = 300  # seconds a run of the app may take
+
+
+def _cn_lmdb(path, n, seed):
+    """An LMDB of ``n`` raw Datums of ``synthetic_imagenet`` (seed);
+    -> (MB written, seconds)."""
+    from sparknet_tpu_torch.data.caffe_layers import encode_datum
+    from sparknet_tpu_torch.data.imagenet import synthetic_imagenet
+    from sparknet_tpu_torch.data.lmdb_io import write_lmdb
+
+    images, labels = synthetic_imagenet(n, seed=seed)
+    t0 = time.perf_counter()
+    write_lmdb(path + os.sep, [(f"{i:08d}".encode(), encode_datum(images[i], int(labels[i])))
+                               for i in range(n)])
+    dt = time.perf_counter() - t0
+    return os.path.getsize(os.path.join(path, "data.mdb")) / 1e6, dt
+
+
+def _cn_solver(tmp):
+    """ImageNetApp's AlexNet train_val with its Data layers naming the two
+    LMDBs, and a solver of CN_ITERS iterations, a snapshot every
+    CN_SNAPSHOT, a test batch at 0 and at the end, a display each
+    iteration; the prefix is relative, so each run's cwd holds its own."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    with open(ALEXNET_TRAIN_VAL) as f:
+        text = f.read()
+    for bs, name in ((256, "train_lmdb"), (50, "test_lmdb")):
+        old = f"data_param {{ batch_size: {bs} }}"
+        if text.count(old) != 1:
+            raise AssertionError(f"train_val: {old!r} not found once")
+        text = text.replace(old, f'data_param {{ source: "{os.path.join(tmp, name)}" '
+                                 f"batch_size: {bs} backend: LMDB }}")
+    net = os.path.join(tmp, "alexnet_lmdb_train_val.prototxt")
+    with open(net, "w") as f:
+        f.write(text)
+    path = os.path.join(tmp, "alexnet_lmdb_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{net}"\ntest_iter: 1\ntest_interval: {CN_ITERS}\nbase_lr: 0.01\n'
+                'lr_policy: "step"\ngamma: 0.1\nstepsize: 100000\ndisplay: 1\n'
+                f"max_iter: {CN_ITERS}\nmomentum: 0.9\nweight_decay: 0.0005\n"
+                f'snapshot: {CN_SNAPSHOT}\nsnapshot_prefix: "snap/alexnet"\n')
+    return path
+
+
+def app_job(spec_path):
+    """One run of ImageNetApp for the caffe-native phase (``--app-job``):
+    started ahead, it imports and takes the card, then waits for its spec
+    (the parent writes it when the run's inputs are ready) and runs
+    ``main`` in the spec's directory: f32 without TF32, deterministic
+    algorithms, the LRN launch counters from 0; ``Solver.save_or_skip``
+    timed. Prints one ``app-job:`` JSON line (launches, save_or_skip ms)
+    after ``main`` returns."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.zeros(1, device="cuda")  # the card's context, before the wait
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.ops.lrn import lrn_rows, lrn_rows_bwd, lrn_rows_train
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    deadline = time.monotonic() + CN_TIMEOUT
+    while not os.path.exists(spec_path):
+        if time.monotonic() > deadline:
+            print(f"app-job: no spec {spec_path} in {CN_TIMEOUT} s", flush=True)
+            return 3
+        time.sleep(0.02)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.makedirs(spec["cwd"], exist_ok=True)
+    os.chdir(spec["cwd"])
+    saves = []
+    save_or_skip = Solver.save_or_skip
+
+    def timed(self, path, prefix=""):
+        t0 = time.perf_counter()
+        try:
+            return save_or_skip(self, path, prefix)
+        finally:
+            saves.append((time.perf_counter() - t0) * 1e3)
+
+    Solver.save_or_skip = timed
+    lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
+    with _deterministic():
+        imagenet_app.main(spec["argv"])
+    print("app-job: " + json.dumps({
+        "launches": [lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches],
+        "save_or_skip_ms": saves}), flush=True)
+    return 0
+
+
+def _cn_start(tmp, name):
+    """``chip_smoke.py --app-job`` (its own session, output to a file),
+    waiting for its spec: -> (process, log file, log path, spec path)."""
+    spec = os.path.join(tmp, f"{name}.json")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", SPARKNET_SNAPSHOT_KEEP=str(CN_KEEP),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                                          if p))
+    path = os.path.join(tmp, f"{name}.log")
+    out = open(path, "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--app-job", spec],
+                            cwd=tmp, env=env, stdout=out, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    return proc, out, path, spec
+
+
+def _cn_go(run, cwd, argv):
+    """Hand a started run its spec (written whole, then renamed): it runs
+    ``main(argv)`` in ``cwd``. -> the monotonic time it went."""
+    spec = run[3]
+    with open(spec + ".part", "w") as f:
+        json.dump({"argv": argv, "cwd": cwd}, f)
+    os.replace(spec + ".part", spec)
+    return time.monotonic()
+
+
+def _cn_wait(runs, deadline):
+    """Wait for each run; kill what is left at the deadline. -> {name:
+    (exit code, output)}; a run's last lines are printed when it failed."""
+    import signal
+
+    res = {}
+    for name, (proc, out, path, _) in runs.items():
+        try:
+            proc.wait(max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        out.close()
+        with open(path) as f:
+            res[name] = (proc.returncode, f.read())
+        if proc.returncode:
+            for line in res[name][1].splitlines()[-40:]:
+                log(f"  {name} | {line}")
+    return res
+
+
+def _cn_job(name, text):
+    lines = [l for l in text.splitlines() if l.startswith("app-job: ")]
+    if len(lines) != 1:
+        raise AssertionError(f"run {name}: no app-job line")
+    return json.loads(lines[0][len("app-job: "):])
+
+
+def _cn_equal(label, got, want, where=""):
+    """Two solverstate trees equal bit for bit (arrays, and Python leaves)."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}{where}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _cn_equal(label, got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(
+                got.view(np.uint8), want.view(np.uint8)):
+            diff = float(np.max(np.abs(got.astype(np.float64) - want.astype(np.float64))))
+            raise AssertionError(f"{label}{where}: not bit for bit (max|diff| {diff!r})")
+    elif got != want:
+        raise AssertionError(f"{label}{where}: {got!r} != {want!r}")
+
+
+def _cn_without_packages(tmp):
+    """With PIL and h5py made unimportable (whether or not this machine
+    has them), each source that needs one raises naming it when its
+    dataset is built."""
+    import tarfile
+
+    from sparknet_tpu_torch.data import caffe_layers, imagenet
+    from sparknet_tpu_torch.data.lmdb_io import write_lmdb
+    from sparknet_tpu_torch.proto import wire
+
+    root = os.path.join(tmp, "nopkg")
+    os.makedirs(os.path.join(root, "folders", "train", "n01440764"))
+    with open(os.path.join(root, "folders", "train", "n01440764", "a.JPEG"), "wb") as f:
+        f.write(b"\xff\xd8 not decoded")
+    os.makedirs(os.path.join(root, "tars"))
+    with tarfile.open(os.path.join(root, "tars", "s.tar"), "w") as tf:
+        tf.add(os.path.join(root, "folders", "train", "n01440764", "a.JPEG"),
+               "n01440764_0.JPEG")
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.write("a.JPEG 0\n")
+    with open(os.path.join(root, "h5.txt"), "w") as f:
+        f.write("a.h5\n")
+    enc = wire.encode_bytes_field(4, b"\xff\xd8 jpeg") + wire.encode_varint_field(7, 1)
+    write_lmdb(os.path.join(root, "enc") + os.sep, [(b"%06d" % i, enc) for i in range(4)])
+    have = {}
+    for mod in ("PIL", "h5py"):
+        try:
+            __import__(mod)
+            have[mod] = True
+        except ImportError:
+            have[mod] = False
+    cases = (
+        ("ImageData", "PIL", lambda: caffe_layers.image_data_dataset(
+            os.path.join(root, "list.txt"), root)),
+        ("encoded Datum LMDB", "PIL", lambda: caffe_layers.lmdb_dataset(
+            os.path.join(root, "enc"))),
+        ("ImageNet folders", "PIL", lambda: imagenet.imagenet_dataset(
+            os.path.join(root, "folders"))),
+        ("ImageNet tar shards", "PIL", lambda: imagenet.imagenet_dataset(
+            os.path.join(root, "tars"))),
+        ("HDF5Data", "h5py", lambda: caffe_layers.hdf5_dataset(os.path.join(root, "h5.txt"))),
+    )
+    saved = {m: sys.modules.get(m) for m in ("PIL", "PIL.Image", "h5py")}
+    sys.modules.update({m: None for m in saved})
+    try:
+        for what, pkg, build in cases:
+            try:
+                build()
+            except ImportError as e:
+                if pkg not in str(e):
+                    raise AssertionError(f"{what}: ImportError without {pkg}: {e}")
+                continue
+            raise AssertionError(f"{what} was built without {pkg}")
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    log(f"  without PIL and h5py (installed here: {have}): ImageData, an encoded-Datum "
+        f"LMDB, the ImageNet folders and tar shards raise naming PIL, HDF5Data naming "
+        f"h5py, each when its dataset is built")
+
+
+def phase_caffe_native(tmp):
+    """Caffe's own data and weights on the card (module docstring, phase
+    caffe-native); -> the LRN launches of run A and of the engines. The
+    three app runs start at once and take the card while the parent
+    writes their inputs; each goes when its inputs are there."""
+    import signal
+
+    runs = {name: _cn_start(tmp, name) for name in ("A", "B", "C")}
+    try:
+        return _caffe_native(tmp, runs)
+    finally:
+        for proc, out, _, _ in runs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+
+
+def _caffe_native(tmp, runs):
+    import signal
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY, ALEXNET_SOLVER
+    from sparknet_tpu_torch.nets import weights as W
+    from sparknet_tpu_torch.ops.lrn import lrn_rows
+    from sparknet_tpu_torch.proto import caffe_pb
+    from sparknet_tpu_torch.proto import caffemodel as cm
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.solver import snapshot
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    # 1. the LMDBs
+    mb, dt = _cn_lmdb(os.path.join(tmp, "train_lmdb"), CN_TRAIN, 0)
+    mb_t, dt_t = _cn_lmdb(os.path.join(tmp, "test_lmdb"), CN_TEST, 1)
+    log(f"  LMDBs: {CN_TRAIN} Datums 256x256x3 in {mb:.1f} MB, {dt:.2f} s: "
+        f"{mb / dt:.1f} MB/s; test {CN_TEST} in {mb_t:.1f} MB, {dt_t:.2f} s "
+        f"(write_lmdb, host; {smi})")
+    # 2. the .caffemodel of the seed-0 AlexNet weights
+    shapes = {"data": (TRAIN_BATCH, 227, 227, 3), "label": (TRAIN_BATCH,)}
+    src = Solver(caffe_pb.load_solver(ALEXNET_SOLVER), shapes, seed=0, device="cuda",
+                 solver_dir=os.path.dirname(ALEXNET_SOLVER))
+    cm_path = os.path.join(tmp, "alexnet_seed0.caffemodel")
+    t0 = time.perf_counter()
+    src.export_weights(cm_path)
+    export_s = time.perf_counter() - t0
+    # 3-4. run A uninterrupted and run B preempted, side by side on the card
+    # (--seed 1: the app's own init is not the loaded seed-0 weights); run C
+    # (5.) goes once B has ended, beside the rest of A; the parent checks
+    # the .caffemodel meanwhile, and serves (6.) while C runs
+    argv = ["--solver", _cn_solver(tmp), "--device", "cuda", "--weights", cm_path,
+            "--seed", "1", "--native-loader", "off", "--data-workers", "3"]
+    deadline = time.monotonic() + CN_TIMEOUT
+    a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    went = {name: _cn_go(runs[name], d, argv) for name, d in (("A", a_dir), ("B", b_dir))}
+    t0 = time.perf_counter()
+    _, blobs = cm.load_caffemodel(cm_path)
+    read_s = time.perf_counter() - t0
+    want = {layer: {n: t.cpu() for n, t in e.items()} for layer, e in src.params.items()}
+    for layer, entry in want.items():
+        w = entry["weight"].numpy()
+        if w.ndim == 2:  # InnerProduct (in, out), rows HWC -> Caffe's (out, in) CHW
+            bshape = src.train_net.blob_shapes[
+                next(l for l in src.train_net.layers if l.name == layer).bottom[0]]
+            w = cm._ip_rows_hwc_to_chw(w.T, bshape)
+        got = blobs[layer]
+        if not (np.array_equal(got[0], w) and np.array_equal(got[1], entry["bias"].numpy())):
+            raise AssertionError(f"caffemodel blob {layer} differs from the weights")
+    if set(blobs) != set(want):
+        raise AssertionError(f"caffemodel layers {sorted(blobs)} != {sorted(want)}")
+    src.params = {layer: {n: torch.zeros_like(t) for n, t in e.items()}
+                  for layer, e in src.params.items()}
+    t0 = time.perf_counter()
+    src.load_weights(cm_path)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    for layer, entry in want.items():
+        for n, t in entry.items():
+            if not torch.equal(src.params[layer][n].cpu(), t):
+                raise AssertionError(f"load_weights: {layer}.{n} is not the exported weight")
+    npz_path = os.path.join(tmp, "alexnet_seed0.npz")
+    W.save_npz(npz_path, src.params, src.train_net)
+    n_params = W.num_params(src.params)
+    del src, want, blobs
+    torch.cuda.empty_cache()
+    log(f"  .caffemodel: {n_params} params, {os.path.getsize(cm_path) / 1e6:.1f} MB; "
+        f"export {export_s:.2f} s, load_caffemodel {read_s:.2f} s, every blob equal; "
+        f"Solver.load_weights {import_s:.2f} s, every param the exported one ({smi})")
+    # SIGTERM to B once it displays iteration CN_SNAPSHOT + 1: past its first
+    # snapshot, so that the stop lands after it
+    proc_b, _, path_b, _ = runs["B"]
+    sent = False
+    while not sent and proc_b.poll() is None and time.monotonic() < deadline:
+        with open(path_b) as f:
+            if any(l.startswith(f"Iteration {CN_SNAPSHOT + 1}, loss") for l in f):
+                proc_b.send_signal(signal.SIGTERM)
+                sent = True
+        time.sleep(0.05)
+    rc, out_b = _cn_wait({"B": runs["B"]}, deadline)["B"]
+    wall = {"B": time.monotonic() - went["B"]}
+    if rc != 0 or not sent:
+        raise AssertionError(f"run B exited {rc}, SIGTERM sent: {sent}")
+    stops = [l for l in out_b.splitlines() if l.startswith("SIGTERM: preempted at iteration")]
+    if len(stops) != 1 or "snapshot written" not in stops[0]:
+        raise AssertionError(f"run B: preemption lines {stops}")
+    n = int(stops[0].split("iteration ")[1].split(";")[0])
+    chain_b = snapshot.ordered_solverstates(os.path.join(b_dir, "snap", "alexnet"))
+    if not CN_SNAPSHOT < n < CN_ITERS or [it for it, _ in chain_b][:1] != [n] or \
+            len(chain_b) != CN_KEEP:
+        raise AssertionError(f"run B stopped at {n}, chain {chain_b}")
+    log(f"  run B: SIGTERM after iteration {CN_SNAPSHOT + 1}'s display: '{stops[0]}', "
+        f"exit 0, chain {[it for it, _ in chain_b]}, {wall['B']:.1f} s")
+    # 5. the torn snapshot, and --auto-resume
+    newest = chain_b[0][1]
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    went["C"] = _cn_go(runs["C"], b_dir, argv + ["--auto-resume"])
+    rc, out_a = _cn_wait({"A": runs["A"]}, deadline)["A"]
+    wall["A"] = time.monotonic() - went["A"]
+    if rc != 0:
+        raise AssertionError(f"run A exited {rc}")
+    job_a = _cn_job("A", out_a)
+    speeds = re.findall(r"images/s=(\d+)", out_a)
+    chain_a = [it for it, _ in snapshot.ordered_solverstates(
+        os.path.join(a_dir, "snap", "alexnet"))]
+    log(f"  run A: {CN_ITERS} iterations of AlexNet at batch {TRAIN_BATCH} from the LMDB, "
+        f"--weights the .caffemodel; LRN launches {job_a['launches']}; feed (3 workers) "
+        f"speed: images/s by chunk {speeds}; save_or_skip ms "
+        f"{[round(x, 1) for x in job_a['save_or_skip_ms']]} (AlexNet solverstate, "
+        f"{smi}); chain pruned to {chain_a}; {wall['A']:.1f} s")
+    tests = 2  # at 0 and at CN_ITERS, one batch each
+    want_launches = [2 * tests, 2 * CN_ITERS, 2 * CN_ITERS]
+    if chain_a != [CN_ITERS, CN_ITERS - CN_SNAPSHOT]:
+        raise AssertionError(f"run A's chain after pruning to {CN_KEEP}: {chain_a}")
+    if job_a["launches"] != want_launches:
+        raise AssertionError(f"run A's LRN launches {job_a['launches']}, want {want_launches}")
+    # 6. serving the same weights four ways at bucket 32
+    final = f"alexnet_iter_{CN_ITERS}.solverstate.npz"
+    rows = np.random.default_rng(0).normal(0, 50, (CN_BUCKET, 227, 227, 3)).astype(
+        np.float32)
+    snap_a = os.path.join(a_dir, "snap", final)
+    twin_a = os.path.join(a_dir, "snap", f"alexnet_iter_{CN_ITERS}.npz")
+    outs = {}
+    lrn_rows.launches = 0
+    for name, weights in (("caffemodel", cm_path), ("npz", npz_path),
+                          ("solverstate", snap_a), ("solverstate twin npz", twin_a)):
+        t0 = time.perf_counter()
+        eng = InferenceEngine.from_files(ALEXNET_DEPLOY, weights, device="cuda",
+                                         buckets=(CN_BUCKET,))
+        outs[name] = eng.infer(rows)
+        log(f"  engine from the {name}: built and served {CN_BUCKET} rows in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del eng
+    engine_lrn = lrn_rows.launches
+    for a, b in (("caffemodel", "npz"), ("solverstate", "solverstate twin npz")):
+        if not np.array_equal(outs[a], outs[b]) or not np.isfinite(outs[a]).all():
+            raise AssertionError(f"serving from the {a} and the {b} differ")
+    if np.array_equal(outs["caffemodel"], outs["solverstate"]):
+        raise AssertionError("12 iterations of training left the served outputs as they were")
+    if engine_lrn != 2 * 4:
+        raise AssertionError(f"engine LRN launches {engine_lrn}, want 8 (2 a forward)")
+    log(f"  serving at bucket {CN_BUCKET}: .caffemodel == its .npz, run A's solverstate "
+        f"== its .npz twin, bit for bit; engine LRN launches {engine_lrn}")
+    rc, out_c = _cn_wait({"C": runs["C"]}, deadline)["C"]
+    wall["C"] = time.monotonic() - went["C"]
+    if rc != 0:
+        raise AssertionError(f"run C exited {rc}")
+    older = chain_b[1][0]
+    if "is torn/unreadable" not in out_c or \
+            f"Restoring previous solver status from snap/alexnet_iter_{older}." not in out_c:
+        raise AssertionError("run C: no torn-file warning and fallback to "
+                             f"iteration {older}")
+    got = snapshot.load_state(os.path.join(b_dir, "snap", final))
+    want_st = snapshot.load_state(snap_a)
+    for key in ("params", "state", "opt_state", "rng", "it"):
+        _cn_equal(f"resumed run vs run A: {key}", got[key], want_st[key])
+    log(f"  run C: torn iteration {n} warned, fell back to {older}, ran to {CN_ITERS}: "
+        f"params, net state, optimizer slots, generator and iteration equal run A's "
+        f"bit for bit; {wall['C']:.1f} s")
+    # 7. without PIL or h5py
+    _cn_without_packages(tmp)
+    log(f"  caffe-native: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": (job_a["launches"][0] + engine_lrn, job_a["launches"][1],
+                         job_a["launches"][2])}
+
+
 # ------------------------------------------------------------------ ab
 AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
           (BERT_BATCH, BERT_SEQ, "bfloat16"))
@@ -4556,7 +5006,7 @@ def ab(other):
 # ---------------------------------------------------------------- main
 # the phases ``--phase`` runs alone
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
-               "fused-step": phase_fused_step}
+               "fused-step": phase_fused_step, "caffe-native": phase_caffe_native}
 
 
 def main(argv=None) -> int:
@@ -4568,6 +5018,7 @@ def main(argv=None) -> int:
                     help="run only the card and build phases and these (e.g. the "
                          "NCCL runs on several cards); prints no result line")
     ap.add_argument("--rank-job", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--app-job", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4590,6 +5041,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     if args.rank_job:
         return rank_main(args.rank_job)
+    if args.app_job:
+        return app_job(args.app_job)
     if args.ab:
         return ab(args.ab)
 
@@ -4606,7 +5059,7 @@ def main(argv=None) -> int:
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
-    bert_mp = fused = None
+    bert_mp = fused = caffe = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -4637,12 +5090,15 @@ def main(argv=None) -> int:
             bert_mp = phases.run("bert-processes", phase_bert_processes, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_feed_") as tmp:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_caffe_") as tmp:
+            caffe = phases.run("caffe-native", phase_caffe_native, tmp)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
     timing.update(flash)
     paths = (train, local, feed, zoo["googlenet"])
     paths += (multiprocess,)  # every rank's launches
+    paths += (caffe,)  # run A's and the engines'
     launches = {
         "lrn_fwd": serving["launches"] + sum(p["launches"][0] for p in paths),
         "lrn_fwd_train": sum(p["launches"][1] for p in paths),

@@ -23,7 +23,13 @@ without a card it raises unless given ``--device cpu``). Each flag this
 port does not take yet raises ``NotImplementedError`` naming it when set
 to anything but its default: the model-parallel modes (``--parallel
 tp|sp|pp|ep``), ``--mesh`` and ``--layout``, MoE, remat, the orbax
-format, auto-resume, tracing and profiling. The flags that only tune
+format, tracing and profiling. ``--auto-resume`` restores the newest
+solverstate under the (``SPARKNET_RUN_DIR``-resolved) snapshot prefix,
+falling back past a torn one; SIGTERM (one process) stops the loop at
+the next iteration boundary with a snapshot and the JAX package's
+``SIGTERM: preempted ...`` line. As in the JAX app, the model-parallel
+modes refuse ``--restore`` and ``--auto-resume`` (they keep no solver
+state). The flags that only tune
 those modes (``--pp-microbatches``, ``--moe-top-k``, ``--moe-dispatch``,
 ``--moe-capacity``) are not taken.
 """
@@ -44,6 +50,8 @@ from ..data.text import mlm_dataset, mlm_feed
 from ..models.bert import BertConfig, BertMLM
 from ..parallel import ParallelSolver, make_workers, multihost
 from ..proto import caffe_pb
+from ..solver import snapshot
+from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver
 from .cifar_app import _ChunkTimer, _quiet, comm_config_from
 
@@ -60,7 +68,6 @@ _UNPORTED = {
     "moe_experts": 0,
     "remat": False,
     "snapshot_format": "npz",
-    "auto_resume": False,
     "trace": None,
     "profile_dir": None,
 }
@@ -128,6 +135,10 @@ def build(args, workers=None):
     repeat) overrides the parallel solver's one worker on the model's
     device in one process."""
     _check_ported(args)
+    if args.parallel in ("tp", "sp", "pp", "ep") and (args.restore or args.auto_resume):
+        raise ValueError(
+            f"--restore/--auto-resume are Solver-path features; the {args.parallel} "
+            f"mode snapshots params only (no solver state yet)")
     if args.parallel in ("tp", "sp", "pp", "ep"):
         raise NotImplementedError(
             f"--parallel {args.parallel}: the model-parallel modes are not ported to "
@@ -228,7 +239,9 @@ def parser() -> argparse.ArgumentParser:
                     help="CWD-relative like Caffe's snapshot_prefix")
     ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
                     help="resume from a .solverstate.npz snapshot (either package's)")
-    ap.add_argument("--auto-resume", action="store_true", help="not ported")
+    ap.add_argument("--auto-resume", action="store_true",
+                    help="resume from the newest solverstate under --snapshot-prefix "
+                         "(falling back past a torn one); a --restore given wins")
     ap.add_argument("--profile-dir", default=None, help="not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
     ap.add_argument("--prefetch", type=int, default=2,
@@ -251,8 +264,14 @@ def main(argv=None) -> Dict[str, float]:
 def _run(args) -> Dict[str, float]:
     log = print if multihost.is_primary() else _quiet
     solver, feed, cfg = build(args)
+    args.snapshot_prefix = snapshot.resolve_prefix(args.snapshot_prefix)
+    snapshot.apply_auto_resume(args, args.snapshot_prefix)  # over processes, a collective
     if args.restore:
-        solver.restore(args.restore, feed)
+        if args.auto_resume:
+            args.restore = snapshot.restore_with_fallback(solver, args.snapshot_prefix,
+                                                          args.restore, feed=feed)
+        else:
+            solver.restore(args.restore, feed)
     # wrap AFTER restore, so the feed is aligned before staging starts
     feed = maybe_prefetch(feed, args, args.parallel, solver.device)
     if args.restore:
@@ -265,7 +284,8 @@ def _run(args) -> Dict[str, float]:
     timer = _ChunkTimer(args.batch_size * solver.train_net.seq_len, unit="tokens")
     t0 = time.time()
     try:
-        metrics = _fit_loop(solver, feed, args, timer, log)
+        with preemption_grace(solver):
+            metrics = _fit_loop(solver, feed, args, timer, log)
     finally:
         close = getattr(feed, "close", None)
         if close is not None:
@@ -321,7 +341,7 @@ def _fit_loop(solver, feed, args, timer, log=print) -> Dict[str, float]:
             solver.save(path)  # over processes a collective; process 0 writes
             log(f"Snapshotting solver state to {path}")
         if preempted:
-            log(f"Stopped at iteration {solver.iter}")
+            log(preempt_message(solver.iter, bool(args.snapshot_prefix)))
             break
     return metrics
 

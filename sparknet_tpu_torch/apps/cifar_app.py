@@ -36,7 +36,20 @@ line. The loop:
   solver its ``comm:`` record (and ``tau:`` under ``--tau auto``);
 - when ``snapshot`` is non-zero and ``snapshot_prefix`` is set,
   snapshots at every ``snapshot`` boundary and at the end of the run,
-  as the JAX loop writes them.
+  as the JAX loop writes them (:meth:`Solver.save_or_skip`: a full disk
+  skips one with a warning), then the chain pruned to the newest
+  ``SPARKNET_SNAPSHOT_KEEP`` (default 8);
+- SIGTERM (:mod:`..solver.preempt`, one process) stops the run at the
+  next iteration boundary with a snapshot and the JAX package's
+  ``SIGTERM: preempted at iteration N; ...`` line, and it exits 0.
+
+A data layer whose source the disk holds (an LMDB for ``Data``, a list
+file for ``ImageData`` or ``HDF5Data``; :mod:`..data.caffe_layers`) is
+what the app trains and tests on, unless ``--synthetic`` or a pack is
+given, as in the JAX app. ``--weights a.caffemodel[,b.solverstate.npz]``
+starts from those weights (``Solver.load_weights``); ``--auto-resume``
+restores the newest solverstate under the (``SPARKNET_RUN_DIR``-resolved)
+snapshot prefix, falling back past a torn one.
 
 The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). Each flag the
@@ -65,6 +78,7 @@ import numpy as np
 from .. import native
 from ..data import records
 from ..data.cache import cache_from_args
+from ..data.caffe_layers import dataset_from_layer
 from ..data.cifar import cifar10_dataset
 from ..data.pipeline import ParallelBatchPipeline, PipelineMetrics, resolve_data_workers
 from ..data.prefetch import maybe_prefetch
@@ -74,13 +88,13 @@ from ..nets import weights as W
 from ..parallel import ParallelSolver, comm, multihost
 from ..proto import caffe_pb
 from ..proto.caffemodel import load_binaryproto_mean
+from ..solver import snapshot
+from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver, resolve_model_path
 
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
-    "weights": (None,),
-    "auto_resume": (False,),
     "snapshot_format": ("npz",),
     "trace": (None,),
     "profile_dir": (None,),
@@ -324,8 +338,16 @@ def run_training(args, solver, train_feed, test_feed, log=print):
     printed. Over several processes only process 0 logs."""
     if not multihost.is_primary():
         log = _quiet
+    prefix = solver.sp.snapshot_prefix = snapshot.resolve_prefix(solver.sp.snapshot_prefix)
+    snapshot.apply_auto_resume(args, prefix)  # over processes, a collective
     if args.restore:
-        solver.restore(args.restore, train_feed)
+        if args.auto_resume:
+            # the chain is auto-resume's: a torn newest file falls back to
+            # the one before; a --restore named alone fails loudly instead
+            args.restore = snapshot.restore_with_fallback(solver, prefix, args.restore,
+                                                          feed=train_feed)
+        else:
+            solver.restore(args.restore, train_feed)
         log(f"Restoring previous solver status from {args.restore} "
             f"(iter {solver.iter})")
     # wrap after the restore: the feed's skip stays on the host
@@ -369,22 +391,6 @@ def make_solver(args, sp, shapes, workers=None, batch_transform=None, **kw) -> S
                          "parallel solvers build their own train steps)")
     return ParallelSolver(sp, shapes, workers=workers, mode=args.parallel, tau=args.tau,
                           comm_config=comm_config_from(args), device=args.device, **kw)
-
-
-def _native_source(layer, solver_dir: str):
-    """The on-disk source a Caffe data layer names (LMDB, ImageData list,
-    HDF5 list), resolved as the JAX package resolves it; None if
-    absent."""
-    field = {"Data": "data_param", "ImageData": "image_data_param",
-             "HDF5Data": "hdf5_data_param"}.get(layer.type if layer else None)
-    p = layer.sub(field) if field else None
-    if p is None or p.get("source") is None:
-        return None
-    src = str(p.get("source"))
-    for cand in (src, os.path.join(solver_dir, src)):
-        if os.path.exists(cand):
-            return cand
-    return None
 
 
 class _ChunkTimer:
@@ -437,51 +443,60 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
     def write_snapshot() -> None:
         path = f"{sp.snapshot_prefix}_iter_{solver.iter}.npz"
         state_path = f"{sp.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
-        solver.save(state_path)
-        if primary:
-            W.save_npz(path, solver.params, solver.train_net)
+        # over processes a collective; process 0 writes. A full disk skips
+        # the snapshot and training goes on from the chain as it was
+        saved = solver.save_or_skip(state_path, prefix=sp.snapshot_prefix)
+        if primary and saved:
+            try:
+                W.save_npz(path, solver.params, solver.train_net)
+            except OSError as e:
+                print(f"WARNING: weights {path} not written ({e})", file=sys.stderr,
+                      flush=True)
+            # the newest SPARKNET_SNAPSHOT_KEEP stay: the torn-file fallback's
+            snapshot.prune_snapshots(sp.snapshot_prefix)
         log(f"Snapshotting to {path}")
         log(f"Snapshotting solver state to {state_path}")
 
-    # Caffe's pre-loop gate (Solver::Step):
-    # iter % test_interval == 0 && (iter > 0 || test_initialization)
-    if sp.test_interval and (
-        (solver.iter == 0 and sp.test_initialization)
-        or (solver.iter > 0 and solver.iter % sp.test_interval == 0)
-    ):
-        run_test()
-    while solver.iter < sp.max_iter:
-        # stop at the nearest of: next test boundary, next snapshot
-        # boundary, max_iter, so neither cadence skips the other's
-        targets = [sp.max_iter]
-        for interval in (sp.test_interval, sp.snapshot):
-            if interval:
-                targets.append((solver.iter // interval + 1) * interval)
-        nxt = min(targets)
-        prev_iter = solver.iter
-        timer.update(0)  # reset the window: exclude eval/snapshot time
-
-        def _log_iter(it, mm):
-            log(f"Iteration {it}, loss = {mm.get('loss', float('nan')):.5f}")
-
-        solver.step(train_feed, nxt - solver.iter, log_fn=_log_iter)
-        if sp.display:
-            solver.sync()  # the window measures completed device work
-            timer.update(solver.iter - prev_iter)
-            log(f"    speed: {timer.format()}")
-        if solver.stop_requested:
-            solver.stop_requested = False  # consumed: the solver is reusable
-            if sp.snapshot_prefix:
-                write_snapshot()
-            log(f"Stopped at iteration {solver.iter}")
-            break
-        at_end = solver.iter >= sp.max_iter
-        if (sp.test_interval and solver.iter % sp.test_interval == 0) or at_end:
-            run_test()
-        if sp.snapshot and sp.snapshot_prefix and (
-            solver.iter % sp.snapshot == 0 or at_end
+    with preemption_grace(solver):
+        # Caffe's pre-loop gate (Solver::Step):
+        # iter % test_interval == 0 && (iter > 0 || test_initialization)
+        if sp.test_interval and (
+            (solver.iter == 0 and sp.test_initialization)
+            or (solver.iter > 0 and solver.iter % sp.test_interval == 0)
         ):
-            write_snapshot()
+            run_test()
+        while solver.iter < sp.max_iter:
+            # stop at the nearest of: next test boundary, next snapshot
+            # boundary, max_iter, so neither cadence skips the other's
+            targets = [sp.max_iter]
+            for interval in (sp.test_interval, sp.snapshot):
+                if interval:
+                    targets.append((solver.iter // interval + 1) * interval)
+            nxt = min(targets)
+            prev_iter = solver.iter
+            timer.update(0)  # reset the window: exclude eval/snapshot time
+
+            def _log_iter(it, mm):
+                log(f"Iteration {it}, loss = {mm.get('loss', float('nan')):.5f}")
+
+            solver.step(train_feed, nxt - solver.iter, log_fn=_log_iter)
+            if sp.display:
+                solver.sync()  # the window measures completed device work
+                timer.update(solver.iter - prev_iter)
+                log(f"    speed: {timer.format()}")
+            if solver.stop_requested:
+                solver.stop_requested = False  # consumed: the solver is reusable
+                if sp.snapshot_prefix:
+                    write_snapshot()
+                log(preempt_message(solver.iter, bool(sp.snapshot_prefix)))
+                break
+            at_end = solver.iter >= sp.max_iter
+            if (sp.test_interval and solver.iter % sp.test_interval == 0) or at_end:
+                run_test()
+            if sp.snapshot and sp.snapshot_prefix and (
+                solver.iter % sp.snapshot == 0 or at_end
+            ):
+                write_snapshot()
     dt = time.time() - t0
     log(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
         f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
@@ -527,16 +542,11 @@ def build(args, workers=None):
     if use_packed:
         train_ds, test_ds, mean = build_packed(args)
     elif not args.synthetic:
-        # the JAX app reads a Caffe-native source (LMDB, ImageData,
-        # HDF5) that the prototxt names and the disk holds; the port does
-        # not, and must not quietly train on something else instead
-        for layer in (train_layer, test_layer):
-            src = _native_source(layer, solver_dir)
-            if src is not None:
-                raise NotImplementedError(
-                    f"{layer.type} layer {layer.name!r} source {src}: reading Caffe's "
-                    f"native sources (LMDB, ImageData, HDF5) is not ported to "
-                    f"sparknet_tpu_torch yet; pass --synthetic or --data-dir")
+        # then the Caffe-native sources (LMDB, ImageData, HDF5) the
+        # prototxt names, where the disk holds them
+        train_ds = dataset_from_layer(train_layer, solver_dir)
+        test_ds = dataset_from_layer(test_layer, solver_dir)
+    train_native, test_native = train_ds is not None, test_ds is not None
     data_dir = None if args.synthetic or use_packed else args.data_dir
     if train_ds is None:
         train_ds, mean = cifar10_dataset(data_dir, train=True, synthetic_n=args.synthetic_n)
@@ -570,12 +580,14 @@ def build(args, workers=None):
     train_tf = make_transformer(train_layer, True, solver_dir, lambda: mean)
     test_tf = make_transformer(test_layer, False, solver_dir, lambda: mean)
 
-    th, tw, tc = source_data_shape(train_ds, train_tf.crop_size, use_packed, (32, 32))
-    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, use_packed, (32, 32))
+    th, tw, tc = source_data_shape(train_ds, train_tf.crop_size, train_native, (32, 32))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, test_native, (32, 32))
     shapes = {"data": (train_bs, th, tw, tc), "label": (train_bs,)}
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
     solver = make_solver(args, sp, shapes, workers, test_input_shapes=test_shapes,
                          net_param=net_param, solver_dir=solver_dir, seed=args.seed)
+    if args.weights:
+        solver.load_weights(args.weights)  # Caffe's --weights (finetuning)
     train_feed = train_feed_for(args, train_ds, train_tf, feed_train_bs)
     # the test feed stays serial: eval runs at test_interval cadence
     test_feed = make_feed(test_ds, test_tf, feed_test_bs, seed=args.seed + 1)
@@ -635,8 +647,12 @@ def arg_parser() -> argparse.ArgumentParser:
                          "--parallel sync|local)")
     ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
                     help="resume from a .solverstate.npz snapshot (either package's)")
-    ap.add_argument("--auto-resume", action="store_true", help="not ported")
-    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
+    ap.add_argument("--auto-resume", action="store_true",
+                    help="resume from the newest solverstate under the snapshot prefix "
+                         "(falling back past a torn one); a --restore given wins")
+    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL",
+                    help="start from these weights: .caffemodel or .solverstate.npz, "
+                         "comma-separated (later files win); optimizer state stays fresh")
     ap.add_argument("--profile-dir", default=None, help="not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",

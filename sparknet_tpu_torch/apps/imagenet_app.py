@@ -2,13 +2,19 @@
 
 Counterpart of ``sparknet_tpu/apps/imagenet_app.py``
 (``python -m sparknet_tpu_torch.apps.imagenet_app``): reads the solver
-and train_val prototxts, loads ImageNet (npz shards, or the synthetic
-stand-in with ``--synthetic``), applies the net's ``transform_param``
+and train_val prototxts, loads ImageNet (a pack, else the Caffe-native
+source a data layer names where the disk holds it: an LMDB of Datums,
+an ImageData or HDF5Data list; else ``--data-dir``'s npz shards, image
+folders or tar shards; else the synthetic stand-in, or that alone with
+``--synthetic``), applies the net's ``transform_param``
 (crop, mirror, channel means) in a serial host feed, and trains on one
 device, or over the workers of ``..parallel`` (``--parallel sync|local``,
 ``--tau``, ``--grad-compress``; over several processes, one worker
 each, when launched as the JAX app is: :mod:`..parallel.multihost`),
-with test-interval evaluation and snapshots.
+with test-interval evaluation and snapshots, CifarApp's loop
+(:func:`..cifar_app.train_loop`: the snapshot chain, SIGTERM grace,
+``--auto-resume``). ``--weights`` starts from a ``.caffemodel`` or a
+solverstate's weights (``Solver.load_weights``).
 
 The train feed is CifarApp's (:func:`..cifar_app.train_feed_for`: the C++
 loader, the worker pipeline, the packed readers and their cache, the
@@ -38,6 +44,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from ..data.caffe_layers import dataset_from_layer
 from ..data.imagenet import BGR_MEAN, imagenet_dataset
 from ..data.preprocess import Transformer
 from ..models import PROTOTXT_DIR
@@ -75,8 +82,6 @@ ARCH_SOLVERS = {
 _UNPORTED = {
     "layout": (None,),
     "remat": (False,),
-    "auto_resume": (False,),
-    "weights": (None,),
     "profile_dir": (None,),
     "trace": (None,),
     "snapshot_format": ("npz",),
@@ -144,6 +149,11 @@ def build(args, workers=None):
     train_ds = test_ds = packed_mean = None
     if use_packed:
         train_ds, test_ds, packed_mean = build_packed(args)
+    elif not args.synthetic:
+        # then the Caffe-native sources the prototxt names (CifarApp's rule)
+        train_ds = dataset_from_layer(train_layer, solver_dir)
+        test_ds = dataset_from_layer(test_layer, solver_dir)
+    train_native, test_native = train_ds is not None, test_ds is not None
     data_dir = None if args.synthetic or use_packed else args.data_dir
     classes = args.synthetic_classes
     if train_ds is None:
@@ -162,8 +172,8 @@ def build(args, workers=None):
     train_tf = make_transformer(train_layer, True, solver_dir, fallback_mean)
     test_tf = make_transformer(test_layer, False, solver_dir, fallback_mean)
     # the loaders resize to 256 -> a crop wins H/W, else 224
-    ch, cw, cc = source_data_shape(train_ds, train_tf.crop_size, use_packed, (224, 224))
-    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, use_packed, (ch, cw))
+    ch, cw, cc = source_data_shape(train_ds, train_tf.crop_size, train_native, (224, 224))
+    eh, ew, ec = source_data_shape(test_ds, test_tf.crop_size, test_native, (ch, cw))
     shapes = {"data": (train_bs, ch, cw, cc), "label": (train_bs,)}
     test_shapes = {"data": (test_bs, eh, ew, ec), "label": (test_bs,)}
 
@@ -173,6 +183,8 @@ def build(args, workers=None):
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         batch_transform=train_tf.device_fn() if args.device_augment else None,
     )
+    if args.weights:
+        solver.load_weights(args.weights)  # Caffe's --weights (finetuning)
     if args.device_augment:
         # the host work is already a shuffle and a copy: no workers
         train_feed = make_device_feed(train_ds, train_tf, feed_train_bs, seed=args.seed)
@@ -194,8 +206,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--data-dir", default=os.environ.get("IMAGENET_DIR"),
-                    help="npz shards (*train*.npz / *val*.npz); the JPEG "
-                         "folder and tar layouts are not ported")
+                    help="npz shards (*train*.npz / *val*.npz), train/<wnid>/*.JPEG "
+                         "folders or *.tar shards (those two need PIL)")
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--synthetic-n", type=int, default=2048)
     ap.add_argument("--synthetic-classes", type=int, default=1000)
@@ -219,8 +231,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", action="store_true", help="not ported")
     ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
                     help="resume from a .solverstate.npz snapshot (either package's)")
-    ap.add_argument("--auto-resume", action="store_true", help="not ported")
-    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL", help="not ported")
+    ap.add_argument("--auto-resume", action="store_true",
+                    help="resume from the newest solverstate under the snapshot prefix "
+                         "(falling back past a torn one); a --restore given wins")
+    ap.add_argument("--weights", default=None, metavar="CAFFEMODEL",
+                    help="start from these weights: .caffemodel or .solverstate.npz, "
+                         "comma-separated (later files win); optimizer state stays fresh")
     ap.add_argument("--profile-dir", default=None, help="not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",

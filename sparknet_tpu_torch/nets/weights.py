@@ -10,6 +10,10 @@ arrays in JAX layout), so one file loads into either package: the
 readers and writers here convert at the boundary. InnerProduct weights
 are (in, out) in both, as are all of ``BertMLM``'s weights.
 
+:func:`load_weights_any` overlays weights from any artifact the repo
+writes: a ``.caffemodel``, an npz weight collection or a
+``.solverstate.npz``.
+
 Everything here takes and gives numpy arrays or torch tensors; nothing
 imports JAX.
 """
@@ -121,9 +125,30 @@ def load_npz(path: str, net) -> WeightCollection:
     return from_jax_params(tree, {}, net)[0]
 
 
-def merge_into(params: WeightCollection, loaded: WeightCollection) -> WeightCollection:
-    """Overlay ``loaded`` onto ``params``, keeping entries it lacks."""
-    out = {k: dict(v) for k, v in params.items()}
-    for layer, entry in loaded.items():
-        out.setdefault(layer, {}).update(entry)
-    return out
+
+def load_weights_any(net, params, state, weights: str):
+    """-> (params, state): ``weights`` overlaid onto ``params`` and
+    ``state``, file by file of a comma-separated list, later files
+    winning (the caffe binary's ``--weights``): a ``.solverstate.npz``
+    gives its params and net state (its manifest checked: a torn file
+    raises ``SnapshotError``), an ``.npz`` weight collection its params,
+    a ``.caffemodel`` the params and BatchNorm state of the layers whose
+    names ``net`` has. Each overlaid tensor takes the device and dtype
+    of the one it replaces."""
+    from ..proto import caffemodel as cm
+    from ..solver import snapshot
+
+    for one in weights.split(","):
+        one = one.strip()
+        if not one:
+            continue
+        if one.endswith(snapshot.NPZ_SUFFIX):
+            st = snapshot.load_state(one)
+            imported, net_state = from_jax_params(st["params"], st.get("state") or {}, net)
+        elif one.endswith(".npz"):
+            imported, net_state = load_npz(one, net), {}
+        else:
+            imported, net_state = cm.import_caffemodel(one, net)
+        params = cm.merge_into(params, imported)
+        state = cm.merge_into(state, net_state)
+    return params, state

@@ -68,6 +68,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..nets.torchnet import TorchNet
 from ..proto import caffe_pb
+from ..solver import snapshot
 from ..solver.caffe_solver import init_opt_state
 from ..solver.trainer import Solver
 from . import comm as comm_mod
@@ -273,11 +274,26 @@ class ParallelSolver(Solver):
         one-process run over as many workers writes."""
         if self.group is None:
             return super().save(path)
-        opt_state = {key: comm_mod.tree_map(self._gather_rows, tree)
-                     if self._has_worker_axis(key) else tree
-                     for key, tree in self.opt_state.items()}
+        opt_state = self._gathered_opt_state()
         if multihost.is_primary():
             self._write_state(path, opt_state)
+
+    def _gathered_opt_state(self):
+        return {key: comm_mod.tree_map(self._gather_rows, tree)
+                if self._has_worker_axis(key) else tree
+                for key, tree in self.opt_state.items()}
+
+    def save_or_skip(self, path: str, prefix: str = "") -> bool:
+        """:meth:`save` under the disk-full policy (the base solver's);
+        over processes the gather is a collective and process 0 alone
+        writes, and skips without the retry."""
+        if self.group is None:
+            return super().save_or_skip(path, prefix)
+        opt_state = self._gathered_opt_state()
+        if not multihost.is_primary():
+            return True
+        return snapshot.save_state_or_skip(path, prefix=prefix,
+                                           **self._snapshot_trees(opt_state))
 
     def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         rows = [torch.empty_like(x) for _ in range(dist.get_world_size(self.group))]

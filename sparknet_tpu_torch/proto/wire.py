@@ -2,8 +2,9 @@
 
 Counterpart of ``sparknet_tpu/proto/wire.py``, copied: the text-format
 front end (``textformat.py``) covers prototxt configs; this module
-covers Caffe's binary artifacts (``.binaryproto`` mean blobs here;
-``.caffemodel`` weights later).
+covers Caffe's binary artifacts (``.caffemodel`` weights,
+``.binaryproto`` mean blobs and LMDB ``Datum`` records), plus
+:func:`float_array`, the numpy reading of a repeated float field.
 
 Schema-free: ``decode`` yields ``{field_number: [raw values]}`` where a
 raw value is an int (varint/fixed), bytes (length-delimited), or a
@@ -103,6 +104,23 @@ def repeated_floats(fields: FieldMap, num: int) -> List[float]:
         else:
             out.append(struct.unpack("<f", struct.pack("<I", raw))[0])
     return out
+
+
+def float_array(fields: FieldMap, num: int):
+    """A repeated float field as one f32 numpy array: :func:`repeated_floats`'
+    values, read with ``np.frombuffer`` (packed chunks) rather than a
+    Python float each, which a blob of 10^8 values needs."""
+    import numpy as np
+
+    parts = []
+    for raw in fields.get(num, []):
+        if isinstance(raw, bytes):
+            parts.append(np.frombuffer(raw, "<f4", len(raw) // 4))
+        else:  # one unpacked fixed32
+            parts.append(np.asarray([raw], "<u4").view("<f4"))
+    if not parts:
+        return np.zeros(0, np.float32)
+    return np.concatenate(parts).astype(np.float32)
 
 
 def repeated_ints(fields: FieldMap, num: int) -> List[int]:

@@ -17,6 +17,13 @@ and every call computes with one (weights, generation) snapshot.
 
 Compute is f32, or bf16 with ``quant="bf16"`` (weights cast to bf16 at
 install, bf16 activations; outputs come back as f32 numpy).
+
+Weights come from any artifact the repo writes
+(:func:`~sparknet_tpu_torch.nets.weights.load_weights_any`):
+a ``.caffemodel``, an ``.npz`` weight collection or a
+``.solverstate.npz`` training snapshot, comma-separated lists overlaid
+in order. A torn solverstate raises ``SnapshotError``: it is never
+served.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..nets.torchnet import TorchNet
-from ..nets.weights import load_npz, merge_into
+from ..nets.weights import load_weights_any
 from ..proto import caffe_pb
 from ..telemetry import trace as _trace
 
@@ -138,24 +145,17 @@ class InferenceEngine:
         device: Union[str, torch.device] = "cuda",
         **kwargs,
     ) -> "InferenceEngine":
-        """Build from a deploy prototxt plus optional ``.npz`` weights
-        (the JAX package's WeightCollection format; comma-separated
-        files overlay in order). Layers the weights lack keep their
-        filler init, drawn from seed 0 (as the JAX engine's PRNGKey(0)),
-        so a card and the CPU serve the same weights."""
+        """Build from a deploy prototxt plus optional weights
+        (:func:`load_weights_any`: ``.caffemodel``, ``.npz`` or
+        ``.solverstate.npz``, comma-separated files overlaid in order).
+        Layers the weights lack keep their filler init, drawn from seed 0
+        (as the JAX engine's PRNGKey(0)), so a card and the CPU serve the
+        same weights."""
         dev = resolve_device(device)
         net = TorchNet(caffe_pb.load_net(model), "TEST", device=dev)
         params, state = net.init(torch.Generator().manual_seed(0))
-        for one in (weights or "").split(","):
-            one = one.strip()
-            if not one:
-                continue
-            if not one.endswith(".npz"):
-                raise ValueError(
-                    f"weights {one!r}: the port reads .npz weight "
-                    "collections (caffemodel and solverstate are not ported yet)"
-                )
-            params = merge_into(params, load_npz(one, net))
+        if weights:
+            params, state = load_weights_any(net, params, state, weights)
         eng = cls(net, params, state, **kwargs)
         eng.weights_source = weights or None
         return eng

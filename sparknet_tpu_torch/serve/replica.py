@@ -22,7 +22,8 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
 
     ap.add_argument("--model", required=True, help="deploy .prototxt")
     ap.add_argument("--weights", default=None,
-                    help=".npz weight collection (JAX package format)")
+                    help=".caffemodel, .npz weight collection or .solverstate.npz "
+                         "(comma-separated: overlaid in order, later files win)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the net runs (default cuda; cpu must be asked for)")
     ap.add_argument("--buckets", type=int_list, default=[1, 8, 32],

@@ -543,9 +543,19 @@ class Solver:
         state as the rng leaf."""
         self._write_state(path, self.opt_state)
 
+    def save_or_skip(self, path: str, prefix: str = "") -> bool:
+        """:meth:`save` under the disk-full policy of
+        :func:`snapshot.save_state_or_skip` (prune the chain under
+        ``prefix`` one deeper and retry once, else skip with a warning and
+        go on); True when the snapshot was written."""
+        return snapshot.save_state_or_skip(path, prefix=prefix,
+                                           **self._snapshot_trees(self.opt_state))
+
     def _write_state(self, path: str, opt_state) -> None:
-        snapshot.save_state(
-            path,
+        snapshot.save_state(path, **self._snapshot_trees(opt_state))
+
+    def _snapshot_trees(self, opt_state) -> Dict[str, Any]:
+        return dict(
             params=W.to_jax_params(self.params, self.train_net),
             state=self.state,
             opt_state=W.to_jax_slots(opt_state, self.train_net),
@@ -553,6 +563,26 @@ class Solver:
             rng=self.rng.get_state().numpy(),
             env=dict(self.env_meta),
         )
+
+    def load_weights(self, path: str) -> None:
+        """Caffe's ``--weights`` (finetuning): overlay each listed file's
+        weights (comma-separated, later files winning where they
+        overlap) onto the params and net state
+        (:func:`~..nets.weights.load_weights_any`: a ``.caffemodel`` gives
+        the layers whose names the net has; a ``.solverstate.npz`` of
+        either package, its manifest checked, its params and net state
+        alone). The optimizer slots, the iteration and the generator stay
+        as they are; assigning the params drops a captured step, which
+        the next step captures anew from the loaded weights."""
+        params, state = W.load_weights_any(self.train_net, self.params, self.state, path)
+        self.params = _to(params, self.device)
+        self.state = _to(state, self.device)
+
+    def export_weights(self, path: str) -> None:
+        """The params and net state as a binary ``.caffemodel``."""
+        from ..proto import caffemodel as cm
+
+        cm.export_caffemodel(path, self.train_net, self.params, self.state)
 
     def restore(self, path: str, feed=None, weights_only: bool = False) -> None:
         """Load a ``.solverstate.npz`` written by either package; with

@@ -2,7 +2,8 @@
 
     python -m sparknet_tpu_torch.tools.serve \
         --model sparknet_tpu_torch/models/prototxt/bvlc_alexnet_deploy.prototxt \
-        [--weights model.npz] [--device cuda|cpu] [--port 8080] [--bench N]
+        [--weights x.caffemodel|w.npz|s.solverstate.npz] [--device cuda|cpu] \
+        [--port 8080] [--bench N]
 
 Holds the net resident on the card (``--device cuda``, the default) and
 micro-batches HTTP requests through it. ``--bench N`` skips the HTTP

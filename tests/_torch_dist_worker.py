@@ -29,7 +29,12 @@ jobs:
   state and the gradients of ``sum(y * dy)``;
 - ``stall``: one sync step of a tiny net, then rank 1 stops itself
   (SIGSTOP: a wedged host whose sockets stay open) while rank 0 steps on
-  into the next all-reduce, where only the heartbeat can end it.
+  into the next all-reduce, where only the heartbeat can end it;
+- ``resume``: ``--auto-resume``'s choice over the processes, each rank
+  looking under its own prefix (``prefixes[rank]``): the path it
+  resolved, then the iteration a sync ``ParallelSolver`` of a tiny net
+  restored from it, or the ``FileNotFoundError`` it raised, to
+  ``<out>/<name>.r<rank>.json``.
 
 Imports no JAX: the tests compare the files with their oracles.
 """
@@ -383,7 +388,29 @@ def run_stall(job, rank, world, out):
     print(f"rank {rank}: UNEXPECTEDLY completed", flush=True)
 
 
-JOBS = {"solver": run_solver, "bert": run_bert, "bn": run_bn, "stall": run_stall}
+def run_resume(job, rank, world, out):
+    from sparknet_tpu_torch.parallel import ParallelSolver
+    from sparknet_tpu_torch.proto import caffe_pb
+    from sparknet_tpu_torch.solver import snapshot
+
+    res = {}
+    try:
+        res["path"] = snapshot.resolve_auto_resume(job["prefixes"][rank], None)
+    except FileNotFoundError as e:
+        res["error"] = str(e)
+    if "path" in res:
+        s = ParallelSolver(caffe_pb.load_solver(job["solver"], is_path=False),
+                           {"data": (8, 8), "label": (8,)},
+                           net_param=caffe_pb.load_net(job["net"], is_path=False),
+                           device="cpu", mode="sync")
+        s.restore(res["path"])
+        res["iter"] = s.iter
+    with open(os.path.join(out, f"{job['name']}.r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+JOBS = {"solver": run_solver, "bert": run_bert, "bn": run_bn, "stall": run_stall,
+        "resume": run_resume}
 
 
 def main():

@@ -356,13 +356,16 @@ def test_bert_app_trains_tiny_on_the_cpu(tmp_path, capsys):
     (["--moe-experts", "4"], "--moe-experts"),
     (["--remat"], "--remat"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
-    (["--auto-resume"], "--auto-resume"),
+    # --auto-resume is ported; the modes without solver state refuse it,
+    # as the JAX app does
+    (["--auto-resume", "--parallel", "tp"], "--auto-resume are Solver-path features"),
     (["--trace", "t.json"], "--trace"),
     (["--profile-dir", "p"], "--profile-dir"),
 ], ids=["parallel", "parallel-tp", "parallel-pp", "parallel-ep", "mesh", "layout", "moe",
         "remat", "orbax", "auto-resume", "trace", "profile-dir"])
 def test_bert_app_refuses_what_it_does_not_port(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if "--auto-resume" in argv else NotImplementedError
+    with pytest.raises(exc, match=match):
         bert_app.main(["--config", "tiny", "--device", "cpu", *argv])
 
 

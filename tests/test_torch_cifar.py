@@ -343,9 +343,21 @@ UNPORTED_ARGV = {
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_ARGV))
-def test_main_refuses_each_flag_it_does_not_port(flag):
-    with pytest.raises(NotImplementedError, match=f"--{flag}="):
-        cifar_app.main(UNPORTED_ARGV[flag] + ["--device", "cpu", "--synthetic"])
+def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch):
+    argv = UNPORTED_ARGV[flag] + ["--device", "cpu", "--synthetic", "--synthetic-n", "500"]
+    if flag == "weights":
+        # ported: a weights file that is not there is named, not skipped
+        with pytest.raises(FileNotFoundError, match="w.caffemodel"):
+            cifar_app.main(argv)
+    elif flag == "auto-resume":
+        # ported: a chain whose only snapshot is torn raises, nothing restarts
+        monkeypatch.setenv("SPARKNET_RUN_DIR", str(tmp_path))
+        (tmp_path / "cifar10_quick_iter_4.solverstate.npz").write_bytes(b"PK\x03\x04 torn")
+        with pytest.raises(tsnapshot.SnapshotError, match="cifar10_quick_iter_4"):
+            cifar_app.main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=f"--{flag}="):
+            cifar_app.main(argv)
 
 
 def test_serial_feed_values_of_the_feed_flags_are_taken():
@@ -361,9 +373,10 @@ def test_grad_compress_needs_a_parallel_mode():
 
 def test_a_native_source_on_disk_raises_instead_of_a_fallback(tmp_path):
     solver_path = _solver_copy(tmp_path)
-    # the train_test net's TRAIN source, an LMDB directory, beside the solver
+    # the train_test net's TRAIN source, an LMDB directory, beside the solver:
+    # read as the JAX app reads it, so one without its data.mdb raises
     (tmp_path / "cifar10_train").mkdir()
-    with pytest.raises(NotImplementedError, match="cifar10_train"):
+    with pytest.raises(FileNotFoundError, match="cifar10_train"):
         cifar_app.build(cifar_app.arg_parser().parse_args(
             ["--solver", solver_path, "--device", "cpu"]))
     # with --synthetic the prototxt's sources are not consulted, as in JAX

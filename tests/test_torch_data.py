@@ -1,6 +1,7 @@
 """The port's data feed against the JAX package's, bit for bit.
 
-``imagenet_dataset`` (the synthetic stand-in and the npz-shard layout),
+``imagenet_dataset`` (the synthetic stand-in, the npz shards and an
+image folder),
 ``ShardedDataset.batches`` with its per-batch lineage rng, the
 ``Transformer`` and ``imagenet_app.make_feed`` must give exactly the
 arrays the JAX package gives (``assert_array_equal``: the same numpy
@@ -8,6 +9,7 @@ draws in the same order), and ``skip(n)`` must land on the same batch.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -117,7 +119,19 @@ def test_npz_shards_load_like_jax_and_unported_layouts_raise(tmp_path):
     assert tds.num_partitions == jds.num_partitions == 2
     for i in range(2):
         _assert_batch_equal(tds.collect_partition(i), jds.collect_partition(i))
+    # the image folders: ported (tests/test_torch_imagenet_layouts.py holds
+    # them to the JAX package's); without PIL they raise naming it, when
+    # the dataset is built, and never fall back to the synthetic set
+    from PIL import Image
+
     folders = tmp_path / "folders"
     os.makedirs(folders / "val" / "n01440764")
-    with pytest.raises(NotImplementedError, match="image folders"):
-        timagenet.imagenet_dataset(str(folders), train=False)
+    Image.fromarray(rng.integers(0, 255, (9, 7, 3)).astype(np.uint8)).save(
+        folders / "val" / "n01440764" / "a.png")
+    tds = timagenet.imagenet_dataset(str(folders), train=False, resize=8)
+    jds = jimagenet.imagenet_dataset(str(folders), train=False, resize=8)
+    _assert_batch_equal(tds.collect_partition(0), jds.collect_partition(0))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "PIL.Image", None)
+        with pytest.raises(ImportError, match="PIL"):
+            timagenet.imagenet_dataset(str(folders), train=False)

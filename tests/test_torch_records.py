@@ -473,5 +473,9 @@ def test_pack_tool_cli_roundtrip(tmp_path, capsys):
     legacy, _ = cifar10_dataset(None, train=True, synthetic_n=64)
     _assert_same_stream(list(legacy.batches(8, shuffle=True, seed=1, epochs=1)),
                         list(train.batches(8, shuffle=True, seed=1, epochs=1)))
-    with pytest.raises(NotImplementedError, match="--source lmdb"):
+    # --source lmdb is ported (tests/test_torch_lmdb.py packs one); without
+    # --data-dir it is a usage error, as in the JAX tool
+    with pytest.raises(SystemExit):
         pack_records.main(["--source", "lmdb", "--out", out])
+    with pytest.raises(SystemExit):
+        jpack_records.main(["--source", "lmdb", "--out", jout])

@@ -258,7 +258,9 @@ def test_serve_tool_reads_npz_weights(nets, tmp_path, capsys):
     for layer, entry in tparams.items():
         for pname, t in entry.items():
             assert torch.equal(eng.params[layer][pname], t)
-    with pytest.raises(ValueError, match="npz"):
+    # a .caffemodel is read too (tests/test_torch_caffemodel.py); one that
+    # is not there is named
+    with pytest.raises(FileNotFoundError, match="w.caffemodel"):
         InferenceEngine.from_files(str(model), "w.caffemodel", device="cpu")
 
 

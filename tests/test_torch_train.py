@@ -310,11 +310,13 @@ def test_imagenet_app_trains_full_width_alexnet_on_the_cpu(tmp_path, capsys):
     (["--parallel", "sync", "--layout", "dp=1"], "--layout"),
     (["--snapshot-format", "orbax"], "--snapshot-format"),
     (["--remat"], "--remat"),
-    (["--weights", "x.caffemodel"], "--weights"),
+    # ported: a weights file that is not there is named, not skipped
+    (["--weights", "x.caffemodel"], "x.caffemodel"),
 ], ids=["parallel", "orbax", "remat", "weights"])
 def test_imagenet_app_refuses_what_it_does_not_port(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        imagenet_app.main(argv + ["--device", "cpu", "--synthetic"])
+    exc = FileNotFoundError if "--weights" in argv else NotImplementedError
+    with pytest.raises(exc, match=match):
+        imagenet_app.main(argv + ["--device", "cpu", "--synthetic", "--synthetic-n", "8"])
 
 
 def test_imagenet_app_needs_a_card_unless_told_cpu(tmp_path):
