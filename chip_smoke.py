@@ -295,6 +295,41 @@ own lines:
    unimportable, ImageData, an encoded-Datum LMDB, the ImageNet folder
    and tar layouts and HDF5Data each raise naming the package when the
    dataset is built.
+19. catalogue: Caffe's whole layer catalogue, under deterministic
+   algorithms. Each of the 36 layer types the port added after the
+   image nets' 13 (42 cases with their options) runs forward and
+   backward on the card and on the CPU, the same port function on the
+   same seeded inputs, params (the fillers' draws; seeded normals for a
+   constant fill) and output cotangents: outputs and every
+   input and param gradient held by relative L2 (1e-5, or 1e-4 for long
+   sums, products and recurrences; each reading printed with its
+   tolerance). The shapes: AlexNet's conv5 activations at batch 256
+   (256 x 13 x 13 x 256) for the element-wise, routing and MVN layers
+   and a registered Python layer; the losses at batch 256 over 1000 or
+   4096 features; FCN-32s's head (``upscore``: Deconvolution 21 -> 21,
+   kernel 64, stride 32, no bias, on an (8, 16, 16, 21) score map; then
+   ``score``: Crop axis 2, offset 19, to 500 x 500); SPP of height 3 and
+   Im2col 3 x 3 on (64, 13, 13, 256); Embed, LSTM and RNN at char_rnn's
+   widths (vocabulary 96, embedding 16, hidden 32) over T 64 x N 256
+   with sequence restarts. Then ``char_rnn_deploy.prototxt`` forward at
+   its declared T 16 x N 1 and at N 256, card vs CPU; a char_rnn
+   training net (its (T, N, 96) logits reshaped to (T*N, 96) for
+   SoftmaxWithLoss) through ``Solver.step`` at T 64 x N 64, 12
+   iterations and 20 timed ones, the captured graph against the eager
+   step (``_fuse_host`` off) bit for bit (losses, params, slots,
+   generator), with ms a step both ways; a step whose Python layer
+   reads the card from the host, whose capture fails three times: each
+   raise leaves ``Solver._graph`` None and, after ``empty_cache()``, the
+   reserved memory at its level before the capture. And LeNet: MNIST
+   idx files of 10,000 and 1,000 digits (a class-dependent pattern and
+   seeded noise) through ``convert_mnist_data``, then ``python -m
+   sparknet_tpu_torch.tools.caffe train --solver=lenet_solver.prototxt
+   --max-iter 300`` as a process in their directory (test_iter 10), whose
+   last TEST accuracy must reach 0.5 (chance 0.1) and whose last
+   ``speed:`` line is printed, and ``caffe test`` of its snapshot, which
+   must print the same accuracy. LeNet comes first, alone on the card;
+   its ``caffe test`` process runs beside the checks above. No kernel of
+   ``ops/csrc`` launches.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -321,9 +356,9 @@ Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue
 
-runs the card and build phases and the phases named (any of the four)
+runs the card and build phases and the phases named (any of the five)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -4827,6 +4862,562 @@ def _caffe_native(tmp, runs):
                          job_a["launches"][2])}
 
 
+# ----------------------------------------------------------- catalogue
+CAT_TOL = 1e-5  # relative L2, card vs CPU: element-wise, routing, losses
+CAT_LONG = 1e-4  # long sums, products and recurrences, reduced in another order
+CAT_CONV5 = (256, 13, 13, 256)  # AlexNet's conv5 activations at batch 256
+CAT_T, CAT_N = 64, 256  # char_rnn's sequences for the recurrent layers
+CHAR_TRAIN = (64, 64)  # T x N of the char_rnn training net
+CHAR_ITERS = 12
+LENET_TRAIN, LENET_TEST, LENET_ITERS = 10000, 1000, 300
+LENET_MIN_ACC = 0.5  # chance is 0.1
+CAT_TIMEOUT = 300  # seconds a caffe process may take
+
+
+def _cat_cases():
+    """(label, layer text, bottoms, tolerance): every layer type the
+    port added after the image nets', at a realistic shape. A bottom is
+    (kind, shape[, arg]): f normal floats, pos in [0.5, 2), lab labels
+    below arg, bits 0/1, prob softmax rows, ids below arg, cont sequence
+    markers, perm a permutation of the batch, const an array."""
+    import numpy as np
+
+    a = CAT_CONV5
+    rec = ('weight_filler { type: "uniform" min: -0.08 max: 0.08 } '
+           'bias_filler { type: "constant" }')
+    h = np.abs(np.random.default_rng(9).normal(size=(1000, 1000))).astype(np.float32)
+    return [
+        ("Sigmoid", 'type: "Sigmoid"', [("f", a)], CAT_TOL),
+        ("TanH", 'type: "TanH"', [("f", a)], CAT_TOL),
+        ("AbsVal", 'type: "AbsVal"', [("f", a)], CAT_TOL),
+        ("BNLL", 'type: "BNLL"', [("f", a)], CAT_TOL),
+        ("ELU", 'type: "ELU" elu_param { alpha: 0.5 }', [("f", a)], CAT_TOL),
+        ("Power", 'type: "Power" power_param { power: 2 scale: 0.5 shift: 1 }',
+         [("f", a)], CAT_TOL),
+        ("Exp", 'type: "Exp" exp_param { base: 2 scale: 0.5 }', [("f", a)], CAT_TOL),
+        ("Log", 'type: "Log" log_param { scale: 2 shift: 0.5 }', [("pos", a)], CAT_TOL),
+        ("Threshold", 'type: "Threshold" threshold_param { threshold: 0.25 }',
+         [("f", a)], CAT_TOL),
+        ("PReLU", 'type: "PReLU"', [("f", a)], CAT_TOL),
+        ("PReLU shared", 'type: "PReLU" prelu_param { channel_shared: true }',
+         [("f", a)], CAT_LONG),
+        ("Bias", 'type: "Bias"', [("f", a)], CAT_LONG),
+        ("Bias bottom", 'type: "Bias"', [("f", a), ("f", (256,))], CAT_LONG),
+        ("Slice", 'type: "Slice" top: "a" top: "b" top: "c" slice_param { '
+         'slice_point: 64 slice_point: 192 }', [("f", a)], CAT_TOL),
+        ("Split", 'type: "Split" top: "a" top: "b"', [("f", a)], CAT_TOL),
+        ("Flatten", 'type: "Flatten"', [("f", a)], CAT_TOL),
+        ("Reshape", 'type: "Reshape" reshape_param { shape { dim: 0 dim: 128 dim: 26 '
+         'dim: -1 } }', [("f", a)], CAT_TOL),
+        ("Tile", 'type: "Tile" tile_param { axis: 1 tiles: 2 }', [("f", a)], CAT_TOL),
+        ("Silence", 'type: "Silence"', [("f", a)], CAT_TOL),
+        ("Reduction", 'type: "Reduction" reduction_param { operation: SUMSQ axis: 1 '
+         'coeff: 0.5 }', [("f", a)], CAT_LONG),
+        ("ArgMax", 'type: "ArgMax" argmax_param { top_k: 5 out_max_val: true }',
+         [("f", (256, 1000))], CAT_TOL),
+        ("ArgMax axis", 'type: "ArgMax" argmax_param { axis: 1 top_k: 3 }', [("f", a)],
+         CAT_TOL),
+        ("MVN", 'type: "MVN"', [("f", a)], CAT_LONG),
+        ("MVN across", 'type: "MVN" mvn_param { across_channels: true }', [("f", a)],
+         CAT_LONG),
+        # FCN-32s's head: upscore 21 -> 21, kernel 64, stride 32, no bias;
+        # then score's Crop to the 500 x 500 image
+        ("Deconvolution", 'type: "Deconvolution" convolution_param { num_output: 21 '
+         'kernel_size: 64 stride: 32 bias_term: false weight_filler { type: "bilinear" } }',
+         [("f", (8, 16, 16, 21))], CAT_LONG),
+        ("Crop", 'type: "Crop" crop_param { axis: 2 offset: 19 }',
+         [("f", (8, 544, 544, 21)), ("f", (8, 500, 500, 3))], CAT_TOL),
+        ("SPP", 'type: "SPP" spp_param { pyramid_height: 3 }', [("f", (64, 13, 13, 256))],
+         CAT_LONG),
+        ("Im2col", 'type: "Im2col" convolution_param { kernel_size: 3 pad: 1 }',
+         [("f", (64, 13, 13, 256))], CAT_LONG),
+        ("BatchReindex", 'type: "BatchReindex"', [("f", (256, 4096)), ("perm", (256,))],
+         CAT_LONG),
+        ("Parameter", 'type: "Parameter" parameter_param { shape { dim: 1000 dim: 4096 } }',
+         [], CAT_TOL),
+        ("SigmoidCrossEntropyLoss", 'type: "SigmoidCrossEntropyLoss"',
+         [("f", (256, 1000)), ("bits", (256, 1000))], CAT_LONG),
+        ("EuclideanLoss", 'type: "EuclideanLoss"', [("f", (256, 4096)), ("f", (256, 4096))],
+         CAT_LONG),
+        ("MultinomialLogisticLoss", 'type: "MultinomialLogisticLoss"',
+         [("prob", (256, 1000)), ("lab", (256,), 1000)], CAT_LONG),
+        ("InfogainLoss", 'type: "InfogainLoss"',
+         [("prob", (256, 1000)), ("lab", (256,), 1000), ("const", h)], CAT_LONG),
+        ("HingeLoss", 'type: "HingeLoss"', [("f", (256, 1000)), ("lab", (256,), 1000)],
+         CAT_LONG),
+        ("HingeLoss L2", 'type: "HingeLoss" hinge_loss_param { norm: L2 }',
+         [("f", (256, 4096)), ("lab", (256,), 4096)], CAT_LONG),
+        ("ContrastiveLoss", 'type: "ContrastiveLoss" contrastive_loss_param { margin: 40 }',
+         [("f", (256, 4096)), ("f", (256, 4096)), ("bits", (256,))], CAT_LONG),
+        ("Python", 'type: "Python" python_param { module: "chip_smoke" layer: "Swish" '
+         'param_str: "1.5" }', [("f", a)], CAT_TOL),
+        ("Embed", 'type: "Embed" embed_param { num_output: 16 input_dim: 96 '
+         'weight_filler { type: "uniform" min: -0.08 max: 0.08 } }',
+         [("ids", (CAT_T, CAT_N), 96)], CAT_LONG),
+        ("LSTM", f'type: "LSTM" recurrent_param {{ num_output: 32 {rec} }}',
+         [("f", (CAT_T, CAT_N, 16)), ("cont", (CAT_T, CAT_N))], CAT_LONG),
+        ("RNN", f'type: "RNN" recurrent_param {{ num_output: 32 {rec} }}',
+         [("f", (CAT_T, CAT_N, 16)), ("cont", (CAT_T, CAT_N))], CAT_LONG),
+    ]
+
+
+
+def _swish(inputs, param_str):
+    import torch
+
+    x = inputs[0]
+    return [float(param_str) * x * torch.sigmoid(x)]
+
+
+def _cat_inputs(bottoms, rng, cache):
+    """numpy arrays, and whether each is a float input to differentiate.
+    A float bottom's normals are drawn once for each (shape, position)
+    and shared by the cases (``cache``)."""
+    import numpy as np
+
+    out = []
+    for pos, b in enumerate(bottoms):
+        kind, shape = b[0], b[1]
+        if kind == "f":
+            key = (shape, pos)
+            if key not in cache:
+                cache[key] = rng.standard_normal(shape, dtype=np.float32)
+            out.append((cache[key], True))
+        elif kind == "pos":
+            out.append((rng.uniform(0.5, 2.0, shape).astype(np.float32), True))
+        elif kind == "prob":
+            z = np.exp(rng.standard_normal(shape))
+            out.append(((z / z.sum(-1, keepdims=True)).astype(np.float32), True))
+        elif kind in ("lab", "ids"):
+            out.append((rng.integers(0, b[2], shape).astype(np.int32), False))
+        elif kind == "bits":
+            out.append((rng.integers(0, 2, shape).astype(np.float32), False))
+        elif kind == "cont":
+            c = np.ones(shape, np.float32)
+            c[0] = 0.0
+            c[shape[0] // 2, ::3] = 0.0  # every third sequence restarts mid-way
+            out.append((c, False))
+        elif kind == "perm":
+            out.append((rng.permutation(shape[0]).astype(np.int32), False))
+        else:  # const: the array itself
+            out.append((shape, False))
+    return out
+
+
+def _cat_run(impl, lp, params, inputs, cots, device):
+    """The layer on ``device``: its outputs, and the gradients of
+    sum(output * cotangent) for the float inputs and the params."""
+    import torch
+
+    from sparknet_tpu_torch.nets.layers import ApplyCtx
+
+    p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    xs = [torch.from_numpy(a).to(device).requires_grad_(g) for a, g in inputs]
+    outs = impl.apply(lp, p, xs, ApplyCtx(train=True))
+    leaves = list(p.values()) + [x for x, (_, g) in zip(xs, inputs) if g]
+    diff = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+    grads = [None] * len(leaves)
+    if diff and leaves:
+        loss = sum((o * c.to(device)).sum() for o, c in diff)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return ([o.detach().cpu() for o in outs],
+            [None if g is None else g.cpu() for g in grads])
+
+
+def _cat_layers():
+    """Each case of :func:`_cat_cases` forward and backward on the card
+    against the CPU: -> the worst reading."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.nets import layers as L
+    from sparknet_tpu_torch.proto.caffe_pb import LayerParameter
+    from sparknet_tpu_torch.proto.textformat import parse
+
+    L.register_python_layer("chip_smoke.Swish", _swish)
+    worst = (0.0, "")
+    covered = set()
+    inputs_cache, cots_cache = {}, {}
+    for i, (label, body, bottoms, tol) in enumerate(_cat_cases()):
+        t0 = time.perf_counter()
+        text = f'name: "{label.replace(" ", "_")}" {body}'
+        if " top:" not in body:
+            text += ' top: "y"'
+        lp = LayerParameter.from_message(parse(text))
+        impl = L.impl_for(lp)
+        covered.add(lp.type)
+        rng = np.random.default_rng(i)
+        inputs = _cat_inputs(bottoms, rng, inputs_cache)
+        shapes = [tuple(a.shape) for a, _ in inputs]
+        out_shapes = impl.infer(lp, shapes)
+        # the fillers' draws, and seeded normals in place of a constant
+        # fill (Bias's and Parameter's zeros, PReLU's 0.25, the biases)
+        params = {k: torch.from_numpy(0.5 * rng.standard_normal(tuple(v.shape),
+                                                                dtype=np.float32))
+                  if bool((v == v.reshape(-1)[0]).all()) else v
+                  for k, v in impl.init(lp, torch.Generator().manual_seed(i), shapes).items()}
+        cots = []
+        for s_ in out_shapes:
+            if tuple(s_) not in cots_cache:
+                cots_cache[tuple(s_)] = torch.from_numpy(
+                    rng.standard_normal(tuple(s_), dtype=np.float32))
+            cots.append(cots_cache[tuple(s_)])
+        card = _cat_run(impl, lp, params, inputs, cots, "cuda")
+        cpu = _cat_run(impl, lp, params, inputs, cots, "cpu")
+        reads = []
+        for what, got, want in (
+                [(f"out{j}", g, w) for j, (g, w) in enumerate(zip(card[0], cpu[0]))]
+                + [(f"d{j}", g, w) for j, (g, w) in enumerate(zip(card[1], cpu[1]))]):
+            if got is None and want is None:  # no path from the outputs (Threshold)
+                continue
+            if got is None or want is None or tuple(got.shape) != tuple(want.shape):
+                raise AssertionError(f"{label} {what}: card {got if got is None else tuple(got.shape)}"
+                                     f" cpu {want if want is None else tuple(want.shape)}")
+            if got.dtype.is_floating_point:
+                r = _rel(got, want) if want.abs().max() > 0 else float(got.abs().max())
+            else:
+                r = float((got != want).sum())
+            if r > tol:
+                raise AssertionError(f"{label} {what}: card vs CPU {r:.3e} > {tol:g}")
+            reads.append(r)
+            worst = max(worst, (r, f"{label} {what}"))
+        if [tuple(o.shape) for o in card[0]] != [tuple(s) for s in out_shapes]:
+            raise AssertionError(f"{label}: outputs {[tuple(o.shape) for o in card[0]]} "
+                                 f"against infer's {out_shapes}")
+        log(f"  {label} {shapes} -> {[tuple(s) for s in out_shapes]}: card vs CPU rel L2 "
+            f"max {max(reads, default=0.0):.3e} over {len(reads)} tensors (tol {tol:g}); "
+            f"{time.perf_counter() - t0:.2f} s")
+    base = {"Convolution", "Pooling", "InnerProduct", "ReLU", "LRN", "Dropout", "Softmax",
+            "SoftmaxWithLoss", "Accuracy", "Concat", "Eltwise", "Scale", "BatchNorm"}
+    missing = set(L.LAYER_IMPLS) - base - covered
+    if missing or len(L.LAYER_IMPLS) != 49:
+        raise AssertionError(f"catalogue: no card case for {sorted(missing)}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _char_rnn_forward():
+    """char_rnn_deploy at its declared T 16 x N 1 and at N 256, card vs CPU."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.models import CHAR_RNN_DEPLOY
+    from sparknet_tpu_torch.nets.torchnet import TorchNet
+    from sparknet_tpu_torch.proto import caffe_pb
+
+    net_param = caffe_pb.load_net(CHAR_RNN_DEPLOY)
+    for n in (None, 256):
+        shapes = None if n is None else {"data": (16, n), "cont": (16, n)}
+        card = TorchNet(net_param, "TEST", shapes, device="cuda")
+        cpu = TorchNet(net_param, "TEST", shapes, device="cpu")
+        t, nn = card.blob_shapes["data"]
+        params, state = cpu.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(nn)
+        ids = torch.from_numpy(rng.integers(0, 96, (t, nn)).astype(np.int32))
+        cont = torch.ones(t, nn)
+        cont[0] = 0.0
+        with torch.inference_mode():
+            want, _ = cpu.apply(params, state, {"data": ids, "cont": cont})
+            got, _ = card.apply({l: {k: v.cuda() for k, v in e.items()}
+                                 for l, e in params.items()}, state,
+                                {"data": ids.cuda(), "cont": cont.cuda()})
+        rels = {b: _rel(got[b], want[b]) for b in ("emb", "hidden", "logits", "prob")}
+        if max(rels.values()) > CAT_LONG or tuple(got["prob"].shape) != (t, nn, 96):
+            raise AssertionError(f"char_rnn T {t} x N {nn}: card vs CPU {rels}")
+        if not torch.isfinite(got["prob"]).all():
+            raise AssertionError("char_rnn: non-finite probabilities")
+        log(f"  char_rnn_deploy T {t} x N {nn}: prob {tuple(got['prob'].shape)}, card vs CPU "
+            f"rel L2 " + ", ".join(f"{b} {r:.2e}" for b, r in rels.items())
+            + f" (tol {CAT_LONG:g})")
+
+
+def _char_rnn_text(host_read=False):
+    """The char_rnn deploy net trained on next characters: the (T, N, V)
+    logits reshaped to (T*N, V) for SoftmaxWithLoss, which takes Caffe's
+    axis 1 whatever ``softmax_param.axis`` says, in both packages.
+    ``host_read``: a Python layer that reads the logits back to the host
+    first (a step that cannot be captured)."""
+    from sparknet_tpu_torch.models import CHAR_RNN_DEPLOY
+
+    text = open(CHAR_RNN_DEPLOY).read()
+    text = text[:text.index('layer {\n  name: "prob"')]
+    text = re.sub(r'input: "(data|cont)"\ninput_shape \{[^}]*\}\n', "", text)
+    top = "logits"
+    if host_read:
+        text += ('layer { name: "peek" type: "Python" bottom: "logits" top: "peeked" '
+                 'python_param { module: "chip_smoke" layer: "HostRead" } }\n')
+        top = "peeked"
+    return text + (f'layer {{ name: "flat" type: "Reshape" bottom: "{top}" top: "flat" '
+                   'reshape_param { shape { dim: -1 dim: 96 } } }\n'
+                   'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "flat" '
+                   'bottom: "label" top: "loss" }\n')
+
+
+class _HostRead:
+    """A Python layer that reads its bottom back to the host (which no
+    capture holds) and passes it on."""
+
+    @staticmethod
+    def infer(lp, in_shapes):
+        return [in_shapes[0]]
+
+    @staticmethod
+    def init(lp, gen, in_shapes):
+        return {}
+
+    @staticmethod
+    def apply(lp, params, inputs, ctx):
+        if float(inputs[0].sum()) == float("inf"):
+            raise AssertionError("unreachable")
+        return [inputs[0]]
+
+
+def _char_solver(text, t, n):
+    from sparknet_tpu_torch.proto import caffe_pb
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    sp = caffe_pb.load_solver('base_lr: 0.5 lr_policy: "step" gamma: 0.5 stepsize: 4 '
+                              'momentum: 0.9 weight_decay: 0.0005 max_iter: 1000',
+                              is_path=False)
+    return Solver(sp, {"data": (t, n), "cont": (t, n), "label": (t * n,)},
+                  net_param=caffe_pb.load_net(text, is_path=False), seed=0, device="cuda")
+
+
+def _char_batches(t, n, count, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        # each sequence steps through a fixed cycle of the vocabulary from a
+        # random start, so the next character can be learned
+        ids = (rng.integers(0, 96, (1, n)) + 37 * np.arange(t + 1)[:, None]) % 96
+        cont = np.ones((t, n), np.float32)
+        cont[0] = 0.0
+        out.append({"data": ids[:-1].astype(np.int32), "cont": cont,
+                    "label": ids[1:].reshape(-1).astype(np.int32)})
+    return out
+
+
+def _char_rnn_train():
+    """The char_rnn training net through ``Solver.step``, the captured
+    graph against the eager step: bit for bit; -> ms a step both ways."""
+    import itertools
+
+    import torch
+
+    t, n = CHAR_TRAIN
+    text = _char_rnn_text()
+    batches = _char_batches(t, n, CHAR_ITERS)
+    runs = {}
+    for fused in (True, False):
+        s = _char_solver(text, t, n)
+        s._fuse_host = fused
+        losses = [float(s.step(iter([b]), 1)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        if fused and (s._graph is None or s._graph.graph is None):
+            raise AssertionError("char_rnn: the step was not captured")
+        ms = _step_ms(s, itertools.repeat(batches[0]), reps=20)
+        runs[fused] = (losses, [(k, v.clone()) for k, v in _leaf_items(s)],
+                       s.rng.get_state(), ms)
+        del s
+    (lg, leaves_g, rng_g, ms_g), (le, leaves_e, rng_e, ms_e) = runs[True], runs[False]
+    # the leaves after the 12 iterations, before the timed steps, are what
+    # the losses came from; the timed steps ran the same batch both ways too
+    diff = [k for (k, a), (_, b) in zip(leaves_g, leaves_e) if not torch.equal(a, b)]
+    if lg != le or diff or not torch.equal(rng_g, rng_e):
+        raise AssertionError(f"char_rnn: graph vs eager not bit for bit: losses {lg} / {le}; "
+                             f"leaves {diff[:5]}")
+    if not lg[-1] < lg[0]:
+        raise AssertionError(f"char_rnn: the loss did not fall: {lg}")
+    log(f"  char_rnn train T {t} x N {n}: {CHAR_ITERS} + 20 iterations graph vs eager bit "
+        f"for bit (losses {lg[0]:.5f} .. {lg[-1]:.5f}, {len(leaves_g)} leaves); step "
+        f"graph {ms_g[0]:.3f} ms (host {ms_g[1]:.3f}), eager {ms_e[0]:.3f} ms "
+        f"(host {ms_e[1]:.3f})")
+    return ms_g[0], ms_e[0]
+
+
+def _capture_repair():
+    """A step whose Python layer reads the card from the host: its capture
+    fails, three times, and after ``empty_cache()`` the card's reserved
+    memory is back at its level before the capture each time."""
+    import torch
+
+    from sparknet_tpu_torch.nets import layers as L
+    from sparknet_tpu_torch.solver.trainer import WARMUP_STEPS
+
+    L.register_python_layer("chip_smoke.HostRead", _HostRead)
+    t, n = CAT_T, CAT_N
+    s = _char_solver(_char_rnn_text(host_read=True), t, n)
+    batches = _char_batches(t, n, WARMUP_STEPS + 1, seed=1)
+    s.step(iter(batches[:WARMUP_STEPS]), WARMUP_STEPS)  # eager, on the side stream
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reads = []
+    for i in range(3):
+        try:  # the first try captures at once, each later one warms up anew
+            s.step(iter(batches[WARMUP_STEPS if i == 0 else 0:]), 1 if i == 0 else
+                   WARMUP_STEPS + 1)
+        except RuntimeError as e:
+            if "SPARKNET_FUSED_STEP=0" not in str(e) or e.__cause__ is None:
+                raise
+        else:
+            raise AssertionError("a step that reads the card was captured")
+        if s._graph is not None:
+            raise AssertionError("the failed capture's _StepGraph is still set")
+        held = torch.cuda.memory_reserved()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reads.append((held, torch.cuda.memory_reserved()))
+    if any(after > before for _, after in reads):
+        raise AssertionError(f"reserved memory after a failed capture and empty_cache: "
+                             f"{[a for _, a in reads]} > {before} before")
+    log(f"  capture repair: 3 failed captures (a Python layer reads the card), _graph None "
+        f"after each; reserved {before / 2 ** 20:.1f} MiB before, "
+        + ", ".join(f"{h / 2 ** 20:.1f} -> {a / 2 ** 20:.1f}" for h, a in reads)
+        + " MiB after each failure -> after empty_cache()")
+    del s
+    return before, reads
+
+
+def _write_mnist(tmp, name, n, rng):
+    """MNIST idx files of ``n`` digits: a bar whose row is the class, a
+    column band whose place is the class, and seeded noise."""
+    import struct
+
+    import numpy as np
+
+    labels = rng.integers(0, 10, n).astype(np.uint8)
+    base = np.zeros((10, 28, 28), np.float32)
+    for c in range(10):
+        base[c, 3 + 2 * c:5 + 2 * c, 4:24] += 90
+        base[c, 4:24, 3 + 2 * c:5 + 2 * c] += 60
+    imgs = np.clip(base[labels] + rng.normal(70, 60, (n, 28, 28)), 0, 255).astype(np.uint8)
+    paths = (os.path.join(tmp, f"{name}-images-idx3-ubyte"),
+             os.path.join(tmp, f"{name}-labels-idx1-ubyte"))
+    with open(paths[0], "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28) + imgs.tobytes())
+    with open(paths[1], "wb") as f:
+        f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+    return paths
+
+
+def _caffe_tool(tmp, argv):
+    """``python -m sparknet_tpu_torch.tools.caffe`` started in ``tmp``:
+    -> (process, its output file's path, start time)."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                                          if p))
+    path = os.path.join(tmp, f"caffe_{argv[0]}.log")
+    with open(path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "sparknet_tpu_torch.tools.caffe",
+                                 *argv], cwd=tmp, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+    return proc, path, time.perf_counter()
+
+
+def _caffe_wait(run, what):
+    """Wait for a :func:`_caffe_tool` process: -> (its output, seconds)."""
+    proc, path, t0 = run
+    try:
+        proc.wait(CAT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(path) as f:
+        out = f.read()
+    if proc.returncode:
+        for line in out.splitlines()[-40:]:
+            log(f"  caffe {what} | {line}")
+        raise AssertionError(f"caffe {what} exited {proc.returncode}")
+    return out, time.perf_counter() - t0
+
+
+def _lenet_train(tmp):
+    """LeNet through the port's tools: MNIST idx files, convert_mnist_data,
+    then ``caffe train`` as a process. -> (the last TEST accuracy as
+    printed, images/s of the last ``speed:`` line)."""
+    import numpy as np
+
+    from sparknet_tpu_torch.models import LENET_SOLVER, LENET_TRAIN_TEST
+    from sparknet_tpu_torch.tools import convert_mnist_data
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    for split, n, db in (("train", LENET_TRAIN, "mnist_train_lmdb"),
+                         ("t10k", LENET_TEST, "mnist_test_lmdb")):
+        imgs, labs = _write_mnist(tmp, split, n, rng)
+        if convert_mnist_data.convert(imgs, labs, os.path.join(tmp, db)) != n:
+            raise AssertionError(f"convert_mnist_data: not {n} records")
+    with open(LENET_TRAIN_TEST) as src, open(os.path.join(tmp, "lenet_train_test.prototxt"),
+                                              "w") as dst:
+        dst.write(src.read())
+    solver = re.sub(r"test_iter: \d+", f"test_iter: {LENET_TEST // 100}",
+                    open(LENET_SOLVER).read())
+    with open(os.path.join(tmp, "lenet_solver.prototxt"), "w") as f:
+        f.write(solver)
+    t_data = time.perf_counter() - t0
+    out, t_train = _caffe_wait(_caffe_tool(tmp, ["train", "--solver=lenet_solver.prototxt",
+                                                 "--max-iter", str(LENET_ITERS)]), "train")
+    accs = re.findall(r"Test net output: accuracy = (\S+)", out)
+    speeds = re.findall(r"speed: .*images/s=(\S+)", out)
+    if not accs or not speeds or "Optimization Done" not in out:
+        raise AssertionError(f"caffe train printed no test accuracy or speed: {out[-2000:]}")
+    if float(accs[-1]) < LENET_MIN_ACC:
+        raise AssertionError(f"LeNet's TEST accuracy {accs[-1]} < {LENET_MIN_ACC}")
+    log(f"  LeNet: {LENET_TRAIN} + {LENET_TEST} digits written and converted in {t_data:.1f} s;"
+        f" caffe train {LENET_ITERS} iterations at batch 64 in {t_train:.1f} s (process), "
+        f"TEST accuracy {accs[0]} -> {accs[-1]} (>= {LENET_MIN_ACC}); speed: {speeds[-1]} "
+        f"images/s (its last chunk)")
+    return accs[-1], float(speeds[-1])
+
+
+def _lenet_test(tmp):
+    """``caffe test`` of the LeNet run's snapshot, started as a process."""
+    return _caffe_tool(tmp, ["test", "--model=lenet_train_test.prototxt",
+                             f"--weights=lenet_iter_{LENET_ITERS}.solverstate.npz",
+                             "--iterations", str(LENET_TEST // 100)])
+
+
+def _lenet_tested(run, acc):
+    """The ``caffe test`` process's accuracy must be the run's last test's."""
+    out, seconds = _caffe_wait(run, "test")
+    again = re.findall(r"^accuracy = (\S+)", out, re.M)
+    if again != [acc]:
+        raise AssertionError(f"caffe test of the snapshot: accuracy {again}, caffe train's "
+                             f"last test {acc}")
+    log(f"  LeNet: caffe test of lenet_iter_{LENET_ITERS}.solverstate.npz: accuracy {again[0]}, "
+        f"as caffe train's last test ({seconds:.1f} s, beside the checks above)")
+
+
+def phase_catalogue(tmp):
+    """Caffe's whole layer catalogue on the card (module docstring, phase
+    catalogue): -> its readings. LeNet's ``caffe train`` runs alone;
+    its ``caffe test`` process runs beside the checks after it."""
+    t_phase = time.perf_counter()
+    smi = _smi()
+    before = _counts()
+    acc, speed = _lenet_train(tmp)
+    test_run = _lenet_test(tmp)
+    try:
+        with _deterministic():
+            worst = _cat_layers()
+            log(f"  catalogue: worst card vs CPU reading {worst[0]:.3e} ({worst[1]})")
+            _char_rnn_forward()
+            ms_graph, ms_eager = _char_rnn_train()
+            _capture_repair()
+    finally:
+        _lenet_tested(test_run, acc)
+    if _counts() != before:
+        raise AssertionError(f"catalogue: kernel launches moved {before} -> {_counts()}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  catalogue on {smi}: LeNet {speed:.0f} images/s, TEST accuracy {acc}; char_rnn "
+        f"step {ms_graph:.3f} ms graph, {ms_eager:.3f} ms eager; {seconds:.1f} s")
+    return {"lenet_images_per_s": speed, "lenet_acc": float(acc),
+            "char_rnn_ms": (ms_graph, ms_eager), "seconds": seconds}
+
+
 # ------------------------------------------------------------------ ab
 AB_FWD = ((BERT_BATCH, BERT_SEQ, "float32"), (8, 512, "float32"),
           (BERT_BATCH, BERT_SEQ, "bfloat16"))
@@ -5006,7 +5597,8 @@ def ab(other):
 # ---------------------------------------------------------------- main
 # the phases ``--phase`` runs alone
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
-               "fused-step": phase_fused_step, "caffe-native": phase_caffe_native}
+               "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
+               "catalogue": phase_catalogue}
 
 
 def main(argv=None) -> int:
@@ -5092,6 +5684,8 @@ def main(argv=None) -> int:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_caffe_") as tmp:
             caffe = phases.run("caffe-native", phase_caffe_native, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_catalogue_") as tmp:
+            phases.run("catalogue", phase_catalogue, tmp)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1

@@ -9,7 +9,8 @@ shapes) and exposes
   variance),
 - ``apply(params, state, batch, train=..., generator=...) -> (blobs,
   new_state)``,
-- ``loss_and_metrics(blobs)``: weighted loss-layer sum + metric tops,
+- ``loss_and_metrics(blobs)``: the loss layers' tops weighted by
+  ``loss_weight`` (1 by default) and summed, and the metric tops,
 - ``dummy_batch()``: zeros shaped like the declared inputs,
 - ``param_specs()``: per-parameter (lr_mult, decay_mult).
 
@@ -177,13 +178,15 @@ class TorchNet:
 
     def param_specs(self) -> Dict[str, Dict[str, Tuple[float, float]]]:
         """Per-param (lr_mult, decay_mult) from the prototxt ``param {}``
-        entries, in the layer's blob order (weight, then bias)."""
+        entries, in the layer's blob order: weight then bias, or the
+        layer's ``PARAM_ORDER`` (PReLU's slope, the recurrent blobs)."""
         specs: Dict[str, Dict[str, Tuple[float, float]]] = {}
         for lp in self.layers:
             if lp.type in DATA_LAYER_TYPES:
                 continue
             sp: Dict[str, Tuple[float, float]] = {}
-            for idx, pname in enumerate(("weight", "bias")):
+            order = getattr(impl_for(lp), "PARAM_ORDER", ("weight", "bias"))
+            for idx, pname in enumerate(order):
                 spec = lp.params[idx] if idx < len(lp.params) else None
                 sp[pname] = (
                     spec.lr_mult if spec else 1.0,

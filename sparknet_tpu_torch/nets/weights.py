@@ -4,8 +4,8 @@ optimizer-slot trees.
 
 A weight collection is ``{layer_name: {param_name: tensor}}``, the tree
 shape of the JAX package's ``WeightCollection``. The port keeps
-Convolution weights OIHW (PyTorch's order); the JAX package keeps them
-HWIO. The npz format is the JAX package's own (keys ``layer::param``,
+Convolution and Deconvolution weights OIHW (PyTorch's order); the JAX
+package keeps them HWIO. The npz format is the JAX package's own (keys ``layer::param``,
 arrays in JAX layout), so one file loads into either package: the
 readers and writers here convert at the boundary. InnerProduct weights
 are (in, out) in both, as are all of ``BertMLM``'s weights.
@@ -30,10 +30,13 @@ WeightCollection = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _conv_layers(net) -> set:
-    """Names of ``net``'s Convolution layers; none for a model built
-    without a prototxt (e.g. ``BertMLM``), whose arrays keep one layout
-    in both packages."""
-    return {lp.name for lp in getattr(net, "layers", ()) if lp.type == "Convolution"}
+    """Names of ``net``'s Convolution and Deconvolution layers, whose
+    weights are OIHW here and HWIO in the JAX package; none for a model
+    built without a prototxt (e.g. ``BertMLM``). Every other param (PReLU's
+    slope, Bias, Embed, the LSTM's and RNN's (in, out) blobs, Parameter)
+    keeps one layout in both packages."""
+    return {lp.name for lp in getattr(net, "layers", ())
+            if lp.type in ("Convolution", "Deconvolution")}
 
 
 def _from_jax_tree(tree, convs: set) -> WeightCollection:

@@ -5,22 +5,26 @@ ships weights as binary ``NetParameter`` protos (the Caffe zoo's
 ``bvlc_alexnet.caffemodel``); this module reads and writes that format
 against the port's weight collections:
 
-- Convolution: Caffe's OIHW is the port's own order (``nets/weights.py``),
-  so conv weights cross as they are (the JAX package transposes to and
-  from its HWIO);
+- Convolution and Deconvolution: Caffe's OIHW is the port's own order
+  (``nets/weights.py``), so their weights cross as they are (the JAX
+  package transposes to and from its HWIO). A Deconvolution's blob is
+  read as a Convolution's ``(cout, cin/g, kh, kw)``, as the JAX package
+  reads it (Caffe's own is ``(cin, cout/g, kh, kw)``);
 - InnerProduct: Caffe's (out, in) with ``in`` flattened CHW <-> the
   port's (in, out) with ``in`` flattened HWC (blobs are NHWC), the rows
-  permuted from the bottom blob's shape;
+  permuted from the bottom blob's shape (only for a 4-D bottom);
+- LSTM and RNN: Caffe's (out, in) matrices <-> the port's (in, out),
+  blob i the layer's ``PARAM_ORDER[i]``;
 - BatchNorm: Caffe's three blobs (mean and variance sums, and the scale
   factor they are divided by) <-> the normalized running ``{"mean",
   "var"}`` of the net state; export writes a factor of 1;
-- Scale and every other layer with params: blob i is the layer's i-th
-  param (``weight``, ``bias``); a legacy 4-D vector blob such as (1, 1,
-  1, C) flattens to the 1-D param.
+- every other layer with params: blob i is the layer's
+  ``PARAM_ORDER[i]`` (``weight``, ``bias`` by default; PReLU's one blob
+  is ``slope``, Bias's is ``bias``); a legacy 4-D vector blob such as
+  (1, 1, 1, C) flattens to the 1-D param.
 
 Import walks the port's net: a layer the file has and the net does not
-(of a type the port cannot build, e.g. LSTM, RNN, Embed, PReLU) is
-skipped. Field numbers follow caffe.proto (BVLC master):
+(by name) is skipped. Field numbers follow caffe.proto (BVLC master):
 NetParameter.name=1, .layer=100 (V2), .layers=2 (V1);
 LayerParameter.name=1/.type=2/.blobs=7; V1LayerParameter.name=4/.blobs=6;
 BlobProto.shape=7/.data=5/.double_data=8/.num..width=1..4;
@@ -131,7 +135,10 @@ def _ip_rows_hwc_to_chw(w: np.ndarray, bottom_shape) -> np.ndarray:
     return w.reshape(w.shape[0], h, wd, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1)
 
 
-_PARAM_ORDER = ("weight", "bias")
+def _param_order(layer_type: str) -> Tuple[str, ...]:
+    from ..nets.layers import LAYER_IMPLS
+
+    return getattr(LAYER_IMPLS.get(layer_type), "PARAM_ORDER", ("weight", "bias"))
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -153,26 +160,32 @@ def import_caffemodel(path_or_bytes, net) -> Tuple[Dict, Dict]:
         if not lb:
             continue
         t = lp.type
-        if t == "InnerProduct":
-            w = _ip_rows_chw_to_hwc(lb[0], net.blob_shapes[lp.bottom[0]])
-            entry = {"weight": _tensor(w.T)}  # (in, out)
-        elif t == "BatchNorm":
+        if t == "BatchNorm":
             scale = float(lb[2].reshape(-1)[0]) if len(lb) > 2 else 1.0
             scale = 1.0 / scale if scale != 0 else 0.0
             state[lp.name] = {"mean": _tensor(lb[0].reshape(-1) * scale),
                               "var": _tensor(lb[1].reshape(-1) * scale)}
             continue
-        elif t == "Convolution":
+        if t == "InnerProduct":
+            w = _ip_rows_chw_to_hwc(lb[0], net.blob_shapes[lp.bottom[0]])
+            entry = {"weight": _tensor(w.T)}  # (in, out)
+            if len(lb) > 1:
+                entry["bias"] = _tensor(lb[1].reshape(-1))
+        elif t in ("Convolution", "Deconvolution"):
             entry = {"weight": _tensor(lb[0])}  # OIHW both sides
+            if len(lb) > 1:
+                entry["bias"] = _tensor(lb[1].reshape(-1))
+        elif t in ("LSTM", "RNN"):
+            # Caffe's (out, in) matrices; the port's are (in, out)
+            entry = {name: _tensor(a.T if a.ndim == 2 else a.reshape(-1))
+                     for name, a in zip(_param_order(t), lb)}
         else:
-            # blob i is the i-th param; a legacy (1, 1, 1, C) vector flattens
-            arr = lb[0]
-            if arr.ndim > 1 and arr.size == arr.shape[-1]:
-                arr = arr.reshape(-1)
-            entry = {"weight": _tensor(arr)}
-        if len(lb) > 1:
-            entry["bias"] = _tensor(lb[1].reshape(-1))
-        params[lp.name] = entry
+            # blob i is PARAM_ORDER[i]; a legacy (1, 1, 1, C) vector flattens
+            entry = {name: _tensor(a.reshape(-1) if a.ndim > 1 and a.size == a.shape[-1]
+                                   else a)
+                     for name, a in zip(_param_order(t), lb)}
+        if entry:
+            params[lp.name] = entry
     return params, state
 
 
@@ -223,8 +236,11 @@ def export_caffemodel(path: str, net, params, state=None) -> None:
                 blobs.append(_host(entry["bias"]))
         elif t == "BatchNorm" and st:
             blobs += [_host(st["mean"]), _host(st["var"]), np.asarray([1.0], np.float32)]
+        elif t in ("LSTM", "RNN") and entry:
+            blobs += [a.T if a.ndim == 2 else a for a in
+                      (_host(entry[name]) for name in _param_order(t) if name in entry)]
         elif entry and t != "InnerProduct":
-            blobs += [_host(entry[name]) for name in _PARAM_ORDER if name in entry]
+            blobs += [_host(entry[name]) for name in _param_order(t) if name in entry]
         if not blobs:
             continue
         layer_msg = (wire.encode_string_field(1, lp.name) + wire.encode_string_field(2, t)

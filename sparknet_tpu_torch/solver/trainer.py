@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import os
 import sys
+import traceback
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
@@ -194,6 +195,25 @@ def _signature(host) -> Tuple:
     """The batch's keys, shapes and dtypes: what a captured step is for."""
     return tuple(tuple((k, tuple(v.shape), str(v.dtype)) for k, v in m.items())
                  for m in _micro(host))
+
+
+def _release_graph(graph: torch.cuda.CUDAGraph, pool, ended: bool,
+                   device: torch.device) -> None:
+    """Give back what a failed capture took: ``reset()`` destroys the
+    graph and, for a capture that ended, releases its private memory pool
+    ``pool``; the pool of a capture whose end failed is released here
+    (``reset()`` leaves it alone). The pool's blocks return to the card at
+    the next ``torch.cuda.empty_cache()``, once no tensor of theirs is
+    alive."""
+    graph.reset()
+    if ended:
+        return
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    for release in (torch._C._cuda_endAllocateToPool, torch._C._cuda_releasePool):
+        try:  # the first raises when the failed end already stopped the routing
+            release(index, pool)
+        except RuntimeError:
+            pass
 
 
 class _StepGraph:
@@ -457,7 +477,17 @@ class Solver:
             if cap.warm < WARMUP_STEPS:
                 cap.warm += 1
                 return self._warm_iteration(cap.inputs)
-            self._capture(cap)
+            failure = self._capture(cap)
+            if failure is not None:
+                # the step's graph and its static buffers go before the
+                # raise, so that a caller who catches it and goes on gets
+                # their memory back (after ``torch.cuda.empty_cache()``)
+                self._graph = cap = None
+                traceback.clear_frames(failure.__traceback__)
+                raise RuntimeError(
+                    f"Solver.step: capturing the train step as a CUDA graph failed "
+                    f"({type(failure).__name__}: {failure}); SPARKNET_FUSED_STEP=0 "
+                    f"runs it eagerly") from failure
         cap.replay()
         return cap.metrics()
 
@@ -476,35 +506,62 @@ class Solver:
         cur.wait_stream(side)
         return metrics
 
-    def _capture(self, cap: _StepGraph) -> None:
+    def _capture(self, cap: _StepGraph) -> Optional[BaseException]:
         """Capture one iteration into ``cap.graph``, with ``self.rng``
         registered so that each replay draws the next Dropout masks of the
         eager stream. The capture runs no kernel: the counters it moved
-        are put back and added at each replay instead. Raises, naming the
-        cause, if the capture fails; nothing falls back to eager."""
+        are put back and added at each replay instead. A capture that
+        fails returns its error, after the partly captured graph is reset
+        and its private memory pool given back to the allocator; nothing
+        falls back to eager (the generator goes on at the state it had
+        before the capture)."""
         counters = launch_counters()
         before = [fn.launches for fn in counters]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.rng)
-        try:
+        failure: Optional[BaseException] = None
+        ended = False
+        metrics: Dict[str, torch.Tensor] = {}
+        packed = None
+        # what ``torch.cuda.graph`` does, with the end of the capture
+        # apart: a capture whose end fails keeps its pool through reset()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        pool = torch.cuda.graph_pool_handle()  # named here: a failed capture has no pool()
+        with torch.cuda.stream(self._side()):
             # "thread_local": a feed's staging thread may keep uploading on
             # its own stream meanwhile (events, pinned copies), which the
             # default "global" mode counts as an error in the capture;
             # this thread's own host reads still fail it
-            with torch.cuda.graph(graph, stream=self._side(),
-                                  capture_error_mode="thread_local"):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
                 metrics = self._fused_iteration(cap.inputs)
                 packed = torch.stack(list(metrics.values())) if metrics else None
-        except Exception as e:
-            raise RuntimeError(
-                f"Solver.step: capturing the train step as a CUDA graph failed "
-                f"({type(e).__name__}: {e}); SPARKNET_FUSED_STEP=0 runs it eagerly") from e
-        finally:
-            moved = [fn.launches - b for fn, b in zip(counters, before)]
-            for fn, b in zip(counters, before):
-                fn.launches = b
+            except Exception as e:
+                failure = e
+            finally:
+                try:
+                    graph.capture_end()
+                    ended = True
+                except Exception as e:
+                    failure = failure or e
+        moved = [fn.launches - b for fn, b in zip(counters, before)]
+        for fn, b in zip(counters, before):
+            fn.launches = b
+        if failure is not None:
+            del metrics, packed
+            _release_graph(graph, pool, ended, self.device)
+            if not ended:
+                # the capture's start put the registered generator in capture
+                # mode, which only a capture that ends takes it out of: the
+                # eager steps go on with a fresh generator at its state
+                rng = torch.Generator(device=self.device)
+                rng.set_state(self.rng.get_state())
+                self.rng = rng
+            return failure
         cap.graph, cap.packed, cap.names = graph, packed, list(metrics)
         cap.launches = [(fn, d) for fn, d in zip(counters, moved) if d]
+        return None
 
     def _push_loss(self, metrics) -> None:
         if self._loss_window.maxlen > 1 and "loss" in metrics:

@@ -10,8 +10,14 @@ layout by ``nets/weights.py``. Then:
 - the port's import of the JAX-exported file is ``from_jax_params`` of
   the JAX import, tensor for tensor, and reads the weights back as they
   were (BatchNorm's scale-factor blob divided out);
-- the legacy V1 ``layers`` field is read, and a layer of a type the port
-  cannot build (here an LSTM) is skipped;
+- the same for a narrow net of the catalogue's layers with params
+  (Deconvolution, PReLU per channel and shared, Bias, Parameter, Embed,
+  LSTM, RNN, and an InnerProduct after a Flatten), whose blobs follow
+  each type's ``PARAM_ORDER`` (the recurrent matrices transposed to
+  Caffe's (out, in)), and the JAX import of the port's file is the
+  port's weights;
+- the legacy V1 ``layers`` field is read, and a layer whose name the net
+  lacks (here an LSTM) is skipped;
 - ``Solver.load_weights`` takes a comma list (later files win) holding a
   ``.caffemodel`` and a ``.solverstate.npz``, and leaves the optimizer
   slots, the iteration and the generator as they were; assigning the
@@ -300,3 +306,94 @@ layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label" top: "
                 assert torch.equal(s.params[layer][n], t), (layer, n)
     finally:
         os.environ.pop("SPARKNET_FUSED_STEP", None)
+
+
+CATALOGUE_NET = """
+name: "catalogue"
+input: "data" input_shape { dim: 2 dim: 4 dim: 5 dim: 5 }
+input: "ids" input_shape { dim: 6 dim: 2 }
+input: "cont" input_shape { dim: 6 dim: 2 }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+        convolution_param { num_output: 6 kernel_size: 3 group: 2
+          weight_filler { type: "gaussian" std: 0.2 } } }
+layer { name: "act" type: "PReLU" bottom: "conv" top: "conv" }
+layer { name: "act_shared" type: "PReLU" bottom: "conv" top: "conv"
+        prelu_param { channel_shared: true } }
+layer { name: "shift" type: "Bias" bottom: "conv" top: "conv" }
+layer { name: "up" type: "Deconvolution" bottom: "conv" top: "up"
+        convolution_param { num_output: 4 kernel_size: 4 stride: 2 group: 2
+          weight_filler { type: "gaussian" std: 0.2 }
+          bias_filler { type: "gaussian" std: 0.1 } } }
+layer { name: "flat" type: "Flatten" bottom: "up" top: "flat" }
+layer { name: "fc" type: "InnerProduct" bottom: "flat" top: "fc"
+        inner_product_param { num_output: 3 weight_filler { type: "xavier" } } }
+layer { name: "table" type: "Parameter" top: "table"
+        parameter_param { shape { dim: 3 dim: 7 } } }
+layer { name: "embed" type: "Embed" bottom: "ids" top: "emb"
+        embed_param { num_output: 5 input_dim: 11
+          weight_filler { type: "gaussian" std: 1.0 } } }
+layer { name: "lstm" type: "LSTM" bottom: "emb" bottom: "cont" top: "h"
+        recurrent_param { num_output: 4 weight_filler { type: "xavier" } } }
+layer { name: "rnn" type: "RNN" bottom: "h" bottom: "cont" top: "o"
+        recurrent_param { num_output: 3 weight_filler { type: "xavier" } } }
+"""
+
+
+def test_the_catalogues_layouts_are_the_jax_bytes_both_ways(tmp_path, J):
+    tnet = TorchNet(tpb.load_net(CATALOGUE_NET, is_path=False), "TEST", device="cpu")
+    jnet = J.XLANet(J.pb.load_net(CATALOGUE_NET, is_path=False), "TEST")
+    params, state = tnet.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    params = {layer: {k: torch.randn(t.shape, generator=g) for k, t in e.items()}
+              for layer, e in params.items()}
+    assert set(params) == {"conv", "act", "act_shared", "shift", "up", "fc", "table",
+                           "embed", "lstm", "rnn"}
+    assert set(params["rnn"]) == {"weight", "bias", "hidden_weight", "out_weight", "out_bias"}
+    jparams = tweights.to_jax_params(params, tnet)
+    tpath, jpath = str(tmp_path / "t.caffemodel"), str(tmp_path / "j.caffemodel")
+    tcm.export_caffemodel(tpath, tnet, params, state)
+    J.cm.export_caffemodel(jpath, jnet, jparams, {})
+    with open(tpath, "rb") as a, open(jpath, "rb") as b:
+        assert a.read() == b.read()
+    _, blobs = tcm.load_caffemodel(tpath)
+    # Caffe's blob order and layouts: PReLU's one blob is its slope, the
+    # LSTM's are (4H, in), (4H), (4H, H)
+    assert len(blobs["act"]) == 1 and blobs["act"][0].shape == (6,)
+    assert blobs["act_shared"][0].shape == (1,) and blobs["shift"][0].shape == (6,)
+    assert [b.shape for b in blobs["lstm"]] == [(16, 5), (16,), (16, 4)]
+    np.testing.assert_array_equal(blobs["lstm"][2], params["lstm"]["hidden_weight"].numpy().T)
+    assert [b.shape for b in blobs["rnn"]] == [(3, 4), (3,), (3, 3), (3, 3), (3,)]
+    assert blobs["up"][0].shape == (4, 3, 4, 4)  # as a Convolution's (cout, cin/g, kh, kw)
+    # the port imports the JAX file as from_jax_params of the JAX import ...
+    got, _ = tcm.import_caffemodel(jpath, tnet)
+    jp, js = J.cm.import_caffemodel(jpath, jnet)
+    want, _ = tweights.from_jax_params(jp, js, tnet)
+    assert set(got) == set(want) == set(params)
+    for layer, entry in want.items():
+        assert set(got[layer]) == set(entry) == set(params[layer])
+        for k, t in entry.items():
+            assert got[layer][k].is_contiguous()
+            assert torch.equal(got[layer][k], t), (layer, k)
+            assert torch.equal(got[layer][k], params[layer][k]), (layer, k)
+    # ... and the JAX package imports the port's file as the port's weights
+    jp2, _ = J.cm.import_caffemodel(tpath, jnet)
+    for layer, entry in jparams.items():
+        for k, a in entry.items():
+            np.testing.assert_array_equal(np.asarray(jp2[layer][k]), a, err_msg=f"{layer}.{k}")
+
+
+def test_an_inner_product_after_a_flatten_takes_caffes_rows_as_they_are(J):
+    """The row permutation CHW -> HWC is made for a 4-D bottom only, in
+    both packages: after a Flatten the bottom is 2-D and the rows of a
+    real Caffe file, flattened C*H*W, are taken in that order (ROADMAP C,
+    reference-side)."""
+    tnet = TorchNet(tpb.load_net(CATALOGUE_NET, is_path=False), "TEST", device="cpu")
+    w = np.arange(3 * 4 * 8 * 8, dtype=np.float32).reshape(3, -1)
+    buf = twire.encode_bytes_field(100, twire.encode_string_field(1, "fc")
+                                   + twire.encode_bytes_field(7, _blob(w)))
+    got, _ = tcm.import_caffemodel(buf, tnet)
+    jnet = J.XLANet(J.pb.load_net(CATALOGUE_NET, is_path=False), "TEST")
+    jp, _ = J.cm.import_caffemodel(buf, jnet)
+    assert tnet.blob_shapes["flat"] == (2, 8 * 8 * 4)
+    np.testing.assert_array_equal(got["fc"]["weight"].numpy(), w.T)
+    np.testing.assert_array_equal(np.asarray(jp["fc"]["weight"]), w.T)

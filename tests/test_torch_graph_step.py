@@ -13,7 +13,10 @@ and 8 through the same step run eagerly (``SPARKNET_FUSED_STEP=0``): params,
 slots and the generator's state bit for bit (the same kernels on the
 same inputs, the masks drawn from the registered generator); a step
 that reads the card from the host cannot be captured and raises, naming
-the cause; a thread that stages batches on its own stream during the
+the cause, with the step's graph dropped and, after ``empty_cache()``,
+the card's reserved memory back at its level before the capture (on
+the CPU, the drop is held with a capture replaced by one that fails); a
+thread that stages batches on its own stream during the
 capture leaves it alone; a new batch signature captures a new graph.
 """
 
@@ -113,6 +116,68 @@ def test_a_step_that_reads_the_card_cannot_be_captured_and_raises(cuda_device):
     s.step(feed, WARMUP_STEPS)  # the warm-up runs eagerly
     with pytest.raises(RuntimeError, match="capturing the train step as a CUDA graph"):
         s.step(feed, 1)
+    assert s._graph is None
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_gives_its_memory_back(cuda_device):
+    """After the planted failure above and ``empty_cache()``, the card
+    holds no more than before the capture: the partly captured graph's
+    private pool and the step's static buffers are released."""
+    def host_read(batch):
+        if float(batch["data"].sum()) > 1e9:
+            raise AssertionError("unreachable")
+        return batch
+
+    s = _solver(cuda_device, batch=4096, batch_transform=host_read)
+    feed = _feed(4096)
+    s.step(feed, WARMUP_STEPS)
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda_device)
+    for _ in range(3):
+        # each failure gives back what it took; each later try warms up anew,
+        # its Dropout drawing eagerly from the generator the failure left
+        with pytest.raises(RuntimeError, match="SPARKNET_FUSED_STEP=0") as e:
+            s.step(feed, WARMUP_STEPS + 1)
+        assert s._graph is None and e.value.__cause__ is not None
+        del e
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_reserved(cuda_device) <= before
+
+
+def test_a_failed_capture_drops_the_graph_before_it_raises(monkeypatch):
+    """On the CPU, with the capture replaced by one that fails: the step's
+    graph and buffers are dropped, the error names the cause and the
+    eager switch, and the cause's frames hold no tensors."""
+    from sparknet_tpu_torch.solver import trainer
+
+    s = _solver("cpu")
+    host = next(_feed())
+    cap = s._graph = trainer._StepGraph(trainer._signature(host), host, s.device)
+    cap.warm = WARMUP_STEPS
+    held = []
+
+    def failing_capture(cap):
+        buffers = cap.buffers  # what a frame of the failed step would hold
+        try:
+            raise ValueError("operation not permitted when stream is capturing")
+        except ValueError as e:
+            held.append(e)
+            return e
+
+    monkeypatch.setattr(s, "_capture", failing_capture)
+    del cap
+    with pytest.raises(RuntimeError, match="ValueError: operation not permitted.*"
+                                           "SPARKNET_FUSED_STEP=0") as e:
+        s._graph_iteration(host, load=True)
+    assert s._graph is None
+    assert e.value.__cause__ is held[0]
+    tb = held[0].__traceback__
+    while tb is not None:
+        assert "buffers" not in tb.tb_frame.f_locals
+        tb = tb.tb_next
 
 
 @pytest.mark.cuda

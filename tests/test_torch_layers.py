@@ -119,8 +119,11 @@ def test_grouped_conv_splits_channels_in_contiguous_groups():
 
 
 def test_unported_layer_type_raises_naming_the_layer():
-    _, tlp = _pair('type: "Slice"')
-    with pytest.raises(NotImplementedError, match="'l'.*Slice"):
+    """A type that neither package builds (the port has all 49 of the JAX
+    package's) raises, naming the layer and the type."""
+    _, tlp = _pair('type: "WarpCTCLoss"')
+    assert "WarpCTCLoss" not in JL.LAYER_IMPLS
+    with pytest.raises(NotImplementedError, match="'l'.*WarpCTCLoss"):
         TL.impl_for(tlp)
 
 
