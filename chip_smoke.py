@@ -330,6 +330,41 @@ own lines:
    must print the same accuracy. LeNet comes first, alone on the card;
    its ``caffe test`` process runs beside the checks above. No kernel of
    ``ops/csrc`` launches.
+20. telemetry: observability and remat, f32 without TF32 unless bf16 is
+   named. ImageNetApp (AlexNet at batch 256, 12 iterations, a test
+   every 6) as an ``--app-job`` process with ``--trace`` and
+   ``--profile-dir`` and the Python feed in 2 forked workers (the
+   merged Chrome trace parses and holds the phases and both workers'
+   spans; the timeline's rows are at least 90% of the loop's wall; the
+   ``lrn_*`` kernels of the profiler's trace equal the launch counters'
+   increase over the run); the two-rank run below goes beside it (the
+   app's feed, not the card, bounds its speed). Then ``--remat``
+   through the captured step, under
+   deterministic algorithms: AlexNet at 256 and ResNet-50 at 32, 6
+   iterations on 6 device-resident batches, remat against plain bit for
+   bit (params, net state, every metric), peak memory allocated over the
+   6 iterations and ms a step (10 replays) both ways, plain's also with
+   the timeline's fence (the fence's cost on a step the card bounds),
+   remat's
+   ``lrn_rows_train`` launches twice plain's, and 5 remat replays under
+   ``torch.profiler`` after one it traces and drops, their LRN and
+   flash kernels grouped by replay (the ``cudaGraphLaunch`` each
+   belongs to) and held replay by replay to the counters' increase a
+   replay; BERT-base at 32 x 128 through BertApp's
+   ``build`` with ``--remat``, f32 and bf16, dropout 0.1, 6 iterations:
+   the losses bit for bit, the flash forward twice per layer and step
+   (dq and dk/dv once), peak memory both ways, held to the profiler.
+   Then ``time_net`` on AlexNet at 256, f32 and bf16, with
+   ``--per-layer``, and ``caffe time`` on LeNet (TFLOP/s and MFU against
+   ``utils/profiling.PEAK_FLOPS``); the AlexNet server's ``/metrics``
+   (Prometheus text: every sample line parses; the registry's and the
+   serving families), ``/dash`` (HTML with its sections) and
+   ``/healthz`` (``anomalies``); and two ranks on cuda:0 over gloo
+   (cifar10_quick, ``--parallel local --tau auto``, the heartbeat's
+   stats frame every second), rank 1 planted slow: rank 0's aggregate
+   holds both ranks' phase shares, the straggler detector fires on rank
+   1, and rank 0's τ controller takes the advisory. Each part's seconds
+   are logged.
 
 Then one JSON line of per-kernel numbers: for ``lrn_fwd`` "ms",
 "plain_ms", "library_ms" and "bound_ms" are per serving bucket-32
@@ -347,18 +382,20 @@ TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 three TF32 terms: that design's bound is printed beside it); "launches"
 counts the main paths' runs (serving, train, alexnet-local, feed,
 googlenet, fused-step's AlexNet graph run, every rank of the
-multiprocess phase's AlexNet runs, and caffe-native's run A and engines
-for LRN; bert-train, fused-step's
-BERT graph run and every rank of the bert-processes phase for flash).
+multiprocess phase's AlexNet runs, caffe-native's run A and engines,
+and telemetry's app runs, remat runs (a recompute launches again),
+time_net runs and server for LRN; bert-train, fused-step's BERT graph
+run, every rank of the bert-processes phase and telemetry's BERT remat
+runs for flash).
 A kernel inside a captured step is counted at each replay (the graph
 adds what its capture counted).
 Last comes the result line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry
 
-runs the card and build phases and the phases named (any of the five)
+runs the card and build phases and the phases named (any of the six)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -5594,11 +5631,467 @@ def ab(other):
     return 0
 
 
+# ------------------------------------------------------------- telemetry
+TEL_ITERS = 12  # ImageNetApp iterations of each traced run
+TEL_REMAT_ITERS = 6
+TEL_APP_TIMEOUT = 240  # seconds the app run may take
+TEL_ATTRIBUTED = 0.90  # the timeline's rows must cover this share of the loop
+TEL_RANK_ROUNDS = 20  # local rounds (tau 2-4) of the two-rank straggler run
+TEL_TRACED_REPLAYS = 5  # remat replays under torch.profiler, held one by one
+
+
+def _tel_solver_file(tmp, net, iters, test_interval, base_lr=0.01):
+    path = os.path.join(tmp, f"tel_{os.path.basename(net)}_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{net}"\ntest_iter: 1\ntest_interval: {test_interval}\n'
+                f'base_lr: {base_lr}\nlr_policy: "fixed"\ndisplay: 6\nmax_iter: {iters}\n'
+                "momentum: 0.9\nweight_decay: 0.0005\n")
+    return path
+
+
+def _tel_app_start(tmp):
+    """ImageNetApp traced and profiled, an ``--app-job`` process set
+    going. -> (the run, the monotonic time it went)."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    solver = _tel_solver_file(tmp, ALEXNET_TRAIN_VAL, TEL_ITERS, 6)
+    argv = ["--arch", "alexnet", "--synthetic", "--synthetic-n", "512", "--solver", solver,
+            "--device", "cuda", "--native-loader", "off", "--data-workers", "2", "--trace",
+            os.path.join(tmp, "trace.json"), "--profile-dir", os.path.join(tmp, "prof")]
+    run = _cn_start(tmp, "tel_app")
+    return run, _cn_go(run, os.path.join(tmp, "cwd_app"), argv)
+
+
+def _tel_app_wait(run, t0):
+    """-> (its output, its launches, its last speed line)."""
+    res = _cn_wait({"app": run}, t0 + TEL_APP_TIMEOUT)["app"]
+    if res[0] != 0:
+        raise AssertionError(f"ImageNetApp traced + profiled: exit {res[0]}")
+    speeds = re.findall(r"speed: (.*)", res[1])
+    launches = _cn_job("app", res[1])["launches"]
+    log(f"  ImageNetApp traced + profiled: {time.monotonic() - t0:.1f} s, last speed: "
+        f"{speeds[-1]}, LRN launches {launches}")
+    return res[1], launches, speeds[-1]
+
+
+def _tel_check_trace(tmp, text, launches):
+    """The traced and profiled run: its Chrome trace, its breakdown, and
+    its profiler trace's LRN kernels against its launch counters."""
+    with open(os.path.join(tmp, "trace.json")) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    names = {e["name"] for e in events}
+    want = {"input_wait", "device_put", "compiled_step", "eval", "pipeline.produce"}
+    if not want <= names:
+        raise AssertionError(f"trace: phases {sorted(want - names)} missing")
+    pids = {e["pid"] for e in events if e["name"] == "pipeline.produce"}
+    table = text[text.index("telemetry: step-time breakdown"):].splitlines()
+    for line in table[:10]:
+        log(f"  | {line}")
+    m = re.search(r"attributed ([\d.]+)% of ([\d.]+)s loop wall time", text)
+    if m is None or float(m.group(1)) / 100 < TEL_ATTRIBUTED:
+        raise AssertionError(f"timeline attributed {m and m.group(1)}% < "
+                             f"{100 * TEL_ATTRIBUTED:.0f}%")
+    prof = os.path.join(tmp, "prof")
+    files = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".json")]
+    with open(files[0]) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    seen = (sum("lrn_fwd_rows" in k for k in kernels), sum("lrn_bwd_rows" in k for k in kernels))
+    moved = (launches[0] + launches[1], launches[2])
+    log(f"  Chrome trace: {len(events)} events, {len(pids)} worker processes merged; "
+        f"timeline {m.group(1)}% of {m.group(2)} s; profiler trace ({os.path.getsize(files[0])} "
+        f"bytes): {seen[0]} lrn_fwd_rows, {seen[1]} lrn_bwd_rows kernels = counters {moved}")
+    if seen != moved or len(pids) != 2:
+        raise AssertionError(f"profiler LRN kernels {seen} != counters {moved}, or "
+                             f"{len(pids)} worker pids")
+
+
+def _traced_per_replay(label, solver, feed, replays):
+    """``replays`` replays of ``solver``'s captured step under
+    ``torch.profiler``, after one it traces and drops (its schedule's
+    warm-up: a window's first replay has lost records while tracing
+    started), its trace's LRN and flash kernels
+    grouped by the ``cudaGraphLaunch`` they belong to (the correlation id
+    the trace gives both), each replay held to the launch counters'
+    increase a replay. A replay runs every node of its graph: the phase
+    fails if any replay's trace holds another count, or if the trace
+    misses a replay. -> {kernel: a replay's}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    before = _counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=replays, repeat=1)) as prof:
+        for _ in range(1 + replays):
+            solver.step(feed, 1)
+            torch.cuda.synchronize()
+            prof.step()
+    moved = {k: v - before[k] for k, v in _counts().items()}
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name))["traceEvents"]
+    launches = [e["args"]["correlation"] for e in events
+                if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})]
+    kernels = {}
+    for e in events:
+        cid = e.get("args", {}).get("correlation")
+        if e.get("cat") == "kernel" and cid is not None:
+            kernels.setdefault(cid, []).append(e["name"])
+    out = {}
+    for wrappers, part in TRACE_KERNELS:
+        want, rest = divmod(sum(moved[w] for w in wrappers), 1 + replays)
+        per = [sum(part in k for k in kernels.get(cid, ())) for cid in launches]
+        if rest or per != [want] * replays:
+            raise AssertionError(f"{label}: {part}* kernels by traced replay {per}, the "
+                                 f"launch counters {'+'.join(wrappers)} {want} a replay "
+                                 f"({1 + replays} replays, remainder {rest})")
+        out[part] = want
+    return out
+
+
+def _tel_tree(tree):
+    return {l: {n: t.detach().cpu().clone() for n, t in e.items()} for l, e in tree.items()}
+
+
+def _tel_equal(label, a, b):
+    import torch
+
+    bad = [f"{l}.{n}" for l, e in a.items() for n, t in e.items()
+           if not torch.equal(t, b[l][n])]
+    if bad:
+        raise AssertionError(f"{label}: remat and plain differ in {bad[:5]} ({len(bad)})")
+
+
+def _tel_remat_run(make, label, tags):
+    """``make(remat)``'s ``(solver, host batches)`` through the captured
+    step on those batches (device-resident), plain then remat,
+    deterministic: every metric of every iteration, params and net state
+    bit for bit; peak memory over the run, ms a step (10 replays; plain's
+    also with the timeline's fence), the launch counters' increase;
+    TEL_TRACED_REPLAYS remat replays held to the profiler; the seconds
+    each way took."""
+    import itertools
+
+    import torch
+
+    from sparknet_tpu_torch.telemetry.timeline import NULL, Timeline
+
+    res = {}
+    for remat in (False, True):
+        t0 = time.perf_counter()
+        with _deterministic():
+            solver, batches = make(remat)
+            feed = [solver._put_batch(b) for b in batches]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = _counts()
+            losses = [tuple(float(v) for v in solver.step(iter([b]), 1).values())
+                      for b in feed]
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            moved = {k: v - before[k] for k, v in _counts().items()}
+            params, state = _tel_tree(solver.params), _tel_tree(solver.state)
+            ms, _ = _step_ms(solver, itertools.repeat(feed[-1]), 10)
+            fence = None
+            if not remat:  # the timeline's fence: the same replays, fenced
+                solver.timeline = Timeline()
+                fence, _ = _step_ms(solver, itertools.repeat(feed[-1]), 10)
+                solver.timeline = NULL
+            if remat:
+                traced = _traced_per_replay(f"{label} remat", solver,
+                                            itertools.repeat(feed[-1]), TEL_TRACED_REPLAYS)
+            res[remat] = dict(losses=losses, params=params, state=state, peak=peak, ms=ms,
+                              moved=moved, fence=fence, s=time.perf_counter() - t0)
+            del solver, feed
+            gc.collect()
+            torch.cuda.empty_cache()
+    plain, remat = res[False], res[True]
+    if plain["losses"] != remat["losses"] or not all(
+            math.isfinite(v) for m in remat["losses"] for v in m):
+        raise AssertionError(f"{label}: metrics plain {plain['losses']} remat {remat['losses']}")
+    _tel_equal(f"{label} params", plain["params"], remat["params"])
+    _tel_equal(f"{label} state", plain["state"], remat["state"])
+    log(f"  {label}: remat = plain bit for bit over {len(remat['losses'])} iterations "
+        f"(metrics {remat['losses'][0]} .. {remat['losses'][-1]}, params, net state); peak "
+        f"memory allocated {plain['peak']:.3f} -> {remat['peak']:.3f} GiB, "
+        f"{plain['ms']:.3f} -> {remat['ms']:.3f} ms a step (plain with the timeline's "
+        f"fence {plain['fence']:.3f}); launches plain "
+        + ", ".join(f"{k} {plain['moved'][k]}" for k in tags) + "; remat "
+        + ", ".join(f"{k} {remat['moved'][k]}" for k in tags)
+        + f"; traced remat replays, kernels a replay {traced}; {plain['s']:.1f} s plain, "
+        f"{remat['s']:.1f} s remat")
+    return {"plain": plain, "remat": remat, "moved": {
+        k: plain["moved"][k] + remat["moved"][k] for k in plain["moved"]}}
+
+
+def _tel_remat(tmp):
+    """--remat through the graph step: AlexNet at 256, ResNet-50 at 32,
+    BERT-base at 32 x 128 f32 and bf16 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.apps import bert_app
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL, RESNET50_TRAIN_VAL
+    from sparknet_tpu_torch.proto import caffe_pb
+    from sparknet_tpu_torch.solver.trainer import Solver
+
+    out = {}
+    for name, net, batch, hw in (("AlexNet", ALEXNET_TRAIN_VAL, 256, 227),
+                                 ("ResNet-50", RESNET50_TRAIN_VAL, 32, 224)):
+        path = _tel_solver_file(tmp, net, 1000, 1000)
+        shapes = {"data": (batch, hw, hw, 3), "label": (batch,)}
+
+        batches = [_mp_batch(7, i, batch, hw, 1000) for i in range(TEL_REMAT_ITERS)]
+
+        def make(remat, path=path, shapes=shapes, batches=batches):
+            return Solver(caffe_pb.load_solver(path), shapes, solver_dir=tmp, seed=0,
+                          device="cuda", remat=remat), batches
+
+        r = _tel_remat_run(make, f"{name} batch {batch}", ("lrn_rows_train", "lrn_rows_bwd"))
+        if name == "AlexNet":
+            p, q = r["plain"]["moved"], r["remat"]["moved"]
+            if q["lrn_rows_train"] != 2 * p["lrn_rows_train"] or (
+                    q["lrn_rows_bwd"] != p["lrn_rows_bwd"]
+                    or p["lrn_rows_train"] != 2 * TEL_REMAT_ITERS):
+                raise AssertionError(f"AlexNet LRN launches plain {p}, remat {q}")
+        out[name] = r
+    for bf16 in (False, True):
+        dt = "bf16" if bf16 else "f32"
+
+        def make(remat, bf16=bf16):
+            # the same seed: the same weights and feed both ways
+            args = bert_app.make_args(config="base", seq_len=BERT_SEQ, batch_size=BERT_BATCH,
+                                      max_iter=1000, device="cuda", bf16=bf16, remat=remat)
+            solver, feed, cfg = bert_app.build(args)
+            if cfg.hidden_dropout != 0.1 or cfg.attention_dropout != 0.1:
+                raise AssertionError(f"BERT-base dropout {cfg}")
+            return solver, [next(feed) for _ in range(TEL_REMAT_ITERS)]
+
+        r = _tel_remat_run(make, f"BERT-base {BERT_BATCH} x {BERT_SEQ} {dt}", FLASH_NAMES)
+        p, q = r["plain"]["moved"], r["remat"]["moved"]
+        want = 12 * TEL_REMAT_ITERS
+        if (p["flash_fwd"], q["flash_fwd"], q["flash_bwd_dq"], q["flash_bwd_dkv"]) != (
+                want, 2 * want, want, want):
+            raise AssertionError(f"BERT flash launches plain {p}, remat {q}")
+        out[f"BERT {dt}"] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tel_time_net(tmp):
+    """time_net on AlexNet at 256 (f32, bf16, per layer), caffe time on LeNet."""
+    import contextlib
+    import io
+
+    from sparknet_tpu_torch.models import ALEXNET_SOLVER, LENET_SOLVER
+    from sparknet_tpu_torch.tools import caffe as tcaffe
+    from sparknet_tpu_torch.tools import time_net
+
+    out = {}
+    for argv, label in ((["--solver", ALEXNET_SOLVER, "--iters", "10", "--per-layer"],
+                         "AlexNet f32"),
+                        (["--solver", ALEXNET_SOLVER, "--iters", "10", "--per-layer", "--bf16"],
+                         "AlexNet bf16"),
+                        (["time", "--solver=" + LENET_SOLVER, "--iterations=10"],
+                         "LeNet caffe time")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = (tcaffe.main(argv) if argv[0] == "time" else time_net.main(argv))
+        log(f"  {label}:")
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        if res["platform"] != "cuda" or res["train_step_ms"] <= 0:
+            raise AssertionError(f"{label}: {res}")
+        if label.startswith("AlexNet") and ("mfu" not in res or "train_tflops" not in res):
+            raise AssertionError(f"{label}: no TFLOP/s or MFU: {res}")
+        out[label] = {k: v for k, v in res.items() if k != "per_layer"}
+    return out
+
+
+_PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+                          r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? -?[0-9.e+\-Inf]+'
+                          r'( # \{trace_id="[^"]*"\} \S+ \S+)?$')
+
+
+def _tel_server():
+    """The AlexNet server's /metrics, /dash and /healthz."""
+    import http.client
+
+    import numpy as np
+
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.serve.metrics import ServeMetrics
+    from sparknet_tpu_torch.serve.server import InferenceServer
+    from sparknet_tpu_torch.telemetry import anomaly
+
+    metrics = ServeMetrics((1, 8))
+    eng = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=(1, 8),
+                                     metrics=metrics)
+    server = InferenceServer(eng, metrics=metrics, port=0, model_name="bvlc_alexnet")
+    if not server.batcher.wait_ready(300):
+        raise AssertionError("batcher worker did not finish its warmup")
+    server.start()
+
+    def get(path):
+        conn = http.client.HTTPConnection(server.host, server.port, timeout=60)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        conn.close()
+        return resp.status, resp.getheader("Content-Type") or "", body
+
+    try:
+        client = server.client(timeout=120)
+        x = np.random.default_rng(0).normal(size=(3,) + eng._row_shapes["data"])
+        code, _ = client.classify(x.astype(np.float32), top_k=5)
+        anomaly.fire("loss_spike", value=9.0, emit=lambda line: None)
+        st, ctype, text = get("/metrics")
+        samples = [l for l in text.splitlines() if l and not l.startswith("#")]
+        bad = [l for l in samples if not _PROM_SAMPLE.match(l)]
+        families = {l.split()[2] for l in text.splitlines() if l.startswith("# TYPE")}
+        want = {"sparknet_anomalies_total", "sparknet_serve_requests_total",
+                "sparknet_serve_request_latency_seconds",
+                "sparknet_serve_device_latency_seconds"}
+        if st != 200 or code != 200 or bad or not want <= families:
+            raise AssertionError(f"/metrics {st}: {bad[:3]} unparsed, families missing "
+                                 f"{sorted(want - families)}")
+        st2, ctype2, page = get("/dash")
+        sections = re.findall(r"<section><h2>([^<]*)", page)
+        st3, _, health = get("/healthz")
+        health = json.loads(health)
+        if (st2 != 200 or not ctype2.startswith("text/html") or len(sections) != 4
+                or st3 != 200 or [a["kind"] for a in health["anomalies"]] != ["loss_spike"]):
+            raise AssertionError(f"/dash {st2} {sections}; /healthz {st3} {health}")
+        log(f"  /metrics: {len(samples)} samples of {len(families)} families, all parsed; "
+            f"/dash: {len(page)} bytes, sections {sections}; /healthz: status "
+            f"{health['status']}, anomalies {[a['kind'] for a in health['anomalies']]}")
+    finally:
+        server.stop()
+        anomaly.clear()
+
+
+def _rank_telemetry(job, rank, world, tmp):
+    """cifar10_quick ``--parallel local --tau auto`` on cuda:0 with an
+    enabled timeline, rank 1 slowed inside its compiled_step; the
+    heartbeat carries each rank's phases to rank 0."""
+    from sparknet_tpu_torch.telemetry import aggregate, anomaly, timeline
+
+    solver = _cifar_parallel(None, "local", "auto")
+    solver.timeline = timeline.Timeline()
+    timeline.set_current(solver.timeline)
+    solver.timeline.start()
+    if rank == 1:  # the planted straggler: 4x its round's compute
+        round_fn = solver._round_fn
+
+        def slow(tau):
+            fn = round_fn(tau)
+
+            def run(*a):
+                t0 = time.perf_counter()
+                res = fn(*a)
+                _sync_all()
+                time.sleep(3 * (time.perf_counter() - t0) + 0.02 * tau)
+                return res
+            return run
+
+        solver._round_fn = slow
+    feed = _cifar_feed()
+    for _ in range(TEL_RANK_ROUNDS):
+        tau = solver.tau
+        solver.step(iter([_rank_rows(next(feed), rank, world) for _ in range(tau)]), tau)
+        print(f"rank {rank}: round of tau {tau} at iteration {solver.iter}", flush=True)
+        time.sleep(0.3)  # ~3 rounds a heartbeat tick (interval 1 s)
+    solver.timeline.stop()
+    out = {"phases": solver.timeline.snapshot()["phases"]}
+    if rank == 0:
+        time.sleep(1.5)  # the last stats frames
+        aggregate.self_ingest()
+        agg = aggregate.get_aggregator()
+        print(agg.table(), flush=True)
+        out.update(cluster=agg.snapshot(), table=agg.table(),
+                   advised=[d for d in solver.tau_controller.decisions
+                            if d.get("straggler_advisory")],
+                   fired=anomaly.fired_total())
+    return out
+
+
+def _sync_all():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+RANK_JOBS["telemetry"] = _rank_telemetry
+
+
+def _tel_ranks(tmp):
+    # a stats frame a second; with 2 ranks the median is their mean, so
+    # a straggler is one past 1.5x it (3x the other rank), 2 rounds running
+    env = {"SPARKNET_HEARTBEAT_TIMEOUT": "5", "SPARKNET_STRAGGLER_FACTOR": "1.5",
+           "SPARKNET_STRAGGLER_ROUNDS": "2", "SPARKNET_TAU_INITIAL": "2",
+           "SPARKNET_TAU_MAX": "4"}
+    results, texts = _launch_ranks([{"kind": "telemetry", "name": "telemetry"}], 2, tmp,
+                                   "gloo", env=env)
+    r0 = results[0]["telemetry"]
+    shares = r0["cluster"]["ranks"]
+    if set(shares) != {"0", "1"} or not all(e["phases"].get("compiled_step")
+                                            for e in shares.values()):
+        raise AssertionError(f"rank 0's aggregate: {shares}")
+    strag = [a for a in r0["cluster"]["stragglers"] if a.get("rank") == 1]
+    lines = [l for l in texts[0].splitlines() if l.startswith("anomaly: ")]
+    for line in r0["table"].splitlines() + lines[:3]:
+        log(f"  | {line}")
+    if not strag or not r0["advised"]:
+        raise AssertionError(f"straggler advisory {strag}, τ decisions that took it "
+                             f"{r0['advised']}")
+    log(f"  2 ranks: rank 0's aggregate holds both ranks' phases; the straggler fired on "
+        f"rank 1 (ratio {strag[0]['ratio']}), {len(r0['advised'])} τ decision(s) took it: "
+        f"{r0['advised'][0]}")
+    return r0
+
+
+def phase_telemetry(tmp):
+    """Observability and remat on the card (module docstring, item 20)."""
+    t0 = time.perf_counter()
+    run, went = _tel_app_start(tmp)
+    try:
+        _tel_ranks(tmp)
+    finally:
+        app = _tel_app_wait(run, went)
+    text, app_launches, _ = app
+    _tel_check_trace(tmp, text, app_launches)
+    log(f"  app and ranks: {time.perf_counter() - t0:.1f} s")
+    start = _counts()
+    t1 = time.perf_counter()
+    remat = _tel_remat(tmp)
+    t2 = time.perf_counter()
+    times = _tel_time_net(tmp)
+    t3 = time.perf_counter()
+    _tel_server()
+    log(f"  remat: {t2 - t1:.1f} s; time_net: {t3 - t2:.1f} s; server: "
+        f"{time.perf_counter() - t3:.1f} s")
+    moved = {k: v - start[k] for k, v in _counts().items()}
+    # the phase's launches by wrapper: the app run's and this process's
+    # paths (remat runs, time_net, the server)
+    for wrapper, n in zip(("lrn_rows", "lrn_rows_train", "lrn_rows_bwd"), app_launches):
+        moved[wrapper] += n
+    fence = {k: round(100 * (v["plain"]["fence"] / v["plain"]["ms"] - 1), 2)
+             for k, v in remat.items()}
+    log(f"  the timeline's fence on resident steps, % of a plain step: {fence}")
+    return {"launches": moved, "remat": {k: {w: {x: v[w][x] for x in ("peak", "ms", "fence")}
+                                             for w in ("plain", "remat")}
+                                         for k, v in remat.items()},
+            "time_net": times, "fence_pct": fence}
+
+
 # ---------------------------------------------------------------- main
 # the phases ``--phase`` runs alone
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
                "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
-               "catalogue": phase_catalogue}
+               "catalogue": phase_catalogue, "telemetry": phase_telemetry}
 
 
 def main(argv=None) -> int:
@@ -5651,7 +6144,7 @@ def main(argv=None) -> int:
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
-    bert_mp = fused = caffe = None
+    bert_mp = fused = caffe = telemetry = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -5686,6 +6179,8 @@ def main(argv=None) -> int:
             caffe = phases.run("caffe-native", phase_caffe_native, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_catalogue_") as tmp:
             phases.run("catalogue", phase_catalogue, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
+            telemetry = phases.run("telemetry", phase_telemetry, tmp)
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
@@ -5700,10 +6195,12 @@ def main(argv=None) -> int:
         # bert-train's, and every rank's of the bert-processes phase
         **{name: bert[name] + bert_mp[name] for name in FLASH_NAMES},
     }
-    # and the fused-step phase's graph runs (by wrapper name)
+    # and the fused-step phase's graph runs and the telemetry phase's
+    # (its app runs, the remat runs with their recomputes, time_net, the
+    # server), by wrapper name
     for name, wrapper in zip(launches, ("lrn_rows", "lrn_rows_train", "lrn_rows_bwd",
                                         *FLASH_NAMES)):
-        launches[name] += fused[wrapper]
+        launches[name] += fused[wrapper] + telemetry["launches"][wrapper]
     replaces = {
         "lrn_fwd": "sparknet_tpu/ops/lrn.py:85",
         "lrn_fwd_train": "sparknet_tpu/ops/lrn.py:77",

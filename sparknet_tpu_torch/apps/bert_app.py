@@ -22,8 +22,12 @@ The command line is the JAX app's, plus ``--device`` (default ``cuda``;
 without a card it raises unless given ``--device cpu``). Each flag this
 port does not take yet raises ``NotImplementedError`` naming it when set
 to anything but its default: the model-parallel modes (``--parallel
-tp|sp|pp|ep``), ``--mesh`` and ``--layout``, MoE, remat, the orbax
-format, tracing and profiling. ``--auto-resume`` restores the newest
+tp|sp|pp|ep``), ``--mesh`` and ``--layout``, MoE and the orbax format.
+``--remat`` recomputes each encoder layer in the backward
+(``BertConfig.remat``); ``--trace``, ``--profile-dir`` and
+``SPARKNET_TELEMETRY_INTERVAL_S`` are CifarApp's (the span trace and the
+step-time breakdown, ``torch.profiler``, the periodic ``telemetry:``
+line). ``--auto-resume`` restores the newest
 solverstate under the (``SPARKNET_RUN_DIR``-resolved) snapshot prefix,
 falling back past a torn one; SIGTERM (one process) stops the loop at
 the next iteration boundary with a snapshot and the JAX package's
@@ -45,6 +49,7 @@ from typing import Dict
 
 import torch
 
+from .. import telemetry
 from ..data.prefetch import maybe_prefetch
 from ..data.text import mlm_dataset, mlm_feed
 from ..models.bert import BertConfig, BertMLM
@@ -53,7 +58,10 @@ from ..proto import caffe_pb
 from ..solver import snapshot
 from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver
-from .cifar_app import _ChunkTimer, _quiet, comm_config_from
+from ..telemetry import anomaly
+from ..utils import profiling
+from ..utils.profiling import StepTimer
+from .cifar_app import _quiet, comm_config_from, print_telemetry
 
 CONFIGS = {
     "base": BertConfig.bert_base,
@@ -66,10 +74,7 @@ _UNPORTED = {
     "mesh": "",
     "layout": None,
     "moe_experts": 0,
-    "remat": False,
     "snapshot_format": "npz",
-    "trace": None,
-    "profile_dir": None,
 }
 
 
@@ -117,6 +122,8 @@ def make_config(args):
     overrides = {}
     if args.vocab_size:
         overrides["vocab_size"] = args.vocab_size
+    if args.remat:
+        overrides["remat"] = True
     if args.max_position:
         overrides["max_position"] = args.max_position
     if overrides:
@@ -232,7 +239,9 @@ def parser() -> argparse.ArgumentParser:
                     help="flash (the default) or reference; ring/ulysses are "
                          "sequence-parallel and not ported")
     ap.add_argument("--moe-experts", type=int, default=0, help="not ported")
-    ap.add_argument("--remat", action="store_true", help="not ported")
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialise encoder layers (activation checkpointing: "
+                         "memory for FLOPs)")
     ap.add_argument("--snapshot", type=int, default=0,
                     help="snapshot the full solver state every N iters")
     ap.add_argument("--snapshot-prefix", default=os.path.join("runs", "bert"),
@@ -242,8 +251,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--auto-resume", action="store_true",
                     help="resume from the newest solverstate under --snapshot-prefix "
                          "(falling back past a torn one); a --restore given wins")
-    ap.add_argument("--profile-dir", default=None, help="not ported")
-    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace (CPU and CUDA) of the training "
+                         "loop into this directory")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="host-side span trace and step-time breakdown (Chrome "
+                         "trace-event JSON)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches staged ahead on the device (0 disables)")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
@@ -281,18 +294,25 @@ def _run(args) -> Dict[str, float]:
     log(f"BertApp: config={args.config} vocab={cfg.vocab_size} "
         f"layers={cfg.num_layers} hidden={cfg.hidden_size} params={n_params} "
         f"device={solver.device}")
-    timer = _ChunkTimer(args.batch_size * solver.train_net.seq_len, unit="tokens")
+    timer = StepTimer(items_per_step=args.batch_size * solver.train_net.seq_len,
+                      unit="tokens")
+    # --trace / SPARKNET_TRACE: the span tracer and the step's phases
+    telemetry.install_for_training(solver, args.trace)
     t0 = time.time()
     try:
-        with preemption_grace(solver):
+        with profiling.trace(args.profile_dir), \
+                telemetry.training_loop(solver.timeline, emit=log), \
+                preemption_grace(solver):
             metrics = _fit_loop(solver, feed, args, timer, log)
     finally:
         close = getattr(feed, "close", None)
         if close is not None:
             close()  # stops the staging thread
+        telemetry.finish_run()  # writes the merged trace
     dt = time.time() - t0
     log(f"Optimization Done. {solver.iter} iters in {dt:.1f}s "
         f"({solver.iter / max(dt, 1e-9):.1f} it/s)")
+    print_telemetry(solver.timeline, log, multihost.is_primary())
     if hasattr(solver, "comm_report"):
         # the JAX app's record lines: `tau:` (and its file) under --tau
         # auto, then `comm:`
@@ -322,6 +342,8 @@ def _fit_loop(solver, feed, args, timer, log=print) -> Dict[str, float]:
         timer.update(0)  # reset: exclude snapshot and feed set-up time
 
         def _log_iter(it, mm):
+            # the loss-spike stream (telemetry/anomaly.py), display cadence
+            anomaly.observe_loss(float(mm["loss"]))
             log(f"Iteration {it}, loss = {mm['loss']:.5f}, "
                 f"mlm_acc = {mm['mlm_acc']:.4f}")
 
@@ -338,7 +360,8 @@ def _fit_loop(solver, feed, args, timer, log=print) -> Dict[str, float]:
         if (args.snapshot and (solver.iter % args.snapshot == 0 or at_end)) or (
                 preempted and args.snapshot_prefix):
             path = f"{args.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
-            solver.save(path)  # over processes a collective; process 0 writes
+            with solver.timeline.phase("snapshot"):
+                solver.save(path)  # over processes a collective; process 0 writes
             log(f"Snapshotting solver state to {path}")
         if preempted:
             log(preempt_message(solver.iter, bool(args.snapshot_prefix)))

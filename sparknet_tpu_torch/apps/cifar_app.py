@@ -60,8 +60,19 @@ apps run one worker per visible card; launched as several processes
 ``SPARKNET_PROCESS_ID``, as the JAX apps), one worker a process
 (:mod:`..parallel.multihost`): each feeds its own partitions at the
 global batch over the process count, and only process 0 logs and
-writes snapshots. The chaos, reshard, flight-recorder and telemetry
-hooks of the JAX loop are not ported.
+writes snapshots.
+
+Telemetry, as in the JAX app: ``--trace OUT.json`` (or
+``SPARKNET_TRACE``) records the span tracer's Chrome trace and gives the
+solver a fenced phase timeline (``SPARKNET_TIMELINE=1`` the timeline
+alone), whose step-time breakdown the loop prints at its end
+(``telemetry: step-time breakdown``), with the trace's own losses and,
+over processes, rank 0's cluster phase table; ``--profile-dir D`` runs
+the loop under ``torch.profiler`` and writes its Chrome trace into D;
+``SPARKNET_TELEMETRY_INTERVAL_S`` prints a ``telemetry:`` line of the
+registry at that period. The loss and the step time feed the anomaly
+detectors at each display. The chaos, reshard and flight-recorder hooks
+of the JAX loop are not ported.
 """
 
 from __future__ import annotations
@@ -75,7 +86,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-from .. import native
+from .. import native, telemetry
 from ..data import records
 from ..data.cache import cache_from_args
 from ..data.caffe_layers import dataset_from_layer
@@ -91,13 +102,14 @@ from ..proto.caffemodel import load_binaryproto_mean
 from ..solver import snapshot
 from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver, resolve_model_path
+from ..telemetry import aggregate, anomaly, trace
+from ..utils import profiling
+from ..utils.profiling import StepTimer
 
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
     "snapshot_format": ("npz",),
-    "trace": (None,),
-    "profile_dir": (None,),
     "chaos": (None,),
     "supervise": (False,),
 }
@@ -356,8 +368,12 @@ def run_training(args, solver, train_feed, test_feed, log=print):
     if pm is None and args.prefetch and args.parallel == "none":
         pm = PipelineMetrics()  # the staging's own waits
     train_feed = maybe_prefetch(raw, args, args.parallel, solver.device, metrics=pm)
+    # --trace / SPARKNET_TRACE / SPARKNET_TIMELINE: the span tracer and
+    # the step's phase attribution; --profile-dir: torch.profiler
+    telemetry.install_for_training(solver, args.trace)
     try:
-        return train_loop(solver, train_feed, test_feed, log=log)
+        with profiling.trace(args.profile_dir):
+            return train_loop(solver, train_feed, test_feed, log=log)
     finally:
         close = getattr(train_feed, "close", None)
         if close is not None and train_feed is not raw:
@@ -366,6 +382,7 @@ def run_training(args, solver, train_feed, test_feed, log=print):
             log(f"input pipeline: {pm.json_line()}")
         print_data_cache_line(getattr(raw, "cache", None), log)
         getattr(raw, "close", lambda: None)()
+        telemetry.finish_run()  # writes the merged trace
 
 
 def comm_config_from(args) -> comm.CommConfig:
@@ -393,27 +410,6 @@ def make_solver(args, sp, shapes, workers=None, batch_transform=None, **kw) -> S
                           comm_config=comm_config_from(args), device=args.device, **kw)
 
 
-class _ChunkTimer:
-    """Steps/s and items/s (images, or BertApp's tokens) over the window
-    since the last update."""
-
-    def __init__(self, items_per_step: int, unit: str = "images"):
-        self.items_per_step = items_per_step
-        self.unit = unit
-        self._t = time.perf_counter()
-        self.steps_per_sec = 0.0
-
-    def update(self, n_steps: int) -> "_ChunkTimer":
-        now = time.perf_counter()
-        self.steps_per_sec = n_steps / max(now - self._t, 1e-9)
-        self._t = now
-        return self
-
-    def format(self) -> str:
-        return (f"steps/s={self.steps_per_sec:.2f} "
-                f"{self.unit}/s={self.steps_per_sec * self.items_per_step:.0f}")
-
-
 def _quiet(*args, **kw) -> None:
     """The log of a process other than process 0, which stays silent."""
 
@@ -427,37 +423,45 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
     if not primary:
         log = _quiet
     sp = solver.sp
+    # per-iteration phase attribution: NULL unless the app enabled it
+    # (telemetry.install_for_training)
+    tl = solver.timeline
     shapes = solver.train_net.blob_shapes
     data_name = "data" if "data" in shapes else next(iter(shapes), None)
-    timer = _ChunkTimer(shapes[data_name][0] if data_name else 0)
+    timer = StepTimer(items_per_step=shapes[data_name][0] if data_name else 0,
+                      unit="images")
     t0 = time.time()
     last_test: Dict[str, float] = {}
 
     def run_test() -> None:
         nonlocal last_test
         log(f"Iteration {solver.iter}, Testing net (#0)")  # Caffe's Solver::Test line
-        last_test = solver.test(test_feed)
+        with tl.phase("eval"):
+            last_test = solver.test(test_feed)
         for k, v in last_test.items():
             log(f"    Test net output: {k} = {v:.4f}")
 
     def write_snapshot() -> None:
         path = f"{sp.snapshot_prefix}_iter_{solver.iter}.npz"
         state_path = f"{sp.snapshot_prefix}_iter_{solver.iter}{solver.snapshot_suffix}"
-        # over processes a collective; process 0 writes. A full disk skips
-        # the snapshot and training goes on from the chain as it was
-        saved = solver.save_or_skip(state_path, prefix=sp.snapshot_prefix)
-        if primary and saved:
-            try:
-                W.save_npz(path, solver.params, solver.train_net)
-            except OSError as e:
-                print(f"WARNING: weights {path} not written ({e})", file=sys.stderr,
-                      flush=True)
-            # the newest SPARKNET_SNAPSHOT_KEEP stay: the torn-file fallback's
-            snapshot.prune_snapshots(sp.snapshot_prefix)
+        with tl.phase("snapshot"):
+            # over processes a collective; process 0 writes. A full disk
+            # skips the snapshot and training goes on from the chain as it was
+            saved = solver.save_or_skip(state_path, prefix=sp.snapshot_prefix)
+            if primary and saved:
+                try:
+                    W.save_npz(path, solver.params, solver.train_net)
+                except OSError as e:
+                    print(f"WARNING: weights {path} not written ({e})", file=sys.stderr,
+                          flush=True)
+                # the newest SPARKNET_SNAPSHOT_KEEP stay: the torn-file fallback's
+                snapshot.prune_snapshots(sp.snapshot_prefix)
         log(f"Snapshotting to {path}")
         log(f"Snapshotting solver state to {state_path}")
 
-    with preemption_grace(solver):
+    # the timeline's wall clock and the periodic telemetry: line
+    # (SPARKNET_TELEMETRY_INTERVAL_S, default off)
+    with telemetry.training_loop(tl, emit=log), preemption_grace(solver):
         # Caffe's pre-loop gate (Solver::Step):
         # iter % test_interval == 0 && (iter > 0 || test_initialization)
         if sp.test_interval and (
@@ -477,13 +481,21 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
             timer.update(0)  # reset the window: exclude eval/snapshot time
 
             def _log_iter(it, mm):
-                log(f"Iteration {it}, loss = {mm.get('loss', float('nan')):.5f}")
+                loss = mm.get("loss", float("nan"))
+                if loss == loss:  # NaN never feeds the spike detector
+                    anomaly.observe_loss(loss)
+                log(f"Iteration {it}, loss = {loss:.5f}")
 
+            t_chunk = time.time()
             solver.step(train_feed, nxt - solver.iter, log_fn=_log_iter)
             if sp.display:
                 solver.sync()  # the window measures completed device work
                 timer.update(solver.iter - prev_iter)
                 log(f"    speed: {timer.format()}")
+                if solver.iter > prev_iter:
+                    # the step-time spike stream, at the display cadence
+                    anomaly.observe_step((time.time() - t_chunk)
+                                         / (solver.iter - prev_iter))
             if solver.stop_requested:
                 solver.stop_requested = False  # consumed: the solver is reusable
                 if sp.snapshot_prefix:
@@ -513,7 +525,29 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
             if path:
                 log(f"tau controller report written to {path}")
         log(f"comm: {json.dumps(report)}")
+    print_telemetry(tl, log, primary)
     return last_test
+
+
+def print_telemetry(tl, log=print, primary: bool = True) -> None:
+    """The end of a run's telemetry lines, the JAX loop's: the step-time
+    breakdown of an enabled timeline and the trace's own losses, then,
+    where the heartbeat merged per-rank snapshots, rank 0's cluster
+    phase table."""
+    if tl.enabled:
+        log("telemetry: step-time breakdown")
+        for line in tl.table().splitlines():
+            log(f"  {line}")
+        drops, serr = trace.dropped_spans(), trace.sidecar_errors()
+        if drops or serr:
+            log(f"  trace: {drops} span(s) dropped (ring buffer), "
+                f"{serr} sidecar merge error(s)")
+    aggregate.self_ingest()
+    agg = aggregate.get_aggregator()
+    if agg is not None and agg.has_data() and primary:
+        log("cluster: phase table (per-rank shares of loop wall time)")
+        for line in agg.table().splitlines():
+            log(f"  {line}")
 
 
 def build(args, workers=None):
@@ -653,8 +687,12 @@ def arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default=None, metavar="CAFFEMODEL",
                     help="start from these weights: .caffemodel or .solverstate.npz, "
                          "comma-separated (later files win); optimizer state stays fresh")
-    ap.add_argument("--profile-dir", default=None, help="not ported")
-    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace (CPU and CUDA) of the training "
+                         "loop into this directory")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="host-side span trace and step-time breakdown: write Chrome "
+                         "trace-event JSON (Perfetto-loadable) here")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")

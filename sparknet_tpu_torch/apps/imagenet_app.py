@@ -32,7 +32,9 @@ its train_val and solver prototxts: alexnet, googlenet (three loss
 heads, LRN, Concat), resnet50 (BatchNorm with its running statistics as
 net state, Scale, Eltwise) and vgg16. Each flag this port does not take
 yet raises ``NotImplementedError`` naming it when set to a value the
-port does not take (``_UNPORTED``).
+port does not take (``_UNPORTED``). ``--remat`` recomputes each layer's
+activations in the backward (``Solver(remat=True)``); ``--trace``,
+``--profile-dir`` and the telemetry lines are CifarApp's.
 """
 
 from __future__ import annotations
@@ -81,9 +83,6 @@ ARCH_SOLVERS = {
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
-    "remat": (False,),
-    "profile_dir": (None,),
-    "trace": (None,),
     "snapshot_format": ("npz",),
     "chaos": (None,),
     "supervise": (False,),
@@ -182,6 +181,7 @@ def build(args, workers=None):
         solver_dir=solver_dir, seed=args.seed,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         batch_transform=train_tf.device_fn() if args.device_augment else None,
+        remat=args.remat,
     )
     if args.weights:
         solver.load_weights(args.weights)  # Caffe's --weights (finetuning)
@@ -228,7 +228,9 @@ def parser() -> argparse.ArgumentParser:
                          "batches as the Python feed. Needs --parallel none")
     add_feed_flags(ap)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
-    ap.add_argument("--remat", action="store_true", help="not ported")
+    ap.add_argument("--remat", action="store_true",
+                    help="per-layer rematerialization: recompute each layer's "
+                         "activations in the backward (memory for FLOPs)")
     ap.add_argument("--restore", default=None, metavar="SOLVERSTATE",
                     help="resume from a .solverstate.npz snapshot (either package's)")
     ap.add_argument("--auto-resume", action="store_true",
@@ -237,8 +239,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default=None, metavar="CAFFEMODEL",
                     help="start from these weights: .caffemodel or .solverstate.npz, "
                          "comma-separated (later files win); optimizer state stays fresh")
-    ap.add_argument("--profile-dir", default=None, help="not ported")
-    ap.add_argument("--trace", default=None, metavar="OUT.json", help="not ported")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace (CPU and CUDA) of the training "
+                         "loop into this directory")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="host-side span trace and step-time breakdown (Chrome "
+                         "trace-event JSON)")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry.registry import REGISTRY
 from ..utils import safeio
 from .records import checksum_region
 
@@ -106,6 +107,7 @@ class CacheMetrics:
         self.put_skipped = 0
         self.evictions = 0
         self.torn = 0
+        REGISTRY.register_source("data_cache", self)
 
     def record(self, event: str, n: int = 1, bytes_: int = 0) -> None:
         with self._lock:

@@ -63,7 +63,8 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 
-from ..telemetry.registry import Gauge, LatencyHistogram
+from ..telemetry import trace as _trace
+from ..telemetry.registry import REGISTRY, Gauge, LatencyHistogram
 
 # /dev/shm name prefix of this package's slots and worker processes; the
 # JAX package's leak checks glob snpipe_* and snkc_*, which it avoids
@@ -131,6 +132,9 @@ class PipelineMetrics:
         self.prefetch_wait = LatencyHistogram()
         self.reorder_depth = Gauge()  # batches parked awaiting their turn
         self.slots_free = Gauge()
+        # the registry source the periodic telemetry: line (and its
+        # pipeline stall check) reads; weakly held, it dies with the feed
+        REGISTRY.register_source("pipeline", self)
 
     def record_batch(self, rows: int, produce_s: float, worker_wait_s: float,
                      fallback: bool = False) -> None:
@@ -216,12 +220,13 @@ def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
         seq = first_seq
         while not stop.is_set():
             t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                result_q.put(("done", rank))
-                return
-            arrs = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+            with _trace.span("pipeline.produce", cat="pipeline", batch=seq, worker=rank):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    result_q.put(("done", rank))
+                    return
+                arrs = {k: np.ascontiguousarray(v) for k, v in batch.items()}
             produce_s = time.perf_counter() - t0
             rows = len(next(iter(arrs.values())))
             total, metas = _layout(arrs)
@@ -258,6 +263,13 @@ def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
         except Exception:
             pass
     finally:
+        try:
+            # a forked child skips atexit: this worker's spans go to its
+            # part file for the owner's merged trace (no-op when tracing
+            # is off)
+            _trace.flush_sidecar()
+        except Exception:
+            pass
         for shm in shms.values():
             try:
                 shm.close()

@@ -23,14 +23,22 @@ Batch blobs: ``input_ids``, ``token_type_ids``, ``attention_mask`` (1 =
 real token) (B, S) int; ``mlm_positions``, ``mlm_labels`` (B, M) int;
 ``mlm_weights`` (B, M) float, 0 on unused prediction slots.
 
+``config.remat`` runs each encoder layer under
+:func:`..utils.remat.checkpoint` in training (the JAX package's
+``jax.checkpoint`` of each layer): its activations are recomputed in the
+backward, the flash forward among them, and its draws (hidden-dropout
+masks, the attention-dropout seed) are the first run's, so a remat step
+is the plain step bit for bit.
+
 Not ported, each raising ``NotImplementedError`` naming itself: the MoE
-FFN, tensor and expert parallelism (``tp_axis``, ``ep_axis``), the
-sequence-parallel attentions ``"ring"`` and ``"ulysses"``, and ``remat``.
+FFN, tensor and expert parallelism (``tp_axis``, ``ep_axis``), and the
+sequence-parallel attentions ``"ring"`` and ``"ulysses"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -40,6 +48,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.matmul import mxu_dot
+from ..utils import remat
+from ..utils.remat import draw
 
 
 @dataclasses.dataclass
@@ -62,7 +72,7 @@ class BertConfig:
     moe_z_loss: float = 1e-3
     moe_aux_weight: float = 0.01
     moe_dispatch: str = "dense"
-    # rematerialise each encoder layer; not ported
+    # rematerialise each encoder layer in training
     remat: bool = False
 
     @classmethod
@@ -91,8 +101,8 @@ def _layer_norm(x, scale, bias, eps):
 def _dropout(x, rate, generator, train):
     if not train or rate <= 0.0 or generator is None:
         return x
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
-    keep = u.to(x.device) < 1.0 - rate
+    keep = draw(lambda: torch.rand(x.shape, generator=generator,
+                                   device=generator.device).to(x.device) < 1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -128,8 +138,6 @@ class BertMLM:
             raise NotImplementedError(
                 f"BertMLM: attention_impl={attention_impl!r} (sequence parallelism) "
                 f"is not ported")
-        if config.remat:
-            raise NotImplementedError("BertMLM: remat is not ported")
         self.cfg = config
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
@@ -230,9 +238,10 @@ class BertMLM:
         0.0 for the dense FFN, the one this port takes."""
         x, kv_mask = self.embed(params, batch, train=train, generator=generator)
         aux_total = 0.0
+        layer = (functools.partial(remat.checkpoint, self.layer_apply_with_aux)
+                 if self.cfg.remat and train else self.layer_apply_with_aux)
         for li in range(self.cfg.num_layers):
-            x, aux = self.layer_apply_with_aux(params[f"layer_{li:02d}"], x, kv_mask,
-                                               generator, train)
+            x, aux = layer(params[f"layer_{li:02d}"], x, kv_mask, generator, train)
             aux_total = aux_total + aux
         return x, aux_total
 

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from ..ops.lrn import lrn_nhwc
 from ..ops.matmul import mxu_dot
 from ..proto.caffe_pb import Filler, LayerParameter
+from ..utils.remat import draw
 
 Shape = Tuple[int, ...]
 
@@ -445,7 +446,9 @@ class Dropout:
                 f"from a torch.Generator; pass apply(..., generator=...)"
             )
         keep = 1.0 - ratio
-        mask = torch.rand(x.shape, generator=ctx.generator, device=x.device) < keep
+        # through remat.draw: a checkpointed layer's recompute gets this mask
+        mask = draw(lambda: torch.rand(x.shape, generator=ctx.generator,
+                                       device=x.device) < keep)
         return [torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))]
 

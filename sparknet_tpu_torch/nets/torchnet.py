@@ -33,8 +33,52 @@ import torch
 
 from ..device import resolve_device
 from ..proto.caffe_pb import NetParameter
+from ..utils import remat
 from .layers import DATA_LAYER_TYPES, LOSS_LAYER_TYPES, ApplyCtx, Shape, impl_for
 from .weights import WeightCollection
+
+
+def _run_layer(impl, lp, p, inputs, ctx, st):
+    """One layer's ``(outputs, new state or None)``."""
+    if hasattr(impl, "init_state"):
+        return impl.apply(lp, p, inputs, ctx, st)
+    return impl.apply(lp, p, inputs, ctx), None
+
+
+def _in_place(lp) -> bool:
+    return len(lp.bottom) == len(lp.top) == 1 and lp.bottom[0] == lp.top[0]
+
+
+def _segments(layers) -> List[Tuple[Any, ...]]:
+    """The non-data layers in order, cut into segments: a layer and the
+    in-place layers that follow it on one of its tops (Caffe's
+    conv -> BatchNorm -> Scale -> ReLU, fc -> ReLU -> Dropout). No layer
+    outside a segment sees the blob values inside it."""
+    out: List[List[Any]] = []
+    for lp in layers:
+        if lp.type in DATA_LAYER_TYPES:
+            continue
+        if out and _in_place(lp) and any(lp.bottom[0] in l.top for l in out[-1]):
+            out[-1].append(lp)
+        else:
+            out.append([lp])
+    return [tuple(seg) for seg in out]
+
+
+def _run_segment(segment, params, state, inputs, ctx):
+    """A segment's layers in order on ``inputs`` (its first layer's
+    bottoms): ``(its tops, each stateful layer's new state)``."""
+    blobs = dict(inputs)
+    tops: Dict[str, torch.Tensor] = {}
+    new_state: Dict[str, Any] = {}
+    for lp in segment:
+        outputs, st = _run_layer(impl_for(lp), lp, params.get(lp.name, {}),
+                                 [blobs[b] for b in lp.bottom], ctx, state.get(lp.name))
+        if st is not None:
+            new_state[lp.name] = st
+        for top, out in zip(lp.top, outputs):
+            blobs[top] = tops[top] = out
+    return tops, new_state
 
 
 class TorchNet:
@@ -45,14 +89,30 @@ class TorchNet:
         input_shapes: Optional[Dict[str, Shape]] = None,
         device: Union[str, torch.device] = "cuda",
         compute_dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
+        """``remat``: in a training ``apply``, each segment (a layer and
+        the in-place layers that follow it on its top, :func:`_segments`)
+        runs under :func:`..utils.remat.checkpoint`, so only the blobs
+        between segments outlive the forward and what lies inside one (a
+        convolution's output under its in-place BatchNorm, Scale and
+        ReLU, LRN's residual, Dropout's scaling) is recomputed in the
+        backward: the memory-for-FLOPs trade of deep nets at large batch.
+        The JAX package checkpoints each layer, and XLA fuses an in-place
+        chain into one computation whose input is what it keeps; eager
+        PyTorch fuses nothing, so a checkpoint a layer would keep every
+        link of the chain (and ResNet-50's peak memory would rise). Dropout's masks are the first run's at the recompute, and
+        the net state is the first run's, so a step with remat is a step
+        without it, bit for bit."""
         self.net = net
         self.phase = phase
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.layers = [
             l for l in net.layers_for_phase(phase) if l.type not in ("Silence",)
         ]
+        self.segments = _segments(self.layers)
         input_shapes = dict(input_shapes or {})
         # deploy-style declared inputs, given in Caffe NCHW order
         for name, shape in zip(net.inputs, net.input_shapes):
@@ -133,19 +193,15 @@ class TorchNet:
                        generator=generator, group=group)
         blobs: Dict[str, torch.Tensor] = dict(batch)
         new_state: Dict[str, Any] = dict(state)
-        for lp in self.layers:
-            if lp.type in DATA_LAYER_TYPES:
-                continue
-            impl = impl_for(lp)
-            inputs = [blobs[b] for b in lp.bottom]
-            p = params.get(lp.name, {})
-            if hasattr(impl, "init_state"):
-                outputs, new_state[lp.name] = impl.apply(lp, p, inputs, ctx,
-                                                         state[lp.name])
+        for segment in self.segments:
+            inputs = {b: blobs[b] for b in segment[0].bottom}
+            if self.remat and train:
+                tops, st = remat.checkpoint(_run_segment, segment, params, state, inputs,
+                                            ctx)
             else:
-                outputs = impl.apply(lp, p, inputs, ctx)
-            for top, out in zip(lp.top, outputs):
-                blobs[top] = out
+                tops, st = _run_segment(segment, params, state, inputs, ctx)
+            blobs.update(tops)
+            new_state.update(st)
         return blobs, new_state
 
     def loss_and_metrics(

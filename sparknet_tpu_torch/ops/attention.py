@@ -53,6 +53,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.remat import draw
 from . import _build
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -111,8 +112,9 @@ def mha_reference(
     p = torch.softmax(logits, dim=-1)
     p = torch.where(valid.any(-1, keepdim=True), p, 0.0)
     if dropout_rate > 0.0 and dropout_rng is not None:
-        u = torch.rand(p.shape, generator=dropout_rng, device=dropout_rng.device)
-        keep = u.to(p.device) < 1.0 - dropout_rate
+        keep = draw(lambda: torch.rand(p.shape, generator=dropout_rng,
+                                       device=dropout_rng.device).to(p.device)
+                    < 1.0 - dropout_rate)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
@@ -527,8 +529,8 @@ def seed_from_rng(dropout_rng: torch.Generator, device) -> torch.Tensor:
     """A 0-d int32 kernel seed drawn from ``dropout_rng`` on its own
     device, then placed on ``device`` (no host read when both are the
     card)."""
-    seed = torch.randint(-2**31, 2**31, (1,), generator=dropout_rng,
-                         device=dropout_rng.device, dtype=torch.int32)
+    seed = draw(lambda: torch.randint(-2**31, 2**31, (1,), generator=dropout_rng,
+                                      device=dropout_rng.device, dtype=torch.int32))
     return seed.to(device).reshape(())
 
 

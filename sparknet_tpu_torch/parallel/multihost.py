@@ -27,10 +27,15 @@ port + 1) fails the whole job with :data:`EXIT_PEER_FAILURE` when a
 process stops answering, instead of leaving the others blocked in a
 collective.
 
-Not ported: the heartbeat's telemetry stats frame (the JAX package's
-``_STATS_TAG`` and ``telemetry/aggregate.py``), and ``put_global``,
-which has no counterpart: each process passes its own rows to its
-solver.
+The heartbeat also carries telemetry (``telemetry/aggregate.py``): after
+each acked ping a worker sends one stats frame (its timeline's phase
+totals, bounded JSON), which process 0 merges into the cluster
+aggregate; ``SPARKNET_CLUSTER_TELEMETRY=0`` turns it off. Liveness is
+the pings' alone: a frame that breaks the framing drops the connection
+(the worker reconnects), a torn payload is counted and dropped.
+
+Not ported: ``put_global``, which has no counterpart: each process
+passes its own rows to its solver.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..telemetry import aggregate as _aggregate
 
 COORDINATOR_ENV = "SPARKNET_COORDINATOR"
 NUM_PROCESSES_ENV = "SPARKNET_NUM_PROCESSES"
@@ -60,6 +66,13 @@ INIT_TIMEOUT_ENV = "SPARKNET_INIT_TIMEOUT"
 # any non-zero exit as restart-the-job; this one is distinct from an
 # ordinary crash to aid triage.
 EXIT_PEER_FAILURE = 43
+
+# Telemetry piggyback (telemetry/aggregate.py): after an acked ping a
+# worker may send one stats frame: this sentinel int32, then ``!ii``
+# (rank, payload length), then the JSON payload, acked in the same
+# 3-byte slot. INT32_MIN never collides with a ping (pid >= 0) or a
+# graceful bye (-1 - pid).
+_STATS_TAG = -(2 ** 31)
 
 _heartbeat: Optional["_Heartbeat"] = None
 # this process's device, set by initialize()
@@ -112,16 +125,23 @@ class _Heartbeat:
         self._server = None
         self._disarmed = False  # process 0 announced a clean end
         self._ending = False  # process 0: close() underway, answer "end"
+        # telemetry piggyback: process 0 merges stats frames into the
+        # cluster aggregate; workers publish one frame an acked ping
+        self._publisher = None
         if pid == 0:
             self._last_seen = {}
             self._expected = set(range(1, nprocs))
             self._conns = set()  # live worker connections, for the end broadcast
             self._lock = threading.Lock()
+            if _aggregate.enabled():
+                _aggregate.init_aggregator()
             self._server = socket.create_server(("", port), backlog=nprocs,
                                                 reuse_port=False)
             self._spawn(self._accept_loop)
             self._spawn(self._monitor_loop)
         else:
+            if _aggregate.enabled():
+                self._publisher = _aggregate.RankPublisher(pid)
             self._spawn(self._client_loop)
 
     def _spawn(self, fn):
@@ -159,6 +179,23 @@ class _Heartbeat:
                         if len(raw) < 4:
                             return  # peer closed; the monitor ages it out
                         (peer,) = struct.unpack("!i", raw)
+                        if peer == _STATS_TAG:
+                            # a stats frame: bounded JSON merged into the
+                            # aggregate; a frame that breaks the framing
+                            # (an oversized one is dropped unread) drops
+                            # the connection, and the pings go on anew
+                            hdr = _recv_exactly(conn, 8)
+                            if len(hdr) < 8:
+                                return
+                            rank, length = struct.unpack("!ii", hdr)
+                            if not 0 <= length <= _aggregate.MAX_PAYLOAD_BYTES:
+                                return
+                            payload = _recv_exactly(conn, length)
+                            if len(payload) < length:
+                                return
+                            _aggregate.ingest(payload, fallback_rank=rank)
+                            conn.sendall(b"end" if self._ending else b"ok\n")
+                            continue
                         if peer < 0:  # graceful bye: stop expecting -1 - peer
                             with self._lock:
                                 self._expected.discard(-1 - peer)
@@ -195,6 +232,9 @@ class _Heartbeat:
         grace_until = time.monotonic() + self._join_grace()
         while not self._stop.is_set():
             time.sleep(self.interval)
+            # process 0's own snapshot into the aggregate, at the cadence
+            # the workers publish at (a no-op with the piggyback off)
+            _aggregate.self_ingest()
             now = time.monotonic()
             with self._lock:
                 seen = dict(self._last_seen)
@@ -228,8 +268,23 @@ class _Heartbeat:
                     conn = None
             if conn is not None:
                 try:
-                    conn.sendall(ping)
-                    ack = _recv_exactly(conn, 3)
+                    # one ping, then at most one stats frame, each acked in
+                    # the same 3-byte slot, so "end" reaches either
+                    msgs = [ping]
+                    if self._publisher is not None:
+                        try:
+                            payload = self._publisher.payload()
+                        except Exception:
+                            payload = None  # stats must not kill liveness
+                        if payload:
+                            msgs.append(struct.pack("!iii", _STATS_TAG, self.pid,
+                                                    len(payload)) + payload)
+                    ack = b""
+                    for msg in msgs:
+                        conn.sendall(msg)
+                        ack = _recv_exactly(conn, 3)
+                        if ack != b"ok\n":
+                            break
                     if ack == b"end":
                         # process 0 finished cleanly: disarm, and say the
                         # graceful bye so that its linger ends early

@@ -15,9 +15,10 @@ other, and τ becomes a control loop:
 
 τ moves by doubling and halving only. Every decision lands in the
 decision log, which the apps print as a ``tau:`` line and write next to
-the snapshots (``<prefix>_tau_controller.json``). The JAX package's
-telemetry gauges and its straggler and layout advisories are not
-ported: the port's solver passes ``advisories=None``.
+the snapshots (``<prefix>_tau_controller.json``). The solver passes the
+anomaly board's straggler advisories (``telemetry/anomaly.py``). The
+JAX package's telemetry gauges and its layout advisories are not
+ported.
 """
 
 from __future__ import annotations
@@ -89,8 +90,7 @@ class TauController:
 
         ``advisories``: a list of ``{"kind": ...}`` dicts; while one of
         kind ``"straggler"`` is in it, every sync waits on the slow
-        worker, so the widen threshold halves. The port's solver passes
-        None (the JAX package's anomaly board is not ported)."""
+        worker, so the widen threshold halves."""
         self._round += 1
         share = (sync_s / round_s) if round_s > 0 else 0.0
         straggler = any(

@@ -40,11 +40,18 @@ residual. Test metrics are the mean over ranks. A snapshot gathers local
 mode's slots and every residual into the leading worker axis, so the
 file is a one-process run's; only process 0 writes it; a restore hands
 each rank its row. Under ``tau='auto'`` only process 0's controller
-observes a round (its wall time after the average, and the average's
-seconds, with no advisories, as the JAX package does over processes),
-and one broadcast of an int64 hands its next τ to every rank: a τ that
-differed between ranks would leave a round's all-reduce waiting
-forever.
+observes a round (its wall time after the average, the average's
+seconds, and the straggler advisories on its anomaly board, which its
+cluster aggregate raises), and one broadcast of an int64 hands its next
+τ to every rank: a τ that differed between ranks would leave a round's
+all-reduce waiting forever. (The JAX package passes no advisories over
+processes, since each of its ranks picks τ itself.)
+
+The phase brackets of the base solver's timeline (``telemetry/
+timeline.py``) cover the sync step, and a local round as ``input_wait``,
+``device_put``, ``compiled_step`` (the round's τ steps),
+``grad_allreduce`` (the weight average) and ``multihost_sync`` (the
+metric reduction and τ's broadcast over processes).
 
 The sync step and the local rounds run eagerly: the base solver's fused
 step (one captured CUDA graph an iteration) is off, and ``scan_steps``
@@ -71,6 +78,7 @@ from ..proto import caffe_pb
 from ..solver import snapshot
 from ..solver.caffe_solver import init_opt_state
 from ..solver.trainer import Solver
+from ..telemetry import anomaly
 from . import comm as comm_mod
 from .data_parallel import make_dp_eval_step, make_dp_train_step
 from .local_sgd import (
@@ -206,7 +214,8 @@ class ParallelSolver(Solver):
                     f"ParallelSolver(model=...) with workers on {dev} and "
                     f"{self.device}: a model's workers must share its device")
             by_dev[dev] = TorchNet(self.net_param, "TRAIN", input_shapes, dev,
-                                   self.train_net.compute_dtype)
+                                   self.train_net.compute_dtype,
+                                   remat=self.train_net.remat)
         return [by_dev[d] for d in self.workers]
 
     def _worker_generators(self, it: int) -> List[torch.Generator]:
@@ -310,10 +319,15 @@ class ParallelSolver(Solver):
         the host's iteration into the step (it seeds the workers'
         generators), and what the step returns assigned (a compressed
         run's residual is a new slot each iteration)."""
-        batch = ([self._put_batch(m) for m in host] if isinstance(host, list)
-                 else self._put_batch(host))
-        self.params, self.state, self.opt_state, metrics = self._train_step(
-            self.params, self.state, self.opt_state, batch, self.iter, self.rng)
+        tl = self.timeline
+        with tl.phase("device_put"):
+            batch = ([self._put_batch(m) for m in host] if isinstance(host, list)
+                     else self._put_batch(host))
+        with tl.phase("compiled_step"):
+            self.params, self.state, self.opt_state, metrics = self._train_step(
+                self.params, self.state, self.opt_state, batch, self.iter, self.rng)
+            if tl.fence:
+                self.sync()
         self.iter += 1
         return metrics
 
@@ -387,15 +401,19 @@ class ParallelSolver(Solver):
         0's, broadcast to every rank (the loss is already each rank's
         same mean over the ranks)."""
         if self.rank == 0:
+            # the anomaly board's straggler advisories are rank 0's (its
+            # cluster aggregate); the broadcast below hands every rank
+            # the one τ they led to
             tau = controller.observe_round(round_s=max(round_s, 1e-9), sync_s=sync_s,
                                            loss=float(metrics.get("loss", 0.0)),
-                                           advisories=None)
+                                           advisories=anomaly.active("straggler"))
         if self.group is None:
             return tau
-        out = torch.tensor([tau if self.rank == 0 else 0], dtype=torch.int64,
-                           device=self.device)
-        dist.broadcast(out, src=0, group=self.group)
-        tau = int(out.item())
+        with self.timeline.phase("multihost_sync"):
+            out = torch.tensor([tau if self.rank == 0 else 0], dtype=torch.int64,
+                               device=self.device)
+            dist.broadcast(out, src=0, group=self.group)
+            tau = int(out.item())
         controller.tau = tau
         return tau
 
@@ -405,26 +423,39 @@ class ParallelSolver(Solver):
         metrics: Dict[str, Any] = {}
         end = self.iter + n
         controller = self.tau_controller
+        # the base step's phase brackets, a round at a time: the round's
+        # tau steps are one compiled_step, the weight average its
+        # grad_allreduce, the metric reduction over processes
+        # multihost_sync
+        tl = self.timeline
         while self.iter < end:
             if self.stop_requested:
                 break
             tau = min(self.tau, end - self.iter)
-            stacked = self._put_batch(stack_round_batches(
-                [self._next_iteration_batch(batches) for _ in range(tau)],
-                buffer=self._round_buffer))
+            with tl.phase("input_wait"):
+                host = stack_round_batches(
+                    [self._next_iteration_batch(batches) for _ in range(tau)],
+                    buffer=self._round_buffer)
+            with tl.phase("device_put"):
+                stacked = self._put_batch(host)
             gens = self._worker_generators(self.iter)
             prev = self.iter
             t0 = time.perf_counter()
             opt_solver = {k: v for k, v in self.opt_state.items() if k != RESIDUAL_KEY}
             resid = self.opt_state.get(RESIDUAL_KEY)
-            p_start, ps, sts, opt_out, metrics = self._round_fn(tau)(
-                self.params, self.state, opt_solver, stacked, self.iter, gens)
-            if controller is not None:
-                self.sync()
+            with tl.phase("compiled_step"):
+                p_start, ps, sts, opt_out, metrics = self._round_fn(tau)(
+                    self.params, self.state, opt_solver, stacked, self.iter, gens)
+                if controller is not None or tl.fence:
+                    self.sync()
             t1 = time.perf_counter()
-            self.params, self.state, resid = self._reduce_fn(p_start, ps, sts, resid)
+            with tl.phase("grad_allreduce"):
+                self.params, self.state, resid = self._reduce_fn(p_start, ps, sts, resid)
+                if tl.fence:
+                    self.sync()
             if self.group is not None:
-                metrics = comm_mod.reduce_metrics([metrics], self.device, self.group)
+                with tl.phase("multihost_sync"):
+                    metrics = comm_mod.reduce_metrics([metrics], self.device, self.group)
             self.opt_state = ({**opt_out, RESIDUAL_KEY: resid}
                               if self.comm.wants_residual else opt_out)
             self.iter += tau

@@ -4,17 +4,19 @@ Counterpart of ``sparknet_tpu/serve/metrics.py`` for the rows path:
 request/row/error/shed/cancelled counts, hot-swaps, queue depth, the
 end-to-end request latency histogram, and per-bucket batch counts,
 padding waste and device latency. ``snapshot()`` gives the same JSON
-shape as the JAX package's (without its decode block), and
-``prometheus()`` the text the server's ``GET /metrics`` returns.
+shape as the JAX package's (without its decode block); the server's
+``GET /metrics`` renders it with the registry's families through
+``telemetry.exporter.render_prometheus``. Each instance registers as
+the registry source ``serve`` (the newest wins).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Dict
 
-from ..telemetry.registry import _BOUNDS_US, LatencyHistogram
+from ..telemetry.registry import REGISTRY, Gauge, LatencyHistogram
 
 
 class ServeMetrics:
@@ -39,12 +41,12 @@ class ServeMetrics:
         self.hot_swaps = 0
         self.generation = 0
         self._last_degraded_t = float("-inf")
-        self.queue_depth = 0
-        self.queue_depth_max = 0
+        self._queue_depth = Gauge()
         self.request_latency = LatencyHistogram()
         self.per_bucket: Dict[int, dict] = {}
         for b in buckets:
             self._bucket(int(b))
+        REGISTRY.register_source("serve", self)
 
     def _bucket(self, bucket: int) -> dict:
         entry = self.per_bucket.get(bucket)
@@ -94,9 +96,7 @@ class ServeMetrics:
             self.generation = max(self.generation, int(generation))
 
     def set_queue_depth(self, depth: int) -> None:
-        with self._lock:
-            self.queue_depth = depth
-            self.queue_depth_max = max(self.queue_depth_max, depth)
+        self._queue_depth.set(depth)
 
     # -------------------------------------------------------------- reads
     def health(self) -> str:
@@ -128,8 +128,8 @@ class ServeMetrics:
                 ),
                 "requests_per_sec": round(self.requests / uptime, 2),
                 "window_requests_per_sec": round(self._window_requests / window, 2),
-                "queue_depth": self.queue_depth,
-                "queue_depth_max": self.queue_depth_max,
+                "queue_depth": self._queue_depth.value,
+                "queue_depth_max": self._queue_depth.max,
                 "request_latency": self.request_latency.snapshot(),
                 "per_bucket": {
                     str(b): {
@@ -148,43 +148,3 @@ class ServeMetrics:
             self._window_t0 = now
             self._window_requests = 0
             return out
-
-    def prometheus(self) -> str:
-        """Prometheus text exposition (0.0.4) of the serving families."""
-        with self._lock:
-            lines = [
-                "# TYPE sparknet_serve_requests_total counter",
-                f"sparknet_serve_requests_total {self.requests}",
-                "# TYPE sparknet_serve_rows_total counter",
-                f"sparknet_serve_rows_total {self.rows}",
-                "# TYPE sparknet_serve_errors_total counter",
-                f"sparknet_serve_errors_total {self.errors}",
-                "# TYPE sparknet_serve_shed_total counter",
-                f"sparknet_serve_shed_total {self.shed}",
-                "# TYPE sparknet_serve_cancelled_total counter",
-                f"sparknet_serve_cancelled_total {self.cancelled}",
-                "# TYPE sparknet_serve_generation gauge",
-                f"sparknet_serve_generation {self.generation}",
-                "# TYPE sparknet_serve_queue_depth gauge",
-                f"sparknet_serve_queue_depth {self.queue_depth}",
-            ]
-            lines += _histogram("sparknet_serve_request_latency_seconds", "",
-                                self.request_latency)
-            for b, e in sorted(self.per_bucket.items()):
-                lines += _histogram("sparknet_serve_device_latency_seconds",
-                                    f'bucket="{b}"', e["device"])
-        return "\n".join(lines) + "\n"
-
-
-def _histogram(name: str, labels: str, h: LatencyHistogram) -> List[str]:
-    sep = "," if labels else ""
-    out = [f"# TYPE {name} histogram"]
-    cum = 0
-    for bound, c in zip(_BOUNDS_US, h.counts):
-        cum += c
-        out.append(f'{name}_bucket{{{labels}{sep}le="{bound / 1e6:g}"}} {cum}')
-    out.append(f'{name}_bucket{{{labels}{sep}le="+Inf"}} {h.n}')
-    tail = f"{{{labels}}}" if labels else ""
-    out.append(f"{name}_sum{tail} {h.total_us / 1e6:g}")
-    out.append(f"{name}_count{tail} {h.n}")
-    return out

@@ -7,10 +7,16 @@ Endpoints (JSON in and out, stdlib only), with the JAX server's shapes:
   NHWC nested lists. Response ``{"indices": [[...]], "probs": [[...]],
   "gen": N, "quant": "f32"}``. Bad request -> 400; a full queue or a
   shed deadline -> 503 with Retry-After; timeout -> 504.
-- ``GET /healthz``: liveness, model identity, buckets, generation;
-  ``status`` is ``"degraded"`` while requests are being shed/cancelled.
-- ``GET /metrics``: Prometheus text; ``GET /metrics.json``: the
-  ``ServeMetrics`` snapshot.
+- ``GET /healthz``: liveness, model identity, buckets, generation, and
+  the live advisories of the anomaly board (``anomalies``); ``status``
+  is ``"degraded"`` while requests are being shed/cancelled or while a
+  ``queue_stall``, ``straggler`` or ``slo_burn`` advisory is live. Each
+  scrape feeds the serving stall and SLO-burn detectors.
+- ``GET /metrics``: Prometheus text of the telemetry registry's families
+  and the ``ServeMetrics`` families (``telemetry/exporter.py``);
+  ``GET /metrics.json``: the ``ServeMetrics`` snapshot.
+- ``GET /dash``: the HTML dashboard (``telemetry/dash.py``) of the
+  registry, the cluster aggregate and the anomaly board.
 
 A ``ThreadingHTTPServer``: handler threads block on the batcher future
 while the single batcher worker feeds the card, so concurrent requests
@@ -32,8 +38,12 @@ from typing import Optional
 
 import numpy as np
 
+from ..telemetry import REGISTRY, aggregate, anomaly, dash, exporter
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
 from .metrics import ServeMetrics
+
+# advisories that degrade /healthz, as shed or cancelled requests do
+DEGRADING = ("queue_stall", "straggler", "slo_burn")
 
 
 class InferenceServer:
@@ -89,10 +99,18 @@ class InferenceServer:
                 if self.path == "/healthz":
                     self._reply(200, outer.health())
                 elif self.path == "/metrics":
-                    self._send(200, outer.metrics.prometheus().encode(),
+                    self._send(200, exporter.render_prometheus(outer.metrics).encode(),
                                "text/plain; version=0.0.4; charset=utf-8")
                 elif self.path == "/metrics.json":
                     self._reply(200, outer.metrics.snapshot())
+                elif self.path == "/dash":
+                    anomaly.observe_serve(outer.metrics)
+                    agg = aggregate.get_aggregator()
+                    page = dash.render_html(
+                        REGISTRY.snapshot(), serve_metrics=outer.metrics.snapshot(),
+                        cluster=agg.snapshot() if agg is not None else None,
+                        anomalies=anomaly.active(), model_name=outer.model_name)
+                    self._send(200, page.encode(), "text/html; charset=utf-8")
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
@@ -150,14 +168,23 @@ class InferenceServer:
         self._thread: Optional[threading.Thread] = None
 
     def health(self) -> dict:
+        """``/healthz``'s answer. A scrape is an observation: it feeds the
+        serving queue-stall and SLO-burn detectors first."""
         e = self.engine
+        anomaly.observe_serve(self.metrics)
+        anomaly.observe_slo(self.metrics)
+        active = anomaly.active()
+        status = self.metrics.health()
+        if status == "ok" and any(a.get("kind") in DEGRADING for a in active):
+            status = "degraded"
         return {
-            "status": self.metrics.health(),
+            "status": status,
             "model": self.model_name,
             "buckets": list(getattr(e, "buckets", ())),
             "output": getattr(e, "output", None),
             "shed": self.metrics.shed,
             "cancelled": self.metrics.cancelled,
+            "anomalies": active,
             "generation": getattr(e, "generation", 0),
             "quant": getattr(e, "quant", "f32"),
             "weights_source": getattr(e, "weights_source", None),

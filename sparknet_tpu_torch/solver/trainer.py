@@ -26,6 +26,15 @@ the only way to run eagerly on a card, since a capture that fails
 raises. :meth:`Solver.scan_steps` runs ``n`` iterations on one resident
 batch (one copy, ``n`` replays). The parallel solvers opt out
 (``parallel/trainer.py``).
+
+``Solver.timeline`` (``telemetry/timeline.py``; ``NULL`` unless an app
+enables it) brackets each iteration as the JAX solver does:
+``input_wait`` (the feed), ``device_put`` (the copy into the graph's
+buffers, or the upload) and ``compiled_step`` (a warm-up, the capture or
+a replay, or the eager step), fenced by a synchronize of the step's
+stream when the timeline asks for it. ``NULL``'s brackets are one shared
+no-op: the graph step adds no launch and no sync. ``remat=True``
+recomputes the TRAIN net's layers in the backward (``nets/torchnet.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..nets import weights as W
 from ..ops import launch_counters
 from ..nets.torchnet import TorchNet
 from ..proto import caffe_pb
+from ..telemetry import timeline as _timeline
 from . import snapshot
 from .caffe_solver import init_opt_state, make_update_fn, mults_for_params
 
@@ -302,10 +312,15 @@ class Solver:
         device: Union[str, torch.device] = "cuda",
         model: Any = None,
         batch_transform: Optional[Callable] = None,
+        remat: bool = False,
     ):
         """``batch_transform``: see :func:`make_train_step` (device-side
         augmentation; the train feed then yields the raw batch and its
         plan, which reach the device uncast).
+
+        ``remat``: the TRAIN net recomputes each layer's activations in
+        the backward (``TorchNet(remat=True)``); eval keeps no backward.
+        A ``model`` carries its own switch (``BertConfig.remat``).
 
         ``model``: any object with the net protocol
         (``init/apply/loss_and_metrics/param_specs/input_names/
@@ -347,7 +362,7 @@ class Solver:
                 net_param = caffe_pb.load_net(resolve_model_path(net_path, solver_dir))
         self.net_param = net_param
         self.train_net = TorchNet(net_param, "TRAIN", input_shapes, self.device,
-                                  compute_dtype)
+                                  compute_dtype, remat=remat)
         self.test_net = TorchNet(net_param, "TEST", test_input_shapes or input_shapes,
                                  self.device, compute_dtype)
         self._finish_init(solver, seed)
@@ -366,6 +381,10 @@ class Solver:
         self.env_meta: Dict[str, Any] = {}
         # cooperative stop: step() returns at the next iteration boundary
         self.stop_requested = False
+        # per-iteration phase attribution (telemetry/timeline.py): the
+        # apps swap in an enabled Timeline under --trace or
+        # SPARKNET_TIMELINE=1; NULL's brackets are one shared no-op
+        self.timeline = _timeline.NULL
         # average_loss display smoothing
         self._loss_window = deque(maxlen=max(1, solver.average_loss))
         self._train_step = make_train_step(self.train_net, solver, self.batch_transform)
@@ -398,13 +417,17 @@ class Solver:
         metrics are its own tensors: a later iteration leaves them as
         they are."""
         metrics: Dict[str, torch.Tensor] = {}
+        tl = self.timeline
         for _ in range(n):
             if self.stop_requested:
                 break
-            if self.sp.iter_size > 1:
-                host = [next(batches) for _ in range(self.sp.iter_size)]
-            else:
-                host = next(batches)
+            # phase boundaries (telemetry/timeline.py): the host blocked
+            # on the feed, then the upload and the step (_iterate's)
+            with tl.phase("input_wait"):
+                if self.sp.iter_size > 1:
+                    host = [next(batches) for _ in range(self.sp.iter_size)]
+                else:
+                    host = next(batches)
             metrics = self._iterate(host)
             if log_fn and self.sp.display:
                 self._push_loss(metrics)
@@ -435,12 +458,17 @@ class Solver:
             self._it_dev = torch.full((), self.iter, dtype=torch.int32, device=self.device)
         elif self._it_host != self.iter:  # ``iter`` was set from outside
             self._it_dev.fill_(self.iter)
+        tl = self.timeline
         if self._fuse_host and self.device.type == "cuda":
             metrics = self._graph_iteration(host, load)
         else:
-            metrics = self._fused_iteration(
-                [_upload(m, self.device) for m in host] if isinstance(host, list)
-                else _upload(host, self.device))
+            with tl.phase("device_put"):
+                batch = ([_upload(m, self.device) for m in host] if isinstance(host, list)
+                         else _upload(host, self.device))
+            with tl.phase("compiled_step"):
+                metrics = self._fused_iteration(batch)
+                if tl.fence:
+                    self.sync()
         self.iter += 1
         self._it_host = self.iter
         return metrics
@@ -466,30 +494,40 @@ class Solver:
         attribute), its warm-up run eagerly on a side stream, its
         capture, then one copy of each key (unless the buffers hold the
         batch already) and one replay an iteration."""
+        tl = self.timeline
         key = _signature(host)
         cap = self._graph
         if cap is None or cap.key != key:
             cap = self._graph = _StepGraph(key, host, self.device)
             load = True
         if load:
-            cap.load(host)
-        if cap.graph is None:
-            if cap.warm < WARMUP_STEPS:
+            with tl.phase("device_put"):
+                cap.load(host)
+        with tl.phase("compiled_step"):
+            if cap.graph is None and cap.warm < WARMUP_STEPS:
                 cap.warm += 1
-                return self._warm_iteration(cap.inputs)
-            failure = self._capture(cap)
-            if failure is not None:
-                # the step's graph and its static buffers go before the
-                # raise, so that a caller who catches it and goes on gets
-                # their memory back (after ``torch.cuda.empty_cache()``)
-                self._graph = cap = None
-                traceback.clear_frames(failure.__traceback__)
-                raise RuntimeError(
-                    f"Solver.step: capturing the train step as a CUDA graph failed "
-                    f"({type(failure).__name__}: {failure}); SPARKNET_FUSED_STEP=0 "
-                    f"runs it eagerly") from failure
-        cap.replay()
-        return cap.metrics()
+                metrics = self._warm_iteration(cap.inputs)
+            else:
+                if cap.graph is None:
+                    failure = self._capture(cap)
+                    if failure is not None:
+                        # the step's graph and its static buffers go before
+                        # the raise, so that a caller who catches it and goes
+                        # on gets their memory back (after
+                        # ``torch.cuda.empty_cache()``)
+                        self._graph = cap = None
+                        traceback.clear_frames(failure.__traceback__)
+                        raise RuntimeError(
+                            f"Solver.step: capturing the train step as a CUDA graph "
+                            f"failed ({type(failure).__name__}: {failure}); "
+                            f"SPARKNET_FUSED_STEP=0 runs it eagerly") from failure
+                cap.replay()
+                metrics = cap.metrics()
+            if tl.fence:
+                # the step's device time is charged here, not to the next
+                # iteration's input_wait
+                torch.cuda.current_stream(self.device).synchronize()
+        return metrics
 
     def _side(self) -> torch.cuda.Stream:
         if self._side_stream is None:

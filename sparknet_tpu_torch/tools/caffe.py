@@ -7,6 +7,8 @@ Counterpart of ``sparknet_tpu/tools/caffe.py``::
         [--device cpu] [...]
     python -m sparknet_tpu_torch.tools.caffe test --model=net.prototxt \\
         --weights=m.caffemodel [--iterations=50] [--device cpu]
+    python -m sparknet_tpu_torch.tools.caffe time --solver=s.prototxt \
+        [--iterations=50] [--per-layer] [--device cpu]
     python -m sparknet_tpu_torch.tools.caffe device_query
 
 ``train`` runs CifarApp's loop (:func:`..apps.cifar_app.main`; any
@@ -15,9 +17,9 @@ through; Caffe's ``--snapshot`` is the app's ``--restore``, and
 ``--gpu`` is taken and dropped (the app runs on ``--device``, the
 card by default). ``test`` builds the TEST net over its data layer's
 own source, lays ``--weights`` over its init and prints each metric
-averaged over ``--iterations`` batches. ``time`` is not ported: it goes
-with ``tools/time_net``. ``--flag=value`` and ``--flag value`` both
-work, as in the binary.
+averaged over ``--iterations`` batches. ``time`` is
+:mod:`.time_net` (``--iterations`` is its ``--iters``). ``--flag=value``
+and ``--flag value`` both work, as in the binary.
 """
 
 from __future__ import annotations
@@ -62,8 +64,11 @@ def _train(argv: List[str]):
 
 
 def _time(argv: List[str]):
-    raise NotImplementedError(
-        "caffe time: not ported to sparknet_tpu_torch yet; it comes with tools/time_net")
+    from . import time_net
+
+    args = _drop_gpu_flag(_split_eq(argv))
+    # caffe time spells the iteration count --iterations; time_net --iters
+    return time_net.main(["--iters" if a == "--iterations" else a for a in args])
 
 
 def _test(argv: List[str]):

@@ -247,7 +247,8 @@ def run_solver(job, rank, world, out):
         kw["test_input_shapes"] = {k: v.shape[1:] for k, v in tests.items()}
     s = ParallelSolver(caffe_pb.load_solver(job["solver"], is_path=False), shapes,
                        net_param=net, seed=3, device="cpu", mode=job["mode"],
-                       tau=job.get("tau", 1), comm_config=_comm_config(job), **kw)
+                       tau=job.get("tau", 1), comm_config=_comm_config(job),
+                       remat=job.get("remat", False), **kw)
     _train(job, s, batches, rank, world, out, tests if "test_batches" in job else None)
 
 

@@ -31,6 +31,8 @@
 """
 
 import dataclasses
+import json
+import os
 import re
 
 import numpy as np
@@ -209,8 +211,13 @@ def test_bert_refuses_what_it_does_not_port():
             BertMLM(cfg, SHAPES, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="MoE"):
         BertMLM(_tiny_cfg(moe_num_experts=4), SHAPES, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        BertMLM(_tiny_cfg(remat=True), SHAPES, device="cpu")
+    # remat is ported: a remat model trains (tests/test_torch_remat.py
+    # holds it against the plain one bit for bit)
+    model = BertMLM(_tiny_cfg(remat=True), SHAPES, device="cpu")
+    params, _ = model.init()
+    out, _ = model.apply(params, {}, {k: torch.from_numpy(v) for k, v in _batch(64).items()},
+                         train=True, generator=torch.Generator().manual_seed(0))
+    assert model.cfg.remat and torch.isfinite(out["loss"])
 
 
 # ------------------------------------------------------------------ solvers
@@ -363,10 +370,26 @@ def test_bert_app_trains_tiny_on_the_cpu(tmp_path, capsys):
     (["--profile-dir", "p"], "--profile-dir"),
 ], ids=["parallel", "parallel-tp", "parallel-pp", "parallel-ep", "mesh", "layout", "moe",
         "remat", "orbax", "auto-resume", "trace", "profile-dir"])
-def test_bert_app_refuses_what_it_does_not_port(argv, match):
+def test_bert_app_refuses_what_it_does_not_port(argv, match, tmp_path, monkeypatch,
+                                                capsys):
+    tiny = ["--config", "tiny", "--device", "cpu"]
+    if argv[0] in ("--remat", "--trace", "--profile-dir"):
+        # ported: the flag runs (two iterations), and does what it says
+        monkeypatch.chdir(tmp_path)
+        metrics = bert_app.main([*tiny, "--seq-len", "32", "--batch-size", "4",
+                                 "--max-iter", "2", "--display", "1", *argv])
+        out = capsys.readouterr().out
+        assert np.isfinite(metrics["loss"]) and "Optimization Done. 2 iters" in out
+        if argv[0] == "--trace":
+            assert "telemetry: step-time breakdown" in out
+            names = {e["name"] for e in json.load(open(tmp_path / argv[1]))["traceEvents"]}
+            assert {"input_wait", "device_put", "compiled_step"} <= names
+        if argv[0] == "--profile-dir":
+            assert [f for f in os.listdir(tmp_path / argv[1]) if f.endswith(".json")]
+        return
     exc = ValueError if "--auto-resume" in argv else NotImplementedError
     with pytest.raises(exc, match=match):
-        bert_app.main(["--config", "tiny", "--device", "cpu", *argv])
+        bert_app.main([*tiny, *argv])
 
 
 def test_bert_app_grad_compress_needs_a_parallel_mode():

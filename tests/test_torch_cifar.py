@@ -343,7 +343,7 @@ UNPORTED_ARGV = {
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED_ARGV))
-def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch):
+def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch, capsys):
     argv = UNPORTED_ARGV[flag] + ["--device", "cpu", "--synthetic", "--synthetic-n", "500"]
     if flag == "weights":
         # ported: a weights file that is not there is named, not skipped
@@ -355,6 +355,19 @@ def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch):
         (tmp_path / "cifar10_quick_iter_4.solverstate.npz").write_bytes(b"PK\x03\x04 torn")
         with pytest.raises(tsnapshot.SnapshotError, match="cifar10_quick_iter_4"):
             cifar_app.main(argv)
+    elif flag in ("trace", "profile-dir"):
+        # ported: the flag runs (two iterations) and writes its trace
+        monkeypatch.chdir(tmp_path)
+        cifar_app.main(argv + ["--max-iter", "2"])
+        out = capsys.readouterr().out
+        assert "Optimization Done. 2 iters" in out
+        if flag == "trace":
+            assert "telemetry: step-time breakdown" in out
+            doc = json.load(open(tmp_path / "t.json"))
+            assert {"input_wait", "compiled_step", "eval"} <= {
+                e["name"] for e in doc["traceEvents"]}
+        else:
+            assert [f for f in os.listdir(tmp_path / "p") if f.endswith(".json")]
     else:
         with pytest.raises(NotImplementedError, match=f"--{flag}="):
             cifar_app.main(argv)

@@ -155,8 +155,10 @@ def test_caffe_test_of_the_snapshot_repeats_the_runs_last_test(runs):
 
 
 def test_caffe_time_is_not_ported_and_device_query_runs(capsys):
-    with pytest.raises(NotImplementedError, match="tools/time_net"):
-        tcaffe.main(["time", "--solver=x.prototxt"])
+    # ported: caffe time is tools/time_net (tests/test_torch_time_net.py)
+    out = tcaffe.main(["time", "--solver=" + LENET_SOLVER, "--iterations=2",
+                       "--batch-size", "2", "--device", "cpu"])
+    assert out["train_step_ms"] > 0 and out["batch"] == 2
     tcaffe.main(["device_query"])
     assert capsys.readouterr().out.strip()
     with pytest.raises(SystemExit):

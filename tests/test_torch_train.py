@@ -313,7 +313,17 @@ def test_imagenet_app_trains_full_width_alexnet_on_the_cpu(tmp_path, capsys):
     # ported: a weights file that is not there is named, not skipped
     (["--weights", "x.caffemodel"], "x.caffemodel"),
 ], ids=["parallel", "orbax", "remat", "weights"])
-def test_imagenet_app_refuses_what_it_does_not_port(argv, match):
+def test_imagenet_app_refuses_what_it_does_not_port(argv, match, tmp_path, capsys):
+    if argv == ["--remat"]:
+        # ported: full-width AlexNet trains an iteration with each layer
+        # recomputed in the backward
+        imagenet_app.main(argv + ["--device", "cpu", "--synthetic", "--synthetic-n", "8",
+                                  "--batch-size", "2", "--max-iter", "1",
+                                  "--solver", _app_solver(tmp_path)])
+        out = capsys.readouterr().out
+        losses = [float(v) for v in re.findall(r"Iteration \d+, loss = (\S+)", out)]
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        return
     exc = FileNotFoundError if "--weights" in argv else NotImplementedError
     with pytest.raises(exc, match=match):
         imagenet_app.main(argv + ["--device", "cpu", "--synthetic", "--synthetic-n", "8"])
