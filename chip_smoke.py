@@ -74,6 +74,35 @@ own lines:
    time by kernel, the LRN kernel's share, and the device's idle share;
 7. load: 200 requests from 4 closed-loop clients through the batcher
    (the ``tools/serve --bench`` path): requests/s and latency;
+7a. serving-tier: one serving process's tier features. Full-width
+   ``bvlc_alexnet`` (seed 0) in f32, bf16 and int8, each engine on the
+   card against the same engine on the CPU: the resident weights (int8:
+   the int8 weights and scales) equal bit for bit; bucket calls of 1, 5
+   (padded to 8) and 32 rows, the 5 padded rows bit-identical to the
+   same rows beside 3 real ones; f32 top-5 as the serving phase holds
+   it, int8 top-5 sets equal on >= 99% of 32 rows; on one shared batch
+   of 8 rows each int8 layer's int32 accumulator, on the CPU's own layer
+   input, card = CPU exactly, and the fc8 logits within half the CPU's
+   own int8 error against f32 (int8; TIER_INT8_SHARE) or 1e-2 relative
+   L2 (bf16); two LRN inference launches a bucket call; the resident
+   bytes and the median ms a bucket call printed, and the int8 against
+   f32 top-1 agreement on 256 rows printed, not held. Then 4 closed-loop
+   clients on ``/classify`` (one seeded row a request, a process of this
+   script, ``--tier-client``) while ``/reload`` swaps to a solverstate
+   the phase wrote, is refused a torn one (409, the generation stays),
+   rolls back, and is refused a second rollback (409); then the server's
+   ``--snapshot-watch`` skips a torn newer file and serves an intact one
+   (seconds from its rename printed): 0 failed requests, each client's
+   generations never decreasing, each answer's top-5 the CPU engine's
+   on its generation's weights, two LRN launches a bucket call. The
+   int8 engine's ``/reload`` of the written state captures every scale
+   anew, = the CPU's quantization of the file bit for bit. Last,
+   ``char_rnn_deploy`` (seed 0) through ``/generate``: its rows across
+   widths 1-32 against width 4's, bit for bit or not (printed); a hit
+   bit for bit the cold replay; the CPU engine's answer within 1e-4
+   relative L2; a prefix mismatch rebuilt; a hot swap makes the session
+   ``stale_gen``; the session load generator (8 sessions, Zipf 1.1, 4
+   steps, 64 requests) with 0 failed requests;
 8. grads: one training step of full-width ``bvlc_alexnet`` (the
    train_val net with ``dropout_ratio: 0``, random weights from seed 0)
    at batch 8 on the card against the same step on the CPU: the loss
@@ -100,15 +129,17 @@ own lines:
    without a graph, ``SPARKNET_FUSED_STEP=0``) and one captured CUDA
    graph an iteration (the default): ms per step by CUDA events,
    images/s, peak device memory allocated and the memory held (the
-   graph's private pool included), then ``torch.profiler`` over 3 steps:
-   device time by kernel, the LRN kernels' share, the device's idle
-   share (against the profiled window and against the unprofiled step),
-   the device operations a step, the host's launches a step by kind
-   (kernels, graph replays, copies, fills), and the LRN and flash
-   kernels the profiler saw against the launch counters' increase over
-   the same steps (equal, or the phase fails: a replay adds its
-   capture's count to the counters, and this shows that the graph ran
-   those kernels);
+   graph's private pool included), then ``torch.profiler`` over 3 steps
+   after one it traces and drops (a window's first step loses trace
+   records): device time by kernel, the LRN kernels' share, the
+   device's idle share (against the profiled window and against the
+   unprofiled step), the device operations a step, the host's launches
+   a step by kind (kernels, graph replays, copies, fills), and the LRN
+   and flash kernels the profiler saw against the launch counters'
+   increase (through the graph replay by replay, grouped by the
+   ``cudaGraphLaunch`` each belongs to; eager summed over the 3 steps;
+   equal, or the phase fails: a replay adds its capture's count to the
+   counters, and this shows that the graph ran those kernels);
 10a. googlenet, resnet50, vgg16: ``ImageNetApp`` through ``main([...])``
    with ``--arch`` each at its prototxt's batch (32, 32, 64; test 50,
    25, 50), f32, 20 iterations of its zoo solver (cut from 2.4 M, 450 k
@@ -152,8 +183,9 @@ own lines:
    eager run's bit for bit and ``learning_rate`` on the host within 1e-6;
    each step's metrics the eager run's and unchanged after the next
    step; the kernel launches equal, and the graph run's replays after
-   its capture traced by ``torch.profiler``: the LRN and flash kernels
-   it saw equal to the counters' increase over those steps. The save restored into a fresh solver
+   its capture traced by ``torch.profiler``, the first dropped: the LRN
+   and flash kernels of each replay equal to the counters' increase a
+   replay. The save restored into a fresh solver
    and 6 more iterations through a new graph: the straight run's.
    ``scan_steps`` of the first batch against 12 eager steps on it;
 14. cifar-app: ``CifarApp`` through ``main([...])``: the port's
@@ -380,7 +412,8 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving, train, alexnet-local, feed,
+counts the main paths' runs (serving, serving-tier's engines and its
+traffic, train, alexnet-local, feed,
 googlenet, fused-step's AlexNet graph run, every rank of the
 multiprocess phase's AlexNet runs, caffe-native's run A and engines,
 and telemetry's app runs, remat runs (a recompute launches again),
@@ -389,13 +422,14 @@ run, every rank of the bert-processes phase and telemetry's BERT remat
 runs for flash).
 A kernel inside a captured step is counted at each replay (the graph
 adds what its capture counted).
-Last comes the result line ``{"ok": true, "device": {...}}``. Any
+Before it, the phases' seconds in all. Last comes the result line
+``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry serving-tier
 
-runs the card and build phases and the phases named (any of the six)
+runs the card and build phases and the phases named (any of the seven)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -621,6 +655,7 @@ class Phases:
 
     def __init__(self):
         self.failed = []
+        self.seconds = 0.0  # every phase's, summed
 
     def run(self, name, fn, *args):
         log(f"== phase {name}")
@@ -629,9 +664,11 @@ class Phases:
             out = fn(*args)
         except Exception:
             traceback.print_exc(file=sys.stdout)
+            self.seconds += time.perf_counter() - t0
             log(f"== phase {name}: FAILED after {time.perf_counter() - t0:.1f} s")
             self.failed.append(name)
             return None
+        self.seconds += time.perf_counter() - t0
         log(f"== phase {name}: ok in {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -1267,7 +1304,7 @@ def phase_serving():
         log(f"  {label}: top-5 equal to the CPU run")
 
     # no relayout: the LRN bottoms are contiguous NHWC straight off the convs
-    params, state, _ = eng._weights_snapshot()
+    params, state, _, _ = eng._weights_snapshot()
     x = torch.from_numpy(rows(1)).cuda()
     blobs, _ = eng.net.apply(params, state, {"data": x}, train=False)
     for blob in ("conv1", "conv2"):
@@ -1315,7 +1352,7 @@ def phase_profile(serving):
 
     # the same forward split in three without the profiler, CUDA events:
     # upload of the host batch, the net on the card, download of the output
-    params, state, _ = eng._weights_snapshot()
+    params, state, _, _ = eng._weights_snapshot()
     host = torch.from_numpy(x)
     pinned = host.pin_memory()
     xd = host.to("cuda")
@@ -1361,6 +1398,490 @@ def phase_load(serving):
         log(f"    bucket {b}: {e['batches']} calls, padding_waste "
             f"{e['padding_waste']}, device p50 {e['device_latency']['p50_ms']} ms")
     return rec
+
+
+# ----------------------------------------------------------- serving tier
+TIER_BUCKETS = (1, 8, 32)
+# the int8 fc8 logits, card vs CPU, relative L2: within this share of
+# what int8 itself moves them (the CPU's int8 against its f32 logits).
+# The products are exact on both devices for one input; the f32 layers
+# between (LRN's kernel against its plain version) differ in the last
+# bits, which moves a few per-row int8 codes by one, and each such step
+# moves the next layer's inputs by a code's width. A wrong scale, layout
+# or product moves the logits by the quantization error or more.
+TIER_INT8_SHARE = 0.5
+TIER_BF16_LOGITS = 1e-2  # the same for bf16 (one bf16 rounding moves 2^-8)
+TIER_TOP5 = 0.99  # share of rows whose top-5 sets agree, card vs CPU
+TIER_AGREE_ROWS = 256  # rows of the int8-against-f32 top-1 agreement (printed)
+TIER_WATCH_S = 1.0  # the watcher's poll interval
+TIER_WATCH_WAIT = 30.0  # seconds the watch may take to serve a new file
+TIER_CLIENTS = 4
+
+
+def _tier_rows(seed, n, shape=(227, 227, 3)):
+    """Seeded N(0, 1) rows, 3 decimals (small JSON bodies; the CPU gets
+    the same values)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.round(rng.normal(size=(n,) + shape), 3).astype(np.float32)
+
+
+def _tier_state(path, net, seed):
+    """A solverstate of ``net``'s filler weights from ``seed`` (the JAX
+    layout the file holds). -> the CPU weights."""
+    import torch
+
+    from sparknet_tpu_torch.nets.weights import to_jax_params
+    from sparknet_tpu_torch.solver.snapshot import save_state
+
+    params, state = net.init(torch.Generator().manual_seed(seed))
+    save_state(path, params=to_jax_params(params, net), state={}, iter=0)
+    return params, state
+
+
+def _tier_torn(src, path):
+    """The first half of ``src`` at ``path``, cut before it takes its
+    name (as a crash mid-write leaves a file), so no reader sees it
+    whole."""
+    with open(src, "rb") as f, open(path + ".part", "wb") as out:
+        out.write(f.read(os.path.getsize(src) // 2))
+    os.replace(path + ".part", path)
+    return path
+
+
+def _tier_precision(quant, x, shared, agree=None):
+    """One precision of full-width AlexNet on the card against the same
+    engine on the CPU (module docstring, phase serving-tier)."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.ops.lrn import lrn_rows
+    from sparknet_tpu_torch.serve import quantize as q
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.serve.metrics import ServeMetrics
+
+    metrics = ServeMetrics(TIER_BUCKETS)
+    card = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=TIER_BUCKETS,
+                                      quant=quant, metrics=metrics)
+    cpu = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cpu", buckets=TIER_BUCKETS,
+                                     quant=quant)
+    for layer, e in card.params.items():
+        for name, t in e.items():
+            if not torch.equal(t.cpu(), cpu.params[layer][name]):
+                raise AssertionError(f"{quant} {layer}.{name}: card and CPU differ")
+    card.warmup()
+    lrn_rows.launches = 0
+    # bucket calls of 1, 5 (padded to 8) and 32 real rows, and 8 rows whose
+    # first 5 are the padded call's
+    outs = {n: card.infer(x[:n]) for n in (1, 5, 32)}
+    full = card.infer(np.concatenate([x[:5], x[32:35]]))
+    if not np.array_equal(full[:5], outs[5]):
+        raise AssertionError(f"{quant}: the 5 rows padded to bucket 8 differ from the same "
+                             "rows beside 3 real ones")
+    ms = {}
+    for b in TIER_BUCKETS:
+        times = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            card.infer(x[:b])
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[b] = statistics.median(times[2:])
+    want = cpu.infer(x[:32])
+    got = outs[32]
+    idx, idx_cpu = card.postprocess(got, 5)[0], cpu.postprocess(want, 5)[0]
+    same = float(np.mean([set(a) == set(b) for a, b in zip(idx, idx_cpu)]))
+    if quant == "f32":
+        _check_topk(f"{quant} bucket 32", idx, idx_cpu, want)
+    elif quant == "int8" and same < TIER_TOP5:
+        raise AssertionError(f"{quant}: top-5 sets agree on {same:.3f} of 32 rows")
+    line = (f"  {quant}: weights card = CPU bit for bit; resident {q.tree_bytes(card.params)} "
+            f"bytes; median ms a bucket call (host clock, 6 of 8) "
+            + ", ".join(f"b{b} {ms[b]:.3f}" for b in TIER_BUCKETS)
+            + f"; top-5 sets equal on {same:.3f} of 32 rows; padded rows = real rows bit for bit")
+    # the shared batch: logits, and each int8 layer's accumulator on the
+    # CPU's own layer input (a comparison: its 2 LRN launches are not
+    # the engine's)
+    before = lrn_rows.launches
+    xs = torch.from_numpy(shared)
+    with torch.inference_mode():
+        if quant == "int8":
+            cb, _ = q.apply_int8(cpu.net, cpu.params, cpu.state, {"data": xs})
+            gb, _ = q.apply_int8(card.net, card.params, card.state, {"data": xs.cuda()})
+            accs = 0
+            for lp in card.net.layers:
+                if q.SCALE_KEY not in card.params.get(lp.name, {}):
+                    continue
+                fn = q.conv_int8_acc if lp.type == "Convolution" else q.ip_int8_acc
+                inp = cb[lp.bottom[0]]
+                a_cpu, _ = fn(lp, cpu.params[lp.name], inp)
+                a_card, _ = fn(lp, card.params[lp.name], inp.cuda())
+                if a_card.dtype != torch.int32 or not torch.equal(a_card.cpu(), a_cpu):
+                    raise AssertionError(f"int8 {lp.name}: int32 accumulators differ")
+                accs += 1
+            line += f"; {accs} int8 layers' int32 accumulators card = CPU exactly"
+        else:
+            cb, _ = cpu.net.apply(cpu.params, cpu.state, {"data": xs.to(cpu.compute_dtype)},
+                                  train=False, compute_dtype=cpu.compute_dtype)
+            gb, _ = card.net.apply(card.params, card.state,
+                                   {"data": xs.cuda().to(card.compute_dtype)}, train=False,
+                                   compute_dtype=card.compute_dtype)
+    direct = lrn_rows.launches - before
+    rel = _rel(gb["fc8"].float(), cb["fc8"].float())
+    tol = {"bf16": TIER_BF16_LOGITS}.get(quant)
+    if quant == "int8":
+        with torch.inference_mode():
+            f32, _ = cpu.net.apply(cpu._ref_params, cpu._ref_state, {"data": xs}, train=False)
+        quant_err = _rel(cb["fc8"], f32["fc8"])
+        tol = TIER_INT8_SHARE * quant_err
+        line += ("; card vs CPU rel L2 by int8 layer output " + ", ".join(
+            f"{lp.name} {_rel(gb[lp.top[0]], cb[lp.top[0]]):.1e}" for lp in card.net.layers
+            if q.SCALE_KEY in card.params.get(lp.name, {}))
+                 + f"; the CPU's int8 fc8 against its f32 {quant_err:.3e}")
+    line += f"; fc8 logits rel L2 {rel:.3e}" + (f" (tol {tol:.3e})" if tol else "")
+    if tol is not None and rel > tol:
+        raise AssertionError(f"{quant}: fc8 logits card vs CPU rel L2 {rel:.3e} > {tol:g}")
+    # rows for the int8 against f32 top-1 agreement, printed (not held)
+    top1 = None if agree is None else card.postprocess(np.concatenate(
+        [card.infer(agree[i:i + 32]) for i in range(0, len(agree), 32)]), 1)[0][:, 0]
+    calls = sum(e["batches"] for e in metrics.snapshot()["per_bucket"].values())
+    launches = lrn_rows.launches - direct
+    line += (f"; LRN kernel launches {launches} over {calls} bucket calls (and {direct} in "
+             "the shared batch's comparison)")
+    log(line)
+    if calls == 0 or launches != 2 * calls or direct != 2:
+        raise AssertionError(f"{quant}: {launches} LRN launches over {calls} bucket calls, "
+                             f"{direct} in one forward of the shared batch")
+    return {"ms": ms, "bytes": q.tree_bytes(card.params), "launches": launches,
+            "top1": top1, "engine": card, "cpu": cpu}
+
+
+def tier_clients(spec_path):
+    """``--tier-client SPEC``: TIER_CLIENTS closed-loop clients on the
+    server's ``/classify`` (one seeded row a request), in a process of
+    their own so that their JSON work does not share the server's
+    interpreter, until the spec's stop file appears; then each answer's
+    (client, request, generation tag, top-5) and the failures to the
+    spec's output file."""
+    import threading
+
+    from sparknet_tpu_torch.serve.server import Client
+
+    spec = json.load(open(spec_path))
+    answers, failed = [], []
+
+    def run(i):
+        client = Client(spec["host"], spec["port"], timeout=120, retries=4)
+        k = 0
+        while not os.path.exists(spec["stop"]):
+            try:
+                code, body = client.classify(_tier_rows(1000 * (i + 1) + k, 1), top_k=5)
+                if code != 200:
+                    raise RuntimeError(f"HTTP {code}: {body}")
+                answers.append((i, k, body["gen"], body["indices"][0]))
+            except Exception as e:  # counted: the phase requires none
+                failed.append(f"client {i} request {k}: {type(e).__name__}: {e}")
+            k += 1
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(TIER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(spec["out"], "w") as f:
+        json.dump({"answers": answers, "failed": failed}, f)
+    return 0
+
+
+class _Traffic:
+    """The ``--tier-client`` process against ``server``, from start to
+    :meth:`finish` -> its answers (client, request, generation, top-5)
+    and failures; raises where a client's generations went down."""
+
+    def __init__(self, server, tmp):
+        self.spec = os.path.join(tmp, "clients.json")
+        self.stop, self.out = self.spec + ".stop", self.spec + ".out"
+        with open(self.spec, "w") as f:
+            json.dump({"host": server.host, "port": server.port, "stop": self.stop,
+                       "out": self.out}, f)
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      "--tier-client", self.spec])
+
+    def finish(self):
+        open(self.stop, "w").close()
+        try:
+            rc = self.proc.wait(180)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        if rc != 0:
+            raise AssertionError(f"the client process exited {rc}")
+        res = json.load(open(self.out))
+        answers = sorted(res["answers"])
+        for i in range(TIER_CLIENTS):
+            gens = [a[2] for a in answers if a[0] == i]
+            if gens != sorted(gens):
+                raise AssertionError(f"client {i}: generations went down: {gens}")
+        return answers, res["failed"]
+
+
+def _tier_hot_swap(tmp, eng, ref, int8):
+    """Hot swaps of ``eng`` (f32, on the card) through ``/reload`` under
+    closed-loop traffic, then the server's own snapshot watch, each
+    answer held against ``ref`` (the same engine on the CPU) on its
+    generation's weights; then ``int8``'s swap from a file (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.serve import quantize as q
+    from sparknet_tpu_torch.serve.server import InferenceServer
+
+    watch = os.path.join(tmp, "watch")
+    os.makedirs(watch)
+    w = {0: (ref.params, ref.state)}
+    s1 = os.path.join(tmp, "alexnet_iter_10.solverstate.npz")
+    w[1] = _tier_state(s1, ref.net, 1)
+    torn = _tier_torn(s1, os.path.join(tmp, "alexnet_iter_20.solverstate.npz"))
+    from sparknet_tpu_torch.ops.lrn import lrn_rows
+
+    def calls():
+        return sum(e["batches"] for e in eng.metrics.snapshot()["per_bucket"].values())
+
+    server = InferenceServer(eng, port=0, watch=watch, watch_interval_s=TIER_WATCH_S)
+    server.batcher.wait_ready(120)
+    calls0, lrn0 = calls(), lrn_rows.launches
+    server.start()
+    traffic = _Traffic(server, tmp)
+    answers = failed = None
+    t0 = time.perf_counter()  # the clients' process starts up first
+    while server.metrics.requests < TIER_CLIENTS and time.perf_counter() - t0 < 120:
+        time.sleep(0.05)
+    reloads, gens = [], [eng.generation]
+    try:
+        client = server.client(timeout=120)
+
+        def reload(body, want):
+            time.sleep(0.7)  # traffic on the generation before
+            t0 = time.perf_counter()
+            code, resp = client._request("POST", "/reload", body)
+            reloads.append((json.dumps(body)[:60], code, (time.perf_counter() - t0) * 1e3))
+            if code != want:
+                raise AssertionError(f"/reload {body}: {code} {resp}, want {want}")
+            return resp
+
+        g = reload({"weights": s1}, 200)["generation"]  # 1. the written state
+        reload({"weights": torn}, 409)  # 2. torn: refused
+        if eng.generation != g:
+            raise AssertionError("a torn reload moved the generation")
+        g = reload({"rollback": True}, 200)["generation"]  # 3. back to the boot weights
+        w[g] = w[0]
+        reload({"rollback": True}, 409)  # 4. consumed
+        # the watch: a torn newer file first (held until a poll skipped
+        # it), then an intact one
+        seen0 = server._watcher.torn_seen
+        _tier_torn(s1, os.path.join(watch, "alexnet_iter_200.solverstate.npz"))
+        t0 = time.perf_counter()
+        while server._watcher.torn_seen == seen0 and time.perf_counter() - t0 < TIER_WATCH_WAIT:
+            time.sleep(0.05)
+        if server._watcher.torn_seen == seen0 or eng.generation != g:
+            raise AssertionError(f"the watcher did not skip a torn snapshot (generation "
+                                 f"{eng.generation}, was {g})")
+        good = os.path.join(watch, "alexnet_iter_100.solverstate.npz")
+        w2 = _tier_state(good + ".part", ref.net, 2)
+        os.replace(good + ".part", good)
+        t0 = time.perf_counter()  # a tick reads and checks the 243.9 MB file, then the
+        while eng.generation == g and time.perf_counter() - t0 < TIER_WATCH_WAIT:  # swap
+            time.sleep(0.05)
+        picked = time.perf_counter() - t0
+        if eng.generation != g + 1 or eng.weights_source != good:
+            from sparknet_tpu_torch.serve import hotswap
+
+            torn_seen = []
+            got = hotswap.newest_verified(watch, on_torn=lambda p, e: torn_seen.append(
+                f"{p}: {e!r}"[:300]))
+            raise AssertionError(
+                f"the watcher did not serve {good} in {picked:.1f} s (generation "
+                f"{eng.generation}, source {eng.weights_source}; watcher last_iter "
+                f"{server._watcher.last_iter}, torn_seen {server._watcher.torn_seen}, thread "
+                f"alive {server._watcher._thread.is_alive()}; newest_verified now {got}, "
+                f"torn {torn_seen}; files {sorted(os.listdir(watch))}; a reload now "
+                f"{server.reload(good)})")
+        w[g + 1] = w2
+        time.sleep(0.7)
+        code, health = client.healthz()
+    finally:
+        try:
+            answers, failed = traffic.finish()
+        finally:
+            server.stop()
+    if failed:
+        raise AssertionError(f"{len(failed)} failed requests: {failed[:3]}")
+    n_calls, n_lrn = calls() - calls0, lrn_rows.launches - lrn0
+    if n_lrn != 2 * n_calls:
+        raise AssertionError(f"under swap: {n_lrn} LRN launches over {n_calls} bucket calls")
+    seen = sorted({a[2] for a in answers})
+    # each answer against the CPU engine on its generation's weights
+    for gen in seen:
+        if gen not in w:
+            raise AssertionError(f"answers tagged with unknown generation {gen}")
+        rows = [a for a in answers if a[2] == gen]
+        ref.swap(*w[gen])
+        x = np.concatenate([_tier_rows(1000 * (a[0] + 1) + a[1], 1) for a in rows])
+        probs = ref.infer(x)
+        _check_topk(f"generation {gen}", [a[3] for a in rows], ref.postprocess(probs, 5)[0],
+                    probs)
+    log(f"  hot swap under {TIER_CLIENTS} closed-loop clients (a process of their own): "
+        f"{len(answers)} "
+        f"answers, 0 failed, generations {seen} never decreasing per client, each answer's "
+        f"top-5 = the CPU engine's on its generation's weights; /reload "
+        + "; ".join(f"{b} -> {c} in {ms:.1f} ms" for b, c, ms in reloads)
+        + f"; the watch skipped a torn newer file and served iteration 100 {picked:.2f} s "
+        f"after it was written (poll {TIER_WATCH_S} s); /healthz {code} gen "
+        f"{health['generation']} quant {health['quant']}; LRN kernel launches {n_lrn} over "
+        f"{n_calls} bucket calls")
+    # 5. the int8 engine from a file: the scales captured anew
+    srv8 = InferenceServer(int8, port=0)
+    before = {l: e[q.SCALE_KEY].clone() for l, e in int8.params.items() if q.SCALE_KEY in e}
+    t0 = time.perf_counter()
+    code, resp = srv8.reload(s1)
+    ms8 = (time.perf_counter() - t0) * 1e3
+    srv8.close()
+    want = q.quantize_tree(ref.net, w[1][0])
+    for l, s in before.items():
+        got = int8.params[l][q.SCALE_KEY].cpu()
+        if torch.equal(got, s.cpu()) or not torch.equal(got, want[l][q.SCALE_KEY]):
+            raise AssertionError(f"int8 {l}: the swap did not capture the file's scales")
+        if not torch.equal(int8.params[l]["weight"].cpu(), want[l]["weight"]):
+            raise AssertionError(f"int8 {l}: int8 weights differ from the CPU's of the file")
+    log(f"  int8 /reload of the written state: {code} in {ms8:.1f} ms (host load + merge onto "
+        f"the f32 tree + quantize on the card), gen {resp.get('generation')}; every scale and "
+        f"int8 weight anew, = the CPU's quantization of the file bit for bit")
+    return len(answers)
+
+
+def _tier_sessions(tmp):
+    """char_rnn's deploy net through ``/generate`` on the card (module
+    docstring); -> the rows-across-widths finding."""
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.models import CHAR_RNN_DEPLOY
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.serve.loadgen import run_http_loadgen
+    from sparknet_tpu_torch.serve.server import InferenceServer
+
+    eng = InferenceEngine.from_files(CHAR_RNN_DEPLOY, device="cuda")
+    cpu = InferenceEngine.from_files(CHAR_RNN_DEPLOY, device="cpu")
+    # rows across widths: the same 4 session rows (1 at width 1), 3
+    # steps, at each width, against width 4's
+    stepper = eng._stepper
+    params, state, _, _ = eng._weights_snapshot()
+    gen = torch.Generator().manual_seed(0)
+    toks = [torch.randint(0, stepper.vocab, (4,), generator=gen) for _ in range(3)]
+    rows = {}
+    for width in (1, 4, 8, 16, 32):
+        n = min(width, 4)
+        carry = stepper.init_carry(width)
+        for t in toks:
+            tok = torch.zeros(width, dtype=torch.int32)
+            tok[:n] = t[:n]
+            out, carry = stepper.step_fn(params, state, carry, tok.cuda())
+        rows[width] = torch.cat([out[:n]] + [a[:n] for tup in carry.values() for a in tup], 1)
+    stable = {w: torch.equal(r, rows[4][:len(r)]) for w, r in rows.items()}
+    eng.warmup()
+    log(f"  char_rnn rows across widths, 3 steps, bitwise equal to width 4's rows: "
+        + ", ".join(f"{w}: {s}" for w, s in stable.items())
+        + f"; the engine's ladder check: stable {eng.decode_ladder_stable}, decode widths "
+        f"{eng.decode_buckets}")
+    server = InferenceServer(eng, port=0, model_name="char_rnn_deploy.prototxt")
+    server.batcher.wait_ready(120)
+    server.start()
+    try:
+        c = server.client(timeout=120)
+        prefix = [int(v) for v in np.random.default_rng(7).integers(0, 96, 12)]
+        t0 = time.perf_counter()
+        _, cold0 = c.generate(prefix, session="a", steps=4)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, hit = c.generate(prefix + cold0["tokens"] + [5], session="a", steps=4)
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        _, cold = c.generate(prefix + cold0["tokens"] + [5], steps=4)
+        if (hit["cache_state"], cold["cache_state"]) != ("hit", "cold") or any(
+                hit[k] != cold[k] for k in ("probs", "indices", "tokens")):
+            raise AssertionError(f"hit {hit} != cold {cold}")
+        # the card's answer against the CPU engine's (no greedy step: random
+        # weights make near-ties of the argmax)
+        _, got = c.generate(prefix, top_k=96)
+        want = cpu.generate(prefix, top_k=96)
+        order = np.argsort(got["indices"])
+        rel = float(np.linalg.norm(np.subtract(np.asarray(got["probs"])[order],
+                                               np.asarray(want["probs"])[np.argsort(
+                                                   want["indices"])]))
+                    / np.linalg.norm(want["probs"]))
+        if rel > 1e-4:
+            raise AssertionError(f"char_rnn probs card vs CPU rel L2 {rel:.2e} > 1e-4")
+        _, reb = c.generate([1, 2, 3], session="a")
+        _, reb_cold = c.generate([1, 2, 3])
+        if reb["cache_state"] != "rebuilt" or reb["probs"] != reb_cold["probs"]:
+            raise AssertionError(f"prefix mismatch: {reb['cache_state']}")
+        _, s1 = c.generate(prefix, session="b", steps=2)
+        path = os.path.join(tmp, "char_iter_5.solverstate.npz")
+        _tier_state(path, cpu.net, 1)
+        code, resp = c.reload(path)
+        _, stale = c.generate(prefix + s1["tokens"], session="b")
+        _, fresh = c.generate(prefix + s1["tokens"])
+        if code != 200 or stale["cache_state"] != "stale_gen" or stale["probs"] != \
+                fresh["probs"] or stale["gen"] != resp["generation"]:
+            raise AssertionError(f"hot swap: {code} {stale['cache_state']}")
+        rec = run_http_loadgen(server.host, server.port, (), n_requests=64, concurrency=4,
+                               sessions=8, session_zipf=1.1, session_steps=4, seed=0)
+        _, health = c.healthz()
+    finally:
+        server.stop()
+    if rec["failed_requests"] or rec["session_failed_requests"]:
+        raise AssertionError(f"session loadgen: {rec['error_samples']}")
+    log(f"  sessions on the card: hit = cold bit for bit ({len(prefix) + 5}-token prefix, 4 "
+        f"steps; the hit stepped {hit['steps_run']} tokens in {hit_ms:.1f} ms, the cold start "
+        f"{cold0['steps_run']} in {cold_ms:.1f} ms, HTTP included); the 12-token answer = the "
+        f"CPU engine's within {rel:.2e} rel L2 (tol 1e-4); a prefix mismatch rebuilt; a hot swap made the session "
+        f"stale_gen and rebuilt it; loadgen 8 sessions, Zipf 1.1, 4 steps: 64 requests, 0 "
+        f"failed, states {rec['sessions']['states']}, {rec['sessions']['tokens_per_sec']} "
+        f"tokens/s, p50 {rec['p50_ms']} ms; decode {health.get('decode')}")
+    return {"stable": stable, "ladder": eng.decode_ladder_stable}
+
+
+def phase_serving_tier(tmp):
+    """The serving tier of one process (module docstring, phase
+    serving-tier); -> the LRN launches of its engines."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    secs = {}
+    x = _tier_rows(0, 40)
+    shared = x[:8]
+    agree = _tier_rows(1, TIER_AGREE_ROWS)
+    res = {quant: _tier_precision(quant, x, shared, None if quant == "bf16" else agree)
+           for quant in ("f32", "bf16", "int8")}
+    top1 = float(np.mean(res["int8"]["top1"] == res["f32"]["top1"]))
+    log(f"  int8 against f32 top-1 agreement on {TIER_AGREE_ROWS} rows, card: {top1:.4f} "
+        f"(printed, not held); resident bytes f32 {res['f32']['bytes']}, bf16 "
+        f"{res['bf16']['bytes']}, int8 {res['int8']['bytes']}")
+    secs["precisions"] = time.perf_counter() - t0
+    served = _tier_hot_swap(tmp, res["f32"]["engine"], res["f32"]["cpu"], res["int8"]["engine"])
+    secs["swap"] = time.perf_counter() - t0 - sum(secs.values())
+    from sparknet_tpu_torch.ops.lrn import lrn_rows
+
+    # the counter was last set to 0 at the int8 engine's start: it holds
+    # that engine's launches, 2 of its comparison and the traffic's
+    lrn = res["f32"]["launches"] + res["bf16"]["launches"] + lrn_rows.launches - 2
+    sessions = _tier_sessions(tmp)
+    secs["sessions"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  serving-tier phase {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f"); {served} answers under swap")
+    return {"launches": lrn, "sessions": sessions}
 
 
 # ------------------------------------------------------------- training
@@ -1761,28 +2282,6 @@ def _counts():
     return {fn.__name__: fn.launches for fn in launch_counters()}
 
 
-def _traced_launches(label, events, before):
-    """The LRN and flash kernels ``torch.profiler`` saw run (``events``,
-    its ``key_averages()``) against the launch counters' increase since
-    ``before`` (:func:`_counts`): a graph replay adds its capture's
-    count without calling a wrapper, so this is what shows that the
-    replays ran those kernels. Raises where they differ; the kernels
-    seen, by TRACE_KERNELS part."""
-    import torch
-
-    now = _counts()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {}
-    for wrappers, part in TRACE_KERNELS:
-        seen = sum(e.count for e in kernels if part in e.key)
-        moved = sum(now[w] - before[w] for w in wrappers)
-        if seen != moved:
-            raise AssertionError(f"{label}: torch.profiler saw {seen} {part}* kernels, the "
-                                 f"launch counters {'+'.join(wrappers)} moved by {moved}")
-        out[part] = seen
-    return out
-
-
 def _slack_gib(torch):
     """GiB reserved by the allocator and not allocated once the cache is
     emptied: what a graph's private pool holds for its intermediates (the
@@ -1804,10 +2303,10 @@ def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
     time against the wall time (its idle share), the device operations a
     step, the host's launches a step by kind (HOST_LAUNCH_APIS), the
     device time of the kernels whose names hold ``tags``, and the LRN and
-    flash kernels it saw held to the launch counters' increase
-    (:func:`_traced_launches`)."""
+    flash kernels it saw held to the launch counters' increase, replay by
+    replay through the graph, after one traced step it drops
+    (:func:`_traced_per_replay`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     solver.step(feed, 3)
     torch.cuda.synchronize()
@@ -1816,14 +2315,10 @@ def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
     peak = torch.cuda.max_memory_allocated() / 2**30
     pool = _slack_gib(torch) - slack0
     steps = 3
-    before = _counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        metrics = solver.step(feed, steps)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e6  # us per step
-    events = prof.key_averages()
-    traced = _traced_launches(label, events, before)
+    run = _traced_per_replay(label, lambda: solver.step(feed, 1), steps,
+                             graph=solver._fuse_host)
+    metrics, events, traced = run["out"], run["events"], run["kernels"]
+    wall = run["wall_us"]
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host = {what: sum(e.count for e in events if e.key in names) // steps
             for what, names in HOST_LAUNCH_APIS.items()}
@@ -1846,7 +2341,7 @@ def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
         f"the graph pool beyond it {pool:.2f} GiB; host launches a step: "
         + ", ".join(f"{n} {what}" for what, n in host.items())
         + "; traced kernels a step = the launch counters': "
-        + (", ".join(f"{n // steps} {part}" for part, n in traced.items() if n) or "none"))
+        + (", ".join(f"{n} {part}" for part, n in traced.items() if n) or "none"))
     bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
     if bad:
         raise AssertionError(f"{label}: non-finite metrics {bad}")
@@ -2610,11 +3105,13 @@ def _fused_run(solver, snap, batches, fused, save=None, scan=False):
     metrics, checked unchanged one step later, and the rate its update
     used), or one ``scan_steps`` on ``batches[0]``; ``save`` writes the
     solverstate at FUSED_SAVE_AT. Through the graph one step at a time,
-    the steps after the capture run under ``torch.profiler``
-    (:func:`_traced_launches`). The launches counted from 0, the final
+    the steps after the capture run under ``torch.profiler``, the first
+    of them traced and dropped, the others held replay by replay
+    (:func:`_traced_per_replay`). The launches counted from 0, the final
     leaves and generator state."""
+    import itertools
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sparknet_tpu_torch.ops import launch_counters
     from sparknet_tpu_torch.solver.trainer import WARMUP_STEPS
@@ -2628,29 +3125,30 @@ def _fused_run(solver, snap, batches, fused, save=None, scan=False):
         metrics.append({k: v.clone() for k, v in m.items()})
     else:
         feed = iter(batches)
-        held = prof = None
-        for i in range(FUSED_ITERS):
+        held = []
+
+        def one(i):
             if save is not None and i == FUSED_SAVE_AT:
                 solver.save(save)
-            if fused and i == WARMUP_STEPS + 1:  # the replays after the capture's
-                before = _counts()
-                # the card's activity alone: the kernels are what is counted
-                prof = profile(activities=[ProfilerActivity.CUDA])
-                prof.start()
             m = solver.step(feed, 1)
             rates.append(solver._train_step.update.rate.clone())
-            if held is not None:
-                for k, v in held[1].items():
-                    if not torch.equal(held[0][k], v):
+            if held:
+                for k, v in held[-1][1].items():
+                    if not torch.equal(held[-1][0][k], v):
                         raise AssertionError(f"step {i - 1}'s metric {k} changed at step {i}: "
-                                             f"{float(v)} -> {float(held[0][k])}")
-            held = (m, {k: v.clone() for k, v in m.items()})
-            metrics.append(held[1])
-        if prof is not None:
-            torch.cuda.synchronize()
-            prof.stop()
-            traced = _traced_launches(f"graph run, {FUSED_ITERS - WARMUP_STEPS - 1} "
-                                      f"replays", prof.key_averages(), before)
+                                             f"{float(v)} -> {float(held[-1][0][k])}")
+            held[:] = [(m, {k: v.clone() for k, v in m.items()})]
+            metrics.append(held[-1][1])
+
+        # through the graph, the replays after the capture's are traced
+        first = WARMUP_STEPS + 1 if fused else FUSED_ITERS
+        for i in range(first):
+            one(i)
+        if fused:
+            nxt = itertools.count(first)
+            traced = _traced_per_replay(
+                f"graph run, {FUSED_ITERS - first - 1} replays", lambda: one(next(nxt)),
+                FUSED_ITERS - first - 1)["kernels"]
     torch.cuda.synchronize()
     if solver.iter != FUSED_ITERS:
         raise AssertionError(f"iter {solver.iter} after {FUSED_ITERS} iterations")
@@ -2785,8 +3283,8 @@ def _fused_net(name, tmp):
     loss = [float(m["loss"]) for m in g["metrics"] if "loss" in m]
     log(f"  {name}: " + "; ".join(lines) + f"; rates {rates[0]:.6g} .. {rates[-1]:.6g} "
         f"(host's within 1e-6); launches {g['launches']} both ways, the graph's "
-        f"{FUSED_ITERS - WARMUP_STEPS - 1} replays after its capture traced = the "
-        f"counters': {g['traced']}; losses {loss[:1]} .. "
+        f"{FUSED_ITERS - WARMUP_STEPS - 2} replays after its capture and a dropped one "
+        f"traced, each = the counters' a replay: {g['traced']}; losses {loss[:1]} .. "
         f"{loss[-1:]}; {time.perf_counter() - t0:.1f} s")
     launches = g["launches"]
     del solver, snap, e1, e2, g, ref, scan, resumed
@@ -5527,7 +6025,7 @@ def _ab_alexnet():
         t0 = time.perf_counter()
         eng.infer(x)
         times.append((time.perf_counter() - t0) * 1e3)
-    params, state, _ = eng._weights_snapshot()
+    params, state, _, _ = eng._weights_snapshot()
     xd = torch.from_numpy(x).cuda()
     out["alexnet bucket 32 f32"] = dict(
         infer_ms=statistics.median(times[2:]),
@@ -5707,47 +6205,69 @@ def _tel_check_trace(tmp, text, launches):
                              f"{len(pids)} worker pids")
 
 
-def _traced_per_replay(label, solver, feed, replays):
-    """``replays`` replays of ``solver``'s captured step under
+def _traced_per_replay(label, step, replays, graph=True):
+    """``replays`` calls of ``step`` (one solver step each) under
     ``torch.profiler``, after one it traces and drops (its schedule's
-    warm-up: a window's first replay has lost records while tracing
-    started), its trace's LRN and flash kernels
-    grouped by the ``cudaGraphLaunch`` they belong to (the correlation id
-    the trace gives both), each replay held to the launch counters'
-    increase a replay. A replay runs every node of its graph: the phase
-    fails if any replay's trace holds another count, or if the trace
-    misses a replay. -> {kernel: a replay's}."""
+    warm-up: a window's first step has lost records while tracing
+    started), the card synchronized only around the traced steps. Through
+    the graph (``graph``), the trace's LRN and flash kernels grouped by
+    the ``cudaGraphLaunch`` they belong to (the correlation id the trace
+    gives both), each replay held to the launch counters' increase a
+    replay: a replay runs every node of its graph, so the phase fails if
+    any replay's trace holds another count, or if the trace misses a
+    replay. Eager, the kernels summed over the traced steps held to the
+    counters' increase over those steps. -> {"kernels": {TRACE_KERNELS
+    part: a step's}, "events": the traced steps' ``key_averages()``,
+    "wall_us": the host's time a traced step, "out": the last step's
+    return}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    before = _counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=replays, repeat=1)) as prof:
-        for _ in range(1 + replays):
-            solver.step(feed, 1)
-            torch.cuda.synchronize()
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        before = _counts()
+        t0 = time.perf_counter()
+        for i in range(replays):
+            out = step()
+            if i == replays - 1:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) / replays * 1e6
             prof.step()
     moved = {k: v - before[k] for k, v in _counts().items()}
-    with tempfile.NamedTemporaryFile(suffix=".json") as f:
-        prof.export_chrome_trace(f.name)
-        events = json.load(open(f.name))["traceEvents"]
-    launches = [e["args"]["correlation"] for e in events
-                if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})]
+    events = prof.key_averages()
     kernels = {}
-    for e in events:
-        cid = e.get("args", {}).get("correlation")
-        if e.get("cat") == "kernel" and cid is not None:
-            kernels.setdefault(cid, []).append(e["name"])
-    out = {}
+    launches = []
+    if graph:
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            prof.export_chrome_trace(f.name)
+            trace = json.load(open(f.name))["traceEvents"]
+        launches = [e["args"]["correlation"] for e in trace
+                    if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})]
+        for e in trace:
+            cid = e.get("args", {}).get("correlation")
+            if e.get("cat") == "kernel" and cid is not None:
+                kernels.setdefault(cid, []).append(e["name"])
+    seen = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    out_kernels = {}
     for wrappers, part in TRACE_KERNELS:
-        want, rest = divmod(sum(moved[w] for w in wrappers), 1 + replays)
-        per = [sum(part in k for k in kernels.get(cid, ())) for cid in launches]
-        if rest or per != [want] * replays:
-            raise AssertionError(f"{label}: {part}* kernels by traced replay {per}, the "
-                                 f"launch counters {'+'.join(wrappers)} {want} a replay "
-                                 f"({1 + replays} replays, remainder {rest})")
-        out[part] = want
-    return out
+        want, rest = divmod(sum(moved[w] for w in wrappers), replays)
+        if graph:
+            per = [sum(part in k for k in kernels.get(cid, ())) for cid in launches]
+            if rest or per != [want] * replays:
+                raise AssertionError(f"{label}: {part}* kernels by traced replay {per}, the "
+                                     f"launch counters {'+'.join(wrappers)} {want} a replay "
+                                     f"({replays} replays, remainder {rest})")
+        else:
+            total = sum(e.count for e in seen if part in e.key)
+            if total != want * replays + rest:
+                raise AssertionError(f"{label}: torch.profiler saw {total} {part}* kernels in "
+                                     f"{replays} steps, the launch counters "
+                                     f"{'+'.join(wrappers)} moved by {want * replays + rest}")
+        out_kernels[part] = want
+    return {"kernels": out_kernels, "events": events, "wall_us": wall_us, "out": out}
 
 
 def _tel_tree(tree):
@@ -5800,8 +6320,9 @@ def _tel_remat_run(make, label, tags):
                 fence, _ = _step_ms(solver, itertools.repeat(feed[-1]), 10)
                 solver.timeline = NULL
             if remat:
-                traced = _traced_per_replay(f"{label} remat", solver,
-                                            itertools.repeat(feed[-1]), TEL_TRACED_REPLAYS)
+                same = itertools.repeat(feed[-1])
+                traced = _traced_per_replay(f"{label} remat", lambda: solver.step(same, 1),
+                                            TEL_TRACED_REPLAYS)["kernels"]
             res[remat] = dict(losses=losses, params=params, state=state, peak=peak, ms=ms,
                               moved=moved, fence=fence, s=time.perf_counter() - t0)
             del solver, feed
@@ -6091,7 +6612,8 @@ def phase_telemetry(tmp):
 # the phases ``--phase`` runs alone
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
                "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
-               "catalogue": phase_catalogue, "telemetry": phase_telemetry}
+               "catalogue": phase_catalogue, "telemetry": phase_telemetry,
+               "serving-tier": phase_serving_tier}
 
 
 def main(argv=None) -> int:
@@ -6104,6 +6626,7 @@ def main(argv=None) -> int:
                          "NCCL runs on several cards); prints no result line")
     ap.add_argument("--rank-job", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--app-job", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--tier-client", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -6128,6 +6651,8 @@ def main(argv=None) -> int:
         return rank_main(args.rank_job)
     if args.app_job:
         return app_job(args.app_job)
+    if args.tier_client:
+        return tier_clients(args.tier_client)
     if args.ab:
         return ab(args.ab)
 
@@ -6139,17 +6664,20 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
                 phases.run(name, ONLY_PHASES[name], tmp)
         log(f"chip_smoke --phase {' '.join(args.phase)}: "
-            + (f"FAILED phases: {phases.failed}" if phases.failed else "ok"))
+            + (f"FAILED phases: {phases.failed}" if phases.failed else "ok")
+            + f"; {phases.seconds:.1f} s of phases in all")
         return 1 if phases.failed else 0
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
-    bert_mp = fused = caffe = telemetry = None
+    bert_mp = fused = caffe = telemetry = tier = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
             phases.run("profile", phase_profile, serving)
             phases.run("load", phase_load, serving)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
+            tier = phases.run("serving-tier", phase_serving_tier, tmp)
         phases.run("grads", phase_grads)
         for arch in ("googlenet", "resnet50"):
             phases.run(f"{arch}-grads", phase_zoo_grads, arch)
@@ -6181,6 +6709,7 @@ def main(argv=None) -> int:
             phases.run("catalogue", phase_catalogue, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
             telemetry = phases.run("telemetry", phase_telemetry, tmp)
+    log(f"chip_smoke: {phases.seconds:.1f} s of phases in all")
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")
         return 1
@@ -6189,7 +6718,9 @@ def main(argv=None) -> int:
     paths += (multiprocess,)  # every rank's launches
     paths += (caffe,)  # run A's and the engines'
     launches = {
-        "lrn_fwd": serving["launches"] + sum(p["launches"][0] for p in paths),
+        # serving-tier: its three precisions' engines and the traffic under swap
+        "lrn_fwd": serving["launches"] + tier["launches"]
+        + sum(p["launches"][0] for p in paths),
         "lrn_fwd_train": sum(p["launches"][1] for p in paths),
         "lrn_bwd": sum(p["launches"][2] for p in paths),
         # bert-train's, and every rank's of the bert-processes phase

@@ -44,7 +44,10 @@ def _from_jax_tree(tree, convs: set) -> WeightCollection:
     for layer, entry in tree.items():
         out[layer] = {}
         for name, arr in entry.items():
-            t = torch.from_numpy(np.array(arr, np.float32))
+            arr = np.asarray(arr)
+            # an int8 weight of a quantized tree keeps its dtype; every
+            # other leaf (its weight_scale too) becomes f32
+            t = torch.from_numpy(np.array(arr, np.int8 if arr.dtype == np.int8 else np.float32))
             if layer in convs and name == "weight":
                 n = t.dim() - 4  # a leading worker axis, if any, stays in front
                 t = t.permute(*range(n), n + 3, n + 2, n, n + 1).contiguous()
@@ -57,7 +60,7 @@ def _to_jax_tree(tree: WeightCollection, convs: set) -> Dict[str, Dict[str, np.n
     for layer, entry in tree.items():
         out[layer] = {}
         for name, t in entry.items():
-            t = t.detach().to("cpu", torch.float32)
+            t = t.detach().to("cpu", torch.int8 if t.dtype == torch.int8 else torch.float32)
             if layer in convs and name == "weight":
                 n = t.dim() - 4  # a leading worker axis, if any, stays in front
                 t = t.permute(*range(n), n + 2, n + 3, n + 1, n)
@@ -69,7 +72,9 @@ def from_jax_params(params, state, net) -> Tuple[WeightCollection, Dict[str, Any
     """The JAX package's ``(params, state)`` trees, as numpy arrays
     (what ``jax.device_get`` gives), as the port's f32 CPU tensors:
     conv HWIO ``(kh, kw, cin/g, cout)`` becomes OIHW via
-    ``permute(3, 2, 0, 1)``; every other array keeps its shape."""
+    ``permute(3, 2, 0, 1)``; every other array keeps its shape. An int8
+    tree (``serve/quantize.py``: int8 weights beside f32
+    ``weight_scale`` vectors) maps the same way, its weights int8."""
     st = {
         layer: {n: torch.from_numpy(np.array(a, np.float32)) for n, a in e.items()}
         for layer, e in (state or {}).items()

@@ -23,6 +23,15 @@ caller cancelled are dropped, so the card never computes a reply nobody
 reads. ``drain()`` stops intake, lets the worker finish everything
 queued, and joins it.
 
+Besides rows, the queue takes callables (``submit_call``: a session
+``generate`` run in queue position on the worker) and decode requests
+(``submit_decode``): consecutive decode requests, and those that arrive
+while a decode window runs, share one continuous batched window
+(``engine.decode_batch``), admitted at step boundaries until the first
+request of another kind, which waits for the window to end so that FIFO
+order holds. ``SPARKNET_DECODE_BATCH=0`` routes ``/generate`` through
+``submit_call`` instead (:func:`decode_batching_enabled`).
+
 The worker thread runs the engine's ``warmup()`` before its first
 request: PyTorch makes its cuBLAS and cuDNN handles per thread, and on
 the card the first forward in a new thread pays for them (tens to
@@ -33,6 +42,7 @@ hundreds of milliseconds) inside a request's latency otherwise.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -49,6 +59,14 @@ _log = logging.getLogger(__name__)
 _EWMA_ALPHA = 0.3
 
 
+def decode_batching_enabled() -> bool:
+    """``SPARKNET_DECODE_BATCH=0`` keeps the serial decode path (one
+    ``engine.generate`` a worker turn); by default ``/generate`` goes
+    through :meth:`MicroBatcher.submit_decode` and the batched window."""
+    raw = os.environ.get("SPARKNET_DECODE_BATCH", "1").strip().lower()
+    return raw not in ("0", "off", "false", "no")
+
+
 class Backpressure(RuntimeError):
     """Raised by submit() when the bounded request queue is full."""
 
@@ -59,11 +77,17 @@ class DeadlineExceeded(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("rows", "n", "future", "t_enq", "deadline")
+    __slots__ = ("rows", "n", "future", "t_enq", "deadline", "fn", "decode")
 
-    def __init__(self, rows: np.ndarray, deadline_s: Optional[float] = None):
+    def __init__(self, rows: Optional[np.ndarray], deadline_s: Optional[float] = None,
+                 fn=None, decode=None):
+        # a rows request (coalesced into engine batches), a callable
+        # (submit_call) or a decode request (submit_decode): all share the
+        # queue, its FIFO order, backpressure and the deadline shed
         self.rows = rows
-        self.n = len(rows)
+        self.fn = fn
+        self.decode = decode
+        self.n = 1 if rows is None else len(rows)
         self.future: Future = Future()
         self.t_enq = time.perf_counter()
         self.deadline = None if deadline_s is None else self.t_enq + deadline_s
@@ -100,6 +124,10 @@ class MicroBatcher:
         self._last_arrival_t: Optional[float] = None
         self._service_s: Dict[int, float] = {}
         self._q: "queue.Queue[_Pending]" = queue.Queue(maxsize=max_queue)
+        # the item a decode window's admission pulled but must not run
+        # (the first of another kind ends the window, FIFO); the worker
+        # loop takes it before its next queue get
+        self._stash: Optional[_Pending] = None
         self._ready = threading.Event()
         self._open = True
         self._worker = threading.Thread(
@@ -120,17 +148,43 @@ class MicroBatcher:
         )
         if item.n == 0:
             raise ValueError("submit: empty request")
+        fut = self._enqueue(item, block, timeout)
+        if self.mode == "continuous":
+            self._note_arrival(item)
+        return fut
+
+    def _enqueue(self, item: _Pending, block: bool, timeout: Optional[float]) -> Future:
+        if not self._open:
+            raise RuntimeError("MicroBatcher is drained/closed")
         try:
             self._q.put(item, block=block, timeout=timeout)
         except queue.Full:
-            raise Backpressure(
-                f"request queue full ({self._q.maxsize} pending)"
-            ) from None
-        if self.mode == "continuous":
-            self._note_arrival(item)
+            raise Backpressure(f"request queue full ({self._q.maxsize} pending)") from None
         if self.metrics is not None:
             self.metrics.set_queue_depth(self._q.qsize())
         return item.future
+
+    def submit_call(self, fn, *, block: bool = False, timeout: Optional[float] = None,
+                    deadline_s: Optional[float] = None) -> Future:
+        """Enqueue one callable request (a session ``generate``): it runs
+        in queue position on the single worker, so decode and classify
+        share one serialized engine feed, one backpressure bound and one
+        deadline shed; resolves to ``fn()``'s return."""
+        return self._enqueue(_Pending(
+            None, self.deadline_s if deadline_s is None else deadline_s, fn=fn),
+            block, timeout)
+
+    def submit_decode(self, request: dict, *, block: bool = False,
+                      timeout: Optional[float] = None,
+                      deadline_s: Optional[float] = None) -> Future:
+        """Enqueue one decode request (``{"tokens": [...], "session": id?,
+        "steps": K, "top_k": k}``) for the continuous batched token loop
+        (``engine.decode_batch``): consecutive decode requests, and those
+        arriving while a window runs, share one window. Resolves when the
+        request's row retires."""
+        return self._enqueue(_Pending(
+            None, self.deadline_s if deadline_s is None else deadline_s,
+            decode=dict(request)), block, timeout)
 
     # ----------------------------------------------------- estimators
     def _note_arrival(self, item: _Pending) -> None:
@@ -192,12 +246,15 @@ class MicroBatcher:
             self._gather_continuous if self.mode == "continuous" else self._gather_fill
         )
         while True:
-            try:
-                first = self._q.get(timeout=0.05)
-            except queue.Empty:
-                if not self._open:
-                    return
-                continue
+            if self._stash is not None:
+                first, self._stash = self._stash, None
+            else:
+                try:
+                    first = self._q.get(timeout=0.05)
+                except queue.Empty:
+                    if not self._open:
+                        return
+                    continue
             batch, total = gather(first)
             if self.metrics is not None:
                 self.metrics.set_queue_depth(self._q.qsize())
@@ -281,8 +338,98 @@ class MicroBatcher:
                 self.metrics.record_shed(shed)
             if cancelled:
                 self.metrics.record_cancelled(cancelled)
-        if live:
-            self._run_rows(live, sum(it.n for it in live))
+        # calls and decode requests run in queue position: the batch is
+        # cut into maximal runs of one kind, FIFO; a rows run is one
+        # engine batch, a call runs alone, a decode run is one window
+        i = 0
+        while i < len(live):
+            kind = _kind(live[i])
+            j = i + 1
+            while kind != "call" and j < len(live) and _kind(live[j]) == kind:
+                j += 1
+            if kind == "decode":
+                self._run_decode(live[i:j])
+            elif kind == "call":
+                self._run_call(live[i])
+            else:
+                self._run_rows(live[i:j], sum(it.n for it in live[i:j]))
+            i = j
+
+    def _run_call(self, it: _Pending) -> None:
+        try:
+            out = it.fn()
+        except Exception as e:
+            if self.metrics is not None:
+                self.metrics.record_error()
+            it.future.set_exception(e)
+            return
+        it.future.set_result(out)
+        if self.metrics is not None:
+            self.metrics.record_request(time.perf_counter() - it.t_enq, rows=it.n)
+
+    def _run_decode(self, items: List[_Pending]) -> None:
+        """One continuous batched-decode window seeded by ``items``;
+        further decode arrivals join off the queue at step boundaries
+        until the first item of another kind, which is stashed for the
+        worker loop. Each item's future resolves when its row retires."""
+        outstanding: Dict[int, _Pending] = {}
+
+        def as_req(it: _Pending) -> dict:
+            req = dict(it.decode)
+            req["tag"] = id(it)
+            req["deadline"] = it.deadline
+            outstanding[id(it)] = it
+            return req
+
+        reqs = [as_req(it) for it in items]
+        closed = [False]
+
+        def admit(slots: int):
+            if closed[0]:
+                return ()
+            got: List[dict] = []
+            while len(got) < int(slots):
+                try:
+                    nxt = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt.decode is None:
+                    self._stash = nxt
+                    closed[0] = True
+                    break
+                if not nxt.future.set_running_or_notify_cancel():
+                    if self.metrics is not None:
+                        self.metrics.record_cancelled(1)
+                    continue
+                got.append(as_req(nxt))
+            if self.metrics is not None:
+                self.metrics.set_queue_depth(self._q.qsize())
+            return got
+
+        def on_result(tag: int, value) -> None:
+            it = outstanding.pop(tag)
+            if isinstance(value, Exception):
+                if self.metrics is not None:
+                    if isinstance(value, DeadlineExceeded):
+                        self.metrics.record_shed(1)
+                    else:
+                        self.metrics.record_error()
+                it.future.set_exception(value)
+                return
+            it.future.set_result(value)
+            if self.metrics is not None:
+                self.metrics.record_request(time.perf_counter() - it.t_enq, rows=1)
+
+        try:
+            self.engine.decode_batch(reqs, admit=admit, on_result=on_result)
+        except Exception as e:
+            # a window-level failure (per-row errors come through
+            # on_result): fail whatever is still outstanding
+            if self.metrics is not None and outstanding:
+                self.metrics.record_error(len(outstanding))
+            for it in outstanding.values():
+                it.future.set_exception(e)
+            outstanding.clear()
 
     def _run_rows(self, batch: List[_Pending], total: int) -> None:
         t0 = time.perf_counter()
@@ -293,7 +440,14 @@ class MicroBatcher:
                     batch[0].rows if len(batch) == 1
                     else np.concatenate([it.rows for it in batch])
                 )
-                out = self.engine.infer(rows_cat)
+                # the tagged path where the engine has one: the weights
+                # generation the whole batch computed with
+                tagged = getattr(self.engine, "infer_tagged", None)
+                if tagged is not None:
+                    out, gen = tagged(rows_cat)
+                else:
+                    out, gen = self.engine.infer(rows_cat), getattr(self.engine,
+                                                                    "generation", 0)
         except Exception as e:
             # the engine's failure belongs to every request of the batch
             if self.metrics is not None:
@@ -306,6 +460,7 @@ class MicroBatcher:
             self._observe_service(self._bucket_for(total), now - t0)
         ofs = 0
         for it in batch:
+            it.future.gen = gen  # read by the server's "gen" tag
             it.future.set_result(out[ofs : ofs + it.n])
             ofs += it.n
             if self.metrics is not None:
@@ -323,3 +478,7 @@ class MicroBatcher:
                 f"MicroBatcher worker did not stop within {timeout}s "
                 f"(engine wedged?); requests may still be in flight"
             )
+
+
+def _kind(it: _Pending) -> str:
+    return "decode" if it.decode is not None else "call" if it.fn is not None else "rows"

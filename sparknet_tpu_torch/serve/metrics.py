@@ -1,10 +1,10 @@
 """Serving metrics: the port's own ``ServeMetrics``.
 
-Counterpart of ``sparknet_tpu/serve/metrics.py`` for the rows path:
-request/row/error/shed/cancelled counts, hot-swaps, queue depth, the
-end-to-end request latency histogram, and per-bucket batch counts,
-padding waste and device latency. ``snapshot()`` gives the same JSON
-shape as the JAX package's (without its decode block); the server's
+Counterpart of ``sparknet_tpu/serve/metrics.py``: request/row/error/
+shed/cancelled counts, hot-swaps, queue depth, the end-to-end request
+latency histogram, per-bucket batch counts, padding waste and device
+latency, and the batched decode's dispatches, occupancy and lifecycle.
+``snapshot()`` gives the same JSON shape as the JAX package's; the server's
 ``GET /metrics`` renders it with the registry's families through
 ``telemetry.exporter.render_prometheus``. Each instance registers as
 the registry source ``serve`` (the newest wins).
@@ -43,6 +43,17 @@ class ServeMetrics:
         self._last_degraded_t = float("-inf")
         self._queue_depth = Gauge()
         self.request_latency = LatencyHistogram()
+        # batched decode: one dispatch = one batched step; rows = live
+        # session rows stepped (one token each), padded_rows = filler
+        # slots. Occupancy (rows over slots) is its utilization gauge.
+        self.decode_dispatches = 0
+        self.decode_rows = 0
+        self.decode_padded_rows = 0
+        self.decode_retired = 0
+        self.decode_shed = 0
+        self._window_decode_rows = 0
+        self.decode_device = LatencyHistogram()
+        self.decode_per_width: Dict[int, dict] = {}
         self.per_bucket: Dict[int, dict] = {}
         for b in buckets:
             self._bucket(int(b))
@@ -66,6 +77,33 @@ class ServeMetrics:
             e["rows"] += rows
             e["padded_rows"] += padded_rows
             e["device"].observe(device_s)
+
+    def record_decode_step(self, width: int, rows: int, padded_rows: int,
+                           device_s: float) -> None:
+        """One batched decode dispatch: ``rows`` live session rows
+        advanced one token each through a ``width``-wide step
+        (``padded_rows`` slots were filler)."""
+        with self._lock:
+            self.decode_dispatches += 1
+            self.decode_rows += rows
+            self.decode_padded_rows += padded_rows
+            self._window_decode_rows += rows
+            self.decode_device.observe(device_s)
+            w = self.decode_per_width.setdefault(
+                int(width), {"dispatches": 0, "rows": 0, "padded_rows": 0})
+            w["dispatches"] += 1
+            w["rows"] += rows
+            w["padded_rows"] += padded_rows
+
+    def record_decode_done(self, retired: int = 0, shed: int = 0) -> None:
+        """Row exits: ``retired`` rows completed, ``shed`` rows passed
+        their deadline mid-window (a shed degrades health, as a queue
+        shed does)."""
+        with self._lock:
+            self.decode_retired += retired
+            self.decode_shed += shed
+            if shed:
+                self._last_degraded_t = time.perf_counter()
 
     def record_request(self, latency_s: float, rows: int = 1) -> None:
         with self._lock:
@@ -106,6 +144,24 @@ class ServeMetrics:
             t = self._last_degraded_t
         return "degraded" if time.perf_counter() - t < self.DEGRADED_WINDOW_S else "ok"
 
+    def _occupancy(self) -> float:
+        return round(self.decode_rows / max(self.decode_rows + self.decode_padded_rows, 1), 4)
+
+    def decode_summary(self) -> dict:
+        """The ``/healthz`` view of batched decode: occupancy, lifetime
+        tokens/s and the lifecycle counters (rolls no window)."""
+        with self._lock:
+            uptime = max(time.perf_counter() - self._t0, 1e-9)
+            return {
+                "dispatches": self.decode_dispatches,
+                "rows": self.decode_rows,
+                "padded_rows": self.decode_padded_rows,
+                "occupancy": self._occupancy(),
+                "retired": self.decode_retired,
+                "shed": self.decode_shed,
+                "tokens_per_sec": round(self.decode_rows / uptime, 2),
+            }
+
     def snapshot(self) -> dict:
         """JSON-able state; also rolls the requests/s window."""
         with self._lock:
@@ -131,6 +187,20 @@ class ServeMetrics:
                 "queue_depth": self._queue_depth.value,
                 "queue_depth_max": self._queue_depth.max,
                 "request_latency": self.request_latency.snapshot(),
+                "decode": {
+                    "dispatches": self.decode_dispatches,
+                    "rows": self.decode_rows,
+                    "padded_rows": self.decode_padded_rows,
+                    "occupancy": self._occupancy(),
+                    "retired": self.decode_retired,
+                    "shed": self.decode_shed,
+                    # one live row stepped = one token (replayed or generated)
+                    "tokens_per_sec": round(self.decode_rows / uptime, 2),
+                    "window_tokens_per_sec": round(self._window_decode_rows / window, 2),
+                    "device_latency": self.decode_device.snapshot(),
+                    "per_width": {str(w): dict(e)
+                                  for w, e in sorted(self.decode_per_width.items())},
+                },
                 "per_bucket": {
                     str(b): {
                         "batches": e["batches"],
@@ -147,4 +217,5 @@ class ServeMetrics:
             }
             self._window_t0 = now
             self._window_requests = 0
+            self._window_decode_rows = 0
             return out

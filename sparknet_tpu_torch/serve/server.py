@@ -7,7 +7,19 @@ Endpoints (JSON in and out, stdlib only), with the JAX server's shapes:
   NHWC nested lists. Response ``{"indices": [[...]], "probs": [[...]],
   "gen": N, "quant": "f32"}``. Bad request -> 400; a full queue or a
   shed deadline -> 503 with Retry-After; timeout -> 504.
-- ``GET /healthz``: liveness, model identity, buckets, generation, and
+- ``POST /reload``  body ``{"weights": path}``, or ``{}`` with a snapshot
+  watch configured (the newest manifest-checked solverstate under its
+  target), or ``{"rollback": true}`` (the resident previous generation).
+  Swaps between batches, dropping no request; a torn snapshot -> 409
+  and the old generation keeps serving; no resident generation to roll
+  back to -> 409. Response ``{"generation", "source"}``.
+- ``POST /generate``  body ``{"session": id?, "tokens": [...], "steps":
+  K, "top_k": k}`` (the session may ride the ``X-Sparknet-Session``
+  header): session-aware decode of a recurrent net
+  (``serve/session.py``), through the batched decode window, or one
+  ``generate`` a worker turn under ``SPARKNET_DECODE_BATCH=0``.
+- ``GET /healthz``: liveness, model identity, buckets, generation,
+  precision, the session cache and the batched decode, and
   the live advisories of the anomaly board (``anomalies``); ``status``
   is ``"degraded"`` while requests are being shed/cancelled or while a
   ``queue_stall``, ``straggler`` or ``slo_burn`` advisory is live. Each
@@ -30,6 +42,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -39,7 +52,7 @@ from typing import Optional
 import numpy as np
 
 from ..telemetry import REGISTRY, aggregate, anomaly, dash, exporter
-from .batcher import Backpressure, DeadlineExceeded, MicroBatcher
+from .batcher import Backpressure, DeadlineExceeded, MicroBatcher, decode_batching_enabled
 from .metrics import ServeMetrics
 
 # advisories that degrade /healthz, as shed or cancelled requests do
@@ -58,10 +71,18 @@ class InferenceServer:
         model_name: str = "net",
         default_top_k: int = 5,
         request_timeout_s: float = 60.0,
+        watch: Optional[str] = None,
+        watch_interval_s: float = 2.0,
     ):
         """``port=0`` binds an ephemeral port; the bound port is
-        ``self.port`` either way."""
+        ``self.port`` either way. ``watch``: a snapshot prefix or
+        directory; a newer manifest-checked solverstate under it is
+        swapped in by the server itself."""
         self.engine = engine
+        self._watch_target = watch
+        self._watch_interval_s = watch_interval_s
+        self._watcher = None
+        self._reload_lock = threading.Lock()
         self.metrics = (
             metrics if metrics is not None
             else ServeMetrics(getattr(engine, "buckets", ()))
@@ -114,7 +135,39 @@ class InferenceServer:
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
+            def _await(self, fut, what):
+                """The future's result, or None once the error reply went
+                out (timeout 504, shed 503, engine failure 400/500)."""
+                try:
+                    return fut.result(timeout=outer.request_timeout_s)
+                except FuturesTimeout:
+                    outer.metrics.record_error()
+                    # still queued -> the batcher drops it before compute
+                    fut.cancel()
+                    self._reply(504, {"error": f"{what} timed out"})
+                except DeadlineExceeded as e:
+                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
+                except Exception as e:
+                    # engine-side failure (a bad shape surfaces here: the
+                    # engine validates); the batcher already counted it
+                    code = 400 if isinstance(e, ValueError) else 500
+                    self._reply(code, {"error": f"{type(e).__name__}: {e}"})
+                return None
+
             def do_POST(self):
+                if self.path == "/reload":
+                    length = int(self.headers.get("Content-Length", 0))
+                    try:
+                        req = json.loads(self.rfile.read(length) or b"{}")
+                    except ValueError as e:
+                        self._reply(400, {"error": f"bad request: {e}"})
+                        return
+                    self._reply(*outer.reload(req.get("weights"),
+                                              rollback=bool(req.get("rollback"))))
+                    return
+                if self.path == "/generate":
+                    self._do_generate()
+                    return
                 if self.path != "/classify":
                     self._reply(404, {"error": f"no route {self.path}"})
                     return
@@ -137,35 +190,126 @@ class InferenceServer:
                     outer.metrics.record_error()
                     self._reply(400, {"error": str(e)})
                     return
-                try:
-                    out = fut.result(timeout=outer.request_timeout_s)
-                except FuturesTimeout:
-                    outer.metrics.record_error()
-                    # still queued -> the batcher drops it before compute
-                    fut.cancel()
-                    self._reply(504, {"error": "inference timed out"})
-                    return
-                except DeadlineExceeded as e:
-                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
-                    return
-                except Exception as e:
-                    # engine-side failure (a bad shape surfaces here: the
-                    # engine validates); the batcher already counted it
-                    code = 400 if isinstance(e, ValueError) else 500
-                    self._reply(code, {"error": f"{type(e).__name__}: {e}"})
+                out = self._await(fut, "inference")
+                if out is None:
                     return
                 idx, probs = outer.engine.postprocess(out, top_k)
                 self._reply(200, {
                     "indices": idx.tolist(),
                     "probs": probs.tolist(),
-                    "gen": getattr(outer.engine, "generation", 0),
+                    # the generation this request was computed with
+                    "gen": getattr(fut, "gen", getattr(outer.engine, "generation", 0)),
                     "quant": getattr(outer.engine, "quant", "f32"),
                 })
+
+            def _do_generate(self):
+                """``POST /generate`` through the batcher (the decode window,
+                or one ``generate`` call a worker turn), sharing the classify
+                path's backpressure, deadline shed and error mapping."""
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(length) or b"{}")
+                    tokens = req["tokens"]
+                    steps = int(req.get("steps", 0))
+                    top_k = int(req.get("top_k", outer.default_top_k))
+                    session = req.get("session") or self.headers.get("X-Sparknet-Session")
+                except (KeyError, ValueError, TypeError) as e:
+                    outer.metrics.record_error()
+                    self._reply(400, {"error": f"bad request: {e}"})
+                    return
+                try:
+                    if decode_batching_enabled() and getattr(outer.engine,
+                                                             "decode_buckets", ()):
+                        fut = outer.batcher.submit_decode({
+                            "tokens": tokens, "session": session,
+                            "steps": steps, "top_k": top_k})
+                    else:
+                        fut = outer.batcher.submit_call(
+                            lambda: outer.engine.generate(
+                                tokens, session=session, steps=steps, top_k=top_k))
+                except Backpressure as e:
+                    outer.metrics.record_error()
+                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
+                    return
+                payload = self._await(fut, "generate")
+                if payload is None:
+                    return
+                if session:
+                    payload["session"] = session
+                payload["quant"] = getattr(outer.engine, "quant", "f32")
+                self._reply(200, payload)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._httpd.daemon_threads = True
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------------
+    def reload(self, weights: Optional[str] = None, *, rollback: bool = False):
+        """Hot-swap the engine's weights; ``(http code, payload)``, the
+        ``/reload`` route's contract, also callable in-process. No path
+        with a snapshot watch configured takes the newest
+        manifest-checked solverstate under the watch target.
+        ``rollback`` swaps back to the resident previous generation (409
+        when none is resident). Serialized: concurrent reloads would
+        interleave generations."""
+        from ..solver.snapshot import SnapshotError
+        from . import hotswap
+
+        with self._reload_lock:
+            if rollback:
+                try:
+                    gen = self.engine.rollback()
+                except ValueError as e:
+                    return 409, {"error": str(e)}
+                return 200, {"generation": gen, "rolled_back": True,
+                             "source": getattr(self.engine, "weights_source", None)}
+            path = weights
+            try:
+                if not path:
+                    if not self._watch_target:
+                        return 400, {"error": "no weights given and no snapshot watch "
+                                              "configured"}
+                    got = hotswap.newest_verified(
+                        self._watch_target, eligible=hotswap.gate_eligible_filter())
+                    if got is None:
+                        return 409, {"error": "no intact eligible solverstate under "
+                                              f"{self._watch_target!r}"}
+                    path = got[1]
+                gen = self.engine.swap_from_file(path)
+            except SnapshotError as e:
+                # the torn file is refused; the old generation keeps serving
+                return 409, {"error": f"snapshot torn: {e}"}
+            except (FileNotFoundError, ValueError) as e:
+                return 400, {"error": f"{type(e).__name__}: {e}"}
+            except Exception as e:
+                return 500, {"error": f"{type(e).__name__}: {e}"}
+            return 200, {"generation": gen, "source": path}
+
+    def _on_new_snapshot(self, it: int, path: str) -> None:
+        code, payload = self.reload(path)
+        if code != 200:
+            # raising leaves the watcher's high-water mark where it was,
+            # so the next tick retries instead of skipping the generation
+            raise RuntimeError(f"auto-reload failed: {payload}")
+
+    def _start_watcher(self) -> None:
+        if self._watch_target is None or self._watcher is not None:
+            return
+        from . import hotswap
+
+        # "newer than" the iteration the engine booted from, so the
+        # served weights are never swapped in again
+        m = re.search(r"_iter_(\d+)\.solverstate\.npz$",
+                      getattr(self.engine, "weights_source", None) or "")
+        self._watcher = hotswap.SnapshotWatcher(
+            self._watch_target, self._on_new_snapshot, interval_s=self._watch_interval_s,
+            start_iter=int(m.group(1)) if m else None).start()
+
+    def _stop_watcher(self) -> None:
+        if self._watcher is not None:
+            self._watcher.stop()
+            self._watcher = None
 
     def health(self) -> dict:
         """``/healthz``'s answer. A scrape is an observation: it feeds the
@@ -177,7 +321,7 @@ class InferenceServer:
         status = self.metrics.health()
         if status == "ok" and any(a.get("kind") in DEGRADING for a in active):
             status = "degraded"
-        return {
+        out = {
             "status": status,
             "model": self.model_name,
             "buckets": list(getattr(e, "buckets", ())),
@@ -189,12 +333,23 @@ class InferenceServer:
             "quant": getattr(e, "quant", "f32"),
             "weights_source": getattr(e, "weights_source", None),
             "warmup_s": getattr(e, "warmup_s", None),
+            "rolled_back_from": getattr(e, "rolled_back_from", None),
             "device": str(getattr(e, "device", "")),
             "pid": os.getpid(),
         }
+        sessions = getattr(e, "session_cache", None)
+        if sessions is not None and sessions.enabled:
+            out["session_cache"] = sessions.snapshot()
+        decode_buckets = getattr(e, "decode_buckets", ())
+        if decode_buckets:
+            out["decode"] = {"batching": decode_batching_enabled(),
+                             "buckets": list(decode_buckets),
+                             **self.metrics.decode_summary()}
+        return out
 
     # ------------------------------------------------------------------
     def start(self) -> "InferenceServer":
+        self._start_watcher()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="serve-http", daemon=True
         )
@@ -203,6 +358,7 @@ class InferenceServer:
 
     def stop(self) -> None:
         """Stop accepting, drain the batcher, close the socket."""
+        self._stop_watcher()
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join(10)
@@ -216,11 +372,13 @@ class InferenceServer:
 
     def serve_forever(self) -> None:
         """Foreground mode for the CLI: blocks until interrupted."""
+        self._start_watcher()
         try:
             self._httpd.serve_forever()
         except KeyboardInterrupt:
             pass
         finally:
+            self._stop_watcher()
             self.close()
 
     def client(self, timeout: float = 60.0) -> "Client":
@@ -251,13 +409,14 @@ class Client:
         self.backoff_s = backoff_s
         self.max_backoff_s = max_backoff_s
 
-    def _once(self, method: str, path: str, payload=None):
+    def _once(self, method: str, path: str, payload=None, headers=None):
         import http.client
 
         conn = http.client.HTTPConnection(self.host, self.port, timeout=self.timeout)
         try:
             body = None if payload is None else json.dumps(payload)
             hdrs = {} if body is None else {"Content-Type": "application/json"}
+            hdrs.update(headers or {})
             conn.request(method, path, body=body, headers=hdrs)
             resp = conn.getresponse()
             retry_after = resp.getheader("Retry-After")
@@ -268,13 +427,13 @@ class Client:
         finally:
             conn.close()
 
-    def _request(self, method: str, path: str, payload=None):
+    def _request(self, method: str, path: str, payload=None, headers=None):
         import http.client
 
         for attempt in range(self.retries + 1):
             retry_after = None
             try:
-                status, data, retry_after = self._once(method, path, payload)
+                status, data, retry_after = self._once(method, path, payload, headers)
             except (OSError, http.client.HTTPException):
                 if attempt >= self.retries:
                     raise
@@ -304,3 +463,20 @@ class Client:
         return self._request(
             "POST", "/classify", {"rows": rows.tolist(), "top_k": top_k}
         )
+
+    def generate(self, tokens, session: Optional[str] = None, steps: int = 0,
+                 top_k: int = 5):
+        """Session-aware decode (``POST /generate``). ``tokens`` is the
+        session's full prefix; ``session`` rides the body and the
+        ``X-Sparknet-Session`` header."""
+        headers = {"X-Sparknet-Session": str(session)} if session else None
+        payload = {"tokens": [int(t) for t in np.asarray(tokens).ravel()],
+                   "steps": int(steps), "top_k": int(top_k)}
+        if session:
+            payload["session"] = str(session)
+        return self._request("POST", "/generate", payload, headers=headers)
+
+    def reload(self, weights: Optional[str] = None):
+        """Trigger a weight hot-swap (None: the server's snapshot watch
+        picks the newest verified solverstate)."""
+        return self._request("POST", "/reload", {} if weights is None else {"weights": weights})

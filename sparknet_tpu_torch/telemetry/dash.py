@@ -10,10 +10,12 @@ Sections, top to bottom: stat tiles (requests, throughput, queue depth,
 uptime), serving-latency SLO tiles (p50/p95/p99 against
 ``SPARKNET_SLO_P99_MS``), per-rank phase-share bars from the cluster
 aggregate (or this process's own timeline when no cluster data exists)
-with their table, and the anomaly feed. The JAX page's router,
-deployment, session, slow-request and storage sections read subsystems
-the port does not have yet (the router, the session cache, request
-tracing, the storage-fault counters) and are not ported.
+with their table, the anomaly feed, and the session panel of a recurrent
+net's server (the ``session_cache`` registry source and the batched
+decode's metrics). The JAX page's router, deployment, slow-request and
+storage sections read subsystems the port does not have yet (the
+router, the deploy loop, request tracing, the storage-fault counters)
+and are not ported.
 
 Visual rules: phases wear a fixed categorical palette in a fixed order;
 anomaly severities wear the status palette with an icon and a text
@@ -213,6 +215,56 @@ def _phase_style_rules() -> str:
     )
 
 
+def _session_section(session: dict, decode: Optional[dict] = None) -> str:
+    """Session-cache panel: hit/miss/evict/stale-gen tiles from the
+    ``session_cache`` registry source. A hot swap shows up as a ``stale
+    gen`` pulse: every invalidation is a counted rebuild, never a wrong
+    answer. With batched decode live, batch-occupancy and tokens/s tiles
+    from the ``decode`` metrics block."""
+    total = sum(
+        session.get(k, 0)
+        for k in ("hits", "misses", "stale_gen", "rebuilt")
+    )
+    hit_rate = (
+        f"{session.get('hits', 0) / total:.0%} hit rate" if total else ""
+    )
+    mb = session.get("resident_bytes", 0) / (1 << 20)
+    cap = session.get("max_bytes", 0) / (1 << 20)
+    tiles = [
+        _tile("resident sessions", str(session.get("entries", 0)),
+              f"{mb:.2f} / {cap:g} MB"),
+        _tile("hits", str(session.get("hits", 0)), hit_rate),
+        _tile("misses", str(session.get("misses", 0)), "cold rebuilds"),
+        _tile("evictions", str(session.get("evictions", 0)),
+              "LRU-by-hit"),
+        _tile("stale gen", str(session.get("stale_gen", 0)),
+              "hot-swap invalidations"),
+        _tile("prefix rebuilt", str(session.get("rebuilt", 0)),
+              "history mismatch"),
+    ]
+    if decode:
+        occ = decode.get("occupancy")
+        tps = (
+            decode.get("window_tokens_per_sec")
+            or decode.get("tokens_per_sec") or 0
+        )
+        tiles += [
+            _tile("batch occupancy",
+                  f"{occ:.0%}" if occ is not None else "—",
+                  f"{decode.get('dispatches', 0)} dispatches"),
+            _tile("decode tokens/s", f"{tps:g}",
+                  f"{decode.get('rows', 0)} tokens, "
+                  f"{decode.get('shed', 0)} shed"),
+            _tile("coalesced", str(session.get("coalesced", 0)),
+                  "same-session rows deferred"),
+        ]
+    return (
+        '<section><h2>Sessions <span class="muted">'
+        "(per-session decode-state cache; docs/SERVING.md)</span></h2>"
+        f'<div class="tiles">{"".join(tiles)}</div></section>'
+    )
+
+
 def render_html(
     registry_snapshot: Dict[str, Any],
     serve_metrics: Optional[dict] = None,
@@ -248,6 +300,14 @@ def render_html(
         _slo_tile("p95", lat.get("p95_ms"), budget / 2),
         _slo_tile("p99", lat.get("p99_ms"), budget),
     ]
+    # the session panel: this process's own cache (registry source), and
+    # the batched decode's tiles once it dispatched
+    session = registry_snapshot.get("session_cache")
+    if not (session and session.get("enabled")):
+        session = None
+    decode = serve.get("decode")
+    if not (decode and decode.get("dispatches")):
+        decode = None
     active_anoms = anomalies or []
     health = serve.get("health", "ok")
     degraded = health != "ok" or any(
@@ -264,6 +324,7 @@ def render_html(
   <span class="status-{status} pill">{'▲' if degraded else '●'} {status_label}</span>
   <span class="muted">rendered {time.strftime('%H:%M:%S')}, refreshes every {refresh_s}s</span>
 </header>
+{_session_section(session, decode) if session else ''}
 <section><h2>Serving</h2><div class="tiles">{''.join(tiles)}</div></section>
 <section><h2>Latency SLO <span class="muted">(p99 budget {budget:g} ms)</span></h2>
 <div class="tiles">{''.join(slo_tiles)}</div></section>

@@ -3,13 +3,17 @@
     python -m sparknet_tpu_torch.tools.serve \
         --model sparknet_tpu_torch/models/prototxt/bvlc_alexnet_deploy.prototxt \
         [--weights x.caffemodel|w.npz|s.solverstate.npz] [--device cuda|cpu] \
-        [--port 8080] [--bench N]
+        [--quant f32|bf16|int8] [--snapshot-watch TARGET] \
+        [--session-cache-mb MB] [--port 8080] [--bench N]
 
 Holds the net resident on the card (``--device cuda``, the default) and
-micro-batches HTTP requests through it. ``--bench N`` skips the HTTP
-server and runs the closed-loop load generator for N requests instead,
-printing one JSON record, like the JAX package's tool. Router mode
-(``--replicas``) is not ported yet.
+micro-batches HTTP requests through it (``/classify``, ``/reload``,
+``/generate`` for a recurrent net, ``/healthz``, ``/metrics``,
+``/dash``). ``--bench N`` skips the HTTP server and runs the closed-loop
+load generator for N requests instead, printing one JSON record, like
+the JAX package's tool. Router mode (``--replicas``), ``--quant-ab``
+and autoscaling (``--autoscale-max``) are not ported: each raises
+``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import json
 
 
 def main(argv=None):
-    from ..serve.replica import add_engine_args
+    from ..serve.replica import add_engine_args, refuse_unported
 
     ap = argparse.ArgumentParser(
         prog="serve", description="batched deploy-net inference server (PyTorch)"
@@ -35,7 +39,11 @@ def main(argv=None):
                     type=lambda t: [int(v) for v in t.split(",") if v.strip()],
                     default=[1, 2, 5, 8, 3],
                     help="request row counts the load generator cycles through")
+    ap.add_argument("--replicas", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--quant-ab", type=float, default=0.0, help=argparse.SUPPRESS)
+    ap.add_argument("--autoscale-max", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    refuse_unported(args, ("--replicas", "--quant-ab", "--autoscale-max"))
 
     from ..serve.loadgen import run_loadgen
     from ..serve.replica import build_stack

@@ -382,7 +382,8 @@ def run_stall(job, rank, world, out):
                    "label": rng.integers(0, 4, 8 // world).astype(np.int32)}
 
     s.step(feed(), 1)
-    print(f"rank {rank}: stepped", flush=True)
+    # the wall time of the step's end: rank 1 stops itself right after
+    print(f"rank {rank}: stepped at {time.time():.3f}", flush=True)
     if rank == 1:
         os.kill(os.getpid(), signal.SIGSTOP)  # wedged: alive, silent, sockets open
     s.step(feed(), 1_000_000)

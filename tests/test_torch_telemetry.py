@@ -231,10 +231,11 @@ def _payload(pkg, rank, seq, phases, wall, v=None, **extra):
 
 
 def _merge(pkg, emit):
+    reg = pkg.aggregate.REGISTRY  # the test's fresh registry
     det = pkg.anomaly.StragglerDetector(factor=2.0, rounds=3, emit=emit)
     agg = pkg.aggregate.ClusterAggregator(detector=det)
-    skew0 = pkg.REGISTRY.counter("cluster_version_skew").snapshot()
-    err0 = pkg.REGISTRY.counter("cluster_payload_errors").snapshot()
+    skew0 = reg.counter("cluster_version_skew").snapshot()
+    err0 = reg.counter("cluster_payload_errors").snapshot()
     taken = []
     for k in range(1, 6):
         for r in (0, 1, 2):
@@ -251,15 +252,20 @@ def _merge(pkg, emit):
     snap = agg.snapshot()
     for e in snap["ranks"].values():
         e.pop("age_s")
-    gauges = {r: pkg.REGISTRY.gauge("cluster_phase_share_pct", rank=r,
-                                    phase="compiled_step").snapshot() for r in (0, 1, 2)}
+    gauges = {r: reg.gauge("cluster_phase_share_pct", rank=r,
+                           phase="compiled_step").snapshot() for r in (0, 1, 2)}
     return dict(taken=taken, snap=_no_t(snap.pop("stragglers")), rest=snap,
                 table=agg.table(), rounds=agg.rounds, gauges=gauges,
-                skew=pkg.REGISTRY.counter("cluster_version_skew").snapshot() - skew0,
-                errors=pkg.REGISTRY.counter("cluster_payload_errors").snapshot() - err0)
+                skew=reg.counter("cluster_version_skew").snapshot() - skew0,
+                errors=reg.counter("cluster_payload_errors").snapshot() - err0)
 
 
-def test_aggregate_three_rank_merge_with_version_skew_equals_jax():
+def test_aggregate_three_rank_merge_with_version_skew_equals_jax(monkeypatch):
+    # a gauge's snapshot holds its high-water mark: each package's
+    # aggregator writes into a registry of its own, so series that earlier
+    # tests in the process left in the global one cannot reach the merge
+    for pkg in PACKAGES.values():
+        monkeypatch.setattr(pkg.aggregate, "REGISTRY", pkg.registry.Registry())
     got = _both(_merge)
     (j, jlog), (t, tlog) = got["jax"], got["torch"]
     assert t == j
