@@ -103,6 +103,39 @@ own lines:
    relative L2; a prefix mismatch rebuilt; a hot swap makes the session
    ``stale_gen``; the session load generator (8 sessions, Zipf 1.1, 4
    steps, 64 requests) with 0 failed requests;
+7b. router-tier: the serving tier across processes, full-width
+   ``bvlc_alexnet`` from a seed-0 solverstate the phase writes. First
+   ``python -m sparknet_tpu_torch.tools.serve --replicas 2 --quant int8
+   --quant-ab 0.5`` as a process of its own session: its port file once
+   both replicas answer healthy (seconds, each replica's ``warmup_s`` and
+   compile-cache library counts printed; the kernels come from the build
+   phase's directory), replica 0 f32 and replica 1 int8, an answer of
+   each precision held against the CPU engine of that precision, then
+   SIGTERM: exit 0 and no replica process left. Then the same tier built
+   by the tool's ``build_tier`` in this process (its router has no HTTP
+   route for ``roll_back``), under 4 closed-loop clients (a
+   ``--tier-client`` process; one seeded row a request, each with its
+   own 60 s timeout and no client retry, the answering replica read from
+   ``X-Sparknet-Replica``): (1) SIGKILL replica 1 through the pid of its
+   port file while it holds a request: the retry hops equal the
+   ``retry:`` lines (at least one), the pool respawns it and it rejoins
+   as int8, and ``/traces`` holds a retried request's failed hop, its
+   retry hop and the replica's ``server.request`` span (``reqtrace``'s
+   coverage printed); (2) two rolling ``/reload`` calls of written
+   solverstates, replica 0's generation moving before replica 1's, the
+   least healthy width (sampled every 20 ms) at least 1, each roll's ms
+   printed; (3) a torn solverstate stops the roll at replica 0 (502),
+   generations unchanged; (4) ``roll_back``, then SIGKILL replica 0: its
+   respawn boots on the boot weights and is re-synced onto the rolled
+   back ones before it rejoins. ``/dash`` carries the serving-tier
+   section. 0 failed requests; every answer's top-5 held against the CPU
+   engine of its precision on the weights its replica could have served
+   between its send and its receive (both sides of a roll in flight,
+   only the new after it): f32 as the serving phase holds it, int8 top-5
+   sets on at least 99% of the int8 answers; ``router_quant_answers``
+   within 1 of Bresenham's count plus the answers made while a replica
+   was down (the A/B's fallbacks); no replica process left alive. The
+   phase's seconds are printed against a 150 s budget (not a gate);
 8. grads: one training step of full-width ``bvlc_alexnet`` (the
    train_val net with ``dropout_ratio: 0``, random weights from seed 0)
    at batch 8 on the card against the same step on the CPU: the loss
@@ -290,7 +323,7 @@ own lines:
    event; a pinned buffer refilled before its upload left it), each of
    which it must catch; two constructions of the C++ loader against
    each other; ``nproc`` and ``df /dev/shm``. Then ``ImageNetApp`` through
-   ``main([...])`` at batch 256, 12 iterations in chunks of 6 (a test
+   ``main([...])`` at batch 256, 8 iterations in chunks of 4 (a test
    batch between), through each train feed path: serial with
    ``--prefetch 0`` and 2, ``--data-workers 4`` and cores - 1,
    ``--native-loader on``, ``--device-augment``, ``--data-format
@@ -298,7 +331,7 @@ own lines:
    every batch a hit). Each prints its chunks' images/s beside the
    resident step's, its ``input pipeline:`` / ``data cache:`` lines and
    whether the step waited on the host; each must launch the LRN kernels
-   6 / 24 / 24 times, and read 0 pickle fallbacks;
+   6 / 16 / 16 times, and read 0 pickle fallbacks;
 18. caffe-native: Caffe's own data and weights. An LMDB of 1,280 raw
    Datums (256x256x3, ``synthetic_imagenet`` seed 0, ~252 MB) and a TEST
    LMDB of 256 (seed 1) written by the port's ``write_lmdb`` (MB/s
@@ -412,8 +445,9 @@ units that run them: 67 TFLOP/s f32 on the CUDA cores for LRN, 495
 TFLOP/s dense TF32 for the own products of the flash forward (two), dq
 (three) and dk/dv (four) (their split operands make each f32 product
 three TF32 terms: that design's bound is printed beside it); "launches"
-counts the main paths' runs (serving, serving-tier's engines and its
-traffic, train, alexnet-local, feed,
+counts the main paths' runs in this process (serving, serving-tier's
+engines and its traffic (router-tier's replicas run theirs in processes
+of their own, which export no launch count), train, alexnet-local, feed,
 googlenet, fused-step's AlexNet graph run, every rank of the
 multiprocess phase's AlexNet runs, caffe-native's run A and engines,
 and telemetry's app runs, remat runs (a recompute launches again),
@@ -427,9 +461,9 @@ Before it, the phases' seconds in all. Last comes the result line
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry serving-tier
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry serving-tier router-tier
 
-runs the card and build phases and the phases named (any of the seven)
+runs the card and build phases and the phases named (any of the eight)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -591,7 +625,7 @@ TAU_AUTO_ROUNDS = 12
 # FEED_CHUNK (a test batch between chunks; each chunk's speed: line
 # read), and the first FEED_CHECK batches of each Python path held bit
 # for bit
-FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 12, 6, 8
+FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 8, 4, 8
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -1563,7 +1597,10 @@ def tier_clients(spec_path):
     their own so that their JSON work does not share the server's
     interpreter, until the spec's stop file appears; then each answer's
     (client, request, generation tag, top-5) and the failures to the
-    spec's output file."""
+    spec's output file. Against a router (``"router"`` in the spec) each
+    request is one POST with its own timeout and no client retry, and an
+    answer also records the replica that answered (``X-Sparknet-Replica``),
+    its precision and its send and receive times (the wall clock)."""
     import threading
 
     from sparknet_tpu_torch.serve.server import Client
@@ -1576,10 +1613,20 @@ def tier_clients(spec_path):
         k = 0
         while not os.path.exists(spec["stop"]):
             try:
-                code, body = client.classify(_tier_rows(1000 * (i + 1) + k, 1), top_k=5)
-                if code != 200:
-                    raise RuntimeError(f"HTTP {code}: {body}")
-                answers.append((i, k, body["gen"], body["indices"][0]))
+                row = _tier_rows(1000 * (i + 1) + k, 1)
+                if spec.get("router"):
+                    t_send = time.time()
+                    code, body, replica = _router_call(spec["host"], spec["port"], row,
+                                                       spec["timeout"])
+                    if code != 200:
+                        raise RuntimeError(f"HTTP {code}: {body}")
+                    answers.append((i, k, body["gen"], body["indices"][0], int(replica),
+                                    body["quant"], t_send, time.time()))
+                else:
+                    code, body = client.classify(row, top_k=5)
+                    if code != 200:
+                        raise RuntimeError(f"HTTP {code}: {body}")
+                    answers.append((i, k, body["gen"], body["indices"][0]))
             except Exception as e:  # counted: the phase requires none
                 failed.append(f"client {i} request {k}: {type(e).__name__}: {e}")
             k += 1
@@ -1594,17 +1641,35 @@ def tier_clients(spec_path):
     return 0
 
 
+def _router_call(host, port, row, timeout):
+    """One ``/classify`` of ``row`` -> (status, body, X-Sparknet-Replica)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", "/classify", body=json.dumps({"rows": row.tolist(), "top_k": 5}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}"), resp.getheader("X-Sparknet-Replica")
+    finally:
+        conn.close()
+
+
 class _Traffic:
     """The ``--tier-client`` process against ``server``, from start to
-    :meth:`finish` -> its answers (client, request, generation, top-5)
-    and failures; raises where a client's generations went down."""
+    :meth:`finish` -> its answers (client, request, generation, top-5,
+    and against a router the replica, precision, send and receive times)
+    and failures; against one server, raises where a client's
+    generations went down (a tier's generations are per replica)."""
 
-    def __init__(self, server, tmp):
+    def __init__(self, server, tmp, router=False):
+        self.router = router
         self.spec = os.path.join(tmp, "clients.json")
         self.stop, self.out = self.spec + ".stop", self.spec + ".out"
         with open(self.spec, "w") as f:
             json.dump({"host": server.host, "port": server.port, "stop": self.stop,
-                       "out": self.out}, f)
+                       "out": self.out, "router": router, "timeout": ROUTER_CLIENT_TIMEOUT},
+                      f)
         self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                       "--tier-client", self.spec])
 
@@ -1620,7 +1685,7 @@ class _Traffic:
             raise AssertionError(f"the client process exited {rc}")
         res = json.load(open(self.out))
         answers = sorted(res["answers"])
-        for i in range(TIER_CLIENTS):
+        for i in range(0 if self.router else TIER_CLIENTS):
             gens = [a[2] for a in answers if a[0] == i]
             if gens != sorted(gens):
                 raise AssertionError(f"client {i}: generations went down: {gens}")
@@ -1882,6 +1947,450 @@ def phase_serving_tier(tmp):
     log(f"  serving-tier phase {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f"); {served} answers under swap")
     return {"launches": lrn, "sessions": sessions}
+
+
+# ------------------------------------------------------------ router tier
+ROUTER_CLIENT_TIMEOUT = 60.0  # a request's own client timeout (s); expired = failed
+ROUTER_WAIT = 120.0  # seconds a tier may take to come up, a respawn to rejoin
+ROUTER_BUDGET_S = 150.0  # the phase's budget, printed against (not a gate)
+ROUTER_INT8_TOP5 = TIER_TOP5  # share of int8 answers whose top-5 sets hold
+
+
+def _router_argv(weights, run_dir, *extra):
+    """The tool's argv of the phase's tier: full-width AlexNet from
+    ``weights``, 2 replicas, replica 1 int8, half the requests preferring
+    it, the kernels loaded from the build phase's directory."""
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.ops import _build
+
+    return ["--model", ALEXNET_DEPLOY, "--weights", weights, "--replicas", "2",
+            "--quant", "int8", "--quant-ab", "0.5", "--port", "0", "--run-dir", run_dir,
+            "--buckets", ",".join(map(str, TIER_BUCKETS)),
+            "--compile-cache", _build.BUILD_DIR, *extra]
+
+
+def _alive(pid):
+    """Is ``pid`` a live process (not gone, not a zombie)?"""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _reap(pids, grace=15.0):
+    """SIGKILL whatever of ``pids`` is still alive after ``grace`` s;
+    raises when one outlives that."""
+    import signal
+
+    deadline = time.perf_counter() + grace
+    while any(_alive(p) for p in pids) and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    left = [p for p in pids if _alive(p)]
+    for p in left:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    time.sleep(0.5)
+    still = [p for p in left if _alive(p)]
+    if left:
+        raise AssertionError(f"replica processes {left} outlived their router"
+                             + (f"; {still} survive SIGKILL" if still else ""))
+
+
+def _wait_for(what, pred, limit=ROUTER_WAIT, proc=None, tail=None):
+    t0 = time.perf_counter()
+    while not pred():
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the router exited {proc.returncode}"
+                                 + (f":\n{tail()}" if tail else ""))
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"{what}: not within {limit:.0f} s"
+                                 + (f":\n{tail()}" if tail else ""))
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _router_cli(tmp, weights, cpu):
+    """``python -m sparknet_tpu_torch.tools.serve --replicas 2`` as a
+    process of its own session: up, both replicas healthy with their
+    precisions, one answer from each held against the CPU engine of its
+    precision, then SIGTERM: exit 0 and no replica left alive."""
+    import signal
+
+    import numpy as np
+
+    run = os.path.join(tmp, "cli_run")
+    pf = os.path.join(tmp, "cli_router.json")
+    out = os.path.join(tmp, "cli_router.log")
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch.tools.serve",
+           *_router_argv(weights, run, "--portfile", pf)]
+    t0 = time.perf_counter()
+    with open(out, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    tail = lambda: open(out).read()[-3000:]
+    pids = set()
+    try:
+        _wait_for("the CLI tier", lambda: os.path.exists(pf), proc=proc, tail=tail)
+        up_s = time.perf_counter() - t0
+        router = json.load(open(pf))
+        files = [json.load(open(os.path.join(run, f"replica-{i}-s0.json"))) for i in range(2)]
+        pids |= {d["pid"] for d in files}
+        from sparknet_tpu_torch.serve.server import Client
+
+        code, hz = Client(router["host"], router["port"], timeout=60).healthz()
+        quants = [r["quant"] for r in hz["replicas"]]
+        if code != 200 or hz["replicas_healthy"] != 2 or quants != ["f32", "int8"]:
+            raise AssertionError(f"CLI tier /healthz {code}: {hz}")
+        x = _tier_rows(7, 6)
+        seen = {}
+        for k in range(6):
+            code, body, replica = _router_call(router["host"], router["port"], x[k:k + 1],
+                                               ROUTER_CLIENT_TIMEOUT)
+            if code != 200:
+                raise AssertionError(f"CLI tier /classify {code}: {body}")
+            seen.setdefault(body["quant"], []).append((k, body["indices"][0]))
+        if set(seen) != {"f32", "int8"}:
+            raise AssertionError(f"the A/B at 0.5 answered from {sorted(seen)} only")
+        for quant, got in seen.items():
+            probs = cpu[quant].infer(x[[k for k, _ in got]])
+            idx = cpu[quant].postprocess(probs, 5)[0]
+            if quant == "f32":
+                _check_topk("CLI tier f32", [g for _, g in got], idx, probs)
+            elif np.mean([set(g) == set(i) for (_, g), i in zip(got, idx)]) < 1:
+                raise AssertionError(f"CLI tier int8: top-5 sets {got} vs the CPU's {idx}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        stop_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"the CLI router exited {rc} on SIGTERM:\n{tail()}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+        _reap(pids)
+    log(f"  tools.serve --replicas 2 --quant int8 --quant-ab 0.5 (a process): healthy in "
+        f"{up_s:.1f} s (its port file written); replica warmup_s "
+        f"{[d['warmup_s'] for d in files]}, compile_cache entries before/after "
+        f"{[(d['compile_cache'] or {}).get('entries') for d in files]}/"
+        f"{[(d['compile_cache'] or {}).get('entries_after') for d in files]}; /healthz 2 "
+        f"healthy, quant {quants}; 6 answers = the CPU engine's of their precision; SIGTERM: "
+        f"exit 0 in {stop_s:.1f} s, replicas {sorted(pids)} gone")
+    return up_s
+
+
+class _Lines:
+    """``sys.stdout`` for the phase: passes every write on and keeps the
+    router's ``retry:`` lines."""
+
+    def __init__(self, out):
+        import threading
+
+        self.out, self.retries = out, []
+        self._lock = threading.Lock()  # the router's handler threads print
+
+    def write(self, text):
+        # print() writes its message and its newline in two calls, which
+        # threads interleave: a retry line is one whole write
+        with self._lock:
+            if text.startswith("retry: "):
+                try:
+                    self.retries.append(json.loads(text[len("retry: "):]))
+                except ValueError:
+                    self.retries.append({"unparsed": text})
+            return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _widths(router, stop, seen):
+    """Sample the router's replicas every 20 ms until ``stop``: (time,
+    healthy count, each replica's generation)."""
+    while not stop.is_set():
+        with router._lock:
+            seen.append((time.time(), sum(r.healthy for r in router.replicas),
+                         [r.generation for r in router.replicas]))
+        time.sleep(0.02)
+
+
+def _roll(router, how, *arg):
+    """``router.roll`` or ``roll_back`` while the widths are sampled ->
+    (code, doc, ms, start, end, least healthy width, the order in which
+    the replicas' generations moved)."""
+    import threading
+
+    seen, stop = [], threading.Event()
+    th = threading.Thread(target=_widths, args=(router, stop, seen))
+    th.start()
+    time.sleep(0.1)
+    t_a, p0 = time.time(), time.perf_counter()
+    code, doc = getattr(router, how)(*arg)
+    ms = (time.perf_counter() - p0) * 1e3
+    t_b = time.time()
+    time.sleep(0.1)
+    stop.set()
+    th.join()
+    gens0 = seen[0][2]
+    moved = []
+    for _, _, gens in seen:
+        for i, (g, g0) in enumerate(zip(gens, gens0)):
+            if g != g0 and i not in moved:
+                moved.append(i)
+    return code, doc, ms, t_a, t_b, min(w for _, w, _ in seen), moved
+
+
+def _router_answers(answers, epochs, cpu, w):
+    """Each answer's top-5 against the CPU engine of its precision on
+    the weights its replica could have served between its send and its
+    receive (``epochs``: (start, end, the weights' keys) by wall clock);
+    f32 as the serving phase holds it, int8 top-5 sets on at least
+    ROUTER_INT8_TOP5 of the answers. -> the answers by precision."""
+    import numpy as np
+
+    def allowed(t_send, t_recv):
+        return frozenset(k for a, b, keys in epochs if a <= t_recv and b >= t_send
+                         for k in keys)
+
+    by = {}
+    for a in answers:
+        by.setdefault((a[5], allowed(a[6], a[7])), []).append(a)
+    ok8 = n8 = 0
+    held = {"f32": 0, "int8": 0}
+    for (quant, keys), group in sorted(by.items(), key=lambda kv: (kv[0][0], sorted(kv[0][1]))):
+        x = np.concatenate([_tier_rows(1000 * (a[0] + 1) + a[1], 1) for a in group])
+        match = np.zeros(len(group), bool)
+        for key in sorted(keys):
+            eng = cpu[quant]
+            eng.swap_from_file(w[key])
+            probs = np.concatenate([eng.infer(x[i:i + 32]) for i in range(0, len(x), 32)])
+            idx = eng.postprocess(probs, 5)[0]
+            for r, a in enumerate(group):
+                got = np.asarray(a[3])
+                if quant == "int8":
+                    match[r] |= set(got.tolist()) == set(idx[r].tolist())
+                elif np.array_equal(got, idx[r]) or np.allclose(
+                        probs[r][got], probs[r][idx[r]], rtol=1e-5, atol=0):
+                    match[r] = True
+        held[quant] += len(group)
+        if quant == "int8":
+            ok8 += int(match.sum())
+            n8 += len(group)
+        elif not match.all():
+            bad = [(group[r][:2], group[r][4], sorted(keys)) for r in np.flatnonzero(~match)]
+            raise AssertionError(f"f32 answers not from any weights their replica could have "
+                                 f"served: {bad[:5]}")
+    if n8 and ok8 / n8 < ROUTER_INT8_TOP5:
+        raise AssertionError(f"int8 answers: top-5 sets hold on {ok8}/{n8}")
+    return held, (ok8, n8)
+
+
+def phase_router_tier(tmp):
+    """The serving tier across processes (module docstring, phase
+    router-tier)."""
+    import signal
+    import threading
+    import urllib.request
+
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.telemetry import reqtrace
+    from sparknet_tpu_torch.telemetry.registry import REGISTRY
+    from sparknet_tpu_torch.tools import serve as tool
+
+    t0 = time.perf_counter()
+    secs = {}
+    os.environ["SPARKNET_REQTRACE"] = "1"  # the tier's children inherit it
+    reqtrace.configure_from_env()
+    cpu = {q: InferenceEngine.from_files(ALEXNET_DEPLOY, device="cpu", buckets=TIER_BUCKETS,
+                                         quant=q) for q in ("f32", "int8")}
+    w = {seed: os.path.join(tmp, f"alexnet_iter_{10 * seed}.solverstate.npz")
+         for seed in (0, 1, 2)}
+    for seed, path in w.items():
+        _tier_state(path, cpu["f32"].net, seed)
+    torn = _tier_torn(w[1], os.path.join(tmp, "alexnet_iter_30.solverstate.npz"))
+    secs["weights"] = time.perf_counter() - t0
+    _router_cli(tmp, w[0], cpu)
+    secs["cli"] = time.perf_counter() - t0 - sum(secs.values())
+
+    run = os.path.join(tmp, "run")
+    args = tool.parse_args(_router_argv(w[0], run, "--health-interval-s", "0.25"))
+    router, pool, run_dir = tool.build_tier(args)
+    lines = _Lines(sys.stdout)
+    sys.stdout = lines
+    pids, traffic, answers, failed = set(), None, None, None
+    hop0 = REGISTRY.counter("router_events", event="retry_hop").snapshot()
+    quant0 = {v: REGISTRY.counter("router_quant_answers", variant=v).snapshot()
+              for v in ("f32", "int8")}
+
+    def portfile(i, s):
+        return json.load(open(tool._portfile(run_dir, i, s)))
+
+    def get(path):
+        with urllib.request.urlopen(f"http://{router.host}:{router.port}{path}",
+                                    timeout=60) as resp:
+            return resp.read()
+
+    def respawned(i, spawn, pid):
+        return (os.path.exists(tool._portfile(run_dir, i, spawn))
+                and router.replicas[i].healthy and router.replicas[i].pid == pid)
+
+    try:
+        t1 = time.perf_counter()
+        pool.start()
+        router.start()
+        if not tool.wait_tier(router, pool, ROUTER_WAIT):
+            raise AssertionError(f"the tier did not come up: {pool.snapshot()}")
+        up_s = time.perf_counter() - t1
+        boot = [portfile(i, 0) for i in range(2)]
+        pids |= {d["pid"] for d in boot}
+        hz = router.healthz()
+        if [r["quant"] for r in hz["replicas"]] != ["f32", "int8"]:
+            raise AssertionError(f"replica precisions {hz['replicas']}")
+        log(f"  the tier in this process (the tool's build_tier): healthy in {up_s:.1f} s; "
+            f"replica warmup_s {[d['warmup_s'] for d in boot]}, compile_cache entries "
+            f"{[d['compile_cache']['entries'] for d in boot]} (the build phase's libraries, "
+            f"loaded, not built); quant {[r['quant'] for r in hz['replicas']]}")
+        secs["up"] = time.perf_counter() - t0 - sum(secs.values())
+        traffic = _Traffic(router, tmp, router=True)
+        epochs, t_epoch, key = [], time.time(), 0  # (start, end, weights' keys)
+        _wait_for("the clients' first answers", lambda: router.metrics.requests >= 2 * TIER_CLIENTS)
+
+        # 1. SIGKILL replica 1 with a request of its in flight
+        _wait_for("a request in flight on replica 1", lambda: router.replicas[1].outstanding > 0,
+                  limit=30)
+        t_kill = time.time()
+        os.kill(boot[1]["pid"], signal.SIGKILL)
+        _wait_for("replica 1's respawn", lambda: os.path.exists(tool._portfile(run_dir, 1, 1)))
+        new1 = portfile(1, 1)
+        pids.add(new1["pid"])
+        _wait_for("replica 1 rejoining", lambda: respawned(1, 1, new1["pid"]))
+        rejoin1 = time.time() - t_kill
+        if router.replicas[1].quant != "int8":
+            raise AssertionError(f"replica 1 came back as {router.replicas[1].quant}")
+        down = [(t_kill, time.time())]
+        hops = REGISTRY.counter("router_events", event="retry_hop").snapshot() - hop0
+        if hops < 1 or hops != len(lines.retries):
+            raise AssertionError(f"{hops} retry hops, {len(lines.retries)} retry: lines")
+        # the retried request's stitched waterfall, in /traces
+        tid = lines.retries[0]["trace"]
+        events = [e for e in json.loads(get("/traces"))["traceEvents"]
+                  if e.get("ph") == "X" and e["args"].get("trace") == tid]
+        names = [e["name"] for e in events]
+        failed_hop = [e for e in events if e["name"] in ("router.dispatch", "router.retry")
+                      and e["args"].get("outcome") == "error"]
+        served = [e for e in events if e["name"] == "server.request"
+                  and e["args"].get("src_pid") in pids]
+        if not failed_hop or "router.retry" not in names or not served:
+            raise AssertionError(f"/traces of retried request {tid}: {names}")
+        rec = [r for r in reqtrace.completed() if r["trace"] == tid]
+        cover = reqtrace.coverage(rec[0]) if rec else None
+        log(f"  1. SIGKILL replica 1 (pid {boot[1]['pid']}) with a request in flight: "
+            f"{hops} retry hop(s) = {len(lines.retries)} retry: line(s) "
+            f"({lines.retries[0]['reason']}); respawned as pid {new1['pid']} (warmup_s "
+            f"{new1['warmup_s']}, compile_cache entries {new1['compile_cache']['entries']}), "
+            f"rejoined int8 {rejoin1:.2f} s after the kill; /traces of retried request "
+            f"{tid[:8]}: {names} (failed hop {failed_hop[0]['args'].get('error')!r}), "
+            f"coverage {cover}")
+        secs["kill1"] = time.perf_counter() - t0 - sum(secs.values())
+
+        # 2. two rolling reloads
+        rolls = []
+        for new in (1, 2):
+            time.sleep(0.5)  # traffic on the generation before
+            code, doc, ms, t_a, t_b, width, moved = _roll(router, "roll", w[new])
+            gens = [r["generation"] for r in doc.get("rolled", [])]
+            if code != 200 or [r["replica"] for r in doc["rolled"]] != [0, 1] or moved != [0, 1]:
+                raise AssertionError(f"roll to {w[new]}: {code} {doc}; moved {moved}")
+            if width < 1:
+                raise AssertionError(f"roll to {w[new]}: healthy width fell to {width}")
+            epochs += [(t_epoch, t_a, {key}), (t_a, t_b, {key, new})]
+            t_epoch, key = t_b, new
+            rolls.append((ms, width, gens))
+        log("  2. rolling /reload of two written solverstates, one replica at a time (replica "
+            "0's generation moved first): " + "; ".join(
+                f"{ms:.1f} ms, least healthy width {wd}, generations {g}"
+                for ms, wd, g in rolls))
+        # 3. a torn solverstate stops the roll at replica 0
+        time.sleep(0.5)
+        gens_before = [r.generation for r in router.replicas]
+        code, doc = router.roll(torn)
+        if code != 502 or doc["rolled"] or not doc["errors"][0].startswith("replica 0") \
+                or [r.generation for r in router.replicas] != gens_before \
+                or router._serving_weights != w[2]:
+            raise AssertionError(f"torn roll: {code} {doc}")
+        log(f"  3. torn roll: {code}, {doc['errors'][0][:120]!r}; generations "
+            f"{gens_before} unchanged")
+        secs["rolls"] = time.perf_counter() - t0 - sum(secs.values())
+
+        # 4. roll_back, then SIGKILL replica 0: its respawn boots on the
+        # boot weights and is re-synced before it takes traffic
+        time.sleep(1.0)
+        code, doc, ms, t_a, t_b, width, moved = _roll(router, "roll_back", "chip_smoke")
+        if code != 200 or [r["replica"] for r in doc["rolled_back"]] != [0, 1] \
+                or router._serving_weights != w[1]:
+            raise AssertionError(f"roll_back: {code} {doc}; serving {router._serving_weights}")
+        epochs += [(t_epoch, t_a, {key}), (t_a, t_b, {key, 1})]
+        t_epoch, key = t_b, 1
+        time.sleep(1.0)
+        t_kill = time.time()
+        os.kill(boot[0]["pid"], signal.SIGKILL)
+        _wait_for("replica 0's respawn", lambda: os.path.exists(tool._portfile(run_dir, 0, 1)))
+        new0 = portfile(0, 1)
+        pids.add(new0["pid"])
+        _wait_for("replica 0 rejoining", lambda: respawned(0, 1, new0["pid"]))
+        rejoin0 = time.time() - t_kill
+        down.append((t_kill, time.time()))
+        r0 = router.replicas[0]
+        if (r0.weights_source, r0.quant, new0["generation"], r0.generation) != (w[1], "f32", 0, 1):
+            raise AssertionError(f"replica 0's respawn: {r0.snapshot()}, port file {new0}")
+        log(f"  4. roll_back: {ms:.1f} ms, least healthy width {width}; SIGKILL replica 0: "
+            f"respawned as pid {new0['pid']} on the boot weights (generation 0), re-synced "
+            f"onto {os.path.basename(w[1])} (generation 1) before it rejoined, "
+            f"{rejoin0:.2f} s after the kill")
+        time.sleep(1.0)  # traffic on the re-synced tier
+        secs["rollback"] = time.perf_counter() - t0 - sum(secs.values())
+        page = get("/dash").decode()
+        if "Serving tier" not in page:
+            raise AssertionError("/dash has no serving-tier section")
+        metrics = get("/metrics").decode()
+    finally:
+        try:
+            if traffic is not None:
+                answers, failed = traffic.finish()
+        finally:
+            sys.stdout = lines.out
+            router.stop()
+            _reap(pids)
+    epochs.append((t_epoch, time.time() + 1, {key}))
+    if failed:
+        raise AssertionError(f"{len(failed)} failed requests: {failed[:3]}")
+    held, (ok8, n8) = _router_answers(answers, epochs, cpu, w)
+    # the A/B: the realized split against Bresenham's, the fallbacks while
+    # a replica was down included
+    n = router.metrics.snapshot()["requests"]
+    got = {v: REGISTRY.counter("router_quant_answers", variant=v).snapshot() - quant0[v]
+           for v in ("f32", "int8")}
+    in_down = sum(1 for a in answers if any(a[6] <= b and a[7] >= t for t, b in down))
+    want8 = int(n * 0.5)
+    if got["f32"] + got["int8"] != n or abs(got["int8"] - want8) > 1 + in_down:
+        raise AssertionError(f"A/B: {got} of {n} requests, Bresenham int8 {want8}, "
+                             f"{in_down} answers while a replica was down")
+    launches = [l for l in metrics.splitlines() if "lrn" in l and not l.startswith("#")]
+    secs["check"] = time.perf_counter() - t0 - sum(secs.values())
+    total = time.perf_counter() - t0
+    log(f"  {len(answers)} answers from {TIER_CLIENTS} closed-loop clients (own timeout "
+        f"{ROUTER_CLIENT_TIMEOUT:.0f} s, no client retry), 0 failed; f32 {held['f32']} each "
+        f"= the CPU engine's on weights its replica could have served, int8 {held['int8']}: "
+        f"top-5 sets hold on {ok8}/{n8}; A/B {got} of {n} requests (Bresenham int8 "
+        f"{want8}, {in_down} answers while a replica was down); replicas' LRN launches in "
+        f"/metrics: {launches or 'not exported'}; all replica processes gone")
+    log(f"  router-tier phase {total:.1f} s of a {ROUTER_BUDGET_S:.0f} s budget ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return {"seconds": total, "answers": len(answers)}
 
 
 # ------------------------------------------------------------- training
@@ -6480,10 +6989,13 @@ def _tel_server():
             raise AssertionError(f"/metrics {st}: {bad[:3]} unparsed, families missing "
                                  f"{sorted(want - families)}")
         st2, ctype2, page = get("/dash")
-        sections = re.findall(r"<section><h2>([^<]*)", page)
+        sections = [h.strip() for h in re.findall(r"<section><h2>([^<]*)", page)]
         st3, _, health = get("/healthz")
         health = json.loads(health)
-        if (st2 != 200 or not ctype2.startswith("text/html") or len(sections) != 4
+        # the traced classify above puts the slow-request panel first
+        want = ["Slow requests", "Serving", "Latency SLO", "Step-phase share per rank",
+                "Anomalies"]
+        if (st2 != 200 or not ctype2.startswith("text/html") or sections != want
                 or st3 != 200 or [a["kind"] for a in health["anomalies"]] != ["loss_spike"]):
             raise AssertionError(f"/dash {st2} {sections}; /healthz {st3} {health}")
         log(f"  /metrics: {len(samples)} samples of {len(families)} families, all parsed; "
@@ -6613,7 +7125,7 @@ def phase_telemetry(tmp):
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
                "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
                "catalogue": phase_catalogue, "telemetry": phase_telemetry,
-               "serving-tier": phase_serving_tier}
+               "serving-tier": phase_serving_tier, "router-tier": phase_router_tier}
 
 
 def main(argv=None) -> int:
@@ -6678,6 +7190,8 @@ def main(argv=None) -> int:
             phases.run("load", phase_load, serving)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
             tier = phases.run("serving-tier", phase_serving_tier, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_router_") as tmp:
+            phases.run("router-tier", phase_router_tier, tmp)
         phases.run("grads", phase_grads)
         for arch in ("googlenet", "resnet50"):
             phases.run(f"{arch}-grads", phase_zoo_grads, arch)

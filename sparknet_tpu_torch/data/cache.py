@@ -29,9 +29,10 @@ Segments carry this package's own prefix, :data:`SHM_CACHE_PREFIX`, and
 a namespace's registry lives in its own directory, so the JAX package's
 cache (``snkc_*``) and this one never read, evict or leak-check each
 other's entries. Counters (hit/miss/evict/torn/put) land on the cache's
-:class:`CacheMetrics`, which the apps' ``data cache:`` line prints. The
-JAX module's chaos hooks, its registry counters and the read-only
-attach mode of its serving replicas are not ported.
+:class:`CacheMetrics`, which the apps' ``data cache:`` line prints.
+``readonly=True`` attaches without ever publishing or evicting: a
+serving replica's ``--data-cache NS`` reads batches a training job put.
+The JAX module's chaos hooks and its registry counters are not ported.
 """
 
 from __future__ import annotations
@@ -153,8 +154,13 @@ class ShmBatchCache:
         *,
         max_bytes: Optional[int] = None,
         metrics: Optional[CacheMetrics] = None,
+        readonly: bool = False,
     ):
+        """``readonly``: attach only (serving replicas): ``get`` works,
+        ``put`` is a counted no-op, so a reader never publishes into (or
+        evicts from) a namespace a training job owns."""
         self.namespace = namespace
+        self.readonly = bool(readonly)
         self._ns = hashlib.sha1(namespace.encode()).hexdigest()[:8]
         if max_bytes is None:
             max_bytes = int(
@@ -291,7 +297,7 @@ class ShmBatchCache:
         present, raced, larger than the whole budget, or puts disabled
         after a storage fault) — callers never depend on a put
         landing."""
-        if self._io_disabled:
+        if self.readonly or self._io_disabled:
             self.metrics.record("put_skipped")
             return False
         metas: List[Tuple[str, str, tuple, int]] = []

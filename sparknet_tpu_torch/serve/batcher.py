@@ -37,6 +37,13 @@ request: PyTorch makes its cuBLAS and cuDNN handles per thread, and on
 the card the first forward in a new thread pays for them (tens to
 hundreds of milliseconds) inside a request's latency otherwise.
 ``wait_ready()`` blocks until that warmup is done.
+
+A request may carry a request-trace context (``ctx=``,
+``telemetry/reqtrace.py``): its queue wait (``batcher.wait``), its shed
+(``batcher.shed``) and its compute (``engine.compute``,
+``engine.generate``, ``engine.decode_batch``) become spans of its trace,
+recorded before its future resolves, and a sampled trace's id rides its
+latency observation as an exemplar.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry import reqtrace as _reqtrace
 from ..telemetry import trace as _trace
 
 _log = logging.getLogger(__name__)
@@ -77,10 +85,10 @@ class DeadlineExceeded(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("rows", "n", "future", "t_enq", "deadline", "fn", "decode")
+    __slots__ = ("rows", "n", "future", "t_enq", "deadline", "fn", "decode", "ctx")
 
     def __init__(self, rows: Optional[np.ndarray], deadline_s: Optional[float] = None,
-                 fn=None, decode=None):
+                 fn=None, decode=None, ctx=None):
         # a rows request (coalesced into engine batches), a callable
         # (submit_call) or a decode request (submit_decode): all share the
         # queue, its FIFO order, backpressure and the deadline shed
@@ -91,6 +99,12 @@ class _Pending:
         self.future: Future = Future()
         self.t_enq = time.perf_counter()
         self.deadline = None if deadline_s is None else self.t_enq + deadline_s
+        self.ctx = ctx  # request-trace context, or None
+
+    def exemplar(self, latency_s: float):
+        """``(trace id, seconds)`` for a sampled trace, else None."""
+        ctx = self.ctx
+        return (ctx.trace_id, latency_s) if ctx is not None and ctx.sampled else None
 
 
 class MicroBatcher:
@@ -137,14 +151,16 @@ class MicroBatcher:
 
     # ------------------------------------------------------------------
     def submit(self, rows, *, block: bool = False, timeout: Optional[float] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None, ctx=None) -> Future:
         """Enqueue one request of N rows; resolves to the engine output
         for exactly those rows. ``block=False`` raises
-        :class:`Backpressure` when the queue is full."""
+        :class:`Backpressure` when the queue is full. ``ctx``: the
+        request's trace context (module docstring)."""
         if not self._open:
             raise RuntimeError("MicroBatcher is drained/closed")
         item = _Pending(
-            np.asarray(rows), self.deadline_s if deadline_s is None else deadline_s
+            np.asarray(rows), self.deadline_s if deadline_s is None else deadline_s,
+            ctx=ctx,
         )
         if item.n == 0:
             raise ValueError("submit: empty request")
@@ -165,18 +181,18 @@ class MicroBatcher:
         return item.future
 
     def submit_call(self, fn, *, block: bool = False, timeout: Optional[float] = None,
-                    deadline_s: Optional[float] = None) -> Future:
+                    deadline_s: Optional[float] = None, ctx=None) -> Future:
         """Enqueue one callable request (a session ``generate``): it runs
         in queue position on the single worker, so decode and classify
         share one serialized engine feed, one backpressure bound and one
         deadline shed; resolves to ``fn()``'s return."""
         return self._enqueue(_Pending(
-            None, self.deadline_s if deadline_s is None else deadline_s, fn=fn),
+            None, self.deadline_s if deadline_s is None else deadline_s, fn=fn, ctx=ctx),
             block, timeout)
 
     def submit_decode(self, request: dict, *, block: bool = False,
                       timeout: Optional[float] = None,
-                      deadline_s: Optional[float] = None) -> Future:
+                      deadline_s: Optional[float] = None, ctx=None) -> Future:
         """Enqueue one decode request (``{"tokens": [...], "session": id?,
         "steps": K, "top_k": k}``) for the continuous batched token loop
         (``engine.decode_batch``): consecutive decode requests, and those
@@ -184,7 +200,7 @@ class MicroBatcher:
         request's row retires."""
         return self._enqueue(_Pending(
             None, self.deadline_s if deadline_s is None else deadline_s,
-            decode=dict(request)), block, timeout)
+            decode=dict(request), ctx=ctx), block, timeout)
 
     # ----------------------------------------------------- estimators
     def _note_arrival(self, item: _Pending) -> None:
@@ -326,11 +342,17 @@ class MicroBatcher:
         for it in batch:
             if it.deadline is not None and now > it.deadline:
                 shed += 1
+                if it.ctx is not None:
+                    _reqtrace.record_interval(it.ctx, "batcher.shed", it.t_enq,
+                                              reason="deadline", rows=it.n)
                 it.future.set_exception(DeadlineExceeded(
                     f"request expired after {now - it.t_enq:.3f}s in queue"
                 ))
             elif not it.future.set_running_or_notify_cancel():
                 cancelled += 1
+                if it.ctx is not None:
+                    _reqtrace.record_interval(it.ctx, "batcher.shed", it.t_enq,
+                                              reason="cancelled", rows=it.n)
             else:
                 live.append(it)
         if self.metrics is not None:
@@ -338,6 +360,11 @@ class MicroBatcher:
                 self.metrics.record_shed(shed)
             if cancelled:
                 self.metrics.record_cancelled(cancelled)
+        # the admission wait: enqueue to the dispatch instant, a request
+        for it in live:
+            if it.ctx is not None:
+                _reqtrace.record_interval(it.ctx, "batcher.wait", it.t_enq,
+                                          rows=it.n, mode=self.mode)
         # calls and decode requests run in queue position: the batch is
         # cut into maximal runs of one kind, FIFO; a rows run is one
         # engine batch, a call runs alone, a decode run is one window
@@ -356,6 +383,7 @@ class MicroBatcher:
             i = j
 
     def _run_call(self, it: _Pending) -> None:
+        t0 = time.perf_counter()
         try:
             out = it.fn()
         except Exception as e:
@@ -363,9 +391,13 @@ class MicroBatcher:
                 self.metrics.record_error()
             it.future.set_exception(e)
             return
+        now = time.perf_counter()
+        if it.ctx is not None:
+            _reqtrace.record_interval(it.ctx, "engine.generate", t0, now)
         it.future.set_result(out)
         if self.metrics is not None:
-            self.metrics.record_request(time.perf_counter() - it.t_enq, rows=it.n)
+            lat = now - it.t_enq
+            self.metrics.record_request(lat, rows=it.n, exemplar=it.exemplar(lat))
 
     def _run_decode(self, items: List[_Pending]) -> None:
         """One continuous batched-decode window seeded by ``items``;
@@ -400,7 +432,13 @@ class MicroBatcher:
                 if not nxt.future.set_running_or_notify_cancel():
                     if self.metrics is not None:
                         self.metrics.record_cancelled(1)
+                    if nxt.ctx is not None:
+                        _reqtrace.record_interval(nxt.ctx, "batcher.shed", nxt.t_enq,
+                                                  reason="cancelled", rows=nxt.n)
                     continue
+                if nxt.ctx is not None:
+                    _reqtrace.record_interval(nxt.ctx, "batcher.wait", nxt.t_enq,
+                                              rows=nxt.n, mode=self.mode)
                 got.append(as_req(nxt))
             if self.metrics is not None:
                 self.metrics.set_queue_depth(self._q.qsize())
@@ -408,6 +446,12 @@ class MicroBatcher:
 
         def on_result(tag: int, value) -> None:
             it = outstanding.pop(tag)
+            now = time.perf_counter()
+            if it.ctx is not None:
+                # the row's life in the window, enqueue to retirement
+                _reqtrace.record_interval(it.ctx, "engine.decode_batch", it.t_enq, now,
+                                          **({"outcome": type(value).__name__}
+                                             if isinstance(value, Exception) else {}))
             if isinstance(value, Exception):
                 if self.metrics is not None:
                     if isinstance(value, DeadlineExceeded):
@@ -418,7 +462,8 @@ class MicroBatcher:
                 return
             it.future.set_result(value)
             if self.metrics is not None:
-                self.metrics.record_request(time.perf_counter() - it.t_enq, rows=1)
+                lat = now - it.t_enq
+                self.metrics.record_request(lat, rows=1, exemplar=it.exemplar(lat))
 
         try:
             self.engine.decode_batch(reqs, admit=admit, on_result=on_result)
@@ -458,13 +503,21 @@ class MicroBatcher:
         now = time.perf_counter()
         if self.mode == "continuous":
             self._observe_service(self._bucket_for(total), now - t0)
+        bucket = self._bucket_for(total)
         ofs = 0
         for it in batch:
+            if it.ctx is not None:
+                # one compute span a co-riding request, recorded before
+                # its future resolves: the handler gathers the spans the
+                # moment result() returns
+                _reqtrace.record_interval(it.ctx, "engine.compute", t0, now,
+                                          bucket=bucket, rows=it.n, gen=gen)
             it.future.gen = gen  # read by the server's "gen" tag
             it.future.set_result(out[ofs : ofs + it.n])
             ofs += it.n
             if self.metrics is not None:
-                self.metrics.record_request(now - it.t_enq, rows=it.n)
+                lat = now - it.t_enq
+                self.metrics.record_request(lat, rows=it.n, exemplar=it.exemplar(lat))
 
     # ------------------------------------------------------------------
     def drain(self, timeout: Optional[float] = 30.0) -> None:

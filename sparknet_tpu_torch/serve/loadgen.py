@@ -150,13 +150,21 @@ def run_http_loadgen(
     record carries every weights generation seen (``served_generations``)
     and every precision that answered (``served_quants``).
 
+    Every request mints its own trace context client-side
+    (``telemetry/reqtrace.py``) and sends it in ``X-Sparknet-Trace``, so
+    the record names the exact requests it measured as failed or slower
+    than its p99 (``failed_request_traces``, ``slow_request_traces``):
+    look them up in the tier's ``/traces`` by trace id.
+
     Session mode (``sessions > 0``): every request is a session step: a
     session id drawn Zipf(``session_zipf``) over ``sessions`` ids, its
     full token prefix sent to ``/generate`` with ``session_steps`` greedy
     continuations, which join its history. One request per session in
     flight at a time, so each session's prefix is determined by
     ``seed``. The record gains ``sessions`` (counts by cache state, hit
-    rate, the hottest sessions) and ``session_failed_requests``."""
+    rate, migrations, the hottest sessions) and
+    ``session_failed_requests``."""
+    from ..telemetry import reqtrace
     from ..telemetry.registry import LatencyHistogram
     from .server import Client
 
@@ -164,6 +172,8 @@ def run_http_loadgen(
     counter = {"next": 0}
     lock = threading.Lock()
     errors = []
+    failed_traces = []
+    samples = []  # (request index, trace id, latency seconds)
     generations = set()
     quants = set()
     session_probs = zipf_weights(sessions, session_zipf) if sessions > 0 else None
@@ -172,9 +182,17 @@ def run_http_loadgen(
     session_counts: dict = {}
     session_states: dict = {}
     session_tokens = [0]  # greedy continuations delivered
+    session_migrated = [0]
 
-    def note(resp, dt):
+    def fail(i, tid, e):
+        with lock:
+            errors.append(f"req {i}: {type(e).__name__}: {e}")
+            if tid is not None:
+                failed_traces.append({"req": i, "trace": tid})
+
+    def note(i, tid, resp, dt):
         lat.observe(dt)
+        samples.append((i, tid, dt))
         if "gen" in resp:
             generations.add(int(resp["gen"]))
         if resp.get("quant"):
@@ -185,29 +203,34 @@ def run_http_loadgen(
         sid = f"s{k}"
         with lock:
             slock = session_locks.setdefault(sid, threading.Lock())
+        ctx = reqtrace.mint()  # None while tracing is off
+        tid = ctx.trace_id if ctx is not None else None
         with slock:
             with lock:
                 hist = list(session_hist.setdefault(sid, [k % session_vocab]))
             t0 = time.perf_counter()
             try:
-                status, resp = client.generate(hist, session=sid, steps=session_steps)
+                status, resp = client.generate(
+                    hist, session=sid, steps=session_steps,
+                    trace=reqtrace.to_header(ctx) if ctx is not None else None)
                 if status != 200:
                     raise RuntimeError(f"HTTP {status}: {resp.get('error')}")
                 if len(resp.get("tokens", ())) != session_steps:
                     raise RuntimeError(f"{len(resp.get('tokens', ()))} tokens back, "
                                        f"asked {session_steps}")
             except Exception as e:
-                with lock:
-                    errors.append(f"req {i}: {type(e).__name__}: {e}")
+                fail(i, tid, e)
                 return
             dt = time.perf_counter() - t0
             with lock:
-                note(resp, dt)
+                note(i, tid, resp, dt)
                 session_hist[sid] = hist + [int(t) for t in resp["tokens"]]
                 session_tokens[0] += len(resp["tokens"])
                 session_counts[sid] = session_counts.get(sid, 0) + 1
                 st = str(resp.get("cache_state", "?"))
                 session_states[st] = session_states.get(st, 0) + 1
+                if resp.get("migrated"):
+                    session_migrated[0] += 1
 
     def worker(wid: int):
         rng = np.random.default_rng(seed + wid)
@@ -223,19 +246,22 @@ def run_http_loadgen(
                 continue
             n = int(sizes[i % len(sizes)])
             rows = rng.normal(size=(n,) + tuple(input_shape)).astype(np.float32)
+            ctx = reqtrace.mint()
+            tid = ctx.trace_id if ctx is not None else None
             t0 = time.perf_counter()
             try:
-                status, resp = client.classify(rows)
+                status, resp = client.classify(
+                    rows, trace=reqtrace.to_header(ctx) if ctx is not None else None)
                 if status != 200:
                     raise RuntimeError(f"HTTP {status}: {resp.get('error')}")
                 if len(resp["indices"]) != n:
                     raise RuntimeError(f"{len(resp['indices'])} rows back, sent {n}")
             except Exception as e:
-                with lock:
-                    errors.append(f"req {i}: {type(e).__name__}: {e}")
+                fail(i, tid, e)
                 continue
+            dt = time.perf_counter() - t0
             with lock:
-                note(resp, time.perf_counter() - t0)
+                note(i, tid, resp, dt)
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
@@ -247,6 +273,16 @@ def run_http_loadgen(
     dt = max(time.perf_counter() - t0, 1e-9)
     snap = lat.snapshot()
     total_rows = sum(int(sizes[i % len(sizes)]) for i in range(n_requests))
+    # exact percentiles from the raw latencies (the histogram's bins are
+    # ~1.47x wide)
+    lats = sorted(x[2] for x in samples)
+    p50_exact = lats[int(0.50 * (len(lats) - 1))] if lats else None
+    p99_exact = lats[int(0.99 * (len(lats) - 1))] if lats else None
+    slow_traces = [
+        {"req": i, "trace": tid, "ms": round(s_dt * 1000, 3)}
+        for i, tid, s_dt in sorted(samples, key=lambda x: -x[2])
+        if p99_exact is not None and s_dt > p99_exact and tid is not None
+    ][:20]
     record = {
         "metric": "serve_http_requests_per_sec",
         "value": round((n_requests - len(errors)) / dt, 2),
@@ -260,6 +296,11 @@ def run_http_loadgen(
         "p50_ms": snap["p50_ms"],
         "p95_ms": snap["p95_ms"],
         "p99_ms": snap["p99_ms"],
+        "p50_exact_ms": round(p50_exact * 1000, 3) if p50_exact is not None else None,
+        "p99_exact_ms": round(p99_exact * 1000, 3) if p99_exact is not None else None,
+        # the requests this record measured as failed or slow, by trace id
+        "failed_request_traces": failed_traces[:20],
+        "slow_request_traces": slow_traces,
         "served_generations": sorted(generations),
         "served_quants": sorted(quants),
         "host_cpus": os.cpu_count(),
@@ -273,6 +314,7 @@ def run_http_loadgen(
             "states": dict(sorted(session_states.items())),
             "hit_rate": round(session_states.get("hit", 0)
                               / max(1, sum(session_states.values())), 4),
+            "migrated": session_migrated[0],
             "tokens_generated": session_tokens[0],
             "tokens_per_sec": round(session_tokens[0] / dt, 2),
             "hottest": sorted(session_counts.items(), key=lambda kv: -kv[1])[:5],

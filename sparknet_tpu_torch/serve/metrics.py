@@ -105,12 +105,15 @@ class ServeMetrics:
             if shed:
                 self._last_degraded_t = time.perf_counter()
 
-    def record_request(self, latency_s: float, rows: int = 1) -> None:
+    def record_request(self, latency_s: float, rows: int = 1, exemplar=None) -> None:
+        """``exemplar``: an optional ``(trace id, seconds)`` of a sampled
+        request trace, pinned on the latency histogram's bin
+        (``telemetry/reqtrace.py``)."""
         with self._lock:
             self.requests += 1
             self._window_requests += 1
             self.rows += rows
-            self.request_latency.observe(latency_s)
+            self.request_latency.observe(latency_s, exemplar=exemplar)
 
     def record_error(self, n: int = 1) -> None:
         with self._lock:

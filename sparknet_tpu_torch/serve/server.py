@@ -6,7 +6,11 @@ Endpoints (JSON in and out, stdlib only), with the JAX server's shapes:
 - ``POST /classify``  body ``{"rows": [[...]...], "top_k": 5}``, rows
   NHWC nested lists. Response ``{"indices": [[...]], "probs": [[...]],
   "gen": N, "quant": "f32"}``. Bad request -> 400; a full queue or a
-  shed deadline -> 503 with Retry-After; timeout -> 504.
+  shed deadline -> 503 with Retry-After; timeout -> 504. With a
+  decoded-batch cache attached read-only (``data_cache=``,
+  ``data/cache.py``) the body may carry ``{"cache_key": "..."}`` instead
+  of rows: the rows come out of shared memory, and a miss is a 404,
+  never a recompute.
 - ``POST /reload``  body ``{"weights": path}``, or ``{}`` with a snapshot
   watch configured (the newest manifest-checked solverstate under its
   target), or ``{"rollback": true}`` (the resident previous generation).
@@ -28,7 +32,16 @@ Endpoints (JSON in and out, stdlib only), with the JAX server's shapes:
   and the ``ServeMetrics`` families (``telemetry/exporter.py``);
   ``GET /metrics.json``: the ``ServeMetrics`` snapshot.
 - ``GET /dash``: the HTML dashboard (``telemetry/dash.py``) of the
-  registry, the cluster aggregate and the anomaly board.
+  registry, the cluster aggregate, the anomaly board and the slowest
+  request waterfalls.
+- ``GET /traces``: completed request waterfalls as Chrome trace-event
+  JSON (``telemetry/reqtrace.py``). ``/classify`` and ``/generate``
+  adopt the ``X-Sparknet-Trace`` context of the request (a router's
+  dispatch hop) or mint one, record a ``server.request`` span around the
+  batcher's and the engine's, and answer with the context; a server that
+  is not its trace's root returns its spans inline in an
+  ``X-Sparknet-Spans`` header for the router to stitch, a root closes
+  the trace itself.
 
 A ``ThreadingHTTPServer``: handler threads block on the batcher future
 while the single batcher worker feeds the card, so concurrent requests
@@ -51,7 +64,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..telemetry import REGISTRY, aggregate, anomaly, dash, exporter
+from ..telemetry import REGISTRY, aggregate, anomaly, dash, exporter, reqtrace
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher, decode_batching_enabled
 from .metrics import ServeMetrics
 
@@ -73,12 +86,19 @@ class InferenceServer:
         request_timeout_s: float = 60.0,
         watch: Optional[str] = None,
         watch_interval_s: float = 2.0,
+        data_cache=None,
+        compile_cache_info: Optional[dict] = None,
     ):
         """``port=0`` binds an ephemeral port; the bound port is
         ``self.port`` either way. ``watch``: a snapshot prefix or
         directory; a newer manifest-checked solverstate under it is
-        swapped in by the server itself."""
+        swapped in by the server itself. ``data_cache``: a read-only
+        ``ShmBatchCache`` serving ``cache_key`` requests.
+        ``compile_cache_info``: ``enable_persistent_cache``'s record,
+        shown in ``/healthz``."""
         self.engine = engine
+        self.data_cache = data_cache
+        self.compile_cache_info = compile_cache_info
         self._watch_target = watch
         self._watch_interval_s = watch_interval_s
         self._watcher = None
@@ -130,12 +150,42 @@ class InferenceServer:
                     page = dash.render_html(
                         REGISTRY.snapshot(), serve_metrics=outer.metrics.snapshot(),
                         cluster=agg.snapshot() if agg is not None else None,
-                        anomalies=anomaly.active(), model_name=outer.model_name)
+                        anomalies=anomaly.active(), model_name=outer.model_name,
+                        reqtrace=reqtrace.slowest())
                     self._send(200, page.encode(), "text/html; charset=utf-8")
+                elif self.path == "/traces":
+                    self._send(200, json.dumps(reqtrace.export_chrome()).encode(),
+                               "application/json")
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
-            def _await(self, fut, what):
+            def _trace_begin(self):
+                """Adopt the request's trace context or mint a root one,
+                and open the ``server.request`` hop; ``(None, None)``
+                while tracing is off."""
+                if not reqtrace.enabled():
+                    return None, None
+                rctx = reqtrace.parse(self.headers.get(reqtrace.HEADER)) or reqtrace.mint()
+                return rctx, reqtrace.hop(rctx, "server.request")
+
+            def _trace_headers(self, rctx, rhop, status):
+                """Finish the server hop; a root closes its trace here, a
+                non-root hands its spans back in the response header."""
+                if rhop is None:
+                    return ()
+                dur_s = rhop.finish(status=status)
+                hdrs = [(reqtrace.HEADER, reqtrace.to_header(rctx))]
+                if rctx.root:
+                    reqtrace.finish(rctx, dur_s or 0.0)
+                else:
+                    hdrs.append((reqtrace.SPANS_HEADER,
+                                 reqtrace.spans_header_value(reqtrace.take(rctx.trace_id))))
+                return hdrs
+
+            def _fail(self, code, payload, trace, extra=()):
+                self._reply(code, payload, tuple(extra) + tuple(self._trace_headers(*trace, code)))
+
+            def _await(self, fut, what, trace):
                 """The future's result, or None once the error reply went
                 out (timeout 504, shed 503, engine failure 400/500)."""
                 try:
@@ -144,15 +194,23 @@ class InferenceServer:
                     outer.metrics.record_error()
                     # still queued -> the batcher drops it before compute
                     fut.cancel()
-                    self._reply(504, {"error": f"{what} timed out"})
+                    self._fail(504, {"error": f"{what} timed out"}, trace)
                 except DeadlineExceeded as e:
-                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
+                    self._fail(503, {"error": str(e)}, trace, (("Retry-After", "1"),))
                 except Exception as e:
                     # engine-side failure (a bad shape surfaces here: the
                     # engine validates); the batcher already counted it
                     code = 400 if isinstance(e, ValueError) else 500
-                    self._reply(code, {"error": f"{type(e).__name__}: {e}"})
+                    self._fail(code, {"error": f"{type(e).__name__}: {e}"}, trace)
                 return None
+
+            def _send_traced(self, payload, trace):
+                rhop = trace[1]
+                with reqtrace.span(rhop.ctx if rhop is not None else None,
+                                   "serve.serialize") as sp:
+                    body = json.dumps(payload).encode()
+                    sp.note(bytes=len(body))
+                self._send(200, body, "application/json", self._trace_headers(*trace, 200))
 
             def do_POST(self):
                 if self.path == "/reload":
@@ -171,41 +229,71 @@ class InferenceServer:
                 if self.path != "/classify":
                     self._reply(404, {"error": f"no route {self.path}"})
                     return
+                trace = self._trace_begin()
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     req = json.loads(self.rfile.read(length) or b"{}")
                     top_k = int(req.get("top_k", outer.default_top_k))
-                    rows = np.asarray(req["rows"], np.float32)
+                    if "rows" in req:
+                        rows = np.asarray(req["rows"], np.float32)
+                    elif "cache_key" in req:
+                        rows = self._cached_rows(str(req["cache_key"]), trace)
+                        if rows is None:
+                            return
+                    else:
+                        raise KeyError("rows")
                 except (KeyError, ValueError, TypeError) as e:
                     outer.metrics.record_error()
-                    self._reply(400, {"error": f"bad request: {e}"})
+                    self._fail(400, {"error": f"bad request: {e}"}, trace)
                     return
                 try:
-                    fut = outer.batcher.submit(rows)
+                    fut = outer.batcher.submit(
+                        rows, ctx=trace[1].ctx if trace[1] is not None else None)
                 except Backpressure as e:
                     outer.metrics.record_error()
-                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
+                    self._fail(503, {"error": str(e)}, trace, (("Retry-After", "1"),))
                     return
                 except ValueError as e:
                     outer.metrics.record_error()
-                    self._reply(400, {"error": str(e)})
+                    self._fail(400, {"error": str(e)}, trace)
                     return
-                out = self._await(fut, "inference")
+                out = self._await(fut, "inference", trace)
                 if out is None:
                     return
                 idx, probs = outer.engine.postprocess(out, top_k)
-                self._reply(200, {
+                self._send_traced({
                     "indices": idx.tolist(),
                     "probs": probs.tolist(),
                     # the generation this request was computed with
                     "gen": getattr(fut, "gen", getattr(outer.engine, "generation", 0)),
                     "quant": getattr(outer.engine, "quant", "f32"),
-                })
+                }, trace)
+
+            def _cached_rows(self, key, trace):
+                """The rows of a decoded batch in the attached cache (its
+                net's first input blob), or None once a 400/404 went out."""
+                if outer.data_cache is None:
+                    self._fail(400, {"error": "no data cache attached (serve --data-cache NS)"},
+                               trace)
+                    return None
+                cached = outer.data_cache.get(key)
+                if cached is None:
+                    self._fail(404, {"error": f"cache miss: {key!r}"}, trace)
+                    return None
+                name = getattr(outer.engine, "input_names", ["data"])[0]
+                rows = cached.get(name)
+                if rows is None:
+                    self._fail(404, {"error": f"cached batch lacks input blob {name!r}"},
+                               trace)
+                return rows
 
             def _do_generate(self):
                 """``POST /generate`` through the batcher (the decode window,
                 or one ``generate`` call a worker turn), sharing the classify
-                path's backpressure, deadline shed and error mapping."""
+                path's backpressure, deadline shed, error mapping and
+                request trace."""
+                trace = self._trace_begin()
+                ctx = trace[1].ctx if trace[1] is not None else None
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     req = json.loads(self.rfile.read(length) or b"{}")
@@ -215,29 +303,30 @@ class InferenceServer:
                     session = req.get("session") or self.headers.get("X-Sparknet-Session")
                 except (KeyError, ValueError, TypeError) as e:
                     outer.metrics.record_error()
-                    self._reply(400, {"error": f"bad request: {e}"})
+                    self._fail(400, {"error": f"bad request: {e}"}, trace)
                     return
                 try:
                     if decode_batching_enabled() and getattr(outer.engine,
                                                              "decode_buckets", ()):
                         fut = outer.batcher.submit_decode({
                             "tokens": tokens, "session": session,
-                            "steps": steps, "top_k": top_k})
+                            "steps": steps, "top_k": top_k}, ctx=ctx)
                     else:
                         fut = outer.batcher.submit_call(
                             lambda: outer.engine.generate(
-                                tokens, session=session, steps=steps, top_k=top_k))
+                                tokens, session=session, steps=steps, top_k=top_k),
+                            ctx=ctx)
                 except Backpressure as e:
                     outer.metrics.record_error()
-                    self._reply(503, {"error": str(e)}, (("Retry-After", "1"),))
+                    self._fail(503, {"error": str(e)}, trace, (("Retry-After", "1"),))
                     return
-                payload = self._await(fut, "generate")
+                payload = self._await(fut, "generate", trace)
                 if payload is None:
                     return
                 if session:
                     payload["session"] = session
                 payload["quant"] = getattr(outer.engine, "quant", "f32")
-                self._reply(200, payload)
+                self._send_traced(payload, trace)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._httpd.daemon_threads = True
@@ -337,6 +426,10 @@ class InferenceServer:
             "device": str(getattr(e, "device", "")),
             "pid": os.getpid(),
         }
+        if self.compile_cache_info is not None:
+            out["compile_cache"] = self.compile_cache_info
+        if self.data_cache is not None:
+            out["data_cache"] = self.data_cache.metrics.snapshot()
         sessions = getattr(e, "session_cache", None)
         if sessions is not None and sessions.enabled:
             out["session_cache"] = sessions.snapshot()
@@ -458,23 +551,36 @@ class Client:
     def prometheus(self):
         return self._request("GET", "/metrics")
 
-    def classify(self, rows, top_k: int = 5):
+    def classify(self, rows, top_k: int = 5, trace: Optional[str] = None):
+        """``trace``: an ``X-Sparknet-Trace`` value minted by the caller
+        (``telemetry/reqtrace.py``), so its own record names the tier's
+        waterfall; retries reuse it (a retried request is one request)."""
         rows = np.asarray(rows)
+        headers = {reqtrace.HEADER: trace} if trace else None
         return self._request(
-            "POST", "/classify", {"rows": rows.tolist(), "top_k": top_k}
+            "POST", "/classify", {"rows": rows.tolist(), "top_k": top_k}, headers=headers
         )
 
     def generate(self, tokens, session: Optional[str] = None, steps: int = 0,
-                 top_k: int = 5):
+                 top_k: int = 5, trace: Optional[str] = None):
         """Session-aware decode (``POST /generate``). ``tokens`` is the
         session's full prefix; ``session`` rides the body and the
-        ``X-Sparknet-Session`` header."""
-        headers = {"X-Sparknet-Session": str(session)} if session else None
+        ``X-Sparknet-Session`` header (what a router's affinity reads)."""
+        headers = {}
+        if trace:
+            headers[reqtrace.HEADER] = trace
+        if session:
+            headers["X-Sparknet-Session"] = str(session)
         payload = {"tokens": [int(t) for t in np.asarray(tokens).ravel()],
                    "steps": int(steps), "top_k": int(top_k)}
         if session:
             payload["session"] = str(session)
-        return self._request("POST", "/generate", payload, headers=headers)
+        return self._request("POST", "/generate", payload, headers=headers or None)
+
+    def classify_cached(self, cache_key: str, top_k: int = 5):
+        """Classify a batch already in the server's decoded-batch cache:
+        the rows never cross the wire."""
+        return self._request("POST", "/classify", {"cache_key": cache_key, "top_k": top_k})
 
     def reload(self, weights: Optional[str] = None):
         """Trigger a weight hot-swap (None: the server's snapshot watch

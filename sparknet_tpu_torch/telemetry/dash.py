@@ -10,12 +10,15 @@ Sections, top to bottom: stat tiles (requests, throughput, queue depth,
 uptime), serving-latency SLO tiles (p50/p95/p99 against
 ``SPARKNET_SLO_P99_MS``), per-rank phase-share bars from the cluster
 aggregate (or this process's own timeline when no cluster data exists)
-with their table, the anomaly feed, and the session panel of a recurrent
+with their table, the anomaly feed, the session panel of a recurrent
 net's server (the ``session_cache`` registry source and the batched
-decode's metrics). The JAX page's router, deployment, slow-request and
-storage sections read subsystems the port does not have yet (the
-router, the deploy loop, request tracing, the storage-fault counters)
-and are not ported.
+decode's metrics, or on a router their sum over the replicas' health
+scrapes), the serving tier's section on a router's page (replicas,
+generations, retries, respawns, a row a replica) and the slow-request
+panel (the slowest stitched request waterfalls,
+``telemetry/reqtrace.py``). The JAX page's deployment and storage
+sections read subsystems the port does not have yet (the deploy loop,
+the storage-fault counters) and are not ported.
 
 Visual rules: phases wear a fixed categorical palette in a fixed order;
 anomaly severities wear the status palette with an icon and a text
@@ -45,6 +48,23 @@ _PHASE_COLORS = {
     "snapshot": ("#4a3aa7", "#9085e9"),
 }
 _OTHER_COLOR = ("#e34948", "#e66767")  # everything non-canonical folds here
+
+# fixed request-hop -> categorical slot assignment (light, dark) for
+# the slow-request waterfalls (telemetry/reqtrace.py span taxonomy);
+# same discipline as the phase palette: stable, never re-ranked.
+# router.retry deliberately wears the warning status color AND a text
+# flag in the row label — a retried hop is state, not just identity.
+_HOP_COLORS = {
+    "router.dispatch": ("#2a78d6", "#3987e5"),
+    "router.retry": ("#fab219", "#fab219"),
+    "server.request": ("#1baf7a", "#199e70"),
+    "batcher.wait": ("#eda100", "#c98500"),
+    "batcher.shed": ("#d03b3b", "#e66767"),
+    "engine.compute": ("#4a3aa7", "#9085e9"),
+    "engine.generate": ("#2a6a6a", "#3d8f8f"),
+    "serve.serialize": ("#e87ba4", "#d55181"),
+}
+
 
 # reserved status palette: state, never series identity
 _STATUS = {
@@ -200,15 +220,19 @@ def _anomaly_feed(events: List[dict]) -> str:
 
 def _phase_style_rules() -> str:
     light, dark = [], []
-    for name, (lc, dc) in list(_PHASE_COLORS.items()) + [
-        ("__other__", _OTHER_COLOR)
-    ]:
+    for name, (lc, dc) in [("__other__", _OTHER_COLOR)] + list(
+        _PHASE_COLORS.items()
+    ):
         sel = f'[data-phase="{name}"]' if name != "__other__" else ".seg,.swatch"
         light.append(f"{sel}{{background:{lc}}}")
         dark.append(f"{sel}{{background:{dc}}}")
-    # the catch-all comes FIRST so named phases override it
-    light_css = light[-1] + "".join(light[:-1])
-    dark_css = dark[-1] + "".join(dark[:-1])
+    for name, (lc, dc) in _HOP_COLORS.items():
+        sel = f'[data-hop="{name}"]'
+        light.append(f"{sel}{{background:{lc}}}")
+        dark.append(f"{sel}{{background:{dc}}}")
+    # the catch-all comes FIRST so named phases and hops override it
+    light_css = "".join(light)
+    dark_css = "".join(dark)
     return (
         light_css
         + "@media (prefers-color-scheme: dark){" + dark_css + "}"
@@ -265,6 +289,169 @@ def _session_section(session: dict, decode: Optional[dict] = None) -> str:
     )
 
 
+def _router_section(router: dict) -> str:
+    """Serving-tier tiles + per-replica table (router /dash only):
+    healthy count, served generations, retry/respawn counters, and one
+    row per replica — state, outstanding, generation, precision
+    (quant variant — a rolled-back A/B reads straight off the table),
+    p50/p99."""
+    rm = router.get("router") or {}
+    lat = rm.get("request_latency") or {}
+    healthy = router.get("replicas_healthy", 0)
+    total = router.get("replicas_total", 0)
+    tiles = [
+        _tile("replicas", f"{healthy}/{total}",
+              "healthy" if healthy == total else "degraded"),
+        _tile("served gen", ",".join(
+            str(g) for g in router.get("generations", [])) or "0",
+            f"{rm.get('rolls', 0)} rolls"),
+        _tile("retries", str(rm.get("retries", 0)),
+              f"{rm.get('failed', 0)} failed"),
+        _tile("replica deaths", str(rm.get("replica_deaths", 0)),
+              f"{rm.get('respawns', 0)} respawns"),
+        _tile("router p99", (
+            f"{lat.get('p99_ms'):.1f} ms"
+            if lat.get("p99_ms") is not None else "—"
+        )),
+    ]
+    rows = []
+    for r in router.get("replicas", []):
+        st = "good" if r.get("healthy") else "serious"
+        label = "healthy" if r.get("healthy") else "ejected"
+        rl = r.get("latency") or {}
+        sc = r.get("session_cache") or {}
+        fmt = lambda v: f"{v:.1f}" if v is not None else "—"
+        rows.append(
+            f'<tr><td>replica {r.get("index")}</td>'
+            f'<td><span class="status-{st}">'
+            f'{"●" if r.get("healthy") else "▲"} {label}</span></td>'
+            f'<td>{_esc(r.get("addr") or "?")}</td>'
+            f'<td>{r.get("outstanding", 0)}</td>'
+            f'<td>{_esc(r.get("generation"))}</td>'
+            f'<td>{_esc(r.get("quant") or "f32")}</td>'
+            f'<td>{sc.get("entries", 0) if sc.get("enabled") else "—"}</td>'
+            f'<td>{r.get("forwarded", 0)}</td>'
+            f'<td>{fmt(rl.get("p50_ms"))}</td>'
+            f'<td>{fmt(rl.get("p99_ms"))}</td></tr>'
+        )
+    table = (
+        '<table class="data"><thead><tr><th>replica</th><th>state</th>'
+        "<th>addr</th><th>outstanding</th><th>gen</th>"
+        "<th>precision</th><th>sessions</th><th>forwarded</th>"
+        "<th>p50 ms</th><th>p99 ms</th></tr></thead>"
+        f'<tbody>{"".join(rows)}</tbody></table>'
+    )
+    return (
+        f'<section><h2>Serving tier</h2>'
+        f'<div class="tiles">{"".join(tiles)}</div>{table}</section>'
+    )
+
+
+def _session_aggregate(router: Optional[dict]) -> Optional[dict]:
+    """Sum the replicas' ``session_cache`` health blocks into one
+    router-level view (entries, hits, misses, ...)."""
+    if router is None:
+        return None
+    agg: Dict[str, int] = {}
+    seen = False
+    for r in router.get("replicas", []):
+        sc = r.get("session_cache")
+        if not sc or not sc.get("enabled"):
+            continue
+        seen = True
+        for k in ("entries", "resident_bytes", "max_bytes", "hits",
+                  "misses", "evictions", "stale_gen", "rebuilt",
+                  "coalesced"):
+            agg[k] = agg.get(k, 0) + int(sc.get(k) or 0)
+    return dict(agg, enabled=True) if seen else None
+
+
+def _decode_aggregate(router: Optional[dict]) -> Optional[dict]:
+    """Sum the replicas' batched-decode health blocks into
+    one router-level view; occupancy is recomputed from the summed
+    row counts, tokens/sec adds across replicas."""
+    if router is None:
+        return None
+    agg: Dict[str, float] = {}
+    seen = False
+    for r in router.get("replicas", []):
+        d = r.get("decode")
+        if not d or not d.get("dispatches"):
+            continue
+        seen = True
+        for k in ("dispatches", "rows", "padded_rows", "retired",
+                  "shed", "tokens_per_sec"):
+            agg[k] = agg.get(k, 0) + (d.get(k) or 0)
+    if not seen:
+        return None
+    agg["occupancy"] = round(
+        agg.get("rows", 0)
+        / max(agg.get("rows", 0) + agg.get("padded_rows", 0), 1),
+        4,
+    )
+    return agg
+
+
+def _reqtrace_section(records: List[dict]) -> str:
+    """Slow-request panel: top-K stitched waterfalls by latency (the
+    router's completed traces, ``telemetry/reqtrace.py``).  One bar
+    per request; segments are the hops' duration shares (leaf spans —
+    batcher wait / engine compute / serialize — plus the router-side
+    attempt spans' unoverlapped remainder would double-count, so the
+    bar simply stacks every span's share of the trace's total span
+    time: attribution, not a timeline).  Rows with a retry hop are
+    flagged ``⟳ retried`` — never by color alone."""
+    if not records:
+        return ""
+    rows = []
+    for rec in sorted(records, key=lambda r: r.get("wall_ms", 0.0),
+                      reverse=True):
+        spans = rec.get("spans") or []
+        total = sum(s.get("dur", 0.0) for s in spans)
+        if total <= 0:
+            continue
+        segs = []
+        retried = False
+        for s in sorted(spans, key=lambda x: x.get("ts", 0)):
+            name = s.get("name", "?")
+            if name == "router.retry":
+                retried = True
+            dur_ms = s.get("dur", 0.0) / 1000.0
+            segs.append(
+                f'<div class="seg" data-hop="{_esc(name)}" '
+                f'style="width:{max(s.get("dur", 0.0) / total * 100, 0.4):.2f}%" '
+                f'title="{_esc(name)}: {dur_ms:.2f} ms"></div>'
+            )
+        label = rec.get("trace", "?")[:8]
+        flag = ' <span class="status-warning">⟳ retried</span>' if retried \
+            else ""
+        rows.append(
+            f'<div class="barrow"><div class="rank" '
+            f'title="{_esc(rec.get("trace"))}">{_esc(label)}</div>'
+            f'<div class="bar">{"".join(segs)}</div>'
+            f'<div class="ms">{rec.get("wall_ms", 0):.1f} ms{flag}</div>'
+            f"</div>"
+        )
+    seen: List[str] = []
+    for rec in records:
+        for s in rec.get("spans") or []:
+            n = s.get("name", "?")
+            if n not in seen:
+                seen.append(n)
+    legend = "".join(
+        f'<span class="key"><span class="swatch" '
+        f'data-hop="{_esc(n)}"></span>{_esc(n)}</span>'
+        for n in seen
+    )
+    return (
+        f'<section><h2>Slow requests <span class="muted">'
+        f"(top {len(rows)} stitched waterfalls by latency; full traces "
+        f"at /traces)</span></h2>"
+        f'<div class="bars">{"".join(rows)}</div>'
+        f'<div class="legend">{legend}</div></section>'
+    )
+
+
 def render_html(
     registry_snapshot: Dict[str, Any],
     serve_metrics: Optional[dict] = None,
@@ -272,9 +459,14 @@ def render_html(
     anomalies: Optional[List[dict]] = None,
     model_name: str = "net",
     refresh_s: int = 2,
+    router: Optional[dict] = None,
+    reqtrace: Optional[List[dict]] = None,
 ) -> str:
     """The whole dashboard as one HTML string, rendered server-side
-    from snapshots (the route passes live ones)."""
+    from snapshots (the route passes live ones). ``router``: a
+    ``Router.snapshot()``, which adds the serving tier's section (the
+    router's ``/dash``). ``reqtrace``: stitched trace records
+    (``reqtrace.slowest()``), which add the slow-request panel."""
     cluster = cluster if cluster is not None else registry_snapshot.get(
         "cluster"
     )
@@ -300,14 +492,15 @@ def render_html(
         _slo_tile("p95", lat.get("p95_ms"), budget / 2),
         _slo_tile("p99", lat.get("p99_ms"), budget),
     ]
-    # the session panel: this process's own cache (registry source), and
-    # the batched decode's tiles once it dispatched
+    # the session panel: this process's own cache (registry source), or
+    # the sum over the replicas' scrapes on a router; the batched
+    # decode's tiles once it dispatched
     session = registry_snapshot.get("session_cache")
     if not (session and session.get("enabled")):
-        session = None
+        session = _session_aggregate(router)
     decode = serve.get("decode")
     if not (decode and decode.get("dispatches")):
-        decode = None
+        decode = _decode_aggregate(router)
     active_anoms = anomalies or []
     health = serve.get("health", "ok")
     degraded = health != "ok" or any(
@@ -324,7 +517,9 @@ def render_html(
   <span class="status-{status} pill">{'▲' if degraded else '●'} {status_label}</span>
   <span class="muted">rendered {time.strftime('%H:%M:%S')}, refreshes every {refresh_s}s</span>
 </header>
+{_router_section(router) if router is not None else ''}
 {_session_section(session, decode) if session else ''}
+{_reqtrace_section(reqtrace) if reqtrace else ''}
 <section><h2>Serving</h2><div class="tiles">{''.join(tiles)}</div></section>
 <section><h2>Latency SLO <span class="muted">(p99 budget {budget:g} ms)</span></h2>
 <div class="tiles">{''.join(slo_tiles)}</div></section>
@@ -353,6 +548,8 @@ section {{ margin-bottom: 8px; }}
 .rank {{ width: 90px; text-align: right; color: #6e6d66; }}
 .bar {{ flex: 1; display: flex; gap: 2px; height: 14px; }}
 .seg {{ border-radius: 4px; min-width: 2px; }}
+.ms {{ min-width: 110px; text-align: left; color: #6e6d66;
+      font-variant-numeric: tabular-nums; }}
 .legend {{ margin: 8px 0 0 98px; }}
 .key {{ margin-right: 14px; white-space: nowrap; }}
 .swatch {{ display: inline-block; width: 10px; height: 10px;
@@ -372,7 +569,7 @@ ul.feed li {{ padding: 2px 0; border-bottom: 1px solid #efeee6;
 @media (prefers-color-scheme: dark) {{
   body {{ background: #1a1a19; color: #ffffff; }}
   .tile {{ background: #232322; border-color: #3a3a37; }}
-  .muted, .tile .label, .tile .sub, .rank {{ color: #c3c2b7; }}
+  .muted, .tile .label, .tile .sub, .rank, .ms {{ color: #c3c2b7; }}
   table.data th, table.data td {{ border-color: #3a3a37; }}
   ul.feed li {{ border-color: #2c2c2a; }}
 }}
