@@ -207,9 +207,10 @@ own lines:
    the graph) and BERT-base (32 x 128: the three flash kernels, hidden
    and attention dropout, AdamW, poly with warmup), each built as its app
    builds it, f32, with cuDNN's and PyTorch's deterministic algorithms.
-   From one snapshot of the fresh solver and 12 host batches of its
-   app's feed: 12 eager iterations twice (their spread: 0 when they agree
-   bit for bit), 12 through the graph with a save at iteration 6. Params,
+   From one snapshot of the fresh solver and 8 host batches of its
+   app's feed: 8 eager iterations twice (their spread: 0 when they
+   agree bit for bit), 8 through the graph with a save at iteration 4.
+   Params,
    net state, optimizer slots and the generator's state: the graph's
    against the eager run's bit for bit (within the spread, and 1e-2
    relative L2, where two eager runs differ); each iteration's rate the
@@ -219,8 +220,8 @@ own lines:
    its capture traced by ``torch.profiler``, the first dropped: the LRN
    and flash kernels of each replay equal to the counters' increase a
    replay. The save restored into a fresh solver
-   and 6 more iterations through a new graph: the straight run's.
-   ``scan_steps`` of the first batch against 12 eager steps on it;
+   and 4 more iterations through a new graph: the straight run's.
+   ``scan_steps`` of the first batch against 8 eager steps on it;
 14. cifar-app: ``CifarApp`` through ``main([...])``: the port's
    cifar10_quick solver at its full net and batch of 100, the 5,000-image
    synthetic set (mean file absent: the full set's mean), 300
@@ -306,7 +307,8 @@ own lines:
    iterations, held the same way against the one-process 2-worker
    ``ParallelSolver`` with the same dropout seeds; the ranks' weights
    identical by hash; the flash kernels counted from 0 in each rank
-   (forward, dq and dk/dv, 12 an iteration, 300 each) and summed
+   (forward, dq and dk/dv, 12 an iteration, 156 each; the sync step
+   timed once a reading) and summed
    into the kernels line. Then cifar10_quick ``--parallel local --tau
    auto`` over 2 ranks, 12 rounds: every rank the same τ every round.
    With two or more cards the BERT runs over NCCL (one process a card)
@@ -323,7 +325,7 @@ own lines:
    event; a pinned buffer refilled before its upload left it), each of
    which it must catch; two constructions of the C++ loader against
    each other; ``nproc`` and ``df /dev/shm``. Then ``ImageNetApp`` through
-   ``main([...])`` at batch 256, 8 iterations in chunks of 4 (a test
+   ``main([...])`` at batch 256, 6 iterations in chunks of 3 (a test
    batch between), through each train feed path: serial with
    ``--prefetch 0`` and 2, ``--data-workers 4`` and cores - 1,
    ``--native-loader on``, ``--device-augment``, ``--data-format
@@ -331,7 +333,7 @@ own lines:
    every batch a hit). Each prints its chunks' images/s beside the
    resident step's, its ``input pipeline:`` / ``data cache:`` lines and
    whether the step waited on the host; each must launch the LRN kernels
-   6 / 16 / 16 times, and read 0 pickle fallbacks;
+   6 / 12 / 12 times, and read 0 pickle fallbacks;
 18. caffe-native: Caffe's own data and weights. An LMDB of 1,280 raw
    Datums (256x256x3, ``synthetic_imagenet`` seed 0, ~252 MB) and a TEST
    LMDB of 256 (seed 1) written by the port's ``write_lmdb`` (MB/s
@@ -360,7 +362,49 @@ own lines:
    unimportable, ImageData, an encoded-Datum LMDB, the ImageNet folder
    and tar layouts and HDF5Data each raise naming the package when the
    dataset is built.
-19. catalogue: Caffe's whole layer catalogue, under deterministic
+19. chaos: fault injection in one process, gated on correctness only.
+   ImageNetApp AlexNet (full width, f32, deterministic) at batch 128 on
+   1,024 synthetic images (its TEST set, 1/8 of that, is one batch), 12
+   iterations, a snapshot every 4, ``SPARKNET_SNAPSHOT_KEEP=2``, one
+   test batch at 0 and at 12, the Python feed in 2 forked workers, as
+   three ``--app-job`` processes: run A clean and run B beside it,
+   traced (``--trace``), under ``--chaos``
+   (``pipeline.worker_crash@batch=3:worker=0``,
+   ``pipeline.slow_batch@batch=6:delay_ms=300``,
+   ``io.enospc@site=snapshot:index=0``,
+   ``snapshot.partial_write@iter=12``; the probe batch 0 is the feed
+   owner's, so batch 3 is worker 0's and batch 6 worker 1's). B's
+   ``chaos:`` line must fire ``io.enospc`` and
+   ``snapshot.partial_write`` once each and recover
+   ``pipeline.worker_respawn`` once (the workers' own fires die with
+   them, as in the JAX package), its respawn line name worker 0 and
+   exit 3, its trace hold batch 6's ``pipeline.produce`` span at 300 ms
+   or more (the slow batch's sleep is inside it; the span's time beyond
+   the other batches' median is printed), its iteration-4 snapshot be
+   skipped and counted in
+   ``snapshot_skipped{errno=enospc}`` and ``io_faults``, its
+   iteration-8 solverstate equal A's bit for bit and its iteration-12
+   file be torn; run C, B relaunched with ``--auto-resume`` and no plan,
+   must warn, fall back to 8 (one ``snapshot.fallback_restore``) and
+   end at 12 equal to A bit for bit. LRN launches 4/24/24 for A and B,
+   2/8/8 for C; each run's seconds and the feed's consumer waits are
+   printed. Meanwhile, in a thread of this process (C goes as soon as B
+   has ended, beside it), the AlexNet server and batcher
+   (seed 0, buckets 8 and 32) are built under
+   ``serve.conn_drop@every=5,serve.engine_stall@every=7:delay_ms=100``:
+   4 client threads (the port's ``Client``, retries on) send 40 requests
+   of 8 integer rows; 0 may fail, each top-5 must equal the CPU
+   engine's, the drops must be the POST indices ``every=5`` selects and
+   each cost one retried attempt, the stalls the flush indices
+   ``every=7`` selects; then one request straight to the batcher at a
+   stalled flush with a 50 ms deadline is shed before compute. The plan
+   is installed just before the server is built and cleared in
+   ``finally``; nothing else in this process writes through ``safeio``
+   meanwhile. Then, with no plan, ``SPARKNET_DISK_MIN_FREE_MB`` above
+   the free space makes ``safeio.atomic_write`` refuse before staging
+   (counted). The phase ends with no plan, no ``SPARKNET_CHAOS`` and no
+   storm in this process.
+20. catalogue: Caffe's whole layer catalogue, under deterministic
    algorithms. Each of the 36 layer types the port added after the
    image nets' 13 (42 cases with their options) runs forward and
    backward on the card and on the CPU, the same port function on the
@@ -395,7 +439,7 @@ own lines:
    must print the same accuracy. LeNet comes first, alone on the card;
    its ``caffe test`` process runs beside the checks above. No kernel of
    ``ops/csrc`` launches.
-20. telemetry: observability and remat, f32 without TF32 unless bf16 is
+21. telemetry: observability and remat, f32 without TF32 unless bf16 is
    named. ImageNetApp (AlexNet at batch 256, 12 iterations, a test
    every 6) as an ``--app-job`` process with ``--trace`` and
    ``--profile-dir`` and the Python feed in 2 forked workers (the
@@ -423,7 +467,9 @@ own lines:
    ``--per-layer``, and ``caffe time`` on LeNet (TFLOP/s and MFU against
    ``utils/profiling.PEAK_FLOPS``); the AlexNet server's ``/metrics``
    (Prometheus text: every sample line parses; the registry's and the
-   serving families), ``/dash`` (HTML with its sections) and
+   serving families), ``/dash`` (HTML with its sections, the storage
+   panel among them once this process's writers have observed the
+   disk) and
    ``/healthz`` (``anomalies``); and two ranks on cuda:0 over gloo
    (cifar10_quick, ``--parallel local --tau auto``, the heartbeat's
    stats frame every second), rank 1 planted slow: rank 0's aggregate
@@ -450,7 +496,8 @@ engines and its traffic (router-tier's replicas run theirs in processes
 of their own, which export no launch count), train, alexnet-local, feed,
 googlenet, fused-step's AlexNet graph run, every rank of the
 multiprocess phase's AlexNet runs, caffe-native's run A and engines,
-and telemetry's app runs, remat runs (a recompute launches again),
+the chaos phase's runs A, B and C and its served traffic, and
+telemetry's app runs, remat runs (a recompute launches again),
 time_net runs and server for LRN; bert-train, fused-step's BERT graph
 run, every rank of the bert-processes phase and telemetry's BERT remat
 runs for flash).
@@ -461,9 +508,9 @@ Before it, the phases' seconds in all. Last comes the result line
 failed phase exits non-zero without the result line, as does a machine
 without a CUDA card or a directory without the port.
 
-    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native catalogue telemetry serving-tier router-tier
+    python3 chip_smoke.py --phase multiprocess bert-processes fused-step caffe-native chaos catalogue telemetry serving-tier router-tier
 
-runs the card and build phases and the phases named (any of the eight)
+runs the card and build phases and the phases named (any of the nine)
 alone (the NCCL runs on a machine with several cards) and prints no
 result line.
 
@@ -616,7 +663,7 @@ MP_TIMEOUT = 300
 # the bert-processes phase: BertApp's BERT-base at the global batch of
 # 32 x 128 over 2 processes: sync steps and local iterations held, sync
 # steps timed with the overlap on and off; --tau auto's rounds
-BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 3
+BP_SYNC_STEPS, BP_LOCAL_ITERS, BP_TIMED = 3, 4, 1
 BP_ITERS = max(BP_SYNC_STEPS, BP_LOCAL_ITERS)
 TAU_AUTO_ROUNDS = 12
 
@@ -625,7 +672,7 @@ TAU_AUTO_ROUNDS = 12
 # FEED_CHUNK (a test batch between chunks; each chunk's speed: line
 # read), and the first FEED_CHECK batches of each Python path held bit
 # for bit
-FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 8, 4, 8
+FEED_N, FEED_ITERS, FEED_CHUNK, FEED_CHECK = 2048, 6, 3, 8
 
 # BERT-base: 12 layers of 12 heads of 64; the BertApp run's batch and length
 BERT_LAYERS, BERT_HEADS, BERT_HEAD_DIM = 12, 12, 64
@@ -3498,8 +3545,8 @@ def phase_bert_profile():
 
 
 # ------------------------------------------------------------- fused step
-FUSED_ITERS = 12
-FUSED_SAVE_AT = 6
+FUSED_ITERS = 8
+FUSED_SAVE_AT = 4
 FUSED_NETS = ("cifar10_quick", "alexnet", "resnet50", "bert-base")
 FUSED_OUTER = 1e-2  # relative L2, the branch-flip bound (_held_round's)
 
@@ -5540,8 +5587,9 @@ def app_job(spec_path):
     (the parent writes it when the run's inputs are ready) and runs
     ``main`` in the spec's directory: f32 without TF32, deterministic
     algorithms, the LRN launch counters from 0; ``Solver.save_or_skip``
-    timed. Prints one ``app-job:`` JSON line (launches, save_or_skip ms)
-    after ``main`` returns."""
+    timed. Prints one ``app-job:`` JSON line (launches, save_or_skip ms,
+    the chaos counters, the registry's ``snapshot_skipped`` and
+    ``io_faults``) after ``main`` returns."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5575,9 +5623,15 @@ def app_job(spec_path):
     lrn_rows.launches = lrn_rows_train.launches = lrn_rows_bwd.launches = 0
     with _deterministic():
         imagenet_app.main(spec["argv"])
+    from sparknet_tpu_torch import chaos
+    from sparknet_tpu_torch.telemetry.registry import REGISTRY
+
+    metrics = REGISTRY.snapshot().get("metrics", {})
     print("app-job: " + json.dumps({
         "launches": [lrn_rows.launches, lrn_rows_train.launches, lrn_rows_bwd.launches],
-        "save_or_skip_ms": saves}), flush=True)
+        "save_or_skip_ms": saves, "chaos": chaos.METRICS.snapshot(),
+        "snapshot_skipped": metrics.get("snapshot_skipped", {}),
+        "io_faults": metrics.get("io_faults", {})}), flush=True)
     return 0
 
 
@@ -5904,6 +5958,405 @@ def _caffe_native(tmp, runs):
     log(f"  caffe-native: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": (job_a["launches"][0] + engine_lrn, job_a["launches"][1],
                          job_a["launches"][2])}
+
+
+# ---------------------------------------------------------------- chaos
+# run B's plan: the probe batch 0 is made by the feed's owner, so worker r
+# makes batches 1 + r, 3 + r, ...: batch 3 is worker 0's and batch 6 worker
+# 1's (the respawned worker 0 runs with the plan off)
+CH_SPEC = ("pipeline.worker_crash@batch=3:worker=0,"
+           "pipeline.slow_batch@batch=6:delay_ms=300,"
+           "io.enospc@site=snapshot:index=0,snapshot.partial_write@iter=12")
+CH_SERVE_SPEC = "serve.conn_drop@every=5,serve.engine_stall@every=7:delay_ms=100"
+CH_ITERS, CH_SNAPSHOT, CH_BATCH = 12, 4, 128
+CH_SYNTHETIC_N = 1024  # its TEST set is 1/8: one batch of 128
+CH_CLIENTS, CH_REQUESTS, CH_ROWS = 4, 40, 8
+CH_STALL_S, CH_DEADLINE_S = 0.1, 0.05
+CH_SLOW_BATCH, CH_SLOW_S = 6, 0.3  # CH_SPEC's pipeline.slow_batch
+CH_TRACE = "trace.json"  # run B's span trace, in its cwd
+
+
+def _ch_solver(tmp):
+    """The zoo AlexNet train_val under a solver of CH_ITERS iterations, a
+    snapshot every CH_SNAPSHOT, one test batch at 0 and at the end; the
+    prefix is relative, so each run's cwd holds its own chain."""
+    from sparknet_tpu_torch.models import ALEXNET_TRAIN_VAL
+
+    path = os.path.join(tmp, "alexnet_chaos_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{ALEXNET_TRAIN_VAL}"\ntest_iter: 1\ntest_interval: {CH_ITERS}\n'
+                'base_lr: 0.01\nlr_policy: "step"\ngamma: 0.1\nstepsize: 100000\n'
+                f"display: {CH_SNAPSHOT}\nmax_iter: {CH_ITERS}\nmomentum: 0.9\n"
+                f'weight_decay: 0.0005\nsnapshot: {CH_SNAPSHOT}\nsnapshot_prefix: "snap/alexnet"\n')
+    return path
+
+
+def _ch_no_plan_left():
+    """No fault plan, ``SPARKNET_CHAOS`` or ENOSPC storm in this process."""
+    from sparknet_tpu_torch import chaos
+    from sparknet_tpu_torch.utils import safeio
+
+    left = [what for what, bad in (("a plan", chaos.get_plan() is not None),
+                                   ("SPARKNET_CHAOS", "SPARKNET_CHAOS" in os.environ),
+                                   ("a storm", safeio.storm_active())) if bad]
+    if left:
+        raise AssertionError(f"chaos: {', '.join(left)} left in chip_smoke's process")
+
+
+def _ch_serving():
+    """The AlexNet server and batcher built under CH_SERVE_SPEC; 4 client
+    threads, 40 requests of 8 rows; then one request straight to the
+    batcher that a stalled flush sheds. -> its readings."""
+    import threading
+
+    import numpy as np
+
+    from sparknet_tpu_torch import chaos
+    from sparknet_tpu_torch.models import ALEXNET_DEPLOY
+    from sparknet_tpu_torch.ops.lrn import lrn_rows
+    from sparknet_tpu_torch.serve.batcher import DeadlineExceeded
+    from sparknet_tpu_torch.serve.engine import InferenceEngine
+    from sparknet_tpu_torch.serve.metrics import ServeMetrics
+    from sparknet_tpu_torch.serve.server import Client, InferenceServer
+
+    buckets = (CH_ROWS, CH_CLIENTS * CH_ROWS)
+    metrics = ServeMetrics(buckets)
+    eng = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=buckets,
+                                     metrics=metrics)
+    eng.warmup()
+    rng = np.random.default_rng(22)
+    # mean-subtracted pixels: integers keep the JSON bodies small
+    reqs = [rng.integers(-128, 128, size=(CH_ROWS,) + eng._row_shapes["data"])
+            for _ in range(CH_REQUESTS)]
+    answers = [None] * CH_REQUESTS
+    attempts = [0] * CH_REQUESTS
+    errors = []
+
+    def client(k):
+        c = Client(server.host, server.port, timeout=120, retries=5)
+        once = c._once
+        for i in range(k, CH_REQUESTS, CH_CLIENTS):
+            def counted(*a, _i=i, **kw):
+                attempts[_i] += 1
+                return once(*a, **kw)
+
+            c._once = counted
+            try:
+                code, body = c.classify(reqs[i], top_k=5)
+            except Exception as e:
+                errors.append((i, repr(e)))
+                continue
+            if code != 200:
+                errors.append((i, code, body))
+                continue
+            answers[i] = body["indices"]
+
+    chaos.install(CH_SERVE_SPEC)
+    server = None
+    try:
+        server = InferenceServer(eng, metrics=metrics, port=0,
+                                 model_name="bvlc_alexnet_deploy.prototxt")
+        batcher = server.batcher
+        if not batcher.wait_ready(300):
+            raise AssertionError("batcher worker did not finish its warmup")
+        server.start()
+        lrn_rows.launches = 0  # the served path's launches from here
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(CH_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        traffic_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a client thread did not finish in 600 s")
+        launches = lrn_rows.launches
+        flushes = batcher._flushes
+        posts = next(server._post_seq)  # this server's /classify POSTs
+        fires = chaos.METRICS.snapshot()["fires"]
+        retries = chaos.METRICS.recovery_count("serve.client_retry")
+        # one request straight to the batcher, at a flush the plan stalls,
+        # with a deadline shorter than the stall: shed before compute
+        pad = reqs[0][:1].astype(np.float32)
+        while batcher._flushes % 7:
+            batcher.submit(pad, block=True).result(timeout=60)
+        shed0, before = metrics.snapshot()["shed"], lrn_rows.launches
+        fut = batcher.submit(pad, block=True, deadline_s=CH_DEADLINE_S)
+        try:
+            fut.result(timeout=60)
+            shed_err = None
+        except DeadlineExceeded as e:
+            shed_err = str(e)
+        shed = metrics.snapshot()["shed"] - shed0
+        stalls = chaos.METRICS.snapshot()["fires"].get("serve.engine_stall", 0)
+        if shed_err is None or shed != 1 or lrn_rows.launches != before:
+            raise AssertionError(f"the stalled request: error {shed_err!r}, shed {shed}, "
+                                 f"LRN launches {before} -> {lrn_rows.launches}")
+    finally:
+        if server is not None:
+            server.stop()
+        chaos.clear()
+    _ch_no_plan_left()
+    if errors or any(a is None for a in answers):
+        raise AssertionError(f"{len(errors)} failed requests: {errors[:3]}")
+    drops = [k for k in range(posts) if k % 5 == 0]
+    retried = [a for a in attempts if a > 1]
+    if (sum(attempts) != posts or fires.get("serve.conn_drop") != len(drops)
+            or sum(a - 1 for a in attempts) != len(drops) or retries != len(retried)):
+        raise AssertionError(
+            f"conn_drop: {posts} POSTs ({sum(attempts)} client attempts), fires "
+            f"{fires.get('serve.conn_drop')} for {len(drops)} indices every=5 selects, "
+            f"{sum(a - 1 for a in attempts)} failed attempts, {retries} client_retry "
+            f"recoveries for {len(retried)} retried requests")
+    twice = sum(a > 2 for a in attempts)
+    if retries + twice < len(drops):
+        raise AssertionError(f"{retries} client_retry recoveries for {len(drops)} drops")
+    want_stalls = len([k for k in range(flushes) if k % 7 == 0])
+    if fires.get("serve.engine_stall") != want_stalls or stalls != want_stalls + 1:
+        raise AssertionError(f"engine_stall fires {fires.get('serve.engine_stall')} over "
+                             f"{flushes} flushes (every=7: {want_stalls}), then {stalls}")
+    # every answer against the CPU engine on the same rows
+    ref = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cpu",
+                                     buckets=(CH_REQUESTS * CH_ROWS,))
+    t1 = time.perf_counter()
+    rows = np.concatenate(reqs).astype(np.float32)
+    probs = ref.infer(rows)
+    idx_cpu, _ = ref.postprocess(probs, 5)
+    for i, idx in enumerate(answers):
+        s = slice(i * CH_ROWS, (i + 1) * CH_ROWS)
+        _check_topk(f"request {i}", idx, idx_cpu[s], probs[s])
+    cpu_s = time.perf_counter() - t1
+    log(f"  serving under '{CH_SERVE_SPEC}': {CH_REQUESTS} requests of {CH_ROWS} rows from "
+        f"{CH_CLIENTS} client threads in {traffic_s:.2f} s, 0 failed; {posts} POSTs, "
+        f"conn_drop fired {len(drops)} times (every 5th POST index), {retries} requests "
+        f"answered after a retry ({twice} dropped twice); {flushes} flushes, "
+        f"engine_stall fired {want_stalls} times; every top-5 equal to the CPU engine's "
+        f"({cpu_s:.1f} s on the CPU); LRN launches {launches}")
+    log(f"  a request with a {CH_DEADLINE_S * 1e3:.0f} ms deadline at a stalled flush "
+        f"({CH_STALL_S * 1e3:.0f} ms): shed before compute ({shed_err}), the batcher's "
+        f"shed +1, no LRN launch")
+    return launches
+
+
+def _ch_storage(tmp):
+    """With no plan, SPARKNET_DISK_MIN_FREE_MB above the free space of
+    ``tmp``: ``safeio.atomic_write`` refuses early and counts the fault."""
+    import errno
+
+    from sparknet_tpu_torch.telemetry.registry import REGISTRY
+    from sparknet_tpu_torch.utils import safeio
+
+    free = safeio.free_bytes(tmp)
+    target = os.path.join(tmp, "preflight.json")
+    series = REGISTRY.counter("io_faults", site="records", errno="enospc")
+    before = series.snapshot()
+    old = os.environ.get("SPARKNET_DISK_MIN_FREE_MB")
+    os.environ["SPARKNET_DISK_MIN_FREE_MB"] = str(free // (1 << 20) + 1024)
+    try:
+        try:
+            safeio.atomic_write_json(target, {"written": True}, site="records")
+            err = None
+        except OSError as e:
+            err = e
+    finally:
+        if old is None:
+            del os.environ["SPARKNET_DISK_MIN_FREE_MB"]
+        else:
+            os.environ["SPARKNET_DISK_MIN_FREE_MB"] = old
+    left = [n for n in os.listdir(tmp) if n.startswith("preflight.json")]
+    if err is None or err.errno != errno.ENOSPC or left or series.snapshot() != before + 1:
+        raise AssertionError(f"preflight: error {err!r}, files {left}, io_faults "
+                             f"{before} -> {series.snapshot()}")
+    log(f"  storage: {free} bytes free under the phase's directory; with "
+        f"SPARKNET_DISK_MIN_FREE_MB={free // (1 << 20) + 1024} atomic_write refused "
+        f"before staging ({err}); io_faults{{site=records,errno=enospc}} {before} -> "
+        f"{series.snapshot()}")
+
+
+def _ch_line(name, text, prefix):
+    """The JSON object of the one line of ``text`` that starts with
+    ``prefix`` and then ``{``."""
+    lines = [l for l in text.splitlines() if l.startswith(prefix + "{")]
+    if len(lines) != 1:
+        raise AssertionError(f"run {name}: {len(lines)} lines starting {prefix!r}")
+    return json.loads(lines[0][len(prefix):])
+
+
+def _ch_slow_batch(path):
+    """Run B's trace: the ``pipeline.produce`` span of batch CH_SLOW_BATCH
+    (the slow batch's sleep is inside it) must last CH_SLOW_S or more.
+    -> what it read, against the median of the other batches' spans."""
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("name") == "pipeline.produce"]
+    ms = {}
+    for e in spans:
+        ms.setdefault(e["args"]["batch"], []).append(e["dur"] / 1e3)
+    slow = ms.pop(CH_SLOW_BATCH, [])
+    others = sorted(v for vs in ms.values() for v in vs)
+    if len(slow) != 1 or slow[0] < CH_SLOW_S * 1e3 or not others:
+        raise AssertionError(f"run B's trace: batch {CH_SLOW_BATCH}'s produce spans {slow} ms "
+                             f"(want one of {CH_SLOW_S * 1e3:.0f} ms or more), "
+                             f"{len(others)} others")
+    median = others[len(others) // 2]
+    return (f"batch {CH_SLOW_BATCH}'s produce span {slow[0]:.1f} ms in its trace, the other "
+            f"{len(others)} traced batches' median {median:.1f} ms: "
+            f"{slow[0] - median:.1f} ms added")
+
+
+def phase_chaos(tmp):
+    """Fault injection in one process (module docstring, phase chaos);
+    -> the LRN launches of runs A, B and C and of the served traffic.
+    The three app runs start at once and take the card while the parent
+    writes the solver; A and B go together, C once B has ended. The
+    serving part runs in a thread of this process beside them."""
+    import signal
+
+    runs = {name: _cn_start(tmp, name) for name in ("A", "B", "C")}
+    try:
+        return _chaos(tmp, runs)
+    finally:
+        for proc, out, _, _ in runs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+
+
+def _chaos(tmp, runs):
+    import threading
+
+    smi = _smi()
+    t_phase = time.perf_counter()
+    argv = ["--arch", "alexnet", "--solver", _ch_solver(tmp), "--device", "cuda",
+            "--synthetic", "--synthetic-n", str(CH_SYNTHETIC_N), "--batch-size",
+            str(CH_BATCH), "--native-loader", "off", "--data-workers", "2"]
+    went = {"A": _cn_go(runs["A"], os.path.join(tmp, "a"), argv),
+            "B": _cn_go(runs["B"], os.path.join(tmp, "b"),
+                        argv + ["--chaos", CH_SPEC, "--trace", CH_TRACE])}
+    # serving under its plan in a thread, while this one takes B, then C
+    # (once B has ended), then A; nothing here writes through safeio
+    served = {}
+
+    def serve():
+        t0 = time.perf_counter()
+        try:
+            served["launches"] = _ch_serving()
+        except BaseException as e:  # raised again below, after the join
+            served["error"] = e
+        served["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=serve, name="chaos-serving")
+    thread.start()
+    try:
+        got_lrn = _ch_runs(tmp, runs, argv, went)
+    finally:
+        thread.join(CN_TIMEOUT)
+    if thread.is_alive():
+        raise AssertionError(f"the serving part did not end in {CN_TIMEOUT} s")
+    if "error" in served:
+        raise served["error"]
+    t1 = time.perf_counter()
+    _ch_storage(tmp)  # with no plan in this process
+    log(f"  serving {served['s']:.1f} s (beside the runs), storage "
+        f"{time.perf_counter() - t1:.2f} s")
+    _ch_no_plan_left()
+    log(f"  chaos: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    runs_lrn = [sum(v[i] for v in got_lrn.values()) for i in range(3)]
+    return {"launches": (runs_lrn[0] + served["launches"], runs_lrn[1], runs_lrn[2])}
+
+
+def _ch_runs(tmp, runs, argv, went):
+    """Run B's checks, then C (B's ``--auto-resume``), A's, C's; -> each
+    run's LRN launches."""
+    from sparknet_tpu_torch.solver import snapshot
+
+    deadline = time.monotonic() + CN_TIMEOUT
+    a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    wall = {}
+    rc, out_b = _cn_wait({"B": runs["B"]}, deadline)["B"]
+    wall["B"] = time.monotonic() - went["B"]
+    if rc != 0:
+        raise AssertionError(f"run B exited {rc}")
+    job_b = _cn_job("B", out_b)
+    line_b = _ch_line("B", out_b, "chaos: ")
+    # the pipeline points fire in the forked workers, whose counts die with
+    # them: the owner's line holds their recovery (the JAX package's rule)
+    want = {"fires": {"io.enospc": 1, "snapshot.partial_write": 1},
+            "recoveries": {"pipeline.worker_respawn": 1}}
+    if line_b != want or job_b["chaos"] != want:
+        raise AssertionError(f"run B's chaos line {line_b}, want {want}")
+    # the respawn resumes at the first batch worker 0 never delivered
+    died = [l for l in out_b.splitlines() if l.startswith("input pipeline: worker ")]
+    if died != ["input pipeline: worker 0 died (exit 3); respawned at batch 3 "
+                "(attempt 1/2)"]:
+        raise AssertionError(f"run B's respawn lines {died}")
+    if job_b["snapshot_skipped"] != {"errno=enospc": 1} or \
+            job_b["io_faults"] != {"errno=enospc,site=snapshot": 1}:
+        raise AssertionError(f"run B: snapshot_skipped {job_b['snapshot_skipped']}, "
+                             f"io_faults {job_b['io_faults']}")
+    prefix_b = os.path.join(b_dir, "snap", "alexnet")
+    chain_b = [it for it, _ in snapshot.ordered_solverstates(prefix_b)]
+    if chain_b != [CH_ITERS, 2 * CH_SNAPSHOT]:
+        raise AssertionError(f"run B's chain {chain_b}: want {CH_SNAPSHOT} skipped")
+    torn = f"{prefix_b}_iter_{CH_ITERS}.solverstate.npz"
+    try:
+        snapshot.load_state(torn)
+        raise AssertionError(f"run B's iteration {CH_ITERS} solverstate loads: not torn")
+    except snapshot.SnapshotError as e:
+        torn_err = type(e.__cause__).__name__
+    b8 = snapshot.load_state(f"{prefix_b}_iter_{2 * CH_SNAPSHOT}.solverstate.npz")
+    went["C"] = _cn_go(runs["C"], b_dir, argv + ["--auto-resume"])
+    slow = _ch_slow_batch(os.path.join(b_dir, CH_TRACE))
+    rc, out_a = _cn_wait({"A": runs["A"]}, deadline)["A"]
+    wall["A"] = time.monotonic() - went["A"]
+    if rc != 0:
+        raise AssertionError(f"run A exited {rc}")
+    job_a = _cn_job("A", out_a)
+    if any(l.startswith("chaos: ") for l in out_a.splitlines()) or \
+            job_a["chaos"] != {"fires": {}, "recoveries": {}}:
+        raise AssertionError(f"run A, with no plan: chaos {job_a['chaos']}")
+    prefix_a = os.path.join(a_dir, "snap", "alexnet")
+    chain_a = [it for it, _ in snapshot.ordered_solverstates(prefix_a)]
+    if chain_a != [CH_ITERS, 2 * CH_SNAPSHOT]:
+        raise AssertionError(f"run A's chain after pruning to {CN_KEEP}: {chain_a}")
+    a8 = snapshot.load_state(f"{prefix_a}_iter_{2 * CH_SNAPSHOT}.solverstate.npz")
+    for key in ("params", "state", "opt_state", "rng", "it"):
+        _cn_equal(f"run B vs run A at iteration {2 * CH_SNAPSHOT}: {key}", b8[key], a8[key])
+    waits = {name: _ch_line(name, out, "input pipeline: ")["consumer_wait"]
+             for name, out in (("A", out_a), ("B", out_b))}
+    log(f"  run B under '{CH_SPEC}': {wall['B']:.1f} s; chaos line {line_b}; '{died[0]}'; "
+        f"snapshot_skipped {job_b['snapshot_skipped']}; chain {chain_b}; iteration "
+        f"{CH_ITERS} torn ({torn_err}); iteration {2 * CH_SNAPSHOT} equal to run A's bit "
+        f"for bit; {slow}; the feed's consumer wait, ms, A {waits['A']} and B "
+        f"{waits['B']}")
+    log(f"  run A (no plan): {wall['A']:.1f} s; chain {chain_a}; LRN launches "
+        f"{job_a['launches']}")
+    rc, out_c = _cn_wait({"C": runs["C"]}, deadline)["C"]
+    wall["C"] = time.monotonic() - went["C"]
+    if rc != 0:
+        raise AssertionError(f"run C exited {rc}")
+    job_c = _cn_job("C", out_c)
+    resumed = f"Restoring previous solver status from snap/alexnet_iter_{2 * CH_SNAPSHOT}."
+    if "is torn/unreadable" not in out_c or resumed not in out_c or \
+            job_c["chaos"] != {"fires": {}, "recoveries": {"snapshot.fallback_restore": 1}}:
+        raise AssertionError(f"run C: no torn-file warning and fallback to "
+                             f"{2 * CH_SNAPSHOT}, or chaos {job_c['chaos']}")
+    got = snapshot.load_state(torn)
+    want_st = snapshot.load_state(f"{prefix_a}_iter_{CH_ITERS}.solverstate.npz")
+    for key in ("params", "state", "opt_state", "rng", "it"):
+        _cn_equal(f"run C vs run A at iteration {CH_ITERS}: {key}", got[key], want_st[key])
+    tests = 2  # one batch at 0 and one at CH_ITERS; C's at CH_ITERS only
+    want_lrn = {"A": [2 * tests, 2 * CH_ITERS, 2 * CH_ITERS],
+                "B": [2 * tests, 2 * CH_ITERS, 2 * CH_ITERS],
+                "C": [2, 2 * (CH_ITERS - 2 * CH_SNAPSHOT), 2 * (CH_ITERS - 2 * CH_SNAPSHOT)]}
+    got_lrn = {"A": job_a["launches"], "B": job_b["launches"], "C": job_c["launches"]}
+    if got_lrn != want_lrn:
+        raise AssertionError(f"LRN launches {got_lrn}, want {want_lrn}")
+    log(f"  run C (--auto-resume, no plan): {wall['C']:.1f} s; warned of the torn "
+        f"iteration {CH_ITERS}, fell back to {2 * CH_SNAPSHOT} (chaos "
+        f"{job_c['chaos']['recoveries']}), ran to {CH_ITERS}: params, net state, optimizer "
+        f"slots, generator and iteration equal run A's bit for bit; LRN launches {got_lrn}")
+    return got_lrn
 
 
 # ----------------------------------------------------------- catalogue
@@ -6714,6 +7167,9 @@ def _tel_check_trace(tmp, text, launches):
                              f"{len(pids)} worker pids")
 
 
+TRACE_LEAD_S = 0.1  # host wait between a profiler window's start and its first step
+
+
 def _traced_per_replay(label, step, replays, graph=True):
     """``replays`` calls of ``step`` (one solver step each) under
     ``torch.profiler``, after one it traces and drops (its schedule's
@@ -6737,6 +7193,11 @@ def _traced_per_replay(label, step, replays, graph=True):
         step()
         torch.cuda.synchronize()
         prof.step()
+        # device records stamped near the window's start have gone missing
+        # (one flash kernel of the first traced BERT replay; every LRN
+        # forward of three GoogLeNet replays): the first traced step is
+        # launched TRACE_LEAD_S after the start
+        time.sleep(TRACE_LEAD_S)
         before = _counts()
         t0 = time.perf_counter()
         for i in range(replays):
@@ -6766,9 +7227,16 @@ def _traced_per_replay(label, step, replays, graph=True):
         if graph:
             per = [sum(part in k for k in kernels.get(cid, ())) for cid in launches]
             if rest or per != [want] * replays:
+                # what the trace holds of the kernel, so that a miss says
+                # whether its records were lost or went to another launch
+                held = [e.get("args", {}).get("correlation") for e in trace
+                        if e.get("cat") == "kernel" and part in e.get("name", "")]
                 raise AssertionError(f"{label}: {part}* kernels by traced replay {per}, the "
                                      f"launch counters {'+'.join(wrappers)} {want} a replay "
-                                     f"({replays} replays, remainder {rest})")
+                                     f"({replays} replays, remainder {rest}); the trace's "
+                                     f"{part}* kernel records by correlation {held}, the "
+                                     f"graph launches' {launches}, kernel records in all "
+                                     f"{sum(len(v) for v in kernels.values())}")
         else:
             total = sum(e.count for e in seen if part in e.key)
             if total != want * replays + rest:
@@ -6955,7 +7423,7 @@ def _tel_server():
     from sparknet_tpu_torch.serve.engine import InferenceEngine
     from sparknet_tpu_torch.serve.metrics import ServeMetrics
     from sparknet_tpu_torch.serve.server import InferenceServer
-    from sparknet_tpu_torch.telemetry import anomaly
+    from sparknet_tpu_torch.telemetry import REGISTRY, anomaly, dash
 
     metrics = ServeMetrics((1, 8))
     eng = InferenceEngine.from_files(ALEXNET_DEPLOY, device="cuda", buckets=(1, 8),
@@ -6992,9 +7460,13 @@ def _tel_server():
         sections = [h.strip() for h in re.findall(r"<section><h2>([^<]*)", page)]
         st3, _, health = get("/healthz")
         health = json.loads(health)
-        # the traced classify above puts the slow-request panel first
+        # the traced classify above puts the slow-request panel first; the
+        # storage panel follows once this process's writers have observed
+        # the disk (safeio) or counted a fault
         want = ["Slow requests", "Serving", "Latency SLO", "Step-phase share per rank",
                 "Anomalies"]
+        if dash._storage_section(REGISTRY.snapshot()):
+            want.insert(1, "Storage")
         if (st2 != 200 or not ctype2.startswith("text/html") or sections != want
                 or st3 != 200 or [a["kind"] for a in health["anomalies"]] != ["loss_spike"]):
             raise AssertionError(f"/dash {st2} {sections}; /healthz {st3} {health}")
@@ -7124,7 +7596,7 @@ def phase_telemetry(tmp):
 # the phases ``--phase`` runs alone
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
                "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
-               "catalogue": phase_catalogue, "telemetry": phase_telemetry,
+               "chaos": phase_chaos, "catalogue": phase_catalogue, "telemetry": phase_telemetry,
                "serving-tier": phase_serving_tier, "router-tier": phase_router_tier}
 
 
@@ -7182,7 +7654,7 @@ def main(argv=None) -> int:
     timing = phases.run("kernels", phase_kernels) if built else None
     flash = phases.run("flash-kernels", phase_flash_kernels) if built else None
     serving = train = bert = local = feed = resident = zoo = multiprocess = None
-    bert_mp = fused = caffe = telemetry = tier = None
+    bert_mp = fused = caffe = chaos = telemetry = tier = None
     if built:
         serving = phases.run("serving", phase_serving)
         if serving:
@@ -7219,6 +7691,8 @@ def main(argv=None) -> int:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_caffe_") as tmp:
             caffe = phases.run("caffe-native", phase_caffe_native, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+            chaos = phases.run("chaos", phase_chaos, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_catalogue_") as tmp:
             phases.run("catalogue", phase_catalogue, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
@@ -7231,6 +7705,7 @@ def main(argv=None) -> int:
     paths = (train, local, feed, zoo["googlenet"])
     paths += (multiprocess,)  # every rank's launches
     paths += (caffe,)  # run A's and the engines'
+    paths += (chaos,)  # runs A, B and C, and the traffic served under faults
     launches = {
         # serving-tier: its three precisions' engines and the traffic under swap
         "lrn_fwd": serving["launches"] + tier["launches"]

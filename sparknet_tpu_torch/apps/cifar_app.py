@@ -71,8 +71,14 @@ over processes, rank 0's cluster phase table; ``--profile-dir D`` runs
 the loop under ``torch.profiler`` and writes its Chrome trace into D;
 ``SPARKNET_TELEMETRY_INTERVAL_S`` prints a ``telemetry:`` line of the
 registry at that period. The loss and the step time feed the anomaly
-detectors at each display. The chaos, reshard and flight-recorder hooks
-of the JAX loop are not ported.
+detectors at each display.
+
+Chaos, as in the JAX app: ``--chaos SPEC`` (or ``SPARKNET_CHAOS``)
+installs a fault plan (``chaos/``) for the run: the feed's workers, the
+snapshot writes and the storage writers fire its points, and process 0
+prints the fires and recoveries as one ``chaos: {...}`` JSON line at
+the end. The ``supervisor.*`` points, ``--supervise``, the reshard and
+the flight recorder of the JAX loop are not ported.
 """
 
 from __future__ import annotations
@@ -86,7 +92,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-from .. import native, telemetry
+from .. import chaos, native, telemetry
 from ..data import records
 from ..data.cache import cache_from_args
 from ..data.caffe_layers import dataset_from_layer
@@ -103,14 +109,13 @@ from ..solver import snapshot
 from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver, resolve_model_path
 from ..telemetry import aggregate, anomaly, trace
-from ..utils import profiling
+from ..utils import profiling, safeio
 from ..utils.profiling import StepTimer
 
 # flag -> the values the port takes; any other raises
 _UNPORTED = {
     "layout": (None,),
     "snapshot_format": ("npz",),
-    "chaos": (None,),
     "supervise": (False,),
 }
 
@@ -382,6 +387,9 @@ def run_training(args, solver, train_feed, test_feed, log=print):
             log(f"input pipeline: {pm.json_line()}")
         print_data_cache_line(getattr(raw, "cache", None), log)
         getattr(raw, "close", lambda: None)()
+        if chaos.active():
+            # the fires and recoveries, one JSON line (process 0's log)
+            log(f"chaos: {chaos.METRICS.json_line()}")
         telemetry.finish_run()  # writes the merged trace
 
 
@@ -452,6 +460,7 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
                 try:
                     W.save_npz(path, solver.params, solver.train_net)
                 except OSError as e:
+                    safeio.count_fault("snapshot", safeio.classify(e))
                     print(f"WARNING: weights {path} not written ({e})", file=sys.stderr,
                           flush=True)
                 # the newest SPARKNET_SNAPSHOT_KEEP stay: the torn-file fallback's
@@ -695,7 +704,8 @@ def arg_parser() -> argparse.ArgumentParser:
                          "trace-event JSON (Perfetto-loadable) here")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
-    ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection plan (chaos/); SPARKNET_CHAOS when not given")
     ap.add_argument("--supervise", action="store_true", help="not ported")
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -703,6 +713,7 @@ def arg_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = arg_parser().parse_args(argv)
+    chaos.install_from(args.chaos)  # --chaos wins over SPARKNET_CHAOS
     multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)
     if multihost.is_primary():

@@ -34,7 +34,8 @@ net state, Scale, Eltwise) and vgg16. Each flag this port does not take
 yet raises ``NotImplementedError`` naming it when set to a value the
 port does not take (``_UNPORTED``). ``--remat`` recomputes each layer's
 activations in the backward (``Solver(remat=True)``); ``--trace``,
-``--profile-dir`` and the telemetry lines are CifarApp's.
+``--profile-dir``, the telemetry lines and ``--chaos`` (a fault plan,
+and the ``chaos:`` line at the end) are CifarApp's.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from .. import chaos
 from ..data.caffe_layers import dataset_from_layer
 from ..data.imagenet import BGR_MEAN, imagenet_dataset
 from ..data.preprocess import Transformer
@@ -84,7 +86,6 @@ ARCH_SOLVERS = {
 _UNPORTED = {
     "layout": (None,),
     "snapshot_format": ("npz",),
-    "chaos": (None,),
     "supervise": (False,),
 }
 
@@ -247,7 +248,8 @@ def parser() -> argparse.ArgumentParser:
                          "trace-event JSON)")
     ap.add_argument("--snapshot-format", choices=("npz", "orbax"), default="npz",
                     help="solverstate format; orbax is not ported")
-    ap.add_argument("--chaos", default=None, metavar="SPEC", help="not ported")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection plan (chaos/); SPARKNET_CHAOS when not given")
     ap.add_argument("--supervise", action="store_true", help="not ported")
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -255,6 +257,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    chaos.install_from(args.chaos)  # --chaos wins over SPARKNET_CHAOS
     multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)
     if multihost.is_primary():

@@ -32,7 +32,11 @@ other's entries. Counters (hit/miss/evict/torn/put) land on the cache's
 :class:`CacheMetrics`, which the apps' ``data cache:`` line prints.
 ``readonly=True`` attaches without ever publishing or evicting: a
 serving replica's ``--data-cache NS`` reads batches a training job put.
-The JAX module's chaos hooks and its registry counters are not ported.
+A storage fault on a put (``/dev/shm`` full, or the ``io.*`` chaos
+points at ``site=cache``) is counted in ``io_faults{site=cache,errno=}``;
+on ENOSPC the cache sheds every unpinned entry and retries once, and a
+fault left disables puts for the rest of the process. The JAX module's
+``data_cache{event=}`` registry counters are not ported.
 """
 
 from __future__ import annotations
@@ -325,7 +329,9 @@ class ShmBatchCache:
             except FileExistsError:
                 return False  # another job won the race
             except OSError as e:
-                if safeio.classify(e) == "enospc":
+                kind = safeio.classify(e)
+                safeio.count_fault("cache", kind)
+                if kind == "enospc":
                     # /dev/shm is full: the byte budget is moot — shed
                     # every unpinned entry and retry exactly once
                     self._evict_unpinned()
@@ -335,6 +341,7 @@ class ShmBatchCache:
                     except FileExistsError:
                         return False
                     except OSError as e2:
+                        safeio.count_fault("cache", safeio.classify(e2))
                         self._disable_io(e2)
                         return False
                     else:
@@ -352,6 +359,7 @@ class ShmBatchCache:
         """One publication attempt (caller holds the namespace lock).
         Raises FileExistsError on a lost race, OSError on storage
         faults; a half-written segment never survives a failure."""
+        safeio.check_faults("cache")
         shm = shared_memory.SharedMemory(name=seg, create=True, size=size)
         _untrack(shm)
         try:

@@ -151,7 +151,9 @@ def synthetic_imagenet(
     """Deterministic learnable stand-in (class-keyed striped patches)."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, classes, n).astype(np.int32)
-    images = rng.integers(0, 64, (n, size, size, 3)).astype(np.uint8)
+    # drawn as uint32: the same values as the JAX function's int64 draw
+    # (both take one bounded 32-bit draw a value), at half the temporary
+    images = rng.integers(0, 64, (n, size, size, 3), dtype=np.uint32).astype(np.uint8)
     span = max(1, size - 64)
     for cls in np.unique(labels):
         sel = labels == cls

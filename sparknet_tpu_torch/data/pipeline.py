@@ -14,21 +14,37 @@ the batch stream:
   count.
 - **Shared-memory transport.** Each worker owns ``depth`` slots of
   ``multiprocessing.shared_memory``; it writes a batch's array bytes
-  into a free slot and sends only a descriptor through the queue. The
-  consumer copies out when the batch's turn comes and only then hands
-  the slot back, so at most ``workers * depth`` batches are staged and
-  a straggler cannot be outrun without bound. A batch larger than its
-  slot is pickled through the queue instead (counted).
+  into a free slot and sends only a descriptor through a pipe of its
+  own. The consumer copies out when the batch's turn comes and only
+  then hands the slot back, so at most ``workers * depth`` batches are
+  staged and a straggler cannot be outrun without bound. A batch larger
+  than its slot is pickled through the pipe instead (counted).
 - **Resume.** ``skip(n)`` before iteration is O(1): it offsets every
   worker's start. After the start it consumes and discards.
 - **Shutdown.** ``close()`` (also ``with``-exit and ``__del__``) stops,
   joins (escalating to ``kill``) and unlinks every segment.
 - **Self-healing.** A worker that dies without a word (nonzero exit,
-  e.g. killed) is respawned at the first batch it never delivered, and
-  the per-batch RNG makes the re-produced batches the lost ones, bit
-  for bit. Respawns are budgeted (``SPARKNET_PIPELINE_RESPAWNS`` a
-  rank, default 2); past the budget the death raises at its serial
-  position. A worker that raises re-raises at its serial position.
+  e.g. killed, or the ``pipeline.worker_crash`` chaos point) is
+  respawned at the first batch it never delivered, and the per-batch
+  RNG makes the re-produced batches the lost ones, bit for bit; each
+  respawn counts the ``pipeline.worker_respawn`` recovery. Respawns are
+  budgeted (``SPARKNET_PIPELINE_RESPAWNS`` a rank, default 2); past the
+  budget the death raises at its serial position. A worker that raises
+  re-raises at its serial position. Each worker writes its messages,
+  from its own thread and length-framed, into a pipe no other process
+  writes, and the consumer reads that pipe without blocking: a worker
+  killed in the middle of a message leaves a torn frame in its own pipe
+  only, which its respawn drops with the pipe (the JAX pipeline's one
+  shared result queue is wedged for every worker by a death that holds
+  its write lock).
+- **Chaos.** Forked workers inherit the process's fault plan:
+  ``pipeline.worker_crash`` (``os._exit(exit_code)`` at once, default
+  3) and ``pipeline.slow_batch`` (a ``delay_ms`` sleep, default 50,
+  inside the batch's produce time and span) fire by global batch index
+  and worker rank before a batch is made. The probe batch is made here,
+  so worker ``r`` makes batches ``base + 1 + r``, stride ``workers``. A
+  respawned worker runs with the plan off: the fault would fire again
+  at the same batch and spend the budget.
 - **Metrics.** :class:`PipelineMetrics`: the consumer's wait for the
   next batch (host-bound time), the workers' wait for a free slot
   (device-bound backpressure), per-batch produce time, occupancy.
@@ -42,9 +58,10 @@ CUDA tensor or the native loader's handle, which a forked child cannot
 use. Before forking, the slot rings are checked against the free space
 of ``/dev/shm``: a tmpfs too small for them would not fail at
 ``SharedMemory(create=True)`` but kill a worker with SIGBUS at its
-first write.
-
-The JAX module's chaos points and trace spans are not ported.
+first write. Each worker records a ``pipeline.produce`` span a batch in
+the span tracer (``telemetry/trace.py``), and writes it to its part
+file for the owner's merged trace when it ends (a worker that dies by
+``os._exit`` loses its spans).
 """
 
 from __future__ import annotations
@@ -53,6 +70,8 @@ import multiprocessing as mp
 import os
 import pickle
 import queue as _queue
+import select
+import struct
 import sys
 import threading
 import time
@@ -207,24 +226,53 @@ def _layout(arrs: Dict[str, np.ndarray]):
     return off, metas
 
 
+# a message's frame on a worker's pipe: its pickle's length, then the pickle
+_FRAME = struct.Struct("<Q")
+
+
+def _send(fd: int, msg) -> None:
+    """One message onto a worker's pipe, whole or (if the worker dies in
+    the middle) torn at the end of the pipe."""
+    data = pickle.dumps(msg, protocol=-1)
+    view = memoryview(_FRAME.pack(len(data)) + data)
+    while view:
+        view = view[os.write(fd, view):]
+
+
 def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
-                 stop, free_q, result_q):
+                 stop, free_q, out_fd, chaos_on=True):
     """One preprocessing worker: the serial enumeration with every batch
     not congruent to ``rank`` slice-skipped, so its transform draws are
     the serial feed's for its indices; ``first_seq`` is the first global
-    batch index it produces (stride ``workers``)."""
+    batch index it produces (stride ``workers``). ``chaos_on=False``
+    (a respawn) runs with the inherited plan off."""
+    plan = None
+    if chaos_on:
+        from .. import chaos
+
+        plan = chaos.get_plan()  # the fork inherits the parent's
     shms: Dict[str, shared_memory.SharedMemory] = {}
     try:
         it = ds.batches(**batch_kw, transform=transform)
         it.skip(first_seq)
         seq = first_seq
         while not stop.is_set():
+            slow = None
+            if plan is not None:
+                rule = plan.match("pipeline.worker_crash", batch=seq, worker=rank)
+                if rule is not None:
+                    # a hard death with no message of its own: the owner
+                    # finds it from the exit code
+                    os._exit(int(rule.params.get("exit_code", 3)))
+                slow = plan.match("pipeline.slow_batch", batch=seq, worker=rank)
             t0 = time.perf_counter()
             with _trace.span("pipeline.produce", cat="pipeline", batch=seq, worker=rank):
+                if slow is not None:
+                    time.sleep(float(slow.params.get("delay_ms", 50.0)) / 1e3)
                 try:
                     batch = next(it)
                 except StopIteration:
-                    result_q.put(("done", rank))
+                    _send(out_fd, ("done", rank))
                     return
                 arrs = {k: np.ascontiguousarray(v) for k, v in batch.items()}
             produce_s = time.perf_counter() - t0
@@ -248,18 +296,18 @@ def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
                     shm = shms[slot] = shared_memory.SharedMemory(name=slot)
                 for (k, dt, shape, off) in metas:
                     np.ndarray(shape, np.dtype(dt), buffer=shm.buf, offset=off)[...] = arrs[k]
-                result_q.put(("b", seq, slot, metas, produce_s, wait_s, rows))
+                _send(out_fd, ("b", seq, slot, metas, produce_s, wait_s, rows))
             else:
                 # the batch outgrew its slot: hand the slot back unused
-                # and pickle through the queue
+                # and pickle through the pipe
                 free_q.put(slot)
-                result_q.put(("b", seq, None, pickle.dumps(arrs, protocol=-1),
-                              produce_s, wait_s, rows))
+                _send(out_fd, ("b", seq, None, pickle.dumps(arrs, protocol=-1),
+                               produce_s, wait_s, rows))
             it.skip(workers - 1)
             seq += workers
     except BaseException:
         try:
-            result_q.put(("err", rank, traceback.format_exc()))
+            _send(out_fd, ("err", rank, traceback.format_exc()))
         except Exception:
             pass
     finally:
@@ -331,6 +379,12 @@ class ParallelBatchPipeline:
         self._errors: Dict[int, str] = {}
         self._procs: list = []
         self._dead_qs: list = []  # free queues of dead workers, closed at close()
+        # worker r's messages: the read end of its pipe, the bytes read
+        # from it that do not yet make a whole frame, and whether its
+        # write end is closed (the worker has ended)
+        self._pipes: list = []
+        self._unread: list = []
+        self._eof: list = []
         self._shms: Dict[str, shared_memory.SharedMemory] = {}
         self._max_respawns = (
             max_respawns if max_respawns is not None
@@ -385,7 +439,9 @@ class ParallelBatchPipeline:
         self._stop = self._ctx.Event()
         # worker r's slots circulate only through free_qs[r]
         self._free_qs = [self._ctx.Queue() for _ in range(self.workers)]
-        self._result_q = self._ctx.Queue()
+        self._pipes = [-1] * self.workers
+        self._unread = [bytearray() for _ in range(self.workers)]
+        self._eof = [False] * self.workers
         self._token = os.urandom(4).hex()
         self._rank_slots = [[] for _ in range(self.workers)]
         for r in range(self.workers):
@@ -398,23 +454,65 @@ class ParallelBatchPipeline:
         self.metrics.slots_free.set(self.workers * self._depth)
         self._worker_base = base + 1
         for r in range(self.workers):
-            self._procs.append(self._spawn_worker(r, self._worker_base + r,
+            self._procs.append(self._spawn_worker(r, self._worker_base + r, chaos_on=True,
                                                   name=f"{SHM_PREFIX}-worker-{r}"))
 
-    def _spawn_worker(self, rank, first_seq, name):
+    def _spawn_worker(self, rank, first_seq, chaos_on, name):
+        """Fork worker ``rank`` with a new pipe of its own; a dead
+        predecessor's pipe, and any torn frame in it, is closed here."""
+        if self._pipes[rank] >= 0:
+            os.close(self._pipes[rank])
+        r, w = os.pipe()
+        os.set_blocking(r, False)
+        self._pipes[rank], self._unread[rank], self._eof[rank] = r, bytearray(), False
         p = self._ctx.Process(
             target=_worker_main,
             args=(rank, self.workers, first_seq, self._ds,
                   dict(self._batch_kw, batch_size=self._batch_size), self._transform,
-                  self._slot_bytes, self._stop, self._free_qs[rank], self._result_q),
+                  self._slot_bytes, self._stop, self._free_qs[rank], w, chaos_on),
             daemon=True, name=name)
-        with warnings.catch_warnings():
-            # fork next to torch's threads: the workers run numpy and the
-            # multiprocessing queues only, the case the warning spares
-            warnings.filterwarnings("ignore", message=r"This process .* is multi-threaded",
-                                    category=DeprecationWarning)
-            p.start()
+        try:
+            with warnings.catch_warnings():
+                # fork next to torch's threads: the workers run numpy and
+                # the multiprocessing queues only, the case the warning
+                # spares
+                warnings.filterwarnings("ignore", message=r"This process .* is multi-threaded",
+                                        category=DeprecationWarning)
+                p.start()
+        finally:
+            # the worker holds the only write end: its pipe ends when it does
+            os.close(w)
         return p
+
+    def _read(self, rank: int, timeout: float) -> int:
+        """Handle every whole message on worker ``rank``'s pipe, waiting
+        up to ``timeout`` s for the first bytes; -> messages handled. A
+        torn frame at the end stays unread."""
+        fd = self._pipes[rank]
+        if not self._eof[rank]:
+            poller = select.poll()
+            poller.register(fd, select.POLLIN)
+            if poller.poll(timeout * 1e3):
+                buf = self._unread[rank]
+                while True:
+                    try:
+                        chunk = os.read(fd, 1 << 20)
+                    except BlockingIOError:
+                        break
+                    if not chunk:
+                        self._eof[rank] = True
+                        break
+                    buf += chunk
+        buf, n, off = self._unread[rank], 0, 0
+        while len(buf) - off >= _FRAME.size:
+            size, = _FRAME.unpack_from(buf, off)
+            if len(buf) - off - _FRAME.size < size:
+                break
+            start = off + _FRAME.size
+            self._handle(pickle.loads(buf[start:start + size]))
+            off, n = start + size, n + 1
+        del buf[:off]
+        return n
 
     # ---------------------------------------------------------- iteration
     def __iter__(self) -> Iterator[Any]:
@@ -468,22 +566,23 @@ class ParallelBatchPipeline:
                 # a worker's queue is in order: the stream ends at the
                 # first sequence number nobody will send
                 return None
-            try:
-                msg = self._result_q.get(timeout=1.0)
-            except _queue.Empty:
-                # the owner of the awaited batch died without a word:
-                # respawn it; past the budget, fail here instead of hanging
-                if not self._procs[owner].is_alive() and self._result_q.empty():
-                    if not self._respawn(owner):
-                        exitcode = self._procs[owner].exitcode
-                        self.close()
-                        raise RuntimeError(
-                            f"input pipeline worker {owner} exited (code {exitcode}) "
-                            f"without finishing the stream (awaiting batch "
-                            f"{self._next_seq}; {self._respawns.get(owner, 0)} respawns "
-                            f"already spent)")
+            if self._read(owner, timeout=1.0):
                 continue
-            self._handle(msg)
+            proc = self._procs[owner]
+            if self._eof[owner]:
+                proc.join(timeout=1.0)  # its pipe ended with it
+            # the owner of the awaited batch died without a word: respawn
+            # it once everything it sent whole is read; past the budget,
+            # fail here instead of hanging
+            if not proc.is_alive() and not self._read(owner, timeout=0):
+                if not self._respawn(owner):
+                    exitcode = proc.exitcode
+                    self.close()
+                    raise RuntimeError(
+                        f"input pipeline worker {owner} exited (code {exitcode}) "
+                        f"without finishing the stream (awaiting batch "
+                        f"{self._next_seq}; {self._respawns.get(owner, 0)} respawns "
+                        f"already spent)")
 
     def _respawn(self, owner: int) -> bool:
         """Replace a silently dead worker: same rank, resuming at the
@@ -491,10 +590,11 @@ class ParallelBatchPipeline:
         that is not parked already. Bounded a rank, with backoff.
 
         The dead worker may have died inside its free queue's ``get``,
-        holding that queue's lock for good, or holding a slot it popped:
-        so the rank gets a fresh queue, seeded with each of its slots
-        that no parked batch holds (the dead worker writes none again;
-        the parked ones come back to the new queue when consumed)."""
+        holding that queue's lock for good, or holding a slot it popped,
+        or in the middle of a message: so the rank gets a fresh queue,
+        seeded with each of its slots that no parked batch holds (the
+        dead worker writes none again; the parked ones come back to the
+        new queue when consumed), and a fresh pipe."""
         n = self._respawns.get(owner, 0)
         if n >= self._max_respawns:
             return False
@@ -514,8 +614,12 @@ class ParallelBatchPipeline:
                 self._free_qs[owner].put(name)
         self.metrics.slots_free.set(len(self._shms) - len(parked))
         self._procs[owner] = self._spawn_worker(
-            owner, seq, name=f"{SHM_PREFIX}-worker-{owner}-r{self._respawns[owner]}")
+            owner, seq, chaos_on=False,
+            name=f"{SHM_PREFIX}-worker-{owner}-r{self._respawns[owner]}")
         self.metrics.record_respawn()
+        from .. import chaos
+
+        chaos.record_recovery("pipeline.worker_respawn")
         print(f"input pipeline: worker {owner} died (exit {exitcode}); respawned at "
               f"batch {seq} (attempt {self._respawns[owner]}/{self._max_respawns})",
               file=sys.stderr, flush=True)
@@ -538,12 +642,6 @@ class ParallelBatchPipeline:
         kind = msg[0]
         if kind == "b":
             _, seq, slot, payload, produce_s, wait_s, rows = msg
-            if seq < self._next_seq or seq in self._buffer:
-                # a dead worker's message that raced its respawn: drop
-                # it, but hand its slot back
-                if slot is not None:
-                    self._free_qs[self._owner(seq)].put(slot)
-                return
             if slot is None:
                 self._buffer[seq] = (None, pickle.loads(payload))
             else:
@@ -568,6 +666,11 @@ class ParallelBatchPipeline:
             return
         if hasattr(self, "_stop"):
             self._stop.set()
+        for i, fd in enumerate(self._pipes):
+            # a worker blocked writing to its pipe gets EPIPE and ends
+            if fd >= 0:
+                os.close(fd)
+                self._pipes[i] = -1
         for p in self._procs:
             p.join(timeout=10)
         for p in self._procs:
@@ -577,9 +680,7 @@ class ParallelBatchPipeline:
             if p.is_alive():
                 p.kill()  # wedged in C code: a stuck child must not hang exit
                 p.join(timeout=5)
-        for q in [getattr(self, "_result_q", None)] + list(getattr(self, "_free_qs", [])):
-            if q is None:
-                continue
+        for q in getattr(self, "_free_qs", []):
             try:
                 while True:
                     q.get_nowait()

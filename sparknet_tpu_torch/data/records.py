@@ -27,14 +27,15 @@ package's, byte for byte, so either package reads the other's packs.
   keyed by ``(stream fingerprint, shard, epoch, batch-index)``, and
   other jobs reading the same stream read it instead of decoding. The
   transform runs per consumer, so a hit is a cold decode's batch.
-- **Faults.** A record whose CRC fails is counted (``crc_skipped`` on the
-  reader's ``metrics``) and
-  replaced by the nearest healthy record of its batch: shapes hold, the
-  stream stays aligned, and that batch is never cached.
+- **Faults.** A record whose CRC fails (or that the ``data.torn_shard``
+  chaos point, by shard and record index, tears) is counted
+  (``crc_skipped`` on the reader's ``metrics``) and replaced by the
+  nearest healthy record of its batch: shapes hold, the stream stays
+  aligned, and that batch is never cached. Under a plan every batch
+  takes the per-record path, where the point fires.
 
 Imports are numpy and the standard library (and this package's own
-safeio): pipeline workers fork and iterate these readers.
-The JAX module's ``data.torn_shard`` chaos point is not ported.
+safeio and chaos): pipeline workers fork and iterate these readers.
 """
 
 from __future__ import annotations
@@ -427,7 +428,7 @@ def write_manifest(
     # safeio stages to a pid-unique tmp: concurrent publishers must not
     # clobber each other's tmp between write and rename
     safeio.atomic_write_json(
-        os.path.join(out_dir, MANIFEST_NAME), manifest, fsync=False,
+        os.path.join(out_dir, MANIFEST_NAME), manifest, site="records", fsync=False,
     )
     return manifest
 
@@ -734,6 +735,9 @@ class PackedBatchIterator:
         from .prefetch import DoubleBuffer
 
         self._dbuf = DoubleBuffer(ds._open_shard, metrics=self.metrics)
+        from .. import chaos
+
+        self._chaos = chaos.get_plan()
         # cache stream identity: everything that determines batch g's
         # bytes participates, so two jobs share entries iff they read
         # the same stream (docs/DATA.md "Cache keying")
@@ -878,13 +882,16 @@ class PackedBatchIterator:
                 return got
         groups = self._groups(plan, lo, hi)
         n = hi - lo
-        # Bulk fast path: every touched shard uniform and region-verified
-        # — a batch is a fancy row-gather per group, no python-level
-        # per-record work.  A shard that failed its probe routes through
-        # the per-record path, where CRC-skip semantics are exact.
-        bulk = [self._bulk_for(sid, plan, v) for (v, sid, _) in groups]
-        if any(b is None for b in bulk):
-            bulk = None
+        # Bulk fast path: no chaos plan, and every touched shard uniform
+        # and region-verified — a batch is a fancy row-gather per group,
+        # no python-level per-record work.  A plan, or a shard that
+        # failed its probe, routes through the per-record path, where
+        # injection and CRC-skip semantics are exact.
+        bulk = None
+        if self._chaos is None:
+            bulk = [self._bulk_for(sid, plan, v) for (v, sid, _) in groups]
+            if any(b is None for b in bulk):
+                bulk = None
         if bulk is not None:
             parts = []
             for (v, sid, ridx), (mat, cols) in zip(groups, bulk):
@@ -914,7 +921,10 @@ class PackedBatchIterator:
             for (v, sid, ridx) in groups:
                 reader = self._reader(sid, plan, v)
                 for r in ridx:
-                    rec = reader.record(int(r))
+                    r = int(r)
+                    fired = self._chaos is not None and self._chaos.fires(
+                        "data.torn_shard", shard=sid, index=r)
+                    rec = None if fired else reader.record(r)
                     if rec is None:
                         torn += 1
                         recs.append(None)

@@ -174,10 +174,10 @@ class TauController:
         path = f"{snapshot_prefix}_tau_controller.json"
         # best effort: the decision record is observability, not state,
         # and a full disk must not fail the training run
-        try:
-            with open(path, "w") as fh:
-                json.dump(self.snapshot(), fh)
-        except OSError:
+        from ..utils import safeio
+
+        if not safeio.best_effort_write_json(path, self.snapshot(), site="records",
+                                             fsync=False):
             return None
         return path
 

@@ -44,6 +44,11 @@ A request may carry a request-trace context (``ctx=``,
 ``engine.generate``, ``engine.decode_batch``) become spans of its trace,
 recorded before its future resolves, and a sampled trace's id rides its
 latency observation as an exemplar.
+
+The ``serve.engine_stall`` chaos point (by flush index, under the plan
+the batcher was built under) stalls a flush before its shed-before-
+compute check, so a request whose deadline passes in the stall is shed
+and never computed.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import chaos
 from ..telemetry import reqtrace as _reqtrace
 from ..telemetry import trace as _trace
 
@@ -144,6 +150,9 @@ class MicroBatcher:
         self._stash: Optional[_Pending] = None
         self._ready = threading.Event()
         self._open = True
+        # the plan this batcher was built under (None: one test a flush)
+        self._chaos = chaos.get_plan()
+        self._flushes = 0
         self._worker = threading.Thread(
             target=self._loop, name="serve-batcher", daemon=True
         )
@@ -334,6 +343,11 @@ class MicroBatcher:
         return batch, total
 
     def _run(self, batch: List[_Pending]) -> None:
+        if self._chaos is not None:
+            rule = self._chaos.match("serve.engine_stall", batch=self._flushes)
+            if rule is not None:
+                time.sleep(float(rule.params.get("delay_ms", 50.0)) / 1e3)
+        self._flushes += 1
         # shed before compute: expired deadlines fail fast, futures the
         # caller already cancelled are dropped
         now = time.perf_counter()

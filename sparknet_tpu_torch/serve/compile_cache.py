@@ -90,7 +90,7 @@ def enable_persistent_cache(root: str) -> Optional[Dict[str, Any]]:
     built them.
 
     A storage fault (``root`` not creatable or not writable, the disk
-    full) disables the cache for the rest of the process and returns
+    full, an injected ``io.*@site=compile_cache``) disables the cache for the rest of the process and returns
     None: the kernels build where they would without ``--compile-cache``.
     The fault is counted (``io_faults{site=compile_cache,errno=}``) and warned
     once."""
@@ -98,18 +98,18 @@ def enable_persistent_cache(root: str) -> Optional[Dict[str, Any]]:
     if _io_disabled:
         return None
     from ..ops import _build
-    from ..telemetry.registry import REGISTRY
     from ..utils import safeio
 
     path = os.path.abspath(root)
     try:
+        safeio.check_faults("compile_cache")
         os.makedirs(path, exist_ok=True)
         # nvcc writes a per-pid file here and renames it: probe the write
         fd, probe = tempfile.mkstemp(prefix=".probe", dir=path)
         os.close(fd)
         os.unlink(probe)
     except OSError as e:
-        REGISTRY.counter("io_faults", site="compile_cache", errno=safeio.classify(e)).inc()
+        safeio.count_fault("compile_cache", safeio.classify(e))
         _io_disabled = True
         print(f"WARNING: persistent compile cache disabled for this run ({path}): {e}",
               file=sys.stderr, flush=True)

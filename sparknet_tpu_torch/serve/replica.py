@@ -159,7 +159,7 @@ def write_portfile(path: str, server, engine, cache_info) -> None:
         "generation": getattr(engine, "generation", 0),
         "quant": getattr(engine, "quant", "f32"),
         "compile_cache": cache_info,
-    }, indent=None, fsync=False)
+    }, site="records", indent=None, fsync=False)
 
 
 def main(argv=None) -> int:

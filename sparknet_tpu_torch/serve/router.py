@@ -43,11 +43,13 @@ card: it holds no engine and runs no kernel.
 
 The router speaks a replica's HTTP surface (``/classify``, ``/generate``,
 ``/healthz``, ``/metrics``, ``/metrics.json``, ``/dash``, ``/reload``,
-``/traces``), so a client cannot tell one process from a tier. The JAX
-router's autoscale hooks and admission control (``autoscale/``), its
-deploy controller and gate (``deploy/``) and its ``serve.replica_kill``
-chaos point (``chaos/``) are not ported: ``admission=`` raises
-``NotImplementedError``, and :meth:`ChildPool.kill` is the kill surface.
+``/traces``), so a client cannot tell one process from a tier. The
+``serve.replica_kill`` chaos point (by health tick and replica index,
+under the plan the router was built under) kills a replica through
+:meth:`ChildPool.kill`; each respawn counts the ``serve.replica_respawn``
+recovery. The JAX router's autoscale hooks and admission control
+(``autoscale/``) and its deploy controller and gate (``deploy/``) are
+not ported: ``admission=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
+from .. import chaos
 from ..telemetry import reqtrace
 from ..telemetry.registry import REGISTRY, LatencyHistogram
 
@@ -260,6 +263,9 @@ class Router:
         self.eject_after = int(eject_after)
         self.forward_timeout_s = float(forward_timeout_s)
         self.metrics = RouterMetrics()
+        # the plan this router was built under (None: one test a tick)
+        self._chaos = chaos.get_plan()
+        self._tick = 0
         self.quant_ab = float(quant_ab)
         if not 0.0 <= self.quant_ab <= 1.0:
             raise ValueError(
@@ -772,9 +778,18 @@ class Router:
                     rep.consecutive_fails = 0
 
     def health_tick(self) -> None:
-        """One sweep: pool tick (respawns), port discovery, probes.
-        Public so tests can drive it without the thread."""
+        """One sweep: pool tick (respawns), chaos, port discovery,
+        probes. Public so tests can drive it without the thread."""
+        self._tick += 1
         if self.pool is not None:
+            if self._chaos is not None:
+                for rep in self.replicas:
+                    rule = self._chaos.match("serve.replica_kill", tick=self._tick,
+                                             worker=rep.index)
+                    if rule is not None and self.pool.kill(rep.index):
+                        with self._lock:
+                            rep.healthy = False
+                        self.metrics.inc("replica_deaths")
             for ev in self.pool.tick():
                 if ev["event"] == "exit":
                     self.metrics.inc("replica_deaths")
@@ -784,6 +799,7 @@ class Router:
                     self.metrics.inc("respawns")
                     with self._lock:
                         self.replicas[ev["child"]].needs_resync = True
+                    chaos.record_recovery("serve.replica_respawn")
             self._refresh_ports()
         for rep in self.replicas:
             self._probe(rep)

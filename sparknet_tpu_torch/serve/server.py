@@ -26,7 +26,8 @@ Endpoints (JSON in and out, stdlib only), with the JAX server's shapes:
   precision, the session cache and the batched decode, and
   the live advisories of the anomaly board (``anomalies``); ``status``
   is ``"degraded"`` while requests are being shed/cancelled or while a
-  ``queue_stall``, ``straggler`` or ``slo_burn`` advisory is live. Each
+  ``queue_stall``, ``straggler``, ``slo_burn`` or ``disk_pressure``
+  advisory is live. Each
   scrape feeds the serving stall and SLO-burn detectors.
 - ``GET /metrics``: Prometheus text of the telemetry registry's families
   and the ``ServeMetrics`` families (``telemetry/exporter.py``);
@@ -47,15 +48,21 @@ A ``ThreadingHTTPServer``: handler threads block on the batcher future
 while the single batcher worker feeds the card, so concurrent requests
 coalesce into full buckets. ``Client`` wraps ``http.client`` and retries
 503s and connection errors with capped exponential backoff plus jitter,
-honouring ``Retry-After``.
+honouring ``Retry-After``; an answer after a retry counts the
+``serve.client_retry`` recovery, so a dropped connection (the
+``serve.conn_drop`` chaos point, fired by the per-server POST index on
+``/classify`` under the plan the server was built under) is survived
+instead of surfaced.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import random
 import re
+import socket
 import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -64,12 +71,13 @@ from typing import Optional
 
 import numpy as np
 
+from .. import chaos
 from ..telemetry import REGISTRY, aggregate, anomaly, dash, exporter, reqtrace
 from .batcher import Backpressure, DeadlineExceeded, MicroBatcher, decode_batching_enabled
 from .metrics import ServeMetrics
 
 # advisories that degrade /healthz, as shed or cancelled requests do
-DEGRADING = ("queue_stall", "straggler", "slo_burn")
+DEGRADING = ("queue_stall", "straggler", "slo_burn", "disk_pressure")
 
 
 class InferenceServer:
@@ -117,6 +125,9 @@ class InferenceServer:
         self.model_name = model_name
         self.default_top_k = default_top_k
         self.request_timeout_s = request_timeout_s
+        # the plan this server was built under (None: one test a POST)
+        self._chaos = chaos.get_plan()
+        self._post_seq = itertools.count()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -228,6 +239,17 @@ class InferenceServer:
                     return
                 if self.path != "/classify":
                     self._reply(404, {"error": f"no route {self.path}"})
+                    return
+                if outer._chaos is not None and outer._chaos.fires(
+                        "serve.conn_drop", request=next(outer._post_seq)):
+                    # a flaky network: the connection closes with no
+                    # answer, and the client's retry sees a reset
+                    self.close_connection = True
+                    try:
+                        self.connection.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    self.connection.close()
                     return
                 trace = self._trace_begin()
                 try:
@@ -531,7 +553,11 @@ class Client:
                 if attempt >= self.retries:
                     raise
             else:
-                if status != 503 or attempt >= self.retries:
+                if status != 503:
+                    if attempt:
+                        chaos.record_recovery("serve.client_retry")
+                    return status, data
+                if attempt >= self.retries:
                     return status, data
             sleep = min(self.backoff_s * (2 ** attempt), self.max_backoff_s)
             if retry_after is not None:

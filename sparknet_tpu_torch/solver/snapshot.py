@@ -7,8 +7,12 @@ scalars) as arrays ``a0, a1, ...`` beside one ``__solverstate__`` entry:
 a JSON manifest with the format version, the tree structure and every
 array's dtype and shape. :func:`load_state` checks the manifest, so a
 torn file raises :class:`SnapshotError` instead of resuming from
-garbage. Writes are atomic: staged to a temporary file, fsynced,
-renamed over the target, and the directory fsynced.
+garbage. Writes go through ``utils/safeio.py`` (``site="snapshot"``):
+staged to a temporary file, fsynced, renamed over the target, and the
+directory fsynced; the ``io.*`` chaos points fail or stall them there,
+and ``snapshot.partial_write`` (coordinates ``index``, the process's
+save count, and ``iter``; parameter ``frac``, default 0.5) publishes a
+file truncated to ``frac`` of its bytes, as a copy cut short would.
 
 The format is the JAX package's to the byte level, so a file written
 by either package loads into the other; the Solver puts its trees into
@@ -25,17 +29,18 @@ package keeps it:
   ``_iter_N.npz`` weights twin too, so a torn newest file always has
   an older one to fall back to;
 - :func:`save_state_or_skip`: on a full disk, prune one deeper and retry
-  once (one process only), else skip the snapshot with a warning and go
-  on training;
+  once (one process only; the ``snapshot.enospc_prune`` recovery), else
+  skip the snapshot with a warning, count ``snapshot_skipped{errno=}``
+  and go on training;
 - :func:`restore_with_fallback` restores the newest file that loads,
-  warning for each torn one; :func:`resolve_auto_resume` and
+  warning for each torn one (each fallback counts the
+  ``snapshot.fallback_restore`` recovery); :func:`resolve_auto_resume` and
   :func:`apply_auto_resume` are the apps' ``--auto-resume`` (over
   processes, process 0's choice for every rank);
 - :func:`resolve_prefix` puts a relative prefix under
   ``SPARKNET_RUN_DIR`` when that is set.
 
-The orbax format and the JAX module's disk-fault injection (chaos
-points) are not ported.
+The orbax format is not ported.
 """
 
 from __future__ import annotations
@@ -103,29 +108,6 @@ def _decode(spec: Any, leaves: Dict[str, np.ndarray]) -> Any:
     return leaves[f"a{spec['i']}"]
 
 
-def _atomic_write(path: str, payload) -> None:
-    """``payload(fh)`` into a temporary file beside ``path``, fsynced,
-    renamed over ``path``; then the directory is fsynced."""
-    ensure_parent(path)
-    parent = os.path.dirname(os.path.abspath(path))
-    tmp = f"{path}.tmp{os.getpid()}"
-    try:
-        with open(tmp, "wb") as fh:
-            payload(fh)
-            fh.flush()
-            os.fsync(fh.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-    fd = os.open(parent, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 def save_state(path: str, **trees: Any) -> None:
     """Write named trees to one npz at ``path``, atomically (creating
     its directory)."""
@@ -141,7 +123,41 @@ def save_state(path: str, **trees: Any) -> None:
     def payload(fh):
         np.savez(fh, **arrays, **{_META_KEY: np.frombuffer(meta.encode(), np.uint8)})
 
-    _atomic_write(path, payload)
+    from ..utils import safeio
+
+    ensure_parent(path)
+    safeio.atomic_write(path, payload, site="snapshot", fsync=True, sync_dir=True,
+                        pre_publish=_chaos_partial_write)
+
+
+_save_seq = 0  # this process's save count: the chaos schedule index
+
+
+def _chaos_partial_write(tmp: str, path: str) -> bool:
+    """``snapshot.partial_write``: publish a torn file at ``path`` (the
+    staged file truncated to ``frac`` of its bytes), so the restore
+    side's verify and fallback have something to catch. True when the
+    fault fired."""
+    global _save_seq
+    seq, _save_seq = _save_seq, _save_seq + 1
+    from .. import chaos
+
+    plan = chaos.get_plan()
+    if plan is None:
+        return False
+    coords = {"index": seq}
+    m = _ITER_RE.search(path)
+    if m:
+        coords["iter"] = int(m.group(1))
+    rule = plan.match("snapshot.partial_write", **coords)
+    if rule is None:
+        return False
+    frac = float(rule.params.get("frac", 0.5))
+    size = os.path.getsize(tmp)
+    with open(tmp, "rb+") as fh:
+        fh.truncate(max(1, int(size * frac)))
+    os.replace(tmp, path)
+    return True
 
 
 def load_state(path: str) -> Dict[str, Any]:
@@ -257,8 +273,12 @@ def save_state_or_skip(path: str, prefix: str = "", **trees: Any) -> bool:
     (over processes the files are process 0's alone and its peers go
     on); any failure left skips the snapshot with a warning on stderr.
     The older snapshots stay as they were, so the resume point only
-    ages. True when the snapshot was written."""
+    ages. True when the snapshot was written; a pruned retry that lands
+    counts the ``snapshot.enospc_prune`` recovery, a skip
+    ``snapshot_skipped{errno=}``."""
+    from .. import chaos
     from ..parallel import multihost
+    from ..telemetry.registry import REGISTRY
     from ..utils import safeio
 
     try:
@@ -270,9 +290,11 @@ def save_state_or_skip(path: str, prefix: str = "", **trees: Any) -> bool:
             if prune_snapshots(prefix, keep=max(1, _keep_default() - 1)):
                 try:
                     save_state(path, **trees)
+                    chaos.record_recovery("snapshot.enospc_prune")
                     return True
                 except OSError as e2:
                     e, kind = e2, safeio.classify(e2)
+        REGISTRY.counter("snapshot_skipped", errno=kind).inc()
         print(f"WARNING: snapshot {path} skipped ({kind}: {e}); training continues — "
               f"resume point stays at the previous snapshot", file=sys.stderr, flush=True)
         return False
@@ -282,7 +304,8 @@ def restore_with_fallback(solver, prefix: str, path: str, feed=None,
                           weights_only: bool = False) -> str:
     """Restore ``solver`` from ``path``; if that file is torn
     (:class:`SnapshotError`), from the older solverstates under
-    ``prefix``, newest first, warning for each torn one. Returns the path
+    ``prefix``, newest first, warning for each torn one; a fallback
+    counts the ``snapshot.fallback_restore`` recovery. Returns the path
     restored; raises the last error when none loads."""
     m = _ITER_RE.search(path or "")
     start_iter = int(m.group(1)) if m else None
@@ -291,7 +314,7 @@ def restore_with_fallback(solver, prefix: str, path: str, feed=None,
         candidates += [cand for it, cand in ordered_solverstates(prefix)
                        if cand != path and (start_iter is None or it < start_iter)]
     last_err: Optional[SnapshotError] = None
-    for cand in candidates:
+    for i, cand in enumerate(candidates):
         try:
             solver.restore(cand, feed, weights_only=weights_only)
         except SnapshotError as e:
@@ -299,6 +322,10 @@ def restore_with_fallback(solver, prefix: str, path: str, feed=None,
             print(f"WARNING: solverstate {cand} is torn/unreadable ({e}); falling back "
                   f"to the previous snapshot", file=sys.stderr, flush=True)
             continue
+        if i:
+            from .. import chaos
+
+            chaos.record_recovery("snapshot.fallback_restore")
         return cand
     if last_err is not None:
         raise last_err

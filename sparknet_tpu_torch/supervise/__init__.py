@@ -16,8 +16,7 @@ what the serving tier is built on:
 
 The gang supervisor (``supervisor.py``, the apps' ``--supervise``) and
 the failure records (``records.py``) are not ported yet; they come with
-the rest of the JAX package's ``supervise/``, ``telemetry/flight.py``
-and ``chaos/``.
+``telemetry/flight.py`` and the ``supervisor.*`` chaos points.
 """
 
 from __future__ import annotations

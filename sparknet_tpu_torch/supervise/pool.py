@@ -22,9 +22,10 @@ never touches its peers.
 Every child is ``subprocess.Popen`` of a fresh interpreter, never a
 ``fork`` of the owner (a forked CUDA context is unusable), and finds this
 package from any working directory: the directory holding it leads the
-child's ``PYTHONPATH``. The JAX pool clears ``SPARKNET_CHAOS`` in
-respawns; chaos points are not ported, so there is nothing to clear.
-Plain ``subprocess`` and monotonic clocks; no threads of its own.
+child's ``PYTHONPATH``. A respawn runs with ``SPARKNET_CHAOS`` empty,
+as in the JAX pool: the fault that killed the first spawn must not fire
+again in the next and crash-loop through the budget. Plain
+``subprocess`` and monotonic clocks; no threads of its own.
 """
 
 from __future__ import annotations
@@ -126,6 +127,8 @@ class ChildPool:
             env = dict(self.make_env(child.index, child.spawn_count))
         else:
             env = dict(os.environ)
+        if child.spawn_count > 0:
+            env["SPARKNET_CHAOS"] = ""  # respawns run with chaos off
         # a child started from any cwd (a checkout with no installed
         # package) still imports this package
         path = [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]

@@ -19,16 +19,19 @@ families:
 - :class:`SloBurnRateDetector`: multi-window burn of the serving p99
   against ``SPARKNET_SLO_P99_MS`` (fast 5 min and slow 1 h windows),
   scrape-driven from ``/healthz``.
+- :class:`DiskPressureDetector`: free space at or below a watermark on
+  a volume the writers touch, fed by every ``utils/safeio.py`` write's
+  preflight.
 
 Every firing increments the registry counter ``anomalies{kind=...}``,
 prints one ``anomaly: {...}`` JSON line, and raises an *advisory* on the
 process-global board: the τ controller reads ``active("straggler")``,
 and serving's ``/healthz`` degrades while a ``queue_stall``,
 ``straggler`` or ``slo_burn`` advisory is live. Advisories expire after
-``ttl_s`` (default 60) unless raised again. The JAX module's disk
-pressure detector has no feeder in the port (its ``safeio`` has no
-free-space preflight) and is not ported; nor is the flight recorder's
-note of each firing (``flight.py`` waits for ``supervise/``).
+``ttl_s`` (default 60) unless raised again. A ``disk_pressure``
+advisory is ``serious``: it degrades ``/healthz`` and lights the
+dash's storage panel. The flight recorder's note of each firing is not
+ported (``telemetry/flight.py`` comes with the gang supervisor).
 """
 
 from __future__ import annotations
@@ -395,12 +398,61 @@ class QueueStallDetector:
         )
 
 
+# ---------------------------------------------------------- disk pressure
+class DiskPressureDetector:
+    """Free-space watermark over the volumes the writers touch: free
+    bytes at or below ``SPARKNET_DISK_WATERMARK_MB`` (default 256) raise
+    a ``serious`` ``disk_pressure`` advisory. While the pressure holds
+    the advisory is raised again every ``refire_s`` so its TTL stays
+    alive; a healthy look arms the next firing, so one incident logs one
+    ``anomaly:`` line."""
+
+    def __init__(
+        self,
+        watermark_mb: Optional[float] = None,
+        refire_s: float = 15.0,
+        ttl_s: Optional[float] = None,
+        emit=print,
+        now=time.monotonic,
+    ):
+        self.watermark_mb = (
+            watermark_mb if watermark_mb is not None
+            else _env_float("SPARKNET_DISK_WATERMARK_MB", 256.0)
+        )
+        self.refire_s = refire_s
+        self.ttl_s = float(ttl_s) if ttl_s is not None else DEFAULT_TTL_S
+        self.emit = emit
+        self._now = now
+        self._last_fire: Optional[float] = None
+
+    def observe(self, free_bytes: int, path: str = "") -> Optional[Dict[str, Any]]:
+        free_mb = float(free_bytes) / (1 << 20)
+        if free_mb > self.watermark_mb:
+            self._last_fire = None  # recovered: the next breach fires anew
+            return None
+        t = self._now()
+        if self._last_fire is not None and t - self._last_fire < self.refire_s:
+            return None  # the advisory is fresh
+        self._last_fire = t
+        return fire(
+            "disk_pressure",
+            key="free",
+            severity="serious",
+            ttl_s=self.ttl_s,
+            emit=self.emit,
+            free_mb=round(free_mb, 1),
+            watermark_mb=self.watermark_mb,
+            path=path,
+        )
+
+
 # -------------------------------------------- process-global consumers
 _serve_stall: Optional[QueueStallDetector] = None
 _pipeline_stall: Optional[QueueStallDetector] = None
 _step_spike: Optional[EmaMadDetector] = None
 _loss_spike: Optional[EmaMadDetector] = None
 _slo_burn: Optional[SloBurnRateDetector] = None
+_disk_pressure: Optional[DiskPressureDetector] = None
 
 
 def observe_slo(latency) -> None:
@@ -453,6 +505,18 @@ def observe_pipeline(snapshot: Dict[str, Any]) -> None:
     _pipeline_stall.observe(depth, progress)
 
 
+def observe_disk(free_bytes: int, path: str = "") -> None:
+    """Write-driven disk pressure check: every ``safeio`` preflight
+    reports the volume's free bytes here."""
+    global _disk_pressure
+    if _disk_pressure is None:
+        _disk_pressure = DiskPressureDetector()
+    try:
+        _disk_pressure.observe(int(free_bytes), path=path)
+    except (TypeError, ValueError):
+        return
+
+
 def observe_step(seconds: float) -> None:
     """Step-time spike stream (the train loop's display boundary)."""
     global _step_spike
@@ -472,6 +536,7 @@ def observe_loss(loss: float) -> None:
 def reset_detectors() -> None:
     """Fresh process-global detectors (test isolation)."""
     global _serve_stall, _pipeline_stall, _step_spike, _loss_spike
-    global _slo_burn
+    global _slo_burn, _disk_pressure
     _serve_stall = _pipeline_stall = _step_spike = _loss_spike = None
     _slo_burn = None
+    _disk_pressure = None

@@ -16,9 +16,11 @@ decode's metrics, or on a router their sum over the replicas' health
 scrapes), the serving tier's section on a router's page (replicas,
 generations, retries, respawns, a row a replica) and the slow-request
 panel (the slowest stitched request waterfalls,
-``telemetry/reqtrace.py``). The JAX page's deployment and storage
-sections read subsystems the port does not have yet (the deploy loop,
-the storage-fault counters) and are not ported.
+``telemetry/reqtrace.py``) and the storage panel (the free space the
+writers last saw, ``io_faults{site=,errno=}`` and skipped snapshots;
+shown once any of them exists). The JAX page's deployment section and
+its storage tiles for the deploy tee and the gang supervisor read
+subsystems the port does not have yet and are not ported.
 
 Visual rules: phases wear a fixed categorical palette in a fixed order;
 anomaly severities wear the status palette with an icon and a text
@@ -452,6 +454,50 @@ def _reqtrace_section(records: List[dict]) -> str:
     )
 
 
+def _storage_section(registry_snapshot: Dict[str, Any]) -> str:
+    """The storage panel: disk headroom and every degradation the
+    writers took (``io_faults{site=,errno=}``, skipped snapshots), so a
+    disk-pressure incident reads as counted policy. Rendered only once
+    one of those signals exists."""
+    metrics = registry_snapshot.get("metrics") or {}
+    faults = metrics.get("io_faults") or {}
+    skipped = metrics.get("snapshot_skipped") or {}
+    free = (metrics.get("disk_free_bytes") or {}).get("") or {}
+    n_faults = sum(int(v) for v in faults.values())
+    n_skipped = sum(int(v) for v in skipped.values())
+    if not (faults or skipped or free):
+        return ""
+    free_v = free.get("value")
+    tiles = [
+        _tile("disk free",
+              f"{free_v / 1e9:.2f} GB" if free_v is not None else "—",
+              "last writer observation"),
+        _tile("io faults", str(n_faults),
+              f"{len(faults)} site/errno pairs"),
+        _tile("snapshots skipped", str(n_skipped),
+              "resume falls back one snapshot"),
+    ]
+    rows = []
+    for label in sorted(faults):
+        # "errno=enospc,site=snapshot" -> {"errno": ..., "site": ...}
+        kv = dict(p.split("=", 1) for p in label.split(",") if "=" in p)
+        rows.append(
+            f'<tr><td>{_esc(kv.get("site", "?"))}</td>'
+            f'<td>{_esc(kv.get("errno", "?"))}</td>'
+            f"<td>{int(faults[label])}</td></tr>"
+        )
+    table = (
+        '<table class="data"><thead><tr><th>site</th><th>errno</th>'
+        f'<th>faults</th></tr></thead><tbody>{"".join(rows)}</tbody>'
+        "</table>"
+    ) if rows else ""
+    return (
+        '<section><h2>Storage <span class="muted">'
+        "(writer degradations)</span></h2>"
+        f'<div class="tiles">{"".join(tiles)}</div>{table}</section>'
+    )
+
+
 def render_html(
     registry_snapshot: Dict[str, Any],
     serve_metrics: Optional[dict] = None,
@@ -520,6 +566,7 @@ def render_html(
 {_router_section(router) if router is not None else ''}
 {_session_section(session, decode) if session else ''}
 {_reqtrace_section(reqtrace) if reqtrace else ''}
+{_storage_section(registry_snapshot)}
 <section><h2>Serving</h2><div class="tiles">{''.join(tiles)}</div></section>
 <section><h2>Latency SLO <span class="muted">(p99 budget {budget:g} ms)</span></h2>
 <div class="tiles">{''.join(slo_tiles)}</div></section>

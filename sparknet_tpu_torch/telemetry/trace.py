@@ -305,10 +305,8 @@ def flush_sidecar() -> Optional[str]:
     # sidecar's trace, never the sidecar
     from ..utils import safeio
 
-    try:
-        safeio.atomic_write_json(out, _meta_events(events()) + events(),
-                                 indent=None, fsync=False)
-    except OSError:
+    if not safeio.best_effort_write_json(out, _meta_events(events()) + events(),
+                                         site="flight", indent=None, fsync=False):
         return None
     return out
 
@@ -343,7 +341,7 @@ def write(path: Optional[str] = None) -> Optional[str]:
     doc = {"traceEvents": evts, "displayTimeUnit": "ms"}
     from ..utils import safeio
 
-    safeio.atomic_write_json(path, doc, indent=None, fsync=False)
+    safeio.atomic_write_json(path, doc, site="flight", indent=None, fsync=False)
     return path
 
 

@@ -368,6 +368,10 @@ def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch, ca
                 e["name"] for e in doc["traceEvents"]}
         else:
             assert [f for f in os.listdir(tmp_path / "p") if f.endswith(".json")]
+    elif flag == "chaos":
+        # ported: a plan naming an unknown fault point fails at launch
+        with pytest.raises(ValueError, match="unknown fault point 'x'"):
+            cifar_app.main(argv)
     else:
         with pytest.raises(NotImplementedError, match=f"--{flag}="):
             cifar_app.main(argv)

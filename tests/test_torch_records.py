@@ -21,9 +21,9 @@ package's ``data/records.py`` and ``data/cache.py``.
   legacy feed's; the packed feed's reader metrics and the staging
   double buffer; the pack tool.
 
-The JAX module's ``data.torn_shard`` chaos point is not ported; the
-torn-record substitution it drove is held here with a real flipped
-byte.
+The torn-record substitution is held here with a real flipped byte;
+the ``data.torn_shard`` chaos point that drives it is held against the
+JAX reader in ``test_torch_storage_faults.py``.
 """
 
 import filecmp
