@@ -104,14 +104,15 @@ own lines:
    ``stale_gen``; the session load generator (8 sessions, Zipf 1.1, 4
    steps, 64 requests) with 0 failed requests;
 7b. router-tier: the serving tier across processes, full-width
-   ``bvlc_alexnet`` from a seed-0 solverstate the phase writes. First
+   ``bvlc_alexnet`` from a seed-0 solverstate the phase writes.
    ``python -m sparknet_tpu_torch.tools.serve --replicas 2 --quant int8
-   --quant-ab 0.5`` as a process of its own session: its port file once
+   --quant-ab 0.5`` as a process of its own session (beside the tier
+   below coming up, and ended before its traffic starts): its port file once
    both replicas answer healthy (seconds, each replica's ``warmup_s`` and
    compile-cache library counts printed; the kernels come from the build
    phase's directory), replica 0 f32 and replica 1 int8, an answer of
    each precision held against the CPU engine of that precision, then
-   SIGTERM: exit 0 and no replica process left. Then the same tier built
+   SIGTERM: exit 0 and no replica process left. The same tier built
    by the tool's ``build_tier`` in this process (its router has no HTTP
    route for ``roll_back``), under 4 closed-loop clients (a
    ``--tier-client`` process; one seeded row a request, each with its
@@ -403,7 +404,8 @@ own lines:
    meanwhile. Then, with no plan, ``SPARKNET_DISK_MIN_FREE_MB`` above
    the free space makes ``safeio.atomic_write`` refuse before staging
    (counted). The phase ends with no plan, no ``SPARKNET_CHAOS`` and no
-   storm in this process.
+   storm in this process. The supervised runs of item 20a start at the
+   phase's start, beside A and B.
 20. catalogue: Caffe's whole layer catalogue, under deterministic
    algorithms. Each of the 36 layer types the port added after the
    image nets' 13 (42 cases with their options) runs forward and
@@ -436,9 +438,40 @@ own lines:
    --max-iter 300`` as a process in their directory (test_iter 10), whose
    last TEST accuracy must reach 0.5 (chance 0.1) and whose last
    ``speed:`` line is printed, and ``caffe test`` of its snapshot, which
-   must print the same accuracy. LeNet comes first, alone on the card;
-   its ``caffe test`` process runs beside the checks above. No kernel of
-   ``ops/csrc`` launches.
+   must print the same accuracy. LeNet comes first, with no other work
+   of this phase on the card; its ``caffe test`` process runs beside the
+   checks above. No kernel of ``ops/csrc`` launches. The supervised runs
+   of item 20a run beside the whole phase.
+20a. supervise: supervised recovery for training, checked after the
+   catalogue (``--phase supervise``: with a run A of its own). Each run
+   is ``python -m <app> ... --supervise`` in a session of its own, the
+   supervising process, whose children start with a ``sitecustomize``
+   module that turns TF32 off and deterministic algorithms on, as the
+   app jobs run. S: ImageNetApp on run A's command line under
+   ``SPARKNET_CHAOS=supervisor.child_crash@iter=8,supervisor.resume_torn@index=0``:
+   generation 0 snapshots at 4 and 8 and hard-exits (9) at the boundary
+   at 8 with a ``chaos.child_crash`` record (last completed iteration
+   8) whose flight dump holds the snapshot lines; the supervisor tears
+   the file for 8 and its walk falls back to 4 (``supervisor:`` line
+   exactly ``{"restarts": 1, "torn_snapshots": 1, "verified_resumes":
+   1}``); generation 1 (no plan, ``--auto-resume``) warns of the torn
+   8, resumes at 4 and runs to 12, where its solverstate must equal run
+   A's bit for bit (params, net state, optimizer slots, generator,
+   iteration). G: CifarApp's cifar10_quick, ``--parallel local --tau
+   10``, as a gang of 2 processes on cuda:0 over gloo
+   (``SPARKNET_DIST_BACKEND``), heartbeat timeout 8 s, under
+   ``multihost.peer_silence@worker=1:tick=3`` (and a 40 ms slow batch,
+   so that the silence ends generation 0, not ``max_iter``),
+   ``SPARKNET_SUPERVISE_DEGRADE_AFTER=1``: generation 0's rank 0 exits
+   43 with a ``peer_failure`` record and is blamed, rank 1 ends as an
+   error or a signal, and generation 1 runs at width 1 with
+   ``SPARKNET_ELASTIC_RESUME=1`` to ``max_iter`` (the decisions the JAX
+   supervisor takes on those exits, ``tests/test_torch_supervisor.py``).
+   Both must exit 0 and leave no process of their session; the
+   supervising process must never appear among the card's compute
+   processes (``nvidia-smi``) nor hold a ``/dev/nvidia*`` file, while a
+   child of it does. The children's LRN launches are their own
+   processes', not in the kernels line.
 21. telemetry: observability and remat, f32 without TF32 unless bf16 is
    named. ImageNetApp (AlexNet at batch 256, 12 iterations, a test
    every 6) as an ``--app-job`` process with ``--trace`` and
@@ -446,9 +479,10 @@ own lines:
    merged Chrome trace parses and holds the phases and both workers'
    spans; the timeline's rows are at least 90% of the loop's wall; the
    ``lrn_*`` kernels of the profiler's trace equal the launch counters'
-   increase over the run); the two-rank run below goes beside it (the
-   app's feed, not the card, bounds its speed). Then ``--remat``
-   through the captured step, under
+   increase over the run); the two-rank run below and the remat runs go
+   beside it (the app's feed, not the card, bounds its speed; the remat
+   runs' ms are read with the app and the ranks on the card).
+   ``--remat`` through the captured step, under
    deterministic algorithms: AlexNet at 256 and ResNet-50 at 32, 6
    iterations on 6 device-resident batches, remat against plain bit for
    bit (params, net state, every metric), peak memory allocated over the
@@ -463,7 +497,8 @@ own lines:
    ``build`` with ``--remat``, f32 and bf16, dropout 0.1, 6 iterations:
    the losses bit for bit, the flash forward twice per layer and step
    (dq and dk/dv once), peak memory both ways, held to the profiler.
-   Then ``time_net`` on AlexNet at 256, f32 and bf16, with
+   Then, once the app and the ranks have ended, ``time_net`` on AlexNet
+   at 256, f32 and bf16, with
    ``--per-layer``, and ``caffe time`` on LeNet (TFLOP/s and MFU against
    ``utils/profiling.PEAK_FLOPS``); the AlexNet server's ``/metrics``
    (Prometheus text: every sample line parses; the registry's and the
@@ -605,6 +640,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -737,20 +773,27 @@ class Phases:
     def __init__(self):
         self.failed = []
         self.seconds = 0.0  # every phase's, summed
+        self.by_phase = []  # (name, seconds), in order
+
+    def table(self) -> None:
+        """Seconds by phase, slowest first, with each one's share."""
+        log(f"seconds by phase ({self.seconds:.1f} s in all):")
+        for name, sec in sorted(self.by_phase, key=lambda t: -t[1]):
+            log(f"  {name:<16} {sec:8.1f} s  {100 * sec / max(self.seconds, 1e-9):5.1f}%")
 
     def run(self, name, fn, *args):
         log(f"== phase {name}")
         t0 = time.perf_counter()
+        out, ok = None, False
         try:
-            out = fn(*args)
+            out, ok = fn(*args), True
         except Exception:
             traceback.print_exc(file=sys.stdout)
-            self.seconds += time.perf_counter() - t0
-            log(f"== phase {name}: FAILED after {time.perf_counter() - t0:.1f} s")
             self.failed.append(name)
-            return None
-        self.seconds += time.perf_counter() - t0
-        log(f"== phase {name}: ok in {time.perf_counter() - t0:.1f} s")
+        sec = time.perf_counter() - t0
+        self.seconds += sec
+        self.by_phase.append((name, sec))
+        log(f"== phase {name}: " + (f"ok in {sec:.1f} s" if ok else f"FAILED after {sec:.1f} s"))
         return out
 
 
@@ -1424,7 +1467,7 @@ def phase_profile(serving):
         wall = (time.perf_counter() - t0) / reps * 1e6  # us per forward
     kernels = [
         e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        if e.device_type == torch.autograd.DeviceType.CUDA and not _annotation(e)
     ]
 
     def dev_us(e):
@@ -2205,14 +2248,19 @@ def _router_answers(answers, epochs, cpu, w):
     by = {}
     for a in answers:
         by.setdefault((a[5], allowed(a[6], a[7])), []).append(a)
-    ok8 = n8 = 0
-    held = {"f32": 0, "int8": 0}
-    for (quant, keys), group in sorted(by.items(), key=lambda kv: (kv[0][0], sorted(kv[0][1]))):
-        x = np.concatenate([_tier_rows(1000 * (a[0] + 1) + a[1], 1) for a in group])
-        match = np.zeros(len(group), bool)
-        for key in sorted(keys):
-            eng = cpu[quant]
-            eng.swap_from_file(w[key])
+    groups = sorted(by.items(), key=lambda kv: (kv[0][0], sorted(kv[0][1])))
+    xs = [np.concatenate([_tier_rows(1000 * (a[0] + 1) + a[1], 1) for a in group])
+          for _, group in groups]
+    matches = [np.zeros(len(group), bool) for _, group in groups]
+    # each precision's engine loads each weights file once, for every group
+    # whose answers it could have served
+    for quant, key in sorted({(q, k) for (q, keys), _ in groups for k in keys}):
+        eng = cpu[quant]
+        eng.swap_from_file(w[key])
+        for g, ((q, keys), group) in enumerate(groups):
+            if q != quant or key not in keys:
+                continue
+            x, match = xs[g], matches[g]
             probs = np.concatenate([eng.infer(x[i:i + 32]) for i in range(0, len(x), 32)])
             idx = eng.postprocess(probs, 5)[0]
             for r, a in enumerate(group):
@@ -2222,6 +2270,9 @@ def _router_answers(answers, epochs, cpu, w):
                 elif np.array_equal(got, idx[r]) or np.allclose(
                         probs[r][got], probs[r][idx[r]], rtol=1e-5, atol=0):
                     match[r] = True
+    ok8 = n8 = 0
+    held = {"f32": 0, "int8": 0}
+    for ((quant, keys), group), match in zip(groups, matches):
         held[quant] += len(group)
         if quant == "int8":
             ok8 += int(match.sum())
@@ -2260,8 +2311,18 @@ def phase_router_tier(tmp):
         _tier_state(path, cpu["f32"].net, seed)
     torn = _tier_torn(w[1], os.path.join(tmp, "alexnet_iter_30.solverstate.npz"))
     secs["weights"] = time.perf_counter() - t0
-    _router_cli(tmp, w[0], cpu)
-    secs["cli"] = time.perf_counter() - t0 - sum(secs.values())
+    # the CLI tier, a process of its own, comes up and goes beside this
+    # process's tier coming up; it has ended before the traffic starts
+    cli = {}
+
+    def run_cli():
+        try:
+            _router_cli(tmp, w[0], cpu)
+        except BaseException as e:  # raised again below, after the join
+            cli["error"] = e
+
+    cli_thread = threading.Thread(target=run_cli, name="router-cli")
+    cli_thread.start()
 
     run = os.path.join(tmp, "run")
     args = tool.parse_args(_router_argv(w[0], run, "--health-interval-s", "0.25"))
@@ -2292,16 +2353,22 @@ def phase_router_tier(tmp):
         if not tool.wait_tier(router, pool, ROUTER_WAIT):
             raise AssertionError(f"the tier did not come up: {pool.snapshot()}")
         up_s = time.perf_counter() - t1
+        cli_thread.join(ROUTER_WAIT)
+        if cli_thread.is_alive():
+            raise AssertionError(f"the CLI tier's check did not end in {ROUTER_WAIT:.0f} s")
+        if "error" in cli:
+            raise cli["error"]
         boot = [portfile(i, 0) for i in range(2)]
         pids |= {d["pid"] for d in boot}
         hz = router.healthz()
         if [r["quant"] for r in hz["replicas"]] != ["f32", "int8"]:
             raise AssertionError(f"replica precisions {hz['replicas']}")
-        log(f"  the tier in this process (the tool's build_tier): healthy in {up_s:.1f} s; "
+        log(f"  the tier in this process (the tool's build_tier): healthy in {up_s:.1f} s "
+            f"(beside the CLI tier); "
             f"replica warmup_s {[d['warmup_s'] for d in boot]}, compile_cache entries "
             f"{[d['compile_cache']['entries'] for d in boot]} (the build phase's libraries, "
             f"loaded, not built); quant {[r['quant'] for r in hz['replicas']]}")
-        secs["up"] = time.perf_counter() - t0 - sum(secs.values())
+        secs["cli and up"] = time.perf_counter() - t0 - sum(secs.values())
         traffic = _Traffic(router, tmp, router=True)
         epochs, t_epoch, key = [], time.time(), 0  # (start, end, weights' keys)
         _wait_for("the clients' first answers", lambda: router.metrics.requests >= 2 * TIER_CLIENTS)
@@ -2412,6 +2479,7 @@ def phase_router_tier(tmp):
             sys.stdout = lines.out
             router.stop()
             _reap(pids)
+            cli_thread.join(ROUTER_WAIT)
     epochs.append((t_epoch, time.time() + 1, {key}))
     if failed:
         raise AssertionError(f"{len(failed)} failed requests: {failed[:3]}")
@@ -2875,7 +2943,10 @@ def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
                              graph=solver._fuse_host)
     metrics, events, traced = run["out"], run["events"], run["kernels"]
     wall = run["wall_us"]
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the card's work: not its user-annotation spans (each traced step's
+    # ProfilerStep among them), which cover that work again
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not _annotation(e)]
     host = {what: sum(e.count for e in events if e.key in names) // steps
             for what, names in HOST_LAUNCH_APIS.items()}
 
@@ -2897,7 +2968,10 @@ def _profile_way(solver, feed, label, items, unit, tags=(), slack0=0.0):
         f"the graph pool beyond it {pool:.2f} GiB; host launches a step: "
         + ", ".join(f"{n} {what}" for what, n in host.items())
         + "; traced kernels a step = the launch counters': "
-        + (", ".join(f"{n} {part}" for part, n in traced.items() if n) or "none"))
+        + (", ".join(f"{n} {part}" for part, n in traced.items() if n) or "none")
+        + ("" if run["margins_us"] is None else
+           "; trace margins, µs: launch to first kernel >= {}, window start to the first "
+           "record {}, the last record to the window's end {}".format(*run["margins_us"])))
     bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
     if bad:
         raise AssertionError(f"{label}: non-finite metrics {bad}")
@@ -3175,7 +3249,8 @@ def _device_ms(fn, tag=None, n=20):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and (tag is None or tag in e.key)]
+              if e.device_type == torch.autograd.DeviceType.CUDA and not _annotation(e)
+              and (tag is None or tag in e.key)]
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
              for e in events)
     if not us:
@@ -3542,6 +3617,60 @@ def phase_bert_profile():
         del solver, feed
         torch.cuda.empty_cache()
     return out
+
+
+PROFILE_WINDOW_RUNS = 10
+
+
+def phase_profile_windows(tmp):
+    """The profiler windows whose per-replay check failed in whole runs,
+    and only those, PROFILE_WINDOW_RUNS times: GoogLeNet bf16's resident
+    step, eager then through the graph (the googlenet phase's last
+    :func:`_profile_steps`), and the bert-profile phase's four. A miss is
+    printed with what the trace held (:func:`_trace_miss_report`) and
+    counted; the phase fails after the last run if any window missed."""
+    import itertools
+
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+
+    solver_file = _zoo_solver_file(tmp, "googlenet")
+    misses, windows = [], 0
+
+    def googlenet():
+        args = imagenet_app.make_args(arch="googlenet", synthetic=True, synthetic_n=512,
+                                      solver=solver_file, device="cuda", bf16=True)
+        solver, train_feed, _ = imagenet_app.build(args)
+        batch = solver._put_batch(next(train_feed))
+        getattr(train_feed, "close", lambda: None)()
+        return solver, itertools.repeat(batch), 32, "images"
+
+    def bert(bf16):
+        return lambda: (*_bert_resident(bf16), BERT_BATCH * BERT_SEQ, "tokens")
+
+    cases = (("googlenet batch 32, bf16", googlenet), ("BERT-base f32", bert(False)),
+             ("BERT-base bf16", bert(True)))
+    for run in range(PROFILE_WINDOW_RUNS):
+        for name, make in cases:
+            torch.cuda.empty_cache()
+            solver, feed, items, unit = make()
+            slack0 = _slack_gib(torch)
+            for fused in (False, True):
+                solver._fuse_host = fused
+                label = f"run {run}: {name}, {'graph' if fused else 'eager'}"
+                windows += 1
+                try:
+                    _profile_way(solver, feed, label, items, unit, (), slack0)
+                except AssertionError as e:
+                    log(f"  MISS {e}")
+                    misses.append(label)
+            del solver, feed
+    log(f"  per-replay check: {len(misses)} missed of {windows} windows "
+        f"({PROFILE_WINDOW_RUNS} runs): {misses}")
+    if misses:
+        raise AssertionError(f"{len(misses)} of {windows} profiler windows missed")
+    return {"windows": windows, "misses": len(misses)}
 
 
 # ------------------------------------------------------------- fused step
@@ -4282,7 +4411,7 @@ def _profile_round(solver, feed):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and not _annotation(e)]
     busy_ms = sum(getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0.0) for e in kernels) / 1e3
     if not busy_ms:
@@ -4384,7 +4513,9 @@ def _launch_ranks(jobs, world, tmp, backend, timeout=MP_TIMEOUT, cmd=None, env=N
             s.bind(("127.0.0.1", 0))
             return s.getsockname()[1]
 
-    spec = os.path.join(tmp, f"spec_{len(os.listdir(tmp))}.json")
+    # a name of its own: launches may run side by side
+    fd, spec = tempfile.mkstemp(prefix="spec_", suffix=".json", dir=tmp)
+    os.close(fd)
     with open(spec, "w") as f:
         # gloo rehearses on one card; NCCL takes one card a rank
         json.dump({"jobs": jobs, "backend": backend, "out": tmp,
@@ -4658,7 +4789,7 @@ def _profile_idle(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and not _annotation(e)]
     busy = sum(getattr(e, "self_device_time_total", None)
                or getattr(e, "self_cuda_time_total", 0.0) for e in kernels) / 1e3
     return {"busy_ms": busy or None, "wall_ms": wall,
@@ -4847,14 +4978,32 @@ def phase_multiprocess(tmp):
     log(f"  card: {_smi()}")
     counts = torch.cuda.device_count()
     ref_resnet, ref_alexnet = _mp_references(tmp)
-    results, _ = _launch_ranks([{"kind": "probe", "name": "probe"}] + _mp_jobs("gloo", tmp),
-                               2, tmp, "gloo")
+    # the one NCCL rank's launch goes beside the two gloo ranks'
+    nccl = {}
+
+    def run_nccl1():
+        try:
+            nccl["res"] = _launch_ranks([{"kind": "nccl1", "name": "nccl1"}], 1, tmp, "nccl")[0]
+        except BaseException as e:  # raised again below, after the join
+            nccl["error"] = e
+
+    import threading
+
+    thread = threading.Thread(target=run_nccl1, name="nccl1")
+    thread.start()
+    try:
+        results, _ = _launch_ranks([{"kind": "probe", "name": "probe"}]
+                                   + _mp_jobs("gloo", tmp), 2, tmp, "gloo")
+    finally:
+        thread.join(MP_TIMEOUT)
+    if "error" in nccl:
+        raise nccl["error"]
     log(f"  gloo on card tensors (2 ranks on cuda:0): {results[0]['probe']}")
     if any(v != "ok" for v in results[0]["probe"].values()):
         raise AssertionError(f"gloo on card tensors: {results[0]['probe']}")
     launches = _mp_check("gloo", results, tmp, 2, ref_resnet, ref_alexnet)
     _mp_one_process_bn("gloo", results, tmp, ["cuda:0"] * 2)
-    nccl1, _ = _launch_ranks([{"kind": "nccl1", "name": "nccl1"}], 1, tmp, "nccl")
+    nccl1 = nccl["res"]
     log(f"  NCCL at world size 1: {nccl1[0]['nccl1']}")
     if nccl1[0]["nccl1"]["sum"] != [1.0, 2.0, 3.0, 4.0]:
         raise AssertionError(f"NCCL world 1: {nccl1[0]}")
@@ -5218,9 +5367,10 @@ def phase_bert_processes(tmp):
 
     log(f"  card: {_smi()}")
     ref = _bp_references(tmp)
-    results, _ = _launch_ranks([{"kind": "bert", "name": "bert"}], 2, tmp, "gloo")
+    # one launch for both jobs: the ranks start and join once
+    results, _ = _launch_ranks([{"kind": "bert", "name": "bert"},
+                                {"kind": "tau_auto", "name": "tau"}], 2, tmp, "gloo")
     launches = _bp_check("gloo", results, tmp, 2, ref)
-    results, texts = _launch_ranks([{"kind": "tau_auto", "name": "tau"}], 2, tmp, "gloo")
     taus = [r["tau"]["taus"] for r in results]
     log(f"  cifar10_quick --tau auto over 2 ranks (gloo, cuda:0), {TAU_AUTO_ROUNDS} "
         f"rounds: tau by round {taus[0]}; rank 1's the same: {taus[0] == taus[1]}; "
@@ -6203,33 +6353,55 @@ def _ch_slow_batch(path):
             f"{slow[0] - median:.1f} ms added")
 
 
-def phase_chaos(tmp):
-    """Fault injection in one process (module docstring, phase chaos);
+def phase_chaos(tmp, sv_dir=None, sv=None):
+    """Fault injection in one process (module docstring, phase chaos):
     -> the LRN launches of runs A, B and C and of the served traffic.
     The three app runs start at once and take the card while the parent
     writes the solver; A and B go together, C once B has ended. The
-    serving part runs in a thread of this process beside them."""
+    serving part runs in a thread of this process. Given ``sv_dir`` and
+    the dict ``sv``, the supervised runs (:func:`_sv_start`) start in
+    ``sv_dir`` beside them, as ``sv["runs"]``, and run A's last
+    solverstate is kept there for their check
+    (:func:`phase_supervise_check`), which comes after the next phase."""
+    runs = {name: _cn_start(tmp, name) for name in ("A", "B", "C")}
+    t_phase = time.perf_counter()
+    argv = _ch_argv(tmp)
+    try:
+        if sv is not None:
+            sv["runs"] = _sv_start(sv_dir, _ch_argv(sv_dir))
+        out = _chaos(tmp, runs, argv, t_phase)
+        if sv is not None:
+            name = f"alexnet_iter_{CH_ITERS}.solverstate.npz"
+            shutil.copy(os.path.join(tmp, "a", "snap", name),
+                        os.path.join(sv_dir, f"a_ref_iter_{CH_ITERS}.solverstate.npz"))
+        return out
+    finally:
+        _ch_kill(runs)
+
+
+def _ch_kill(runs):
+    """SIGKILL each run's session that is left, close its log."""
     import signal
 
-    runs = {name: _cn_start(tmp, name) for name in ("A", "B", "C")}
-    try:
-        return _chaos(tmp, runs)
-    finally:
-        for proc, out, _, _ in runs.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-            out.close()
+    for run in runs.values():
+        proc, out = run[0], run[1]
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        out.close()
 
 
-def _chaos(tmp, runs):
+def _ch_argv(tmp):
+    """ImageNetApp's command line of the chaos phase's AlexNet runs."""
+    return ["--arch", "alexnet", "--solver", _ch_solver(tmp), "--device", "cuda",
+            "--synthetic", "--synthetic-n", str(CH_SYNTHETIC_N), "--batch-size",
+            str(CH_BATCH), "--native-loader", "off", "--data-workers", "2"]
+
+
+def _chaos(tmp, runs, argv, t_phase):
     import threading
 
     smi = _smi()
-    t_phase = time.perf_counter()
-    argv = ["--arch", "alexnet", "--solver", _ch_solver(tmp), "--device", "cuda",
-            "--synthetic", "--synthetic-n", str(CH_SYNTHETIC_N), "--batch-size",
-            str(CH_BATCH), "--native-loader", "off", "--data-workers", "2"]
     went = {"A": _cn_go(runs["A"], os.path.join(tmp, "a"), argv),
             "B": _cn_go(runs["B"], os.path.join(tmp, "b"),
                         argv + ["--chaos", CH_SPEC, "--trace", CH_TRACE])}
@@ -6357,6 +6529,324 @@ def _ch_runs(tmp, runs, argv, went):
         f"{job_c['chaos']['recoveries']}), ran to {CH_ITERS}: params, net state, optimizer "
         f"slots, generator and iteration equal run A's bit for bit; LRN launches {got_lrn}")
     return got_lrn
+
+
+# ----------------------------------------------------------- supervise
+# the supervised AlexNet run: its child hard-exits at the boundary at 8
+# (after the snapshots at 4 and 8), and the supervisor tears the file for
+# 8 before the relaunch, which falls back to 4
+SV_SPEC = "supervisor.child_crash@iter=8,supervisor.resume_torn@index=0"
+# the gang: rank 1 goes silent at its third tick; generation 0's batches
+# are held 40 ms each (its rank 0 had 280 iterations done at 20 ms when
+# the silence was seen), so the silence, not max_iter, ends it
+SV_GANG_SPEC = ("multihost.peer_silence@worker=1:tick=3,"
+                "pipeline.slow_batch@every=1:delay_ms=40")
+SV_GANG_ITERS, SV_GANG_SNAPSHOT = 500, 100
+SV_HEARTBEAT_S = "8"  # the gang's heartbeat timeout (its interval 1.6 s)
+SV_KILL_GRACE_S = "3"
+SV_TIMEOUT = 300  # seconds a supervised run may take
+# the supervised children's start-up (a sitecustomize module on their
+# path): f32 without TF32 and deterministic algorithms, as the app jobs
+# run, so that the resumed run can equal run A bit for bit
+SV_SITE = """import torch
+import torch.utils.deterministic
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.utils.deterministic.fill_uninitialized_memory = False
+"""
+
+
+def _sv_solver(tmp):
+    """cifar10_quick under the gang's solver: SV_GANG_ITERS iterations, a
+    snapshot every SV_GANG_SNAPSHOT, one test of 2 batches at the end."""
+    from sparknet_tpu_torch.models import CIFAR_QUICK_TRAIN_TEST
+
+    path = os.path.join(tmp, "sv_gang_solver.prototxt")
+    with open(path, "w") as f:
+        f.write(f'net: "{CIFAR_QUICK_TRAIN_TEST}"\ntest_iter: 2\n'
+                f"test_interval: {SV_GANG_ITERS}\ntest_initialization: false\n"
+                'base_lr: 0.001\nlr_policy: "fixed"\nmomentum: 0.9\nweight_decay: 0.004\n'
+                f"display: {SV_GANG_SNAPSHOT}\nmax_iter: {SV_GANG_ITERS}\n"
+                f'snapshot: {SV_GANG_SNAPSHOT}\nsnapshot_prefix: "snap/quick"\n')
+    return path
+
+
+def _sv_start(tmp, argv):
+    """Start the supervised runs, each ``python -m <app> ... --supervise``
+    (the supervising process) in a session of its own with its output in
+    ``<tmp>/<name>.log``: S, ImageNetApp on the chaos phase's AlexNet
+    under SV_SPEC; G, CifarApp's cifar10_quick as a gang of 2 processes
+    on cuda:0 over gloo under SV_GANG_SPEC, degraded after one blamed
+    failure. -> their :class:`_SvRuns`, sampling from now on."""
+    import socket
+
+    site = os.path.join(tmp, "sv_site")
+    os.makedirs(site, exist_ok=True)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(SV_SITE)
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    base = dict(os.environ, PYTHONUNBUFFERED="1", CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                SPARKNET_SUPERVISE_BACKOFF="0.1", SPARKNET_SUPERVISE_BACKOFF_CAP="0.2",
+                PYTHONPATH=os.pathsep.join(p for p in (site, ROOT,
+                                                       os.environ.get("PYTHONPATH")) if p))
+    jobs = {
+        "S": (["sparknet_tpu_torch.apps.imagenet_app", *argv],
+              dict(SPARKNET_CHAOS=SV_SPEC, SPARKNET_SNAPSHOT_KEEP=str(CN_KEEP))),
+        "G": (["sparknet_tpu_torch.apps.cifar_app", "--solver", _sv_solver(tmp),
+               "--synthetic", "--synthetic-n", "2000", "--parallel", "local", "--tau", "10",
+               "--device", "cuda", "--data-workers", "1", "--native-loader", "off"],
+              dict(SPARKNET_CHAOS=SV_GANG_SPEC, SPARKNET_NUM_PROCESSES="2",
+                   SPARKNET_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   SPARKNET_HEARTBEAT_PORT=str(free_port()), SPARKNET_DIST_BACKEND="gloo",
+                   SPARKNET_HEARTBEAT_TIMEOUT=SV_HEARTBEAT_S, SPARKNET_INIT_TIMEOUT="120",
+                   SPARKNET_SUPERVISE_DEGRADE_AFTER="1",
+                   SPARKNET_SUPERVISE_KILL_GRACE=SV_KILL_GRACE_S)),
+    }
+    started = {}
+    for name, (cmd, env) in jobs.items():
+        cwd = os.path.join(tmp, name.lower() + "_sv")
+        os.makedirs(cwd, exist_ok=True)
+        path = os.path.join(tmp, f"{name}_sv.log")
+        out = open(path, "w")
+        proc = subprocess.Popen([sys.executable, "-m", *cmd, "--supervise"], cwd=cwd,
+                                env=dict(base, SPARKNET_RUN_DIR=cwd, **env), stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        started[name] = (proc, out, path, time.monotonic())
+    return _SvRuns(started)
+
+
+def _sv_session(sid):
+    """The pids of the processes in session ``sid`` (from /proc)."""
+    pids = set()
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    # the fields after the command's closing parenthesis
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[3]) == sid:
+                pids.add(int(name))
+    return pids
+
+
+def _sv_nvidia(pid):
+    """Does process ``pid`` hold one of the card's device files
+    (``/dev/nvidia*``: a CUDA context, or CUDA initialized)?"""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+class _SvRuns:
+    """The supervised runs ({name: (process, log file, log path, start
+    time)}) and a thread that samples, every 0.5 s from their start to
+    their ends, the card's compute processes (``nvidia-smi
+    --query-compute-apps=pid``), each run's session, and which of its
+    processes hold the card's device files (:func:`_sv_nvidia`)."""
+
+    def __init__(self, runs):
+        import threading
+
+        self.runs = runs
+        self.seen = {name: {"card": set(), "session": set(), "dev": set()} for name in runs}
+        self.ended = {}  # name -> seconds from its start to its end
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, name="supervised-runs",
+                                        daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._stop.is_set() and len(self.ended) < len(self.runs):
+            q = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                "--format=csv,noheader"],
+                               capture_output=True, text=True, timeout=60)
+            card = {int(t) for t in q.stdout.split() if t.strip().isdigit()}
+            for name, (proc, _, _, t0) in self.runs.items():
+                if name in self.ended:
+                    continue
+                if proc.poll() is not None:
+                    self.ended[name] = time.monotonic() - t0
+                    continue
+                self.seen[name]["card"] |= card
+                pids = _sv_session(proc.pid)
+                self.seen[name]["session"] |= pids
+                self.seen[name]["dev"] |= {p for p in pids if _sv_nvidia(p)}
+            self._stop.wait(0.5)
+
+    def wait(self):
+        """Wait for the runs' ends (at most SV_TIMEOUT from their start),
+        then up to 10 s for each session to empty. -> {name: (exit code,
+        output, seconds, what was seen, pids left)}."""
+        t0 = min(run[3] for run in self.runs.values())
+        self._thread.join(max(SV_TIMEOUT - (time.monotonic() - t0), 0.1))
+        res = {}
+        for name, (proc, _, path, _) in self.runs.items():
+            if name not in self.ended:
+                raise AssertionError(f"supervised run {name} did not end in {SV_TIMEOUT} s")
+            left = _sv_session(proc.pid)
+            end = time.monotonic() + 10
+            while left and time.monotonic() < end:
+                time.sleep(0.2)
+                left = _sv_session(proc.pid)
+            with open(path) as f:
+                text = f.read()
+            if proc.returncode:
+                for line in text.splitlines()[-60:]:
+                    log(f"  {name} | {line}")
+            res[name] = (proc.returncode, text, self.ended[name], self.seen[name], left)
+        return res
+
+    def kill(self):
+        """Stop sampling; SIGKILL each run's session that is left."""
+        self._stop.set()
+        self._thread.join(70)
+        _ch_kill(self.runs)
+
+
+def _sv_line(name, text):
+    lines = [l for l in text.splitlines() if l.startswith("supervisor: ")]
+    if len(lines) != 1:
+        raise AssertionError(f"supervised run {name}: {len(lines)} supervisor: lines")
+    return json.loads(lines[0][len("supervisor: "):])
+
+
+def _sv_check(tmp, sv, prefix_a):
+    """The supervised runs' checks (module docstring, item 20a)."""
+    from sparknet_tpu_torch.solver import snapshot
+
+    res = sv.wait()
+    for name, (proc, *_rest) in sv.runs.items():
+        rc, text, secs, seen, left = res[name]
+        if rc != 0:
+            raise AssertionError(f"supervised run {name} exited {rc}")
+        if left:
+            raise AssertionError(f"supervised run {name}: processes {sorted(left)} left alive")
+        others = seen["session"] - {proc.pid}
+        if proc.pid in seen["card"] or proc.pid in seen["dev"] or not seen["dev"]:
+            raise AssertionError(
+                f"supervised run {name}: the supervising process {proc.pid} on the card "
+                f"({sorted(seen['card'])}) or holding the card's device files "
+                f"({sorted(seen['dev'])}), or no child seen holding them")
+        report = json.load(open(os.path.join(tmp, f"{name.lower()}_sv",
+                                             "supervisor_report.json")))
+        log(f"  supervised run {name}: {secs:.1f} s, generations "
+            f"{[g['duration_s'] for g in report['generations']]} s; the card's compute "
+            f"processes seen {sorted(seen['card'])}, the supervisor {proc.pid} never among "
+            f"them; of its session's processes {sorted(others)}, {sorted(seen['dev'])} "
+            f"held the card's device files (/dev/nvidia*), the supervisor never; no process of "
+            f"its session left")
+
+    # S: the supervised AlexNet run
+    text = res["S"][1]
+    line = _sv_line("S", text)
+    if line != {"restarts": 1, "torn_snapshots": 1, "verified_resumes": 1}:
+        raise AssertionError(f"run S's supervisor: line {line}")
+    s_dir = os.path.join(tmp, "s_sv")
+    report = json.load(open(os.path.join(s_dir, "supervisor_report.json")))
+    gens = report["generations"]
+    if [(g["width"], g["action"], [(e["rank"], e["returncode"], e["class"])
+                                   for e in g["exits"]]) for g in gens] != \
+            [(1, None, [(0, 9, "error")]), (1, None, [(0, 0, "clean")])] or \
+            report["final_status"] != "done" or gens[0]["resume"]["iter"] != CH_SNAPSHOT:
+        raise AssertionError(f"run S's report: {json.dumps(report)[:3000]}")
+    (rec,) = gens[0]["records"]
+    if rec["kind"] != "chaos.child_crash" or rec["last_completed_iteration"] != \
+            2 * CH_SNAPSHOT or not rec["flight_recorder"]:
+        raise AssertionError(f"run S's record {rec}")
+    dump = json.load(open(rec["flight_recorder"]))
+    if not any(f"Snapshotting solver state to" in l and f"_iter_{2 * CH_SNAPSHOT}." in l
+               for l in dump["logs"]):
+        raise AssertionError(f"run S's flight dump logs {dump['logs'][-10:]}")
+    resumed = f"Restoring previous solver status from {s_dir}/snap/alexnet_iter_{CH_SNAPSHOT}."
+    if resumed not in text or "is torn/unreadable" not in text:
+        raise AssertionError("run S's relaunch: no torn-file warning and fallback to "
+                             f"{CH_SNAPSHOT}")
+    got = snapshot.load_state(f"{s_dir}/snap/alexnet_iter_{CH_ITERS}.solverstate.npz")
+    want = snapshot.load_state(f"{prefix_a}_iter_{CH_ITERS}.solverstate.npz")
+    for key in ("params", "state", "opt_state", "rng", "it"):
+        _cn_equal(f"run S vs run A at iteration {CH_ITERS}: {key}", got[key], want[key])
+    log(f"  run S (ImageNetApp --supervise, SPARKNET_CHAOS='{SV_SPEC}'): generation 0 "
+        f"died at {rec['last_completed_iteration']} (exit 9, record {rec['kind']}, flight "
+        f"dump of {len(dump['logs'])} log lines, {len(dump['events'])} events); the "
+        f"supervisor tore {2 * CH_SNAPSHOT}, verified {CH_SNAPSHOT}; generation 1 resumed "
+        f"at {CH_SNAPSHOT} with no plan and ran to {CH_ITERS}: params, net state, optimizer "
+        f"slots, generator and iteration equal run A's bit for bit; supervisor: {line}")
+
+    # G: the gang
+    text = res["G"][1]
+    line = _sv_line("G", text)
+    g_dir = os.path.join(tmp, "g_sv")
+    report = json.load(open(os.path.join(g_dir, "supervisor_report.json")))
+    gens = report["generations"]
+    shape = [(g["width"], g["action"], g.get("blamed_rank")) for g in gens]
+    exits = [[(e["rank"], e["returncode"], e["class"]) for e in g["exits"]] for g in gens]
+    # the JAX supervisor's decisions for these exits (tests/test_torch_supervisor.py)
+    if shape != [(2, None, 0), (1, "degrade", None)] or exits[0][0] != (0, 43, "peer_failure") \
+            or exits[0][1][2] not in ("error", "signal") or exits[1] != [(0, 0, "clean")] \
+            or report["final_status"] != "done" or line.get("degraded_relaunches") != 1 \
+            or line.get("restarts") != 1:
+        raise AssertionError(f"the gang's report {json.dumps(report)[:3000]}; supervisor: "
+                             f"{line}")
+    rec = gens[0]["records"][0]
+    if (rec["process_id"], rec["kind"], rec["exit_code"]) != (0, "peer_failure", 43):
+        raise AssertionError(f"the gang's first record {rec}")
+    st = snapshot.load_state(f"{g_dir}/snap/quick_iter_{SV_GANG_ITERS}.solverstate.npz")
+    if st["it"] != SV_GANG_ITERS:
+        raise AssertionError(f"the gang's last solverstate at {st['it']}")
+    resume = gens[0].get("resume")
+    log(f"  gang G (CifarApp --supervise, 2 processes on cuda:0 over gloo, "
+        f"SPARKNET_CHAOS='{SV_GANG_SPEC}'): generation 0 exits {exits[0]}, blamed rank 0 "
+        f"(record {rec['kind']}: {rec['reason']}; last completed iteration "
+        f"{rec['last_completed_iteration']}); generation 1 degraded to width 1 with "
+        f"SPARKNET_ELASTIC_RESUME=1 from {resume and resume['iter']}, done at "
+        f"{SV_GANG_ITERS}; supervisor: {line}")
+
+
+def phase_supervise_check(sv_dir, sv):
+    """The supervised runs started by the chaos phase, waited for and
+    checked against its run A's kept solverstate."""
+    if "runs" not in sv:
+        raise AssertionError("the chaos phase started no supervised run")
+    try:
+        _sv_check(sv_dir, sv["runs"], os.path.join(sv_dir, "a_ref"))
+    finally:
+        sv["runs"].kill()
+
+
+def phase_supervise(tmp):
+    """The supervised runs alone, and run A, their reference."""
+    runs = {"A": _cn_start(tmp, "A")}
+    argv = _ch_argv(tmp)
+    sv = None
+    try:
+        sv = _sv_start(tmp, argv)
+        went = _cn_go(runs["A"], os.path.join(tmp, "a"), argv)
+        rc, _ = _cn_wait({"A": runs["A"]}, time.monotonic() + CN_TIMEOUT)["A"]
+        if rc != 0:
+            raise AssertionError(f"run A exited {rc}")
+        log(f"  run A (no plan): {time.monotonic() - went:.1f} s")
+        _sv_check(tmp, sv, os.path.join(tmp, "a", "snap", "alexnet"))
+    finally:
+        _ch_kill(runs)
+        if sv is not None:
+            sv.kill()
 
 
 # ----------------------------------------------------------- catalogue
@@ -7100,8 +7590,10 @@ TEL_RANK_ROUNDS = 20  # local rounds (tau 2-4) of the two-rank straggler run
 TEL_TRACED_REPLAYS = 5  # remat replays under torch.profiler, held one by one
 
 
-def _tel_solver_file(tmp, net, iters, test_interval, base_lr=0.01):
-    path = os.path.join(tmp, f"tel_{os.path.basename(net)}_solver.prototxt")
+def _tel_solver_file(tmp, net, iters, test_interval, base_lr=0.01, tag="app"):
+    # a file of its own a user (``tag``): the app's process reads its
+    # solver while the remat runs write theirs
+    path = os.path.join(tmp, f"tel_{tag}_{os.path.basename(net)}_solver.prototxt")
     with open(path, "w") as f:
         f.write(f'net: "{net}"\ntest_iter: 1\ntest_interval: {test_interval}\n'
                 f'base_lr: {base_lr}\nlr_policy: "fixed"\ndisplay: 6\nmax_iter: {iters}\n'
@@ -7167,7 +7659,9 @@ def _tel_check_trace(tmp, text, launches):
                              f"{len(pids)} worker pids")
 
 
-TRACE_LEAD_S = 0.1  # host wait between a profiler window's start and its first step
+# host wait between a profiler window's start and its first traced step,
+# and between its last traced step's end and the window's stop
+TRACE_LEAD_S = 0.1
 
 
 def _traced_per_replay(label, step, replays, graph=True):
@@ -7181,10 +7675,19 @@ def _traced_per_replay(label, step, replays, graph=True):
     replay: a replay runs every node of its graph, so the phase fails if
     any replay's trace holds another count, or if the trace misses a
     replay. Eager, the kernels summed over the traced steps held to the
-    counters' increase over those steps. -> {"kernels": {TRACE_KERNELS
-    part: a step's}, "events": the traced steps' ``key_averages()``,
-    "wall_us": the host's time a traced step, "out": the last step's
-    return}."""
+    counters' increase over those steps. The profiler keeps a device
+    record only if its time, mapped onto the host's clock, falls inside
+    the window; the window's first traced step starts TRACE_LEAD_S after
+    it opens, and it closes TRACE_LEAD_S after the last one has ended on
+    the card, so that a record near either edge is not dropped. Through
+    the graph, the trace's own margins are returned: how long after its
+    ``cudaGraphLaunch`` each replay's first kernel record starts (the
+    least, negative if the card's records are mapped before the host's
+    call), and the first record's distance from the first traced step's
+    start and the last record's from the last step's end. ->
+    {"kernels": {TRACE_KERNELS part: a step's}, "events": the traced
+    steps' ``key_averages()``, "wall_us": the host's time a traced step,
+    "out": the last step's return, "margins_us": those three, or None}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -7205,11 +7708,13 @@ def _traced_per_replay(label, step, replays, graph=True):
             if i == replays - 1:
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) / replays * 1e6
+                time.sleep(TRACE_LEAD_S)
             prof.step()
     moved = {k: v - before[k] for k, v in _counts().items()}
     events = prof.key_averages()
     kernels = {}
     launches = []
+    margins = None
     if graph:
         with tempfile.NamedTemporaryFile(suffix=".json") as f:
             prof.export_chrome_trace(f.name)
@@ -7220,6 +7725,7 @@ def _traced_per_replay(label, step, replays, graph=True):
             cid = e.get("args", {}).get("correlation")
             if e.get("cat") == "kernel" and cid is not None:
                 kernels.setdefault(cid, []).append(e["name"])
+        margins = _trace_margins(trace, launches)
     seen = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     out_kernels = {}
     for wrappers, part in TRACE_KERNELS:
@@ -7227,16 +7733,10 @@ def _traced_per_replay(label, step, replays, graph=True):
         if graph:
             per = [sum(part in k for k in kernels.get(cid, ())) for cid in launches]
             if rest or per != [want] * replays:
-                # what the trace holds of the kernel, so that a miss says
-                # whether its records were lost or went to another launch
-                held = [e.get("args", {}).get("correlation") for e in trace
-                        if e.get("cat") == "kernel" and part in e.get("name", "")]
+                log(_trace_miss_report(trace, part, launches))
                 raise AssertionError(f"{label}: {part}* kernels by traced replay {per}, the "
                                      f"launch counters {'+'.join(wrappers)} {want} a replay "
-                                     f"({replays} replays, remainder {rest}); the trace's "
-                                     f"{part}* kernel records by correlation {held}, the "
-                                     f"graph launches' {launches}, kernel records in all "
-                                     f"{sum(len(v) for v in kernels.values())}")
+                                     f"({replays} replays, remainder {rest})")
         else:
             total = sum(e.count for e in seen if part in e.key)
             if total != want * replays + rest:
@@ -7244,7 +7744,80 @@ def _traced_per_replay(label, step, replays, graph=True):
                                      f"{replays} steps, the launch counters "
                                      f"{'+'.join(wrappers)} moved by {want * replays + rest}")
         out_kernels[part] = want
-    return {"kernels": out_kernels, "events": events, "wall_us": wall_us, "out": out}
+    return {"kernels": out_kernels, "events": events, "wall_us": wall_us, "out": out,
+            "margins_us": margins}
+
+
+def _annotation(e):
+    """Is profiler event ``e`` a user annotation (a ``record_function``
+    span, ``ProfilerStep#N`` among them), on the host or on the card?"""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("ProfilerStep#")
+
+
+def _trace_margins(trace, launches):
+    """(least µs from a ``cudaGraphLaunch`` to its replay's first kernel
+    record, µs from the first traced ``ProfilerStep`` span's start to the
+    first kernel record, µs from the last kernel record's end to the last
+    span's end) of a graph window's trace; None without spans or
+    records."""
+    host = {e["args"]["correlation"]: e["ts"] for e in trace
+            if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})}
+    ks = [e for e in trace if e.get("cat") == "kernel"]
+    # the host's spans (the card's own ProfilerStep annotations cover
+    # only their kernels)
+    steps = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in trace
+                   if str(e.get("name", "")).startswith("ProfilerStep#")
+                   and e.get("cat") == "user_annotation")
+    first = {}
+    for k in ks:
+        cid = k.get("args", {}).get("correlation")
+        if cid in host:
+            first[cid] = min(first.get(cid, k["ts"]), k["ts"])
+    if not steps or not ks or not first:
+        return None
+    return (round(min(first[c] - host[c] for c in first), 1),
+            round(min(k["ts"] for k in ks) - steps[0][0], 1),
+            round(steps[-1][1] - max(k["ts"] + k.get("dur", 0) for k in ks), 1))
+
+
+def _trace_miss_report(trace, part, launches):
+    """What a trace held where a per-replay check missed: each profiler
+    step's span, each graph launch (its correlation id, host time, and the
+    kernel records of that id: how many, how many named ``part``, the
+    first's start and the last's end), the ``part`` records by correlation
+    id, and the kernel records of no graph launch; times in µs from the
+    first ``ProfilerStep`` span's start."""
+    steps = sorted((e["ts"], e.get("dur", 0), e["name"]) for e in trace
+                   if str(e.get("name", "")).startswith("ProfilerStep#")
+                   and e.get("cat") == "user_annotation")
+    t0 = steps[0][0] if steps else min(e["ts"] for e in trace if "ts" in e)
+    rel = lambda t: f"{t - t0:.1f}"
+    by_cid = {}
+    for e in trace:
+        cid = e.get("args", {}).get("correlation")
+        if e.get("cat") == "kernel" and cid is not None:
+            by_cid.setdefault(cid, []).append(e)
+    lines = [f"  trace at the miss ({part}*): {len(trace)} events, kernel records "
+             f"{sum(len(v) for v in by_cid.values())}; profiler steps "
+             + ", ".join(f"{n} [{rel(ts)}, {rel(ts + d)}]" for ts, d, n in steps)]
+    host = {e["args"]["correlation"]: e for e in trace
+            if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})}
+    for cid in launches:
+        ks = by_cid.get(cid, [])
+        lines.append(
+            f"    graph launch {cid} at {rel(host[cid]['ts'])}: {len(ks)} kernel records, "
+            f"{sum(part in k['name'] for k in ks)} {part}*"
+            + (f", from {rel(min(k['ts'] for k in ks))} to "
+               f"{rel(max(k['ts'] + k.get('dur', 0) for k in ks))}" if ks else ""))
+    held = [(k["args"]["correlation"], rel(k["ts"])) for ks in by_cid.values() for k in ks
+            if part in k["name"]]
+    lines.append(f"    {part}* records (correlation, start): {sorted(held)}")
+    stray = [k for cid, ks in by_cid.items() if cid not in host for k in ks]
+    lines.append(f"    kernel records of no graph launch: {len(stray)}"
+                 + (f", from {rel(min(k['ts'] for k in stray))} to "
+                    f"{rel(max(k['ts'] for k in stray))}, names "
+                    f"{sorted({k['name'][:40] for k in stray})[:8]}" if stray else ""))
+    return "\n".join(lines)
 
 
 def _tel_tree(tree):
@@ -7338,7 +7911,7 @@ def _tel_remat(tmp):
     out = {}
     for name, net, batch, hw in (("AlexNet", ALEXNET_TRAIN_VAL, 256, 227),
                                  ("ResNet-50", RESNET50_TRAIN_VAL, 32, 224)):
-        path = _tel_solver_file(tmp, net, 1000, 1000)
+        path = _tel_solver_file(tmp, net, 1000, 1000, tag="remat")
         shapes = {"data": (batch, hw, hw, 3), "label": (batch,)}
 
         batches = [_mp_batch(7, i, batch, hw, 1000) for i in range(TEL_REMAT_ITERS)]
@@ -7560,23 +8133,43 @@ def _tel_ranks(tmp):
 
 def phase_telemetry(tmp):
     """Observability and remat on the card (module docstring, item 20)."""
+    import threading
+
     t0 = time.perf_counter()
     run, went = _tel_app_start(tmp)
-    try:
-        _tel_ranks(tmp)
-    finally:
-        app = _tel_app_wait(run, went)
-    text, app_launches, _ = app
-    _tel_check_trace(tmp, text, app_launches)
-    log(f"  app and ranks: {time.perf_counter() - t0:.1f} s")
+    # the remat runs in this process beside the app's process and the two
+    # ranks (host-bound, their launches their own); time_net, which reads
+    # throughput, once they have ended
+    ranks = {}
+
+    def run_ranks():
+        try:
+            _tel_ranks(tmp)
+        except BaseException as e:  # raised again below, after the join
+            ranks["error"] = e
+        ranks["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run_ranks, name="telemetry-ranks")
+    thread.start()
     start = _counts()
     t1 = time.perf_counter()
-    remat = _tel_remat(tmp)
+    try:
+        remat = _tel_remat(tmp)
+    finally:
+        thread.join(TEL_APP_TIMEOUT)
+        app = _tel_app_wait(run, went)
     t2 = time.perf_counter()
+    if thread.is_alive():
+        raise AssertionError(f"the ranks did not end in {TEL_APP_TIMEOUT} s")
+    if "error" in ranks:
+        raise ranks["error"]
+    text, app_launches, _ = app
+    _tel_check_trace(tmp, text, app_launches)
+    log(f"  app and ranks: {t2 - t0:.1f} s (the ranks {ranks['s']:.1f} s)")
     times = _tel_time_net(tmp)
     t3 = time.perf_counter()
     _tel_server()
-    log(f"  remat: {t2 - t1:.1f} s; time_net: {t3 - t2:.1f} s; server: "
+    log(f"  remat and the wait for the app: {t2 - t1:.1f} s; time_net: {t3 - t2:.1f} s; server: "
         f"{time.perf_counter() - t3:.1f} s")
     moved = {k: v - start[k] for k, v in _counts().items()}
     # the phase's launches by wrapper: the app run's and this process's
@@ -7597,10 +8190,12 @@ def phase_telemetry(tmp):
 ONLY_PHASES = {"multiprocess": phase_multiprocess, "bert-processes": phase_bert_processes,
                "fused-step": phase_fused_step, "caffe-native": phase_caffe_native,
                "chaos": phase_chaos, "catalogue": phase_catalogue, "telemetry": phase_telemetry,
-               "serving-tier": phase_serving_tier, "router-tier": phase_router_tier}
+               "serving-tier": phase_serving_tier, "router-tier": phase_router_tier,
+               "profile-windows": phase_profile_windows, "supervise": phase_supervise}
 
 
 def main(argv=None) -> int:
+    global TRACE_LEAD_S
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="OTHER_ROOT",
                     help="compare with another checkout of the port on this card")
@@ -7608,10 +8203,15 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=tuple(ONLY_PHASES), nargs="+",
                     help="run only the card and build phases and these (e.g. the "
                          "NCCL runs on several cards); prints no result line")
+    ap.add_argument("--trace-lead", type=float, default=TRACE_LEAD_S, metavar="S",
+                    help="seconds between a profiler window's start and its first "
+                         "traced step, and between the last one's end and the window's "
+                         f"stop (default {TRACE_LEAD_S}; 0: none, the windows as they were first)")
     ap.add_argument("--rank-job", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--app-job", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--tier-client", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    TRACE_LEAD_S = args.trace_lead
     try:
         import torch
     except ImportError:
@@ -7647,6 +8247,7 @@ def main(argv=None) -> int:
         for name in args.phase if built else ():
             with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
                 phases.run(name, ONLY_PHASES[name], tmp)
+        phases.table()
         log(f"chip_smoke --phase {' '.join(args.phase)}: "
             + (f"FAILED phases: {phases.failed}" if phases.failed else "ok")
             + f"; {phases.seconds:.1f} s of phases in all")
@@ -7691,12 +8292,22 @@ def main(argv=None) -> int:
             feed = phases.run("feed", phase_feed, tmp, (resident or {}).get("ms"))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_caffe_") as tmp:
             caffe = phases.run("caffe-native", phase_caffe_native, tmp)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
-            chaos = phases.run("chaos", phase_chaos, tmp)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_catalogue_") as tmp:
-            phases.run("catalogue", phase_catalogue, tmp)
+        # the supervised runs start in the chaos phase and are checked
+        # after the catalogue, which they run beside
+        sv = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sv_") as sv_dir:
+            try:
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+                    chaos = phases.run("chaos", phase_chaos, tmp, sv_dir, sv)
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_catalogue_") as tmp:
+                    phases.run("catalogue", phase_catalogue, tmp)
+                phases.run("supervise", phase_supervise_check, sv_dir, sv)
+            finally:
+                if "runs" in sv:
+                    sv["runs"].kill()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
             telemetry = phases.run("telemetry", phase_telemetry, tmp)
+    phases.table()
     log(f"chip_smoke: {phases.seconds:.1f} s of phases in all")
     if phases.failed:
         log(f"chip_smoke: FAILED phases: {phases.failed}")

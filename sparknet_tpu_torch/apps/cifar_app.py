@@ -75,10 +75,20 @@ detectors at each display.
 
 Chaos, as in the JAX app: ``--chaos SPEC`` (or ``SPARKNET_CHAOS``)
 installs a fault plan (``chaos/``) for the run: the feed's workers, the
-snapshot writes and the storage writers fire its points, and process 0
-prints the fires and recoveries as one ``chaos: {...}`` JSON line at
-the end. The ``supervisor.*`` points, ``--supervise``, the reshard and
-the flight recorder of the JAX loop are not ported.
+snapshot writes, the storage writers and the loop's boundaries
+(``supervisor.child_crash``: the failure record, then ``os._exit``) fire
+its points, and process 0 prints the fires and recoveries as one
+``chaos: {...}`` JSON line at the end.
+
+Recovery, as in the JAX app: ``--supervise`` (or
+``SPARKNET_SUPERVISE=1``) runs the command as children of the gang
+supervisor (:func:`maybe_supervise`, ``supervise/supervisor.py``), one a
+rank under ``SPARKNET_NUM_PROCESSES``, relaunched with
+``--auto-resume`` after a failure; ``SPARKNET_ELASTIC_RESUME=1`` (its
+narrower relaunch) restores weights, net state and iteration only. A
+crash of the loop writes a failure record, and every line of the loop
+also lands in the flight recorder, when supervised. The live reshard of
+the JAX loop is not ported.
 """
 
 from __future__ import annotations
@@ -92,7 +102,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-from .. import chaos, native, telemetry
+from .. import chaos, native, supervise, telemetry
 from ..data import records
 from ..data.cache import cache_from_args
 from ..data.caffe_layers import dataset_from_layer
@@ -108,7 +118,7 @@ from ..proto.caffemodel import load_binaryproto_mean
 from ..solver import snapshot
 from ..solver.preempt import preempt_message, preemption_grace
 from ..solver.trainer import Solver, resolve_model_path
-from ..telemetry import aggregate, anomaly, trace
+from ..telemetry import aggregate, anomaly, flight, trace
 from ..utils import profiling, safeio
 from ..utils.profiling import StepTimer
 
@@ -116,7 +126,6 @@ from ..utils.profiling import StepTimer
 _UNPORTED = {
     "layout": (None,),
     "snapshot_format": ("npz",),
-    "supervise": (False,),
 }
 
 
@@ -357,14 +366,18 @@ def run_training(args, solver, train_feed, test_feed, log=print):
         log = _quiet
     prefix = solver.sp.snapshot_prefix = snapshot.resolve_prefix(solver.sp.snapshot_prefix)
     snapshot.apply_auto_resume(args, prefix)  # over processes, a collective
+    # the supervisor's degraded (or scaled-up) relaunch: weights, net state
+    # and iteration come back, the optimizer's slots start afresh (they
+    # may be laid out for a width this relaunch no longer has)
+    weights_only = os.environ.get("SPARKNET_ELASTIC_RESUME", "") == "1"
     if args.restore:
         if args.auto_resume:
             # the chain is auto-resume's: a torn newest file falls back to
             # the one before; a --restore named alone fails loudly instead
-            args.restore = snapshot.restore_with_fallback(solver, prefix, args.restore,
-                                                          feed=train_feed)
+            args.restore = snapshot.restore_with_fallback(
+                solver, prefix, args.restore, feed=train_feed, weights_only=weights_only)
         else:
-            solver.restore(args.restore, train_feed)
+            solver.restore(args.restore, train_feed, weights_only=weights_only)
         log(f"Restoring previous solver status from {args.restore} "
             f"(iter {solver.iter})")
     # wrap after the restore: the feed's skip stays on the host
@@ -379,6 +392,11 @@ def run_training(args, solver, train_feed, test_feed, log=print):
     try:
         with profiling.trace(args.profile_dir):
             return train_loop(solver, train_feed, test_feed, log=log)
+    except BaseException as e:
+        # a supervised run's record of the crash (who, why, the last
+        # completed iteration); a no-op unsupervised
+        supervise.records.write_crash_record(e)
+        raise
     finally:
         close = getattr(train_feed, "close", None)
         if close is not None and train_feed is not raw:
@@ -434,6 +452,11 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
     # per-iteration phase attribution: NULL unless the app enabled it
     # (telemetry.install_for_training)
     tl = solver.timeline
+    # every line also lands in the flight recorder's ring (the identity
+    # unless it is armed), so a rank that stays quiet keeps its context
+    log = flight.tee_log(log)
+    # the supervisor.child_crash point, checked at each chunk boundary
+    chaos_plan = chaos.get_plan()
     shapes = solver.train_net.blob_shapes
     data_name = "data" if "data" in shapes else next(iter(shapes), None)
     timer = StepTimer(items_per_step=shapes[data_name][0] if data_name else 0,
@@ -479,6 +502,15 @@ def train_loop(solver: Solver, train_feed, test_feed, log=print) -> Dict[str, fl
         ):
             run_test()
         while solver.iter < sp.max_iter:
+            if chaos_plan is not None:
+                rule = chaos_plan.match("supervisor.child_crash", iter=solver.iter)
+                if rule is not None:
+                    # a hard host death at a boundary: the record (the
+                    # child's crash path), then no clean-up at all
+                    supervise.records.write_failure_record(
+                        process_id=multihost.process_index(), kind="chaos.child_crash",
+                        reason=f"chaos supervisor.child_crash at iteration {solver.iter}")
+                    os._exit(int(rule.params.get("exit_code", 9)))
             # stop at the nearest of: next test boundary, next snapshot
             # boundary, max_iter, so neither cadence skips the other's
             targets = [sp.max_iter]
@@ -706,13 +738,45 @@ def arg_parser() -> argparse.ArgumentParser:
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="fault-injection plan (chaos/); SPARKNET_CHAOS when not given")
-    ap.add_argument("--supervise", action="store_true", help="not ported")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the gang supervisor: relaunch with --auto-resume on "
+                         "a failure, under a restart budget, backoff and flap detection "
+                         "(also SPARKNET_SUPERVISE=1)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
+def maybe_supervise(module: str, argv, args, solver_path=None):
+    """``--supervise`` (or ``SPARKNET_SUPERVISE=1``): run this command
+    again as supervised children (``python -m module``, the same
+    arguments but ``--supervise``) and return the supervisor's exit
+    code; None when supervision is off. Children run with
+    ``SPARKNET_SUPERVISE=0``, so this never recurses. The supervisor
+    verifies the snapshot chain under the solver's prefix, read from the
+    prototxt's text: this process builds no net and touches no card, and
+    its own fault plan comes from ``SPARKNET_CHAOS`` alone (``--chaos``
+    is installed by the children)."""
+    if not (getattr(args, "supervise", False)
+            or os.environ.get("SPARKNET_SUPERVISE", "") not in ("", "0")):
+        return None
+    from ..supervise.supervisor import supervise_app
+
+    prefix = None
+    solver_path = solver_path or getattr(args, "solver", None)
+    if solver_path:
+        prefix = snapshot.resolve_prefix(
+            caffe_pb.load_solver(solver_path).snapshot_prefix or "") or None
+    raw = list(sys.argv[1:] if argv is None else argv)
+    return supervise_app(module, raw, prefix)
+
+
 def main(argv=None):
     args = arg_parser().parse_args(argv)
+    code = maybe_supervise("sparknet_tpu_torch.apps.cifar_app", argv, args)
+    if code is not None:
+        if code:
+            raise SystemExit(code)
+        return None
     chaos.install_from(args.chaos)  # --chaos wins over SPARKNET_CHAOS
     multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)

@@ -34,8 +34,9 @@ net state, Scale, Eltwise) and vgg16. Each flag this port does not take
 yet raises ``NotImplementedError`` naming it when set to a value the
 port does not take (``_UNPORTED``). ``--remat`` recomputes each layer's
 activations in the backward (``Solver(remat=True)``); ``--trace``,
-``--profile-dir``, the telemetry lines and ``--chaos`` (a fault plan,
-and the ``chaos:`` line at the end) are CifarApp's.
+``--profile-dir``, the telemetry lines, ``--chaos`` (a fault plan,
+and the ``chaos:`` line at the end) and ``--supervise`` (the gang
+supervisor, ``SPARKNET_ELASTIC_RESUME``) are CifarApp's.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from .cifar_app import (
     make_feed,
     make_solver,
     make_transformer,
+    maybe_supervise,
     record_loader_meta,
     resolve_packed,
     run_training,
@@ -86,7 +88,6 @@ ARCH_SOLVERS = {
 _UNPORTED = {
     "layout": (None,),
     "snapshot_format": ("npz",),
-    "supervise": (False,),
 }
 
 
@@ -250,13 +251,21 @@ def parser() -> argparse.ArgumentParser:
                     help="solverstate format; orbax is not ported")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="fault-injection plan (chaos/); SPARKNET_CHAOS when not given")
-    ap.add_argument("--supervise", action="store_true", help="not ported")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the gang supervisor: relaunch with --auto-resume on "
+                         "a failure (also SPARKNET_SUPERVISE=1)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    code = maybe_supervise("sparknet_tpu_torch.apps.imagenet_app", argv, args,
+                           solver_path=args.solver or os.path.join(ZOO, ARCH_SOLVERS[args.arch]))
+    if code is not None:
+        if code:
+            raise SystemExit(code)
+        return None
     chaos.install_from(args.chaos)  # --chaos wins over SPARKNET_CHAOS
     multihost.initialize(device=args.device)  # a no-op without SPARKNET_COORDINATOR
     solver, train_feed, test_feed = build(args)

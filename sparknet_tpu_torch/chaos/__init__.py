@@ -14,8 +14,11 @@ serving ``Client`` retries a dropped connection and the micro-batcher
 sheds expired requests before compute (``serve/``); snapshots are
 atomic and verified, and a torn one falls back to the one before
 (``solver/snapshot.py``); the ``io.*`` points fail or stall the writes
-of ``utils/safeio.py`` by writer site. The gang supervisor's, the
-heartbeat's and the deploy gate's points are not ported: a plan that
+of ``utils/safeio.py`` by writer site; a supervised child that dies at
+a loop boundary (``supervisor.child_crash``), a snapshot torn before the
+relaunch (``supervisor.resume_torn``) and a silent peer
+(``multihost.peer_silence``) are the gang supervisor's to recover
+(``supervise/``). The deploy gate's points are not ported: a plan that
 names one raises ``NotImplementedError`` when it is parsed.
 
 Disabled (nothing installed, the variable unset) :func:`get_plan` is

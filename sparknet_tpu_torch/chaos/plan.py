@@ -126,12 +126,9 @@ FAULT_POINTS: Dict[str, str] = {
     ),
 }
 
-# points of the catalogue whose site (the gang supervisor, the heartbeat's
-# silence, the deploy gate) the port does not have yet
+# points of the catalogue whose site (the deploy gate) the port does not
+# have yet
 UNPORTED_POINTS = frozenset({
-    "supervisor.child_crash",
-    "supervisor.resume_torn",
-    "multihost.peer_silence",
     "deploy.poison_snapshot",
     "deploy.regressed_weights",
 })

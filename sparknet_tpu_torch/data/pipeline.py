@@ -22,7 +22,10 @@ the batch stream:
 - **Resume.** ``skip(n)`` before iteration is O(1): it offsets every
   worker's start. After the start it consumes and discards.
 - **Shutdown.** ``close()`` (also ``with``-exit and ``__del__``) stops,
-  joins (escalating to ``kill``) and unlinks every segment.
+  joins (escalating to ``kill``) and unlinks every segment. A worker
+  whose owner died without closing it (``os._exit``, as the
+  ``supervisor.child_crash`` point exits, or SIGKILL) sees its parent
+  change and stops, where the JAX worker waits for a free slot for ever.
 - **Self-healing.** A worker that dies without a word (nonzero exit,
   e.g. killed, or the ``pipeline.worker_crash`` chaos point) is
   respawned at the first batch it never delivered, and the per-batch
@@ -251,12 +254,15 @@ def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
         from .. import chaos
 
         plan = chaos.get_plan()  # the fork inherits the parent's
+    # an owner that died without closing the feed (os._exit, SIGKILL)
+    # leaves this worker to init: it stops instead of waiting for ever
+    owner = os.getppid()
     shms: Dict[str, shared_memory.SharedMemory] = {}
     try:
         it = ds.batches(**batch_kw, transform=transform)
         it.skip(first_seq)
         seq = first_seq
-        while not stop.is_set():
+        while not stop.is_set() and os.getppid() == owner:
             slow = None
             if plan is not None:
                 rule = plan.match("pipeline.worker_crash", batch=seq, worker=rank)
@@ -281,7 +287,7 @@ def _worker_main(rank, workers, first_seq, ds, batch_kw, transform, slot_bytes,
             # stop-aware wait for a free slot (the backpressure)
             t1 = time.perf_counter()
             slot = None
-            while not stop.is_set():
+            while not stop.is_set() and os.getppid() == owner:
                 try:
                     slot = free_q.get(timeout=0.1)
                     break

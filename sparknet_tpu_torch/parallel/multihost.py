@@ -61,6 +61,9 @@ PROCESS_ID_ENV = "SPARKNET_PROCESS_ID"
 # seconds a rank waits for the others, in the rendezvous and in every
 # collective after it (torch.distributed's own default when unset)
 INIT_TIMEOUT_ENV = "SPARKNET_INIT_TIMEOUT"
+# the collectives' backend when the caller names none: "gloo" runs a
+# launch's ranks on one card (the apps' one-card rehearsal)
+BACKEND_ENV = "SPARKNET_DIST_BACKEND"
 
 # Exit code for "a peer process stopped responding": a launcher treats
 # any non-zero exit as restart-the-job; this one is distinct from an
@@ -125,6 +128,7 @@ class _Heartbeat:
         self._server = None
         self._disarmed = False  # process 0 announced a clean end
         self._ending = False  # process 0: close() underway, answer "end"
+        self._silent = False  # the multihost.peer_silence point fired
         # telemetry piggyback: process 0 merges stats frames into the
         # cluster aggregate; workers publish one frame an acked ping
         self._publisher = None
@@ -152,9 +156,18 @@ class _Heartbeat:
     def _die(self, why: str) -> None:
         if self._stop.is_set() or self._disarmed:
             return
-        print(f"[sparknet multihost] process {self.pid}: {why}: exiting "
-              f"{EXIT_PEER_FAILURE} so that the launcher can restart the job",
+        from ..supervise import records
+
+        it = records.last_completed_iteration()
+        progress = f" (last completed iteration: {it})" if it is not None else ""
+        print(f"[sparknet multihost] process {self.pid}: {why}{progress}: exiting "
+              f"{EXIT_PEER_FAILURE} so that the launcher can restart the job "
+              f"(--auto-resume recovers from the newest snapshot)",
               file=sys.stderr, flush=True)
+        # a supervised run's record of who died and why (a no-op
+        # unsupervised); it never raises
+        records.write_failure_record(process_id=self.pid, kind="peer_failure", reason=why,
+                                     exit_code=EXIT_PEER_FAILURE)
         os._exit(EXIT_PEER_FAILURE)
 
     # -- process 0: server and monitor ---------------------------------
@@ -258,7 +271,22 @@ class _Heartbeat:
         joined = False
         conn = None
         ping = struct.pack("!i", self.pid)
+        from .. import chaos
+
+        plan = chaos.get_plan()
+        tick = 0
         while not self._stop.is_set():
+            if plan is not None and not self._silent and plan.fires(
+                    "multihost.peer_silence", worker=self.pid, tick=tick):
+                # a dead or cut-off peer: stop pinging but stay alive, and
+                # disarm this watchdog, so that process 0 must see the
+                # silence and fail the job (EXIT_PEER_FAILURE)
+                self._silent = True
+                self._disarmed = True
+            tick += 1
+            if self._silent:
+                self._stop.wait(self.interval)
+                continue
             if conn is None:
                 try:
                     conn = socket.create_connection((self.host, self.port),
@@ -439,9 +467,10 @@ def initialize(coordinator_address: Optional[str] = None,
     ``device`` is where this process computes: ``"cuda"`` (a card is
     required) means ``cuda:(process_id % torch.cuda.device_count())``,
     made the current device before the group starts; ``"cpu"`` the CPU.
-    ``backend`` defaults to ``nccl`` on a card and ``gloo`` on the CPU;
-    ``"gloo"`` on a card runs the collectives of several ranks on one
-    card (the one-card rehearsal). The process group starts through a
+    ``backend`` defaults to ``SPARKNET_DIST_BACKEND``, else ``nccl`` on a
+    card and ``gloo`` on the CPU; ``"gloo"`` on a card runs the
+    collectives of several ranks on one card (the one-card rehearsal,
+    also of an app launched with the variables above). The process group starts through a
     TCP rendezvous at the coordinator (``init_process_group`` with this
     rank and world size), then the heartbeat fabric
     (:func:`start_heartbeat`).
@@ -471,7 +500,8 @@ def initialize(coordinator_address: Optional[str] = None,
         if dev.index is None:
             dev = torch.device("cuda", process_id % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    backend = (backend or os.environ.get(BACKEND_ENV, "").strip()
+               or ("nccl" if dev.type == "cuda" else "gloo"))
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("backend 'nccl' needs a card: pass device='cuda', or use gloo "
                          "on the CPU")

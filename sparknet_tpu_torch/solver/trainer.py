@@ -53,6 +53,7 @@ from ..nets import weights as W
 from ..ops import launch_counters
 from ..nets.torchnet import TorchNet
 from ..proto import caffe_pb
+from ..supervise import records
 from ..telemetry import timeline as _timeline
 from . import snapshot
 from .caffe_solver import init_opt_state, make_update_fn, mults_for_params
@@ -381,6 +382,9 @@ class Solver:
         self.env_meta: Dict[str, Any] = {}
         # cooperative stop: step() returns at the next iteration boundary
         self.stop_requested = False
+        # this process's training progress, for the failure records that a
+        # crash path writes (one weak reference; the step path is untouched)
+        records.publish_progress(self)
         # per-iteration phase attribution (telemetry/timeline.py): the
         # apps swap in an enabled Timeline under --trace or
         # SPARKNET_TIMELINE=1; NULL's brackets are one shared no-op

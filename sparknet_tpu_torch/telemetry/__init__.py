@@ -20,14 +20,15 @@ heartbeat's threads use it freely:
 - :mod:`.anomaly`: deterministic detectors (stragglers, step-time and
   loss spikes, queue stalls, SLO burn) and the advisory board the τ
   controller and ``/healthz`` read;
-- :mod:`.dash`: the HTML dashboard on the server's ``GET /dash``.
+- :mod:`.dash`: the HTML dashboard on the server's ``GET /dash``;
+- :mod:`.flight`: the crash flight recorder, bounded rings of recent
+  events and log lines dumped beside a supervised child's failure
+  record (``supervise/records.py``);
+- :mod:`.reqtrace`: per-request tracing across the router's hops.
 
 Enable a run's tracing with ``--trace OUT.json`` on the apps and
 ``caffe train`` (or ``SPARKNET_TRACE=OUT.json``); ``SPARKNET_TIMELINE=1``
-turns on the phase table alone. Not ported: the crash flight recorder
-(``flight.py``), whose only dump is the supervisor's failure record and
-which comes with ``supervise/``, and per-request tracing
-(``reqtrace.py``), which comes with the router.
+turns on the phase table alone.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import contextlib
 import os
 from typing import Optional
 
-from . import aggregate, anomaly, dash, exporter, timeline, trace
+from . import aggregate, anomaly, dash, exporter, flight, timeline, trace
 from .registry import REGISTRY, Counter, Gauge, LatencyHistogram, NamedCounters, Registry
 
 __all__ = [
@@ -51,6 +52,7 @@ __all__ = [
     "dash",
     "exporter",
     "finish_run",
+    "flight",
     "install_for_training",
     "timeline",
     "trace",
@@ -71,10 +73,9 @@ def install_for_training(solver, trace_path: Optional[str] = None):
     :class:`~.timeline.Timeline`, so that its step loop attributes
     phases. The path is exported to ``SPARKNET_TRACE`` so that forked
     workers and child processes inherit it (restored by
-    :func:`finish_run`). Returns the resolved trace path, or None.
-
-    The JAX function also arms the crash flight recorder; the port has
-    none yet (it comes with ``supervise/``)."""
+    :func:`finish_run`). Arms the crash flight recorder where a
+    postmortem reads it (a supervised child, or ``SPARKNET_FLIGHT=1``).
+    Returns the resolved trace path, or None."""
     global _saved_trace_env
     path = trace_path or os.environ.get(trace.TRACE_ENV, "").strip() or None
     if path:
@@ -84,6 +85,7 @@ def install_for_training(solver, trace_path: Optional[str] = None):
     if path or os.environ.get("SPARKNET_TIMELINE", "") not in ("", "0"):
         solver.timeline = timeline.Timeline()
         timeline.set_current(solver.timeline)
+    flight.configure_from_env()
     return path
 
 

@@ -30,8 +30,8 @@ and serving's ``/healthz`` degrades while a ``queue_stall``,
 ``straggler`` or ``slo_burn`` advisory is live. Advisories expire after
 ``ttl_s`` (default 60) unless raised again. A ``disk_pressure``
 advisory is ``serious``: it degrades ``/healthz`` and lights the
-dash's storage panel. The flight recorder's note of each firing is not
-ported (``telemetry/flight.py`` comes with the gang supervisor).
+dash's storage panel. Each firing is also noted in the flight recorder
+(``telemetry/flight.py``), when it is armed.
 """
 
 from __future__ import annotations
@@ -91,6 +91,11 @@ def fire(
         _active[f"{kind}:{key}"] = {
             **event, "until_monotonic": time.monotonic() + ttl_s
         }
+    from . import flight
+
+    flight.note("anomaly", **{
+        ("anomaly_kind" if k == "kind" else k): v for k, v in event.items()
+    })
     try:
         emit(f"anomaly: {json.dumps(event)}")
     except Exception:

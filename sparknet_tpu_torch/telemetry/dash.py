@@ -17,10 +17,10 @@ scrapes), the serving tier's section on a router's page (replicas,
 generations, retries, respawns, a row a replica) and the slow-request
 panel (the slowest stitched request waterfalls,
 ``telemetry/reqtrace.py``) and the storage panel (the free space the
-writers last saw, ``io_faults{site=,errno=}`` and skipped snapshots;
-shown once any of them exists). The JAX page's deployment section and
-its storage tiles for the deploy tee and the gang supervisor read
-subsystems the port does not have yet and are not ported.
+writers last saw, ``io_faults{site=,errno=}``, skipped snapshots and
+the gang supervisor's holds for space; shown once any of them exists).
+The JAX page's deployment section and its storage tile for the deploy
+tee read a subsystem the port does not have yet and are not ported.
 
 Visual rules: phases wear a fixed categorical palette in a fixed order;
 anomaly severities wear the status palette with an icon and a text
@@ -456,16 +456,18 @@ def _reqtrace_section(records: List[dict]) -> str:
 
 def _storage_section(registry_snapshot: Dict[str, Any]) -> str:
     """The storage panel: disk headroom and every degradation the
-    writers took (``io_faults{site=,errno=}``, skipped snapshots), so a
-    disk-pressure incident reads as counted policy. Rendered only once
-    one of those signals exists."""
+    writers took (``io_faults{site=,errno=}``, skipped snapshots, the
+    supervisor's holds for space), so a disk-pressure incident reads as
+    counted policy. Rendered only once one of those signals exists."""
     metrics = registry_snapshot.get("metrics") or {}
     faults = metrics.get("io_faults") or {}
     skipped = metrics.get("snapshot_skipped") or {}
     free = (metrics.get("disk_free_bytes") or {}).get("") or {}
+    # the supervisor's counters are a registry source of their own
+    holds = (registry_snapshot.get("supervisor") or {}).get("io_holds", 0)
     n_faults = sum(int(v) for v in faults.values())
     n_skipped = sum(int(v) for v in skipped.values())
-    if not (faults or skipped or free):
+    if not (faults or skipped or holds or free):
         return ""
     free_v = free.get("value")
     tiles = [
@@ -476,6 +478,8 @@ def _storage_section(registry_snapshot: Dict[str, Any]) -> str:
               f"{len(faults)} site/errno pairs"),
         _tile("snapshots skipped", str(n_skipped),
               "resume falls back one snapshot"),
+        _tile("supervisor holds", str(int(holds)),
+              "waited for space, not restart budget"),
     ]
     rows = []
     for label in sorted(faults):

@@ -16,7 +16,10 @@ prototxt, the name is historical), so every flag of that app passes
 through; Caffe's ``--snapshot`` is the app's ``--restore``, and
 ``--gpu`` is taken and dropped (the app runs on ``--device``, the
 card by default); ``--chaos=SPEC`` runs it under a fault plan and
-prints its ``chaos:`` line at the end. ``test`` builds the TEST net over its data layer's
+prints its ``chaos:`` line at the end; ``--supervise`` runs it under
+the gang supervisor (relaunched with ``--auto-resume`` after a failure;
+its ``supervisor:`` line and ``supervisor_report.json`` at the end).
+``test`` builds the TEST net over its data layer's
 own source, lays ``--weights`` over its init and prints each metric
 averaged over ``--iterations`` batches. ``time`` is
 :mod:`.time_net` (``--iterations`` is its ``--iters``). ``--flag=value``

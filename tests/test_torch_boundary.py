@@ -76,7 +76,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
                  "data.records", "data.cache", "native", "utils.safeio",
                  "telemetry.registry", "tools.pack_records", "tools.caffe",
                  "tools.convert_mnist_data", "tools._common", "nets.layers",
-                 "chaos", "chaos.plan", "chaos.metrics"):
+                 "chaos", "chaos.plan", "chaos.metrics", "supervise.records",
+                 "supervise.supervisor", "telemetry.flight"):
         assert f"sparknet_tpu_torch.{name}" in out["modules"], name
     leaked = [m for m in out["loaded"] if _of_jax(m)]
     assert not leaked, leaked

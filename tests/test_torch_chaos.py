@@ -2,8 +2,9 @@
 recoveries it drives, against the JAX package's ``chaos/`` on the CPU.
 
 - Plans: the spec grammar and its errors equal the JAX parser's; a point
-  whose site the port does not have raises ``NotImplementedError``
-  naming it; ``match``/``fires`` take the JAX plan's decisions, exactly,
+  whose site the port does not have (``deploy.*``) raises
+  ``NotImplementedError`` naming it, and the gang supervisor's and the
+  heartbeat's points parse and fire; ``match``/``fires`` take the JAX plan's decisions, exactly,
   for the same spec, seed and coordinate stream (``p=``, ``every=``,
   ``after=``, ``times=``, ``seed=``); disabled is a cached ``None`` at
   every site; ``install_from`` wins over the lazy ``SPARKNET_CHAOS``.
@@ -132,9 +133,7 @@ def test_bad_specs_raise_as_in_jax(spec, err, msg):
 
 @pytest.mark.parametrize("point", sorted(UNPORTED_POINTS))
 def test_a_point_whose_site_is_not_ported_raises(point, monkeypatch):
-    assert UNPORTED_POINTS == {"supervisor.child_crash", "supervisor.resume_torn",
-                               "multihost.peer_silence", "deploy.poison_snapshot",
-                               "deploy.regressed_weights"}
+    assert UNPORTED_POINTS == {"deploy.poison_snapshot", "deploy.regressed_weights"}
     JFaultPlan(point)  # the JAX package has the site
     with pytest.raises(NotImplementedError, match=point.replace(".", r"\.")):
         FaultPlan(f"serve.conn_drop@every=2,{point}@index=0")
@@ -144,6 +143,28 @@ def test_a_point_whose_site_is_not_ported_raises(point, monkeypatch):
     monkeypatch.setenv("SPARKNET_CHAOS", point)
     with pytest.raises(NotImplementedError, match=point.replace(".", r"\.")):
         chaos.get_plan()
+
+
+@pytest.mark.parametrize("point,coords", [
+    ("multihost.peer_silence", {"worker": 1, "tick": 3}),
+    ("supervisor.child_crash", {"iter": 8}),
+    ("supervisor.resume_torn", {"index": 0}),
+])
+def test_a_point_whose_site_is_ported_now_parses_and_fires_as_in_jax(point, coords,
+                                                                      monkeypatch):
+    """The gang supervisor's and the heartbeat's points left
+    ``UNPORTED_POINTS``: a plan naming one installs, from the flag and
+    from ``SPARKNET_CHAOS``, and fires where the JAX plan does."""
+    assert point not in UNPORTED_POINTS
+    spec = f"{point}@" + ":".join(f"{k}={v}" for k, v in coords.items())
+    mine, theirs = FaultPlan(spec), JFaultPlan(spec)
+    assert mine.fires(point, **coords) and theirs.fires(point, **coords)
+    other = {k: v + 1 for k, v in coords.items()}
+    assert not mine.fires(point, **other) and not theirs.fires(point, **other)
+    assert chaos.install(spec).points() == [point]
+    chaos.clear()
+    monkeypatch.setenv("SPARKNET_CHAOS", spec)
+    assert chaos.get_plan().points() == [point]
 
 
 def _coords(point, n):
@@ -646,19 +667,22 @@ def test_caffe_train_with_a_worker_crash_is_bit_identical_and_counts_as_jax(
 
 
 @pytest.mark.parametrize("app", ["imagenet_app", "cifar_app"])
-def test_supervise_still_raises_and_chaos_is_taken(app):
+def test_supervise_still_raises_and_chaos_is_taken(app, monkeypatch):
+    """Both flags are taken now: ``--supervise`` and ``--chaos`` pass the
+    unported-flag check, and without either the supervisor stays out of
+    the way (``maybe_supervise`` is None)."""
     import importlib
+
+    from sparknet_tpu_torch.apps import cifar_app
 
     mod = importlib.import_module(f"sparknet_tpu_torch.apps.{app}")
     ap = mod.parser() if app == "imagenet_app" else mod.arg_parser()
-    args = ap.parse_args(["--chaos", "serve.conn_drop@every=2", "--supervise"])
-    assert "chaos" not in mod._UNPORTED
-    with pytest.raises(NotImplementedError, match="--supervise"):
-        mod.check_ported(args, mod._UNPORTED)
+    args = ap.parse_args(["--chaos", "supervisor.child_crash@iter=2", "--supervise"])
+    assert "chaos" not in mod._UNPORTED and "supervise" not in mod._UNPORTED
+    mod.check_ported(args, mod._UNPORTED)  # --supervise and --chaos pass
+    monkeypatch.delenv("SPARKNET_SUPERVISE", raising=False)
     args.supervise = False
-    mod.check_ported(args, mod._UNPORTED)  # --chaos passes
-    with pytest.raises(NotImplementedError, match=r"supervisor\.child_crash"):
-        mod.main(["--chaos", "supervisor.child_crash@iter=2", "--device", "cpu"])
+    assert cifar_app.maybe_supervise(f"sparknet_tpu_torch.apps.{app}", [], args) is None
 
 
 def test_the_server_threads_share_one_post_index():

@@ -372,6 +372,16 @@ def test_main_refuses_each_flag_it_does_not_port(flag, tmp_path, monkeypatch, ca
         # ported: a plan naming an unknown fault point fails at launch
         with pytest.raises(ValueError, match="unknown fault point 'x'"):
             cifar_app.main(argv)
+    elif flag == "supervise":
+        # ported: the command runs again as a supervised child, which
+        # trains two iterations and ends clean
+        monkeypatch.setenv("SPARKNET_RUN_DIR", str(tmp_path))
+        monkeypatch.setenv("PYTHONPATH", REPO)
+        monkeypatch.delenv("SPARKNET_SUPERVISE", raising=False)
+        assert cifar_app.main(argv + ["--max-iter", "2"]) is None
+        assert "supervisor: {}" in capsys.readouterr().out
+        report = json.load(open(tmp_path / "supervisor_report.json"))
+        assert report["final_status"] == "done" and len(report["generations"]) == 1
     else:
         with pytest.raises(NotImplementedError, match=f"--{flag}="):
             cifar_app.main(argv)

@@ -301,13 +301,21 @@ def test_the_storage_panel_equals_the_jax_panels_common_part():
     tiles_j, table_j = theirs.split('<div class="tiles">')[1].split("</div><table")[0], \
         theirs[theirs.index("<table"):]
     assert table_m == table_j  # the site/errno rows
-    # the port's tiles are the JAX panel's less the deploy tee's and the
-    # gang supervisor's (neither is ported)
-    assert tiles_m in tiles_j and "12.50 GB" in tiles_m and ">3<" in tiles_m
-    assert "tee shards evicted" not in mine and "supervisor holds" not in mine
-    # the free space alone is enough to show it, as in the JAX package
+    # the port's tiles are the JAX panel's less the deploy tee's (not
+    # ported); the gang supervisor's holds are the JAX tile
+    tee = jdash._tile("tee shards evicted", "0", "retention below consumed floor")
+    assert tee in tiles_j and tiles_m == tiles_j.replace(tee, "")
+    assert "12.50 GB" in tiles_m and ">3<" in tiles_m and "supervisor holds" in tiles_m
+    assert "tee shards evicted" not in mine
+    # the free space alone is enough to show it, and the supervisor's
+    # holds alone, as in the JAX package
     only_free = {"metrics": {"disk_free_bytes": {"": {"value": 1e9}}}}
     assert tdash._storage_section(only_free) and jdash._storage_section(only_free)
+    holds = {"supervisor": {"io_holds": 2}}
+    mine, theirs = tdash._storage_section(holds), jdash._storage_section(holds)
+    assert mine[mine.index('<div class="tiles">'):] == \
+        theirs[theirs.index('<div class="tiles">'):].replace(tee, "")
+    assert jdash._tile("supervisor holds", "2", "waited for space, not restart budget") in mine
 
 
 # -------------------------------------------------------------- snapshot
